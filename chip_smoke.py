@@ -6,10 +6,16 @@ Phases, one JSON object per line each:
   1. device  — the card, torch/CUDA versions, TF32 switched off and printed;
   2. build   — nvcc builds ld_tpu_torch/csrc/nms_keep.cu for sm_90a;
   3. kernel  — the greedy-NMS kernel against its plain PyTorch version on the
-               same CUDA tensors (bit-identical keep masks) at K in
-               {8, 512, 1000, 1024, 2048} and B in {1, 8}, then both timed
-               with CUDA events at the main path's shape (K = 1024) and the
-               bound the card could not beat;
+               same CUDA tensors (bit-identical keep masks, and the keep mask
+               fixed by construction where there is one) on the hand-made
+               sets of ld_tpu_torch.testing at K in {1, 8, 63, 64, 65, 127,
+               128, 512, 1000, 1024, 2048, 4100, 8192} and B in {1, 3, 8},
+               and at K = 16800, B = 1; then, on the dense-kept and
+               sparse-kept sets at (K, B) in {(512, 1), (1024, 1), (1024, 8)}:
+               CUDA-event time per call over back-to-back calls, the host's
+               time to issue them, each kernel's device time from
+               torch.profiler, the kept count, the plain version's time and
+               the bound the card could not beat;
   4. e2e     — GFL-R50 (configs/gfl/gfl_r50_fpn_1x_coco.py, full width,
                float32, random weights from seed 0, gfl_cls bias 0 so NMS
                sees 1024 valid candidates) answers seeded synthetic requests
@@ -20,9 +26,11 @@ Phases, one JSON object per line each:
                the head outputs on a small input must agree with the same
                model on the CPU;
   5. profile — device time of `forward_test` by kernel (torch.profiler).
-Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures,
-and last `{"ok": true, "device": {...}}`. Any failed check raises, so the
-script exits non-zero and prints no result; so does a host without CUDA.
+Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
+(the main path's case: dense-kept set, K = 1024, B = 1; `device_ms` is the
+profiler's mask + sweep time), and last `{"ok": true, "device": {...}}`.
+Any failed check raises, so the script exits non-zero and prints no result;
+so does a host without CUDA.
 """
 import json
 import os
@@ -37,6 +45,12 @@ PEAK_HBM_BYTES = 3.35e12
 # 1 add, 1 sub, 1 max, 1 div, 1 compare
 IOU_OPS_PER_PAIR = 14
 CONFIG = 'configs/gfl/gfl_r50_fpn_1x_coco.py'
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the two kernels of csrc/nms_keep.cu, as the profiler names them
+NMS_KERNELS = ('nms_mask_tri_kernel', 'nms_block_sweep_kernel')
+# the timed cases (K, B): K = 1024 is multiclass_nms's candidate count,
+# K = 512 the GI path's
+TIME_CASES = ((512, 1), (1024, 1), (1024, 8))
 
 
 def emit(obj):
@@ -49,7 +63,9 @@ def check(cond, msg):
 
 
 def cuda_ms(fn, iters, warmup=3):
-    """Mean device time of `fn` over `iters` calls, by CUDA events."""
+    """Mean time of `fn` over `iters` back-to-back calls, by CUDA events,
+    and the host's mean time to issue one call; returns (event_ms,
+    host_ms)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -57,28 +73,38 @@ def cuda_ms(fn, iters, warmup=3):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_ms
 
 
-def nms_candidates(b, k, seed):
-    """Score-sorted clustered boxes, class-offset as multiclass_nms builds
-    them (80 classes, offset 4096), ~10% invalid, on the card."""
-    import torch
-    g = torch.Generator().manual_seed(seed)
-    centers = torch.rand(b, max(k // 8, 1), 2, generator=g) * 1200
-    pick = torch.randint(0, centers.shape[1], (b, k), generator=g)
-    c = torch.gather(centers, 1, pick[..., None].expand(b, k, 2))
-    c = c + torch.randn(b, k, 2, generator=g) * 8
-    wh = torch.rand(b, k, 2, generator=g) * 150 + 10
-    boxes = torch.cat([c - wh / 2, c + wh / 2], -1)
-    cls = torch.randint(0, 80, (b, k), generator=g).float()
-    boxes = boxes + (cls * 4096.0)[..., None]
-    valid = torch.rand(b, k, generator=g) > 0.1
-    return boxes.cuda().contiguous(), valid.cuda().contiguous()
+def kernel_device_ms(torch, fn, names, iters=50, tries=3):
+    """Device time per launch of each kernel that `fn` launches once per
+    call, from torch.profiler: {name: ms} for each of `names` (substrings
+    of the profiler's kernel names). The profiler at times records only
+    some of the launches of a session, or none: a session that does not
+    show each kernel `iters` times is run again, and after `tries` such
+    sessions the result is None (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = [(n, e) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                for n in names if n in e.key]
+        if (len(seen) == len(names) and
+                all(e.count == iters for _, e in seen)):
+            return {n: e.self_device_time_total / iters / 1e3
+                    for n, e in seen}
+    return None
 
 
 def nms_bound_ms(b, k):
@@ -91,30 +117,53 @@ def nms_bound_ms(b, k):
             'operations' if t_ops >= t_bytes else 'bytes')
 
 
-def phase_kernel(torch, nms_keep, nms_keep_ref):
+def phase_kernel(torch):
+    """Checks the kernel on the edge sets, then times it; returns the
+    largest |kernel - plain| over the checks and the figures of the main
+    path's case (dense-kept set, K = 1024, B = 1)."""
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    from ld_tpu_torch.testing import NMS_CHECK_KB, NMS_SETS, nms_batch
     max_err = 0.0
-    for k in (8, 512, 1000, 1024, 2048):
-        for b in (1, 8):
-            boxes, valid = nms_candidates(b, k, seed=k * 10 + b)
+    for name in NMS_SETS:
+        kept = []
+        for k, b in NMS_CHECK_KB:
+            boxes, valid, fixed = nms_batch(name, b, k, seed=k)
             got = nms_keep(boxes, valid, 0.6)
             want = nms_keep_ref(boxes, valid, 0.6)
             torch.cuda.synchronize()
-            err = float((got.int() - want.int()).abs().max())
-            max_err = max(max_err, err)
-            check(torch.equal(got, want),
-                  f'kernel keep mask differs from plain at B={b} K={k}')
-            emit(dict(phase='kernel_check', B=b, K=k, kept=int(got.sum()),
-                      valid=int(valid.sum()), bit_identical=True))
-    timings = {}
-    for b in (1, 8):
-        boxes, valid = nms_candidates(b, 1024, seed=7)
-        ms = cuda_ms(lambda: nms_keep(boxes, valid, 0.6), iters=200)
-        plain = cuda_ms(lambda: nms_keep_ref(boxes, valid, 0.6), iters=20)
-        bound, bound_by = nms_bound_ms(b, 1024)
-        timings[b] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                          bound_by=bound_by)
-        emit(dict(phase='kernel_time', B=b, K=1024, **timings[b]))
-    return max_err, timings
+            max_err = max(max_err,
+                          float((got.int() - want.int()).abs().max()))
+            check(torch.equal(got, want), f'kernel keep mask differs '
+                  f'from plain on {name} at B={b} K={k}')
+            check(fixed is None or torch.equal(got.cpu(), fixed),
+                  f'keep mask on {name} at B={b} K={k} is not the one '
+                  f'the set fixes')
+            kept.append(int(got.sum()))
+            del boxes, valid, got, want
+        emit(dict(phase='kernel_check', set=name, KB=NMS_CHECK_KB,
+                  kept=kept, bit_identical=True))
+    for name in ('dense_kept', 'sparse_kept'):
+        for k, b in TIME_CASES:
+            boxes, valid, _ = nms_batch(name, b, k, seed=7)
+            row = dict(phase='kernel_time', set=name, K=k, B=b,
+                       kept=int(nms_keep(boxes, valid, 0.6).sum()),
+                       valid=int(valid.sum()))
+            ms, host_ms = cuda_ms(lambda: nms_keep(boxes, valid, 0.6),
+                                  iters=200)
+            dev = kernel_device_ms(torch, lambda: nms_keep(boxes, valid, 0.6),
+                                   NMS_KERNELS)
+            plain, _ = cuda_ms(lambda: nms_keep_ref(boxes, valid, 0.6),
+                               iters=20)
+            bound, bound_by = nms_bound_ms(b, k)
+            row.update(ms=ms, host_ms=host_ms,
+                       device_ms=dev and sum(dev.values()),
+                       **{f'device_ms_{n}': dev and dev[n]
+                          for n in NMS_KERNELS},
+                       plain_ms=plain, bound_ms=bound, bound_by=bound_by)
+            emit(row)
+            if (name, k, b) == ('dense_kept', 1024, 1):
+                main_case = row
+    return max_err, main_case
 
 
 def phase_e2e(torch, np):
@@ -123,6 +172,8 @@ def phase_e2e(torch, np):
     from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
 
     torch.cuda.reset_peak_memory_stats()
+    # what the earlier phases left allocated is part of the peak below
+    allocated_at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = init_detector(CONFIG, device='cuda', seed=0)
     with torch.no_grad():
@@ -227,6 +278,7 @@ def phase_e2e(torch, np):
               valid_nms_candidates=n_cand,
               detections_per_request=[len(r['boxes']) for r in results],
               max_memory_allocated_bytes=peak,
+              memory_allocated_at_start_bytes=allocated_at_start,
               plain_keep_identical=True))
     return model, launches, bench
 
@@ -254,7 +306,7 @@ def phase_profile(torch, model, bench, iters=3):
         return
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     nms_us = sum(e.self_device_time_total for e in kernels
-                 if 'nms_mask_kernel' in e.key or 'nms_sweep_kernel' in e.key)
+                 if any(name in e.key for name in NMS_KERNELS))
     emit(dict(phase='profile', what='forward_test 1x3x800x1344',
               iters=iters, device_ms_per_iter=total_us / iters / 1e3,
               wall_ms_per_iter=wall_us / iters / 1e3,
@@ -298,7 +350,7 @@ def main():
               file=sys.stderr)
         return 1
     import numpy as np
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     from ld_tpu_torch.ops import nms_cuda
 
     smi = subprocess.run(
@@ -319,8 +371,7 @@ def main():
     emit(dict(phase='build', library=os.path.relpath(lib),
               seconds=time.perf_counter() - t0))
 
-    max_err, timings = phase_kernel(torch, nms_cuda.nms_keep,
-                                    nms_cuda.nms_keep_ref)
+    max_err, main_case = phase_kernel(torch)
     model, launches, bench = phase_e2e(torch, np)
     phase_profile(torch, model, bench)
     phase_reference(torch, np, model)
@@ -329,9 +380,12 @@ def main():
     emit(dict(kernels=[dict(
         name='nms_keep', route='cuda', source='ld_tpu_torch/csrc/nms_keep.cu',
         replaces='ld_tpu/ops/pallas_nms.py:23', launches=launches,
-        max_abs_err=max_err, ms=timings[1]['ms'],
-        plain_ms=timings[1]['plain_ms'], bound_ms=timings[1]['bound_ms'],
-        bound_by=timings[1]['bound_by'], library_ms=None)]))
+        max_abs_err=max_err, ms=main_case['ms'],
+        plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
+        bound_by=main_case['bound_by'], library_ms=None,
+        device_ms=main_case['device_ms'], host_ms=main_case['host_ms'],
+        **{f'device_ms_{n}': main_case[f'device_ms_{n}']
+           for n in NMS_KERNELS})]))
     emit(dict(ok=True, device=dict(platform='gpu',
                                    kind=torch.cuda.get_device_name(0),
                                    count=torch.cuda.device_count())))

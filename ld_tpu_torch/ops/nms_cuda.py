@@ -63,14 +63,18 @@ def build() -> str:
 
 def _load():
     global _lib
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
             fn = lib.nms_keep_launch
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                            ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p]
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            lib.nms_keep_error_string.argtypes = [ctypes.c_int]
+            lib.nms_keep_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
 
@@ -138,31 +142,37 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
     Returns:
         (B, K) bool keep mask.
 
-    A CUDA tensor launches the kernel (counted in `nms_keep.launches`); a CPU
-    tensor takes `nms_keep_ref`.
+    A CUDA tensor launches the kernel (counted in `nms_keep.launches`) or
+    raises; a CPU tensor takes `nms_keep_ref`.
     """
     _check(boxes, valid)
-    if boxes.device.type == 'cpu':
+    device = boxes.device
+    if device.type == 'cpu':
         return nms_keep_ref(boxes, valid, iou_threshold)
-    if boxes.device.type != 'cuda':
-        raise ValueError(f'nms_keep runs on cuda or cpu, not {boxes.device}')
+    if device.type != 'cuda':
+        raise ValueError(f'nms_keep runs on cuda or cpu, not {device}')
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError('nms_keep needs contiguous boxes and valid')
     b, k = valid.shape
-    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    keep = torch.empty((b, k), dtype=torch.bool, device=device)
     if b == 0 or k == 0:
         return keep
     lib = _load()
     words = (k + 63) // 64
-    with torch.cuda.device(boxes.device):
-        mask = torch.empty((b, k, words), dtype=torch.int64,
-                           device=boxes.device)
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = lib.nms_keep_launch(boxes.data_ptr(), valid.data_ptr(), b, k,
-                                  float(iou_threshold), mask.data_ptr(),
-                                  keep.data_ptr(), stream)
+    # the upper-triangle tiles of 64 words, W(W+1)/2 per image
+    mask = torch.empty((b, words * (words + 1) // 2 * 64), dtype=torch.int64,
+                       device=device)
+    # the raw current stream: torch.cuda.current_stream() builds a Stream
+    # object per call, and at K = 1024 this wrapper's host time already
+    # matches the two kernels' device time
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    err = lib.nms_keep_launch(boxes.data_ptr(), valid.data_ptr(), b, k,
+                              float(iou_threshold), mask.data_ptr(),
+                              keep.data_ptr(), device.index, stream)
     if err != 0:
-        raise RuntimeError(f'nms_keep kernel launch failed: CUDA error {err}')
+        raise RuntimeError(
+            f'nms_keep kernel launch failed at B = {b}, K = {k}: CUDA error '
+            f'{err} ({lib.nms_keep_error_string(err).decode()})')
     nms_keep.launches += 1
     return keep
 

@@ -1,0 +1,97 @@
+"""Hand-made greedy-NMS inputs for checking `ops.nms_cuda.nms_keep`.
+
+The edge sets of the kernel's block-wise sweep: boxes that are all equal,
+all disjoint or all invalid, suppression chains with invalid boxes inside,
+chains laid across the 64-box boundaries, and sets where few or most boxes
+are kept. The CPU tests hold `nms_keep_ref` on them against the JAX
+package, the `cuda` tests and `chip_smoke.py` hold the kernel against
+`nms_keep_ref`. Needs numpy and torch only.
+"""
+import numpy as np
+import torch
+
+NMS_SETS = ('identical', 'disjoint', 'invalid', 'chain_invalid',
+            'boundary_chain', 'sparse_kept', 'dense_kept')
+# (K, B) checked on the card: each side of the 64-box blocks, K = 512 (the GI
+# path) and 1024 (multiclass_nms), runs longer than the sweep's staging
+# window (K > 2048), and K = 16800, the anchor count of stride 8 at 800x1344
+# (exact GI mode, gi_candidates >= the level's anchors)
+NMS_CHECK_KB = (*[(k, b) for k in (1, 8, 63, 64, 65, 127, 128, 512, 1000,
+                                   1024, 2048, 4100, 8192)
+                  for b in (1, 3, 8)], (16800, 1))
+
+
+def nms_set(name, k, seed=0):
+    """One image of a hand-made NMS set: score-sorted boxes (k, 4) float32,
+    valid (k,) bool, and the greedy keep mask at IoU thresholds 0.5 and 0.6
+    where the construction fixes it (else None).
+
+    Two boxes 10 px wide and tall, the second shifted 2 px, overlap at IoU
+    80/120 = 0.67; shifted 4 px, at 60/140 = 0.43. A 10x10 box A holding
+    B (10x7) holding C (7x7) gives IoU(A, B) = IoU(B, C) = 0.7 and
+    IoU(A, C) = 0.49. Boxes on a 20 px grid do not overlap at all.
+    """
+    rng = np.random.RandomState(seed)
+    idx = np.arange(k)
+    grid = np.stack([idx % 128 * 20.0, idx // 128 * 20.0], -1)
+    side = np.full((k, 2), 10.0)
+    valid = np.ones(k, bool)
+    want = None
+    if name == 'identical':       # only the first of k equal boxes is kept
+        grid[:] = (30.0, 40.0)
+        want = idx == 0
+    elif name == 'disjoint':      # nothing overlaps: all kept
+        want = valid.copy()
+    elif name == 'invalid':       # all overlap, none valid: none kept
+        grid = rng.uniform(0, 8, (k, 2))
+        valid[:] = False
+        want = valid.copy()
+    elif name == 'chain_invalid':
+        # chains of 150 boxes, each 2 px right of the one before, so greedy
+        # keeps every other valid box; every 7th box is invalid, neither
+        # kept nor suppressing, and restarts the alternation. Each chain
+        # crosses two or three 64-box boundaries.
+        grid = np.stack([idx % 150 * 2.0, idx // 150 * 20.0], -1)
+        valid = idx % 7 != 3
+        want = np.zeros(k, bool)
+        for j in idx:
+            want[j] = valid[j] and not (j % 150 and want[j - 1])
+    elif name == 'boundary_chain':
+        # disjoint boxes, except that boxes 64m-1, 64m, 64m+1 are A, B, C
+        # nested at A's place: box 63 of a block suppresses box 0 of the
+        # next, which would have suppressed box 1. Greedy keeps A and C.
+        want = valid.copy()
+        for a in range(63, k - 2, 64):
+            grid[a + 1] = grid[a + 2] = grid[a]
+            side[a + 1] = (10.0, 7.0)
+            side[a + 2] = (7.0, 7.0)
+            want[a + 1] = False
+    elif name == 'sparse_kept':   # few heavily overlapping clusters
+        centers = rng.uniform(0, 400, (k // 128 + 1, 2))
+        grid = centers[rng.randint(0, len(centers), k)] + rng.normal(0, 3,
+                                                                    (k, 2))
+        side = rng.uniform(40, 60, (k, 2))
+        valid = rng.uniform(size=k) > 0.1
+    elif name == 'dense_kept':
+        # clustered boxes, class-offset as multiclass_nms builds them (80
+        # classes, offset 4096), ~10% invalid: most are kept
+        centers = rng.uniform(0, 1200, (max(k // 8, 1), 2))
+        grid = centers[rng.randint(0, len(centers), k)] + rng.normal(0, 8,
+                                                                    (k, 2))
+        side = rng.uniform(10, 160, (k, 2))
+        grid += rng.randint(0, 80, (k, 1)) * 4096.0
+        valid = rng.uniform(size=k) > 0.1
+    else:
+        raise ValueError(name)
+    boxes = np.concatenate([grid, grid + side], -1).astype(np.float32)
+    return boxes, valid, want
+
+
+def nms_batch(name, b, k, seed=0, device='cuda'):
+    """`nms_set` for b images (seeds seed*100 + i) as (B, K, 4) / (B, K)
+    tensors on `device`, and the (B, K) keep mask where it is fixed."""
+    sets = [nms_set(name, k, seed * 100 + i) for i in range(b)]
+    want = None if sets[0][2] is None else torch.from_numpy(
+        np.stack([s[2] for s in sets]))
+    return (torch.from_numpy(np.stack([s[0] for s in sets])).to(device),
+            torch.from_numpy(np.stack([s[1] for s in sets])).to(device), want)

@@ -18,6 +18,7 @@ from ld_tpu.ops import nms as jax_nms
 from ld_tpu.ops.pallas_nms import pallas_nms_keep
 from ld_tpu_torch.ops import nms as port_nms
 from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+from ld_tpu_torch.testing import NMS_SETS, nms_set
 
 
 def _sorted_candidates(rng, k, classes=4):
@@ -34,30 +35,47 @@ def _sorted_candidates(rng, k, classes=4):
             valid)
 
 
-@pytest.mark.parametrize('k', [8, 64, 512, 1024])
-def test_nms_keep_ref_equals_cluster_nms_keep(k):
+def _keep_case(rng, k, name):
+    """(boxes, scores, valid, keep mask fixed by construction or None): the
+    random clustered set when `name` is None, else the hand-made set."""
+    if name is None:
+        return (*_sorted_candidates(rng, k), None)
+    boxes, valid, want = nms_set(name, k, seed=k)
+    return boxes, np.linspace(1, 0.01, k, dtype=np.float32), valid, want
+
+
+@pytest.mark.parametrize('k,name', [
+    *[pytest.param(k, None, id=str(k)) for k in (8, 64, 512, 1024)],
+    *[(k, name) for name in NMS_SETS for k in (63, 65, 128, 1024)]])
+def test_nms_keep_ref_equals_cluster_nms_keep(k, name):
     rng = np.random.RandomState(k)
     for thr in (0.5, 0.6):
-        boxes, scores, valid = _sorted_candidates(rng, k)
+        boxes, scores, valid, fixed = _keep_case(rng, k, name)
         want = np.asarray(jax_nms._cluster_nms_keep(
             jnp.asarray(boxes), jnp.asarray(scores), thr,
             valid=jnp.asarray(valid)))
         got = nms_keep_ref(torch.from_numpy(boxes)[None],
                            torch.from_numpy(valid)[None], thr)[0]
         np.testing.assert_array_equal(got.numpy(), want)
-        if k >= 64:   # the clusters make suppression chains
+        if fixed is not None:
+            np.testing.assert_array_equal(want, fixed)
+        if name is None and k >= 64:   # the clusters make suppression chains
             assert 0 < want.sum() < valid.sum()
 
 
-@pytest.mark.parametrize('k', [8, 64, 512])
-def test_nms_keep_ref_equals_pallas_interpret(k):
+@pytest.mark.parametrize('k,name', [
+    *[pytest.param(k, None, id=str(k)) for k in (8, 64, 512)],
+    *[(k, name) for name in NMS_SETS for k in (65, 128)]])
+def test_nms_keep_ref_equals_pallas_interpret(k, name):
     rng = np.random.RandomState(100 + k)
-    boxes, _, valid = _sorted_candidates(rng, k)
+    boxes, _, valid, fixed = _keep_case(rng, k, name)
     want = np.asarray(pallas_nms_keep(jnp.asarray(boxes), jnp.asarray(valid),
                                       0.6, interpret=True))
     got = nms_keep_ref(torch.from_numpy(boxes)[None],
                        torch.from_numpy(valid)[None], 0.6)[0]
     np.testing.assert_array_equal(got.numpy(), want)
+    if fixed is not None:
+        np.testing.assert_array_equal(want, fixed)
 
 
 def test_nms_keep_cpu_takes_plain_version_batched():
