@@ -1,4 +1,5 @@
-"""Drive the ld_tpu_torch serving path on one CUDA card and check it.
+"""Drive the ld_tpu_torch serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
@@ -25,14 +26,30 @@ Phases, one JSON object per line each:
                post-processing is recomputed with the plain keep mask, and
                the head outputs on a small input must agree with the same
                model on the CPU;
-  5. profile — device time of `forward_test` by kernel (torch.profiler).
+  5. profile — device time of `forward_test` by kernel (torch.profiler);
+  6. train   — the LD training step of configs/ld/ld_r50_gflv1_r101_fpn_coco_
+               1x_gi.py at full width (R50 student from seed 0, R101 teacher
+               from seed 1 with its BNs folded, loss_im weight 2 with gibox),
+               float32, batch 2 at 800x1344 from ld_tpu_torch.testing, the
+               config's SGD and schedule, through build_detector /
+               build_lr_schedule / build_optimizer / make_train_step: 2
+               warm-up and 5 timed steps, every loss finite after every step
+               and 5 kernel launches per step (one GI NMS per FPN level);
+               loss_im and the 5 GI masks of one step recomputed with the
+               plain keep mask, identical; on 1x3x128x192 the first step's
+               loss dict on the card within rtol 1e-3 of the same model on
+               the CPU, term by term, with identical GI masks (and the
+               smallest GI-score gap between picked and unpicked candidates);
+               step and teacher-forward times, peak memory, and the device
+               time of a step by kernel.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
 (the main path's case: dense-kept set, K = 1024, B = 1; `device_ms` is the
-profiler's mask + sweep time), and last `{"ok": true, "device": {...}}`.
-Any failed check raises, so the script exits non-zero and prints no result;
-so does a host without CUDA.
+profiler's mask + sweep time; `launches` counts both main paths), and last
+`{"ok": true, "device": {...}}`. Any failed check raises, so the script exits
+non-zero and prints no result; so does a host without CUDA.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -45,6 +62,9 @@ PEAK_HBM_BYTES = 3.35e12
 # 1 add, 1 sub, 1 max, 1 div, 1 compare
 IOU_OPS_PER_PAIR = 14
 CONFIG = 'configs/gfl/gfl_r50_fpn_1x_coco.py'
+TRAIN_CONFIG = 'configs/ld/ld_r50_gflv1_r101_fpn_coco_1x_gi.py'
+# COCO train2017 images, for the schedule's steps per epoch on one card
+COCO_TRAIN_IMAGES = 117266
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the two kernels of csrc/nms_keep.cu, as the profiler names them
 NMS_KERNELS = ('nms_mask_tri_kernel', 'nms_block_sweep_kernel')
@@ -343,6 +363,210 @@ def phase_reference(torch, np, model):
               max_median_rel_diff=worst_med, tol_abs=5e-3, tol_median_rel=2e-4))
 
 
+def build_ld(torch):
+    """The GI config's LD detector on the CPU: R50 student from seed 0, R101
+    teacher from seed 1 with its BNs folded; returns (cfg, model)."""
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.models import build_detector
+    cfg = Config.fromfile(os.path.join(ROOT, TRAIN_CONFIG))
+    model = build_detector(cfg.model)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.init_teacher_weights(torch.Generator().manual_seed(1))
+    check(model.fold_teacher_bn(), 'the teacher BN fold was refused')
+    return cfg, model
+
+
+def make_step(cfg, model):
+    """The config's SGD and schedule around `model`, as make_train_step."""
+    from ld_tpu_torch.parallel import (build_lr_schedule, build_optimizer,
+                                       make_train_step)
+    spg = cfg.data['samples_per_gpu']
+    schedule = build_lr_schedule(cfg.optimizer['lr'], cfg.lr_config,
+                                 -(-COCO_TRAIN_IMAGES // spg),
+                                 cfg.runner['max_epochs'])
+    optimizer, scheduler = build_optimizer(cfg.optimizer, schedule, model)
+    return make_train_step(model, optimizer, scheduler,
+                           (cfg.get('optimizer_config') or {}).get(
+                               'grad_clip')), optimizer
+
+
+def gi_score_gap(torch, head, outs, t_outs, masks):
+    """Per level, the smallest |GI score| difference between a picked and an
+    unpicked candidate: how far the scores are from reordering a pick."""
+    from ld_tpu_torch.models.heads.gfl_head import flatten_levels
+    z = (torch.sigmoid(flatten_levels(t_outs[0])) -
+         torch.sigmoid(flatten_levels(outs[0])))
+    score = z.abs().amax(dim=-1)                               # (B, N)
+    gaps, lo = [], 0
+    for mask in masks:
+        n = mask.numel() // score.shape[0]
+        s = score[:, lo:lo + n].reshape(-1)
+        lo += n
+        cand = torch.sort(s, descending=True, stable=True).indices[
+            :min(head.gi_candidates, s.numel())]
+        picked = mask[cand] > 0
+        gaps.append(float((s[cand][picked][:, None] -
+                           s[cand][~picked][None, :]).abs().min())
+                    if picked.any() and (~picked).any() else None)
+    return gaps
+
+
+def phase_train_reference(torch, cfg, base):
+    """The first step on 1x3x128x192 on the card against the same model on
+    the CPU: the loss dict within rtol 1e-3, term by term, and the GI masks
+    of that step identical."""
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    rtol = 1e-3
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        model = copy.deepcopy(base).to(device)
+        batch = detection_batch(1, 128, 192, seed=0, device=device)
+        step, _ = make_step(cfg, model)
+        with torch.no_grad():
+            outs = model(batch['image'])
+            t_outs = model.teacher(batch['image'])
+            masks = model.bbox_head.gi_masks(outs, t_outs)
+            gaps = gi_score_gap(torch, model.bbox_head, outs, t_outs, masks)
+        losses = step(batch)
+        runs[device] = ({k: float(v) for k, v in losses.items()},
+                        [m.cpu() for m in masks], gaps)
+    (c_loss, c_masks, c_gaps), (g_loss, g_masks, _) = runs['cpu'], \
+        runs['cuda']
+    for k, c in c_loss.items():
+        check(abs(g_loss[k] - c) <= rtol * abs(c),
+              f'{k}: card {g_loss[k]!r} vs CPU {c!r} beyond rtol {rtol}')
+    check(all(torch.equal(a, b) for a, b in zip(g_masks, c_masks)),
+          'GI masks differ between the card and the CPU')
+    emit(dict(phase='train_reference', input='1x3x128x192', rtol=rtol,
+              loss_cpu=c_loss, loss_card=g_loss,
+              max_rel_diff=max(abs(g_loss[k] - c) / abs(c)
+                               for k, c in c_loss.items() if c),
+              gi_masks_identical=True,
+              gi_picks=[int(m.sum()) for m in c_masks],
+              gi_candidates=[min(512, m.numel()) for m in c_masks],
+              gi_min_score_gap_per_level=c_gaps))
+
+
+def phase_train(torch, smi, warmup=2, timed=5, batch_size=2,
+                pad=(800, 1344)):
+    """The LD training step at full width on the card; returns the kernel's
+    launch count over the main path's steps."""
+    import copy
+    from torch.profiler import ProfilerActivity, profile
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    from ld_tpu_torch.testing import detection_batch
+
+    t0 = time.perf_counter()
+    cfg, base = build_ld(torch)
+    check(cfg.data['samples_per_gpu'] == batch_size, 'samples_per_gpu')
+    model = copy.deepcopy(base).to('cuda')
+    step, optimizer = make_step(cfg, model)
+    head = model.bbox_head
+    check(head.loss_im.loss_weight == 2 and head.imitation_method == 'gibox',
+          'the GI config lost its imitation arm')
+    batch = detection_batch(batch_size, *pad, num_classes=80, seed=0,
+                            device='cuda')
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts from 0, read right after ------------------
+    nms_keep.launches = 0
+    step_ms, lrs, history = [], [], []
+    for i in range(warmup + timed):
+        before = nms_keep.launches
+        lrs.append(optimizer.param_groups[0]['lr'])
+        t = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if i >= warmup:
+            step_ms.append(ms)
+        history.append({k: float(v) for k, v in metrics.items()})
+        bad = [k for k, v in history[-1].items() if not math.isfinite(v)]
+        check(not bad, f'step {i}: non-finite {bad}')
+        check(nms_keep.launches - before == 5,
+              f'step {i}: {nms_keep.launches - before} nms_keep launches, '
+              'expected 5 (one GI NMS per FPN level)')
+    launches = nms_keep.launches
+    # ----------------------------------------------------------------------
+    check(launches == 5 * (warmup + timed), f'{launches} launches')
+    peak = torch.cuda.max_memory_allocated()
+
+    # loss_im and the GI masks of one step, with the plain keep mask
+    with torch.no_grad():
+        outs, feats = model(batch['image'], output_features=True)
+        t_outs, t_feats = model.teacher(batch['image'], output_features=True)
+        sizes = [tuple(c.shape[-2:]) for c in outs[0]]
+        got = head.gi_masks(outs, t_outs, keep_fn=nms_keep)
+        want = head.gi_masks(outs, t_outs, keep_fn=nms_keep_ref)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              'GI masks with the kernel differ from the plain keep mask')
+        im = [head.loss(outs, batch, sizes, t_outs, feats, t_feats,
+                        keep_fn=fn)['loss_im'] for fn in (nms_keep,
+                                                          nms_keep_ref)]
+        check(torch.equal(im[0], im[1]),
+              f'loss_im {float(im[0])} with the kernel, {float(im[1])} with '
+              'the plain keep mask')
+    gi_k = [min(head.gi_candidates, m.numel()) for m in got]
+
+    # the teacher's forward alone
+    with torch.no_grad():
+        teacher_ms, _ = cuda_ms(lambda: model.teacher(batch['image'],
+                                                      output_features=True),
+                                iters=5, warmup=1)
+
+    # device time of a step by kernel
+    prof_steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(prof_steps):
+            step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    nms_us = sum(e.self_device_time_total for e in kernels
+                 if any(n in e.key for n in NMS_KERNELS))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    profile_row = (dict(device_time='not measured') if total_us <= 0 else dict(
+        device_ms_per_step=total_us / prof_steps / 1e3,
+        wall_ms_per_step=wall_us / prof_steps / 1e3,
+        device_busy_share=total_us / wall_us,
+        device_ops_per_step=sum(e.count for e in kernels) / prof_steps,
+        gi_nms_device_ms_per_step=nms_us / prof_steps / 1e3,
+        top_kernels=[dict(name=e.key[:90], calls=e.count // prof_steps,
+                          ms_per_step=e.self_device_time_total /
+                          prof_steps / 1e3) for e in top]))
+
+    emit(dict(phase='train', config=TRAIN_CONFIG, nvidia_smi=smi,
+              dtype='float32 (the config dtype bfloat16 is not applied)',
+              batch=[batch_size, 3, *pad],
+              valid_gts=batch['gt_valid'].sum(dim=1).tolist(),
+              params_student=sum(p.numel() for p in model.parameters()),
+              params_trainable=sum(p.numel() for p in model.parameters()
+                                   if p.requires_grad),
+              params_teacher=sum(p.numel()
+                                 for p in model.teacher.parameters()),
+              build_s=build_s, warmup_steps=warmup, timed_steps=timed,
+              step_ms=step_ms, step_ms_mean=sum(step_ms) / len(step_ms),
+              step_ms_max=max(step_ms),
+              img_per_s=batch_size * 1e3 * len(step_ms) / sum(step_ms),
+              teacher_forward_ms=teacher_ms, lr=lrs,
+              loss_first=history[0], loss_last=history[-1],
+              nms_keep_launches=launches, nms_keep_launches_per_step=5,
+              gi_candidates=gi_k, gi_picks=[int(m.sum()) for m in got],
+              gi_plain_keep_identical=True,
+              max_memory_allocated_bytes=peak, **profile_row))
+    del model, step, optimizer, batch, prof
+    torch.cuda.empty_cache()
+    phase_train_reference(torch, cfg, base)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -375,11 +599,16 @@ def main():
     model, launches, bench = phase_e2e(torch, np)
     phase_profile(torch, model, bench)
     phase_reference(torch, np, model)
+    del model, bench
+    torch.cuda.empty_cache()
+    train_launches = phase_train(torch, smi)
 
     print(smi.splitlines()[0], flush=True)
     emit(dict(kernels=[dict(
         name='nms_keep', route='cuda', source='ld_tpu_torch/csrc/nms_keep.cu',
-        replaces='ld_tpu/ops/pallas_nms.py:23', launches=launches,
+        replaces='ld_tpu/ops/pallas_nms.py:23',
+        launches=launches + train_launches, launches_serve=launches,
+        launches_train=train_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

@@ -7,13 +7,17 @@ package becomes a kernel written by hand for sm_90a (`csrc/`).
 
 Ported so far: GFL inference (ResNet -> FPN -> GFL head -> top-k, integral
 decode -> class-aware NMS on the CUDA greedy-NMS kernel) through
-`init_detector` / `inference_detector` / `forward_test`.
+`init_detector` / `inference_detector` / `forward_test`; and the LD training
+step (ATSS targets, QFL / DFL / GIoU, LD + VLR + KD, feature imitation with
+the GI-region NMS on the same kernel, a frozen teacher, SGD) through
+`build_detector` / `parallel.build_lr_schedule` / `build_optimizer` /
+`make_train_step`.
 """
 
 __version__ = '0.1.0'
 
-from ld_tpu_torch.utils.registry import (BACKBONES, DETECTORS, HEADS, NECKS,
-                                         PIPELINES)
+from ld_tpu_torch.utils.registry import (ASSIGNERS, BACKBONES, DETECTORS,
+                                         HEADS, LOSSES, NECKS, PIPELINES)
 from ld_tpu_torch.utils.config import Config
 
 # importing the subpackages populates the registries
@@ -21,5 +25,5 @@ import ld_tpu_torch.ops  # noqa: F401,E402
 import ld_tpu_torch.models  # noqa: F401,E402
 import ld_tpu_torch.data  # noqa: F401,E402
 
-__all__ = ['BACKBONES', 'DETECTORS', 'HEADS', 'NECKS', 'PIPELINES', 'Config',
-           '__version__']
+__all__ = ['ASSIGNERS', 'BACKBONES', 'DETECTORS', 'HEADS', 'LOSSES', 'NECKS',
+           'PIPELINES', 'Config', '__version__']

@@ -1,3 +1,4 @@
+from . import losses  # noqa: F401 — registers loss types
 from . import backbones  # noqa: F401 — registers backbone types
 from . import necks  # noqa: F401
 from . import heads  # noqa: F401

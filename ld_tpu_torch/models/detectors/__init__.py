@@ -1,3 +1,5 @@
 from .single_stage import SingleStageDetector
+from .kd_one_stage import IMDetector, KnowledgeDistillationSingleStageDetector
 
-__all__ = ['SingleStageDetector']
+__all__ = ['SingleStageDetector', 'KnowledgeDistillationSingleStageDetector',
+           'IMDetector']

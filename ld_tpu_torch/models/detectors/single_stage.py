@@ -3,7 +3,9 @@
 
 One `nn.Module` owns the backbone, neck and head under mmdet's names
 (`backbone.*`, `neck.*`, `bbox_head.*`). `forward` returns the head's
-per-level NCHW outputs; `forward_test` returns padded fixed-size detections.
+per-level NCHW outputs (and the FPN features with `output_features=True`);
+`forward_train` returns the dict of scalar losses of a padded batch;
+`forward_test` returns padded fixed-size detections.
 """
 from __future__ import annotations
 
@@ -39,12 +41,24 @@ class SingleStageDetector(nn.Module):
             if m is not None:
                 m.init_weights(generator)
 
-    def forward(self, images: torch.Tensor):
-        """images (B, 3, H, W) -> (cls_scores, bbox_preds), NCHW per level."""
+    def forward(self, images: torch.Tensor, output_features: bool = False):
+        """images (B, 3, H, W) -> (cls_scores, bbox_preds), NCHW per level;
+        with output_features, ((cls_scores, bbox_preds), neck features)."""
         x = self.backbone(images)
         if self.neck is not None:
             x = self.neck(x)
-        return self.bbox_head(list(x))
+        outs = self.bbox_head(list(x))
+        if output_features:
+            return outs, x
+        return outs
+
+    def forward_train(self, batch: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """batch: image (B, 3, H, W), gt_bboxes (B, G, 4), gt_labels (B, G),
+        gt_valid (B, G) bool, img_hw (B, 2) -> the head's loss dict."""
+        outs = self(batch['image'])
+        featmap_sizes = [tuple(c.shape[-2:]) for c in outs[0]]
+        return self.bbox_head.loss(outs, batch, featmap_sizes)
 
     def forward_test(self, batch: Dict[str, torch.Tensor], rescale=False):
         """batch: image (B, 3, H, W), img_hw (B, 2), optional scale_factor

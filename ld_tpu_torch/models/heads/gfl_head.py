@@ -1,34 +1,40 @@
-"""GFL head (Generalized Focal Loss V1, arXiv:2006.04388), inference path.
+"""GFL head (Generalized Focal Loss V1, arXiv:2006.04388).
 
-Port of `ld_tpu/models/heads/gfl_head.py:39-104` (towers) and `:314-387`
-(`get_bboxes`), NCHW:
+Port of `ld_tpu/models/heads/gfl_head.py:39-104` (towers), `:200-311`
+(targets and losses) and `:314-387` (`get_bboxes`), NCHW:
 
   * forward: one shared stack of 3x3 conv + GroupNorm + ReLU blocks per branch
     applied to every FPN level, `gfl_cls` / `gfl_reg` 3x3 convs, and a
     learnable scalar per level on the reg output (`scales.i.scale`);
+  * loss: ATSS targets for the whole batch, then QFL + GIoU + DFL as ONE
+    dense masked computation over the flattened (batch, all-level anchors)
+    axis, with a per-anchor stride: the same sums as the reference's
+    per-level loops over gathered positives. The positive count is the
+    batch total, clamped once; the IoU quality target and the max-class
+    weight are detached;
   * get_bboxes: per level, the `nms_pre` top-k on the max class LOGIT (before
     the sigmoid), integral decode x stride, `distance2bbox` clipped to the
     image, optional rescale, then class-aware `multiclass_nms`, batched over
     images.
 
 Module names are mmdet's (`cls_convs.i.{conv,gn}`, `gfl_cls`, `gfl_reg`,
-`scales.i.scale`). Loss and assigner configs are accepted and kept; training
-is not ported yet.
+`scales.i.scale`).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 from torch import nn
 
 from ld_tpu_torch.ops.anchors import AnchorGenerator
-from ld_tpu_torch.ops.boxes import anchor_center, distance2bbox
+from ld_tpu_torch.ops.boxes import (anchor_center, bbox2distance,
+                                    bbox_overlaps, distance2bbox)
 from ld_tpu_torch.ops.integral import integral
 from ld_tpu_torch.ops.nms import multiclass_nms
 from ld_tpu_torch.ops.nms_cuda import nms_keep
-from ld_tpu_torch.utils.registry import HEADS
+from ld_tpu_torch.utils.registry import ASSIGNERS, HEADS, LOSSES
 
 _CLS_BIAS_INIT = float(-math.log((1 - 0.01) / 0.01))  # prior prob 0.01
 
@@ -62,6 +68,11 @@ def flatten_level(x: torch.Tensor) -> torch.Tensor:
     """NCHW -> (B, H*W, C), the row-major anchor order of the generator."""
     b, c = x.shape[:2]
     return x.permute(0, 2, 3, 1).reshape(b, -1, c)
+
+
+def flatten_levels(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """[(B, C, H, W)] per level -> (B, sum(H*W), C)."""
+    return torch.cat([flatten_level(x) for x in xs], dim=1)
 
 
 @HEADS.register_module()
@@ -101,8 +112,18 @@ class GFLHead(nn.Module):
                                       'ld_tpu_torch yet (see ROADMAP.md)')
         self.anchor_generator = AnchorGenerator(**ag)
         self.num_levels = self.anchor_generator.num_levels
-        # losses and assigner belong to training, which is not ported yet
-        del loss_cls, loss_dfl, loss_bbox, train_cfg
+        loss_cls = loss_cls or dict(
+            type='QualityFocalLoss', use_sigmoid=True, beta=2.0,
+            loss_weight=1.0)
+        self.use_sigmoid_cls = loss_cls.get('use_sigmoid', True)
+        self.loss_cls = LOSSES.build(loss_cls)
+        self.loss_dfl = LOSSES.build(loss_dfl or dict(
+            type='DistributionFocalLoss', loss_weight=0.25))
+        self.loss_bbox = LOSSES.build(loss_bbox or dict(
+            type='GIoULoss', loss_weight=2.0))
+        self.train_cfg = train_cfg or {}
+        self.assigner = ASSIGNERS.build(dict(self.train_cfg.get(
+            'assigner', dict(type='ATSSAssigner', topk=9))))
         self.test_cfg = test_cfg or dict(
             nms_pre=1000, score_thr=0.05,
             nms=dict(type='nms', iou_threshold=0.6), max_per_img=100)
@@ -152,6 +173,111 @@ class GFLHead(nn.Module):
             cls_scores.append(self.gfl_cls(cls_feat))
             bbox_preds.append(self.scales[lvl](self.gfl_reg(reg_feat)))
         return cls_scores, bbox_preds
+
+    # ---- geometry ----------------------------------------------------------
+    def level_geometry(self, featmap_sizes, device):
+        """All-level anchors (N, 4), anchors per level, and the per-anchor
+        stride (N,) float32 and level id (N,) int64."""
+        mlvl = self.anchor_generator.grid_anchors(featmap_sizes, device)
+        num_lvl = [a.shape[0] for a in mlvl]
+        strides = torch.cat([
+            torch.full((n, ), float(s[0]), device=device)
+            for n, s in zip(num_lvl, self.anchor_generator.strides)])
+        level_id = torch.cat([
+            torch.full((n, ), i, dtype=torch.int64, device=device)
+            for i, n in enumerate(num_lvl)])
+        return torch.cat(mlvl), num_lvl, strides, level_id
+
+    # ---- targets -----------------------------------------------------------
+    def build_targets(self, featmap_sizes, gt_bboxes, gt_labels, gt_valid,
+                      img_hw) -> Dict:
+        """ATSS targets of a batch: gt_bboxes (B, G, 4), gt_labels (B, G),
+        gt_valid (B, G) bool, img_hw (B, 2)."""
+        device = gt_bboxes.device
+        anchors, num_lvl, strides, level_id = self.level_geometry(
+            featmap_sizes, device)
+        valid = torch.stack([
+            torch.cat(self.anchor_generator.valid_flags(featmap_sizes, hw,
+                                                        device))
+            for hw in img_hw])                                      # (B, N)
+        res = self.assigner.assign(anchors, num_lvl, gt_bboxes, gt_labels,
+                                   gt_valid, valid,
+                                   num_classes=self.num_classes)
+        safe = res.assigned_gt_inds.clamp(min=0)
+        bbox_targets = torch.gather(gt_bboxes, 1,
+                                    safe[..., None].expand(-1, -1, 4))
+        bbox_targets = torch.where(res.pos_mask[..., None], bbox_targets,
+                                   torch.zeros_like(bbox_targets))
+        return dict(labels=res.labels, pos_mask=res.pos_mask,
+                    bbox_targets=bbox_targets, anchor_valid=valid,
+                    anchors=anchors, strides=strides, level_id=level_id,
+                    num_level_anchors=num_lvl,
+                    assigned_gt_inds=res.assigned_gt_inds)
+
+    # ---- loss --------------------------------------------------------------
+    def loss(self, outputs, batch, featmap_sizes) -> Dict[str, torch.Tensor]:
+        """QFL + GIoU + DFL of the head outputs (per-level NCHW lists)
+        against the batch's padded gts."""
+        cls_scores, bbox_preds = outputs
+        t = self.build_targets(featmap_sizes, batch['gt_bboxes'],
+                               batch['gt_labels'], batch['gt_valid'],
+                               batch['img_hw'])
+        core = self._core_losses(flatten_levels(cls_scores),
+                                 flatten_levels(bbox_preds), t)
+        return {k: core[k] for k in ('loss_cls', 'loss_bbox', 'loss_dfl')}
+
+    def _core_losses(self, cls_score, bbox_pred, t) -> Dict:
+        """Dense masked QFL + GIoU + DFL over (B, N) anchors.
+
+        Returns the loss dict plus the intermediates the LD head reuses.
+        """
+        pos = t['pos_mask']
+        strides = t['strides']                                     # (N,)
+        posf = pos.to(torch.float32)
+        label_weights = t['anchor_valid'].to(torch.float32)
+
+        # the batch-total positive count, clamped ONCE (the reference's
+        # reduce_mean(num_total_pos).clamp(min=1)); a per-image clamp would
+        # inflate the denominator whenever an image has no gt
+        num_total_samples = posf.sum().clamp(min=1.0)
+
+        centers = anchor_center(t['anchors'])[None] / strides[None, :, None]
+        pred_corners = bbox_pred.reshape(*bbox_pred.shape[:-1], 4,
+                                         self.reg_max + 1)
+        pred_dist = integral(bbox_pred, self.reg_max)              # (B, N, 4)
+        decoded = distance2bbox(centers, pred_dist)                # (B, N, 4)
+        target_boxes = t['bbox_targets'] / strides[None, :, None]
+
+        zero = torch.zeros((), device=cls_score.device)
+        # quality target: IoU(decoded, target) on positives, detached
+        score = torch.where(pos, bbox_overlaps(decoded.detach(), target_boxes,
+                                               is_aligned=True), zero)
+        # weight: the max class score on positives, detached
+        cls_prob = torch.sigmoid(cls_score) if self.use_sigmoid_cls \
+            else cls_score
+        weight_targets = torch.where(pos, cls_prob.detach().amax(dim=-1),
+                                     zero)
+        avg_factor = weight_targets.sum() + 1e-6
+
+        loss_cls = self.loss_cls(cls_score, (t['labels'], score),
+                                 weight=label_weights,
+                                 avg_factor=num_total_samples)
+        loss_bbox = self.loss_bbox(decoded.reshape(-1, 4),
+                                   target_boxes.reshape(-1, 4),
+                                   weight=weight_targets.reshape(-1),
+                                   avg_factor=avg_factor)
+        target_corners = bbox2distance(centers, target_boxes,
+                                       max_dis=self.reg_max)       # (B, N, 4)
+        w4 = weight_targets[..., None].expand(target_corners.shape)
+        loss_dfl = self.loss_dfl(
+            pred_corners.reshape(-1, self.reg_max + 1),
+            target_corners.reshape(-1), weight=w4.reshape(-1),
+            avg_factor=4.0 * avg_factor)
+        return dict(loss_cls=loss_cls, loss_bbox=loss_bbox, loss_dfl=loss_dfl,
+                    pos=pos, posf=posf, label_weights=label_weights,
+                    weight_targets=weight_targets, avg_factor=avg_factor,
+                    pred_corners=pred_corners, centers=centers,
+                    decoded=decoded, num_total_samples=num_total_samples)
 
     def get_bboxes(self, outputs, img_hw, scale_factor=None, rescale=False,
                    cfg=None, with_nms=True, keep_fn=nms_keep):

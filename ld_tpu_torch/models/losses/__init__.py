@@ -1,0 +1,14 @@
+from .utils import reduce_loss, weight_reduce_loss, weighted_loss
+from .gfocal_loss import (DistributionFocalLoss, QualityFocalLoss,
+                          distribution_focal_loss, quality_focal_loss)
+from .iou_loss import CIoULoss, DIoULoss, GIoULoss, IoULoss
+from .kd_loss import (IMLoss, KnowledgeDistillationKLDivLoss, im_loss,
+                      knowledge_distillation_kl_div_loss)
+
+__all__ = [
+    'reduce_loss', 'weight_reduce_loss', 'weighted_loss', 'QualityFocalLoss',
+    'DistributionFocalLoss', 'quality_focal_loss', 'distribution_focal_loss',
+    'IoULoss', 'GIoULoss', 'DIoULoss', 'CIoULoss',
+    'KnowledgeDistillationKLDivLoss', 'IMLoss',
+    'knowledge_distillation_kl_div_loss', 'im_loss'
+]

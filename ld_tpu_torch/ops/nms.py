@@ -26,9 +26,15 @@ def _not_ported(what: str):
 
 def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         max_out: int, score_threshold: float = float('-inf'),
-        overlap_mode: str = 'iou') -> Tuple[torch.Tensor, torch.Tensor]:
+        overlap_mode: str = 'iou',
+        keep_fn=nms_keep) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy NMS of one box set, returning indices of kept boxes.
 
+    The boxes are ordered by a stable descending sort, so equal scores keep
+    the input order, as `jax.lax.top_k` keeps it in the JAX package.
+
+    Args:
+        keep_fn: the keep-mask function, `nms_keep` (the kernel on the card).
     Returns (static shapes; K = min(max_out, num_boxes)):
         idx: (K,) int64 indices into the input (undefined where invalid).
         valid: (K,) bool.
@@ -36,14 +42,15 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     if overlap_mode != 'iou':
         _not_ported(f'nms overlap_mode={overlap_mode!r}')
     n = boxes.shape[0]
-    order_scores, order = torch.topk(scores, n)
+    order_scores, order = torch.sort(scores, descending=True, stable=True)
     sboxes = boxes[order].contiguous()
     valid = order_scores > score_threshold
-    keep = nms_keep(sboxes[None], valid[None].contiguous(), iou_threshold)[0]
+    keep = keep_fn(sboxes[None], valid[None].contiguous(), iou_threshold)[0]
     kept_scores = torch.where(keep, order_scores,
                               torch.full_like(order_scores, -float('inf')))
-    top_scores, pos = torch.topk(kept_scores, min(max_out, n))
-    return order[pos], top_scores > -float('inf')
+    top_scores, pos = torch.sort(kept_scores, descending=True, stable=True)
+    k = min(max_out, n)
+    return order[pos[:k]], top_scores[:k] > -float('inf')
 
 
 def _topk_pairs(masked: torch.Tensor, k: int, exact_preprune: bool = None):

@@ -1,11 +1,16 @@
-"""Hand-made greedy-NMS inputs for checking `ops.nms_cuda.nms_keep`.
+"""Seeded inputs for checking the port: NMS edge sets and detection batches.
 
-The edge sets of the kernel's block-wise sweep: boxes that are all equal,
-all disjoint or all invalid, suppression chains with invalid boxes inside,
-chains laid across the 64-box boundaries, and sets where few or most boxes
-are kept. The CPU tests hold `nms_keep_ref` on them against the JAX
-package, the `cuda` tests and `chip_smoke.py` hold the kernel against
-`nms_keep_ref`. Needs numpy and torch only.
+The edge sets of the greedy-NMS kernel's block-wise sweep: boxes that are
+all equal, all disjoint or all invalid, suppression chains with invalid
+boxes inside, chains laid across the 64-box boundaries, and sets where few
+or most boxes are kept. The CPU tests hold `nms_keep_ref` on them against
+the JAX package, the `cuda` tests and `chip_smoke.py` hold the kernel
+against `nms_keep_ref`.
+
+`detection_batch` is a synthetic training batch: the layout of the data
+layer's padded batches (100 gt slots per image), with the valid gts of
+varied size and class. The CPU tests and `chip_smoke.py`'s train phase take
+their batches from it. Needs numpy and torch only.
 """
 import numpy as np
 import torch
@@ -95,3 +100,47 @@ def nms_batch(name, b, k, seed=0, device='cuda'):
         np.stack([s[2] for s in sets]))
     return (torch.from_numpy(np.stack([s[0] for s in sets])).to(device),
             torch.from_numpy(np.stack([s[1] for s in sets])).to(device), want)
+
+
+def detection_batch_np(b, h, w, num_classes=80, max_gts=100, seed=0):
+    """A synthetic padded detection batch as numpy arrays, NCHW.
+
+    image (B, 3, H, W) float32, normal noise (a normalised image);
+    img_hw (B, 2) float32, each image's size inside the (H, W) pad, 75-100%
+    of it per side; gt_bboxes (B, max_gts, 4) float32 xyxy inside the
+    image, gt_labels (B, max_gts) int64, gt_valid (B, max_gts) bool. Each
+    image has 4-24 valid gts of classes drawn from num_classes, sides
+    log-uniform from 8 px to 60% of the image's shorter side, aspect ratios
+    from 1:2 to 2:1; the rest are zero padding.
+    """
+    rs = np.random.RandomState(seed)
+    image = rs.randn(b, 3, h, w).astype(np.float32)
+    img_hw = np.zeros((b, 2), np.float32)
+    gt = np.zeros((b, max_gts, 4), np.float32)
+    labels = np.zeros((b, max_gts), np.int64)
+    valid = np.zeros((b, max_gts), bool)
+    for i in range(b):
+        ih = rs.randint(int(h * 0.75), h + 1)
+        iw = rs.randint(int(w * 0.75), w + 1)
+        img_hw[i] = ih, iw
+        n = min(rs.randint(4, 25), max_gts)
+        side = np.exp(rs.uniform(np.log(8.0), np.log(0.6 * min(ih, iw)), n))
+        aspect = np.exp(rs.uniform(-0.7, 0.7, n))
+        bw = np.minimum(side * aspect, iw)
+        bh = np.minimum(side / aspect, ih)
+        cx = rs.uniform(bw / 2, iw - bw / 2)
+        cy = rs.uniform(bh / 2, ih - bh / 2)
+        gt[i, :n] = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2,
+                              cy + bh / 2], -1)
+        labels[i, :n] = rs.randint(0, num_classes, n)
+        valid[i, :n] = True
+    return dict(image=image, gt_bboxes=gt, gt_labels=labels, gt_valid=valid,
+                img_hw=img_hw)
+
+
+def detection_batch(b, h, w, num_classes=80, max_gts=100, seed=0,
+                    device='cuda'):
+    """`detection_batch_np` as torch tensors on `device`."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in detection_batch_np(b, h, w, num_classes, max_gts,
+                                           seed).items()}

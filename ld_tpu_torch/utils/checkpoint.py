@@ -5,9 +5,13 @@
     because the port uses mmdet's module names.
   * `state_dict_from_jax`: the exact inverse of
     `ld_tpu.utils.checkpoint.convert_torch_state_dict` for the ResNet / FPN /
-    GFL-head families. It takes the JAX package's {'params', 'batch_stats'}
-    tree as nested dicts of numpy arrays and returns the port's mmdet-named
-    state dict, so both packages can run on the same weights.
+    GFL-head families (the LD head has the GFL head's parameters). It takes
+    the JAX package's {'params', 'batch_stats'} tree as nested dicts of
+    numpy arrays and returns the port's mmdet-named state dict, so both
+    packages can run on the same weights.
+  * `load_from_jax`: loads such trees strictly into a model and, for a
+    distillation detector, the JAX package's separate teacher tree into
+    `model.teacher`.
 """
 from __future__ import annotations
 
@@ -135,3 +139,15 @@ def state_dict_from_jax(variables: Dict) -> 'OrderedDict[str, torch.Tensor]':
             sd[key] = value
     return OrderedDict((k, torch.from_numpy(np.array(v)))
                        for k, v in sorted(sd.items()))
+
+
+def load_from_jax(model: torch.nn.Module, variables: Dict,
+                  teacher_variables: Dict = None) -> torch.nn.Module:
+    """Load the JAX package's variables into `model`, and its
+    `teacher_variables` (a pytree of their own there) into `model.teacher`;
+    every key must match on both."""
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    if teacher_variables is not None:
+        model.teacher.load_state_dict(state_dict_from_jax(teacher_variables),
+                                      strict=True)
+    return model

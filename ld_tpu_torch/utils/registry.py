@@ -100,3 +100,5 @@ NECKS = Registry('neck')
 HEADS = Registry('head')
 DETECTORS = Registry('detector')
 PIPELINES = Registry('pipeline')
+LOSSES = Registry('loss')
+ASSIGNERS = Registry('assigner')

@@ -8,6 +8,7 @@ JAX, where tests/conftest.py (which imports jax) is left out:
 
 The hand-made edge sets of the block-wise sweep come from
 `ld_tpu_torch.testing`; `chip_smoke.py` checks the kernel on the same sets.
+The training caller, `LDHead._gi_mask`, is checked at the GI path's shapes.
 """
 import pytest
 import torch
@@ -62,3 +63,38 @@ def test_cuda_kernel_edge_sets(name, k, b):
         assert torch.equal(got, nms_keep_ref(boxes, valid, thr))
         if want is not None:
             assert torch.equal(got.cpu(), want)
+
+
+def _gi_inputs(h, w, b=2, seed=0):
+    """One FPN level's head outputs of a batch of b images, flattened and
+    pooled as `LDHead._imitation_loss` pools them: student / teacher class
+    logits (b*h*w, 80), box logits (b*h*w, 68), anchor centres in strides."""
+    g = torch.Generator().manual_seed(seed)
+    n = b * h * w
+    cls = torch.randn(n, 80, generator=g) - 4.0
+    soft = torch.randn(n, 80, generator=g) - 4.0
+    pred = torch.randn(n, 68, generator=g) * 2
+    soft_pred = torch.randn(n, 68, generator=g) * 2
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing='ij')
+    centers = torch.stack([xs, ys], -1).reshape(-1, 2).float().repeat(b, 1)
+    return [t.cuda() for t in (cls, soft, pred, soft_pred, centers)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w', [(7, 11), (100, 168)])
+def test_gi_mask_kernel_equals_plain_keep(h, w):
+    """The training caller: the GI-region mask of one level pooled over
+    B = 2 at 800x1344 (stride 128: K = 154 candidates; stride 8: K = 512 of
+    33600) through the kernel and through `nms_keep_ref`, bit for bit."""
+    _need_card()
+    from ld_tpu_torch.utils.registry import HEADS
+    head = HEADS.build(dict(type='LDHead', num_classes=80, in_channels=16,
+                            stacked_convs=1, feat_channels=16))
+    inputs = _gi_inputs(h, w)
+    launches = nms_keep.launches
+    got = head._gi_mask(*inputs, keep_fn=nms_keep)
+    torch.cuda.synchronize()
+    assert nms_keep.launches == launches + 1
+    want = head._gi_mask(*inputs, keep_fn=nms_keep_ref)
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) <= head.gi_top
