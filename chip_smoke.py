@@ -1,10 +1,11 @@
-"""Drive the ld_tpu_torch serving and training paths on one CUDA card and
-check them.
+"""Drive the ld_tpu_torch serving, training and training-runtime paths on one
+CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
 Phases, one JSON object per line each:
-  1. device  — the card, torch/CUDA versions, TF32 switched off and printed;
+  1. device  — the card, torch/CUDA versions, TF32 switched off and printed,
+               and whether cv2 imports (only image files need it);
   2. build   — nvcc builds ld_tpu_torch/csrc/nms_keep.cu for sm_90a;
   3. kernel  — the greedy-NMS kernel against its plain PyTorch version on the
                same CUDA tensors (bit-identical keep masks, and the keep mask
@@ -41,10 +42,25 @@ Phases, one JSON object per line each:
                the CPU, term by term, with identical GI masks (and the
                smallest GI-score gap between picked and unpicked candidates);
                step and teacher-forward times, peak memory, and the device
-               time of a step by kernel.
+               time of a step by kernel;
+  7. runtime — `train_detector` on the same config over the data layer:
+               its train pipeline without the two load steps (RandomFlip,
+               FusedPreprocess, Collect) on 12 seeded synthetic 480x640
+               images of 80 classes (the (800, 1088) pad bucket), 8 more
+               for the eval hook, 2 epochs of 6 steps, save_best, a log line
+               a step, the teacher from a seed-1 `.pth` through the strict
+               `teacher_ckpt` path; once through, and once preempted by
+               SIGTERM after step 3 and resumed. Every loss finite, 5 kernel
+               launches a step plus 1 an eval batch, the resumed run's
+               img_ids and LR per step equal to the first run's, one
+               checkpoint kept and the best one written; then the step time
+               in the loop against a bare `make_train_step` on the loader's
+               batches, the loader's ms a batch, the device busy share of an
+               epoch under the profiler, eval ms an image, checkpoint save
+               ms and bytes, and peak memory.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
 (the main path's case: dense-kept set, K = 1024, B = 1; `device_ms` is the
-profiler's mask + sweep time; `launches` counts both main paths), and last
+profiler's mask + sweep time; `launches` counts all main paths), and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script exits
 non-zero and prints no result; so does a host without CUDA.
 """
@@ -567,6 +583,259 @@ def phase_train(torch, smi, warmup=2, timed=5, batch_size=2,
     return launches
 
 
+def runtime_cfg(teacher_path):
+    """The GI config for the runtime phase: its train pipeline without the
+    two load steps (RandomFlip, FusedPreprocess, Collect) over 12 seeded
+    synthetic 480x640 images of 80 classes, 8 more for validation with its
+    test pipeline, its six pad buckets, 2 epochs, an eval with save_best
+    each epoch, a log line each step, one checkpoint kept, and the teacher
+    from `teacher_path`."""
+    from ld_tpu_torch import Config
+    cfg = Config.fromfile(os.path.join(ROOT, TRAIN_CONFIG))
+    loads = ('LoadImageFromFile', 'LoadAnnotations')
+    train_pipe = [dict(t) for t in cfg.train_pipeline if t['type'] not in loads]
+    test_pipe = [dict(t) for t in cfg.test_pipeline if t['type'] not in loads]
+    check([t['type'] for t in train_pipe] ==
+          ['RandomFlip', 'FusedPreprocess', 'Collect'] and
+          len(cfg.pad_to) == 6, 'the GI config\'s train pipeline or buckets')
+    synth = dict(type='SyntheticDetectionDataset', hw=(480, 640),
+                 num_classes=80, draw_boxes=True)
+    cfg.data = dict(cfg.data, train=dict(synth, num_images=12, seed=0,
+                                         pipeline=train_pipe),
+                    val=dict(synth, num_images=8, seed=1, pipeline=test_pipe))
+    cfg.runner = dict(type='EpochBasedRunner', max_epochs=2)
+    cfg.evaluation = dict(interval=1, metric='bbox', save_best='bbox_mAP')
+    cfg.log_config = dict(cfg.log_config, interval=1)
+    cfg.checkpoint_config = dict(interval=1, max_keep_ckpts=1)
+    cfg.model.teacher_ckpt = teacher_path
+    return cfg
+
+
+def instrument_steps(train_api, record, preempt_after=None):
+    """Wrap the make_train_step that train_detector calls: each step's
+    img_ids, loss dict and nms_keep launches go to `record`, and after the
+    `preempt_after`-th step of this run SIGTERM is raised in the main
+    thread, as a preempting scheduler would send it."""
+    import signal
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    from ld_tpu_torch.parallel import make_train_step
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def run(batch):
+            before = nms_keep.launches
+            out = step(batch)
+            record.append(dict(img_ids=batch['img_ids'].tolist(),
+                               launches=nms_keep.launches - before,
+                               losses={k: float(v) for k, v in out.items()}))
+            calls.append(1)
+            if len(calls) == preempt_after:
+                signal.raise_signal(signal.SIGTERM)
+            return out
+        return run
+    train_api.make_train_step = wrapped
+
+
+def read_log(work_dir):
+    with open(os.path.join(work_dir, 'log.json')) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_runtime(torch, smi, steps_per_epoch=6, epochs=2, eval_batches=2):
+    """train_detector on the card at full width over the data layer, twice:
+    once through, and once preempted by SIGTERM after step 3 and resumed;
+    returns the kernel's launch count over the two runs."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    import ld_tpu_torch.apis.train as train_api
+    from ld_tpu_torch.apis import eval_detector, train_detector
+    from ld_tpu_torch.data import (DevicePrefetcher, build_dataloader,
+                                   build_dataset)
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    from ld_tpu_torch.parallel import make_train_step
+    from ld_tpu_torch.utils.checkpoint import save_checkpoint
+    from ld_tpu_torch import Config
+
+    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_runtime')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    # the teacher's .pth, from seed 1, so that the strict teacher_ckpt path
+    # runs
+    teacher_path = os.path.join(work, 'teacher_r101_seed1.pth')
+    cfg = runtime_cfg(teacher_path)
+    teacher = build_detector(Config.fromfile(os.path.join(
+        ROOT, cfg.model.teacher_config)).model)
+    teacher.init_weights(torch.Generator().manual_seed(1))
+    torch.save(dict(state_dict=teacher.state_dict()), teacher_path)
+    del teacher
+    steps = steps_per_epoch * epochs
+    want_launches = 5 * steps + eval_batches * epochs
+    make_step = train_api.make_train_step
+    runs = {}
+    try:
+        for name in ('through', 'preempted'):
+            wd = os.path.join(work, name)
+            record = []
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            # ---- the main path: counts from 0, read right after ----------
+            nms_keep.launches = 0
+            if name == 'through':
+                instrument_steps(train_api, record)
+                ret = train_detector(runtime_cfg(teacher_path), wd)
+                check(not ret['preempted'] and ret['step'] == steps,
+                      f'{name}: {ret["step"]} steps')
+            else:
+                instrument_steps(train_api, record, preempt_after=3)
+                first = train_detector(runtime_cfg(teacher_path), wd)
+                check(first['preempted'] and first['step'] == 3,
+                      f'preempted at step {first["step"]}, not 3')
+                ckpts_at_preemption = sorted(os.listdir(
+                    os.path.join(wd, 'checkpoints')))
+                del first
+                resume = runtime_cfg(teacher_path)
+                resume.resume_from = wd
+                instrument_steps(train_api, record)
+                ret = train_detector(resume, wd)
+                check(not ret['preempted'] and ret['step'] == steps,
+                      f'resumed run ended at step {ret["step"]}')
+            launches = nms_keep.launches
+            # --------------------------------------------------------------
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            log = read_log(wd)
+            runs[name] = dict(ret=ret if name == 'preempted' else None,
+                              record=record, log=log, wd=wd,
+                              launches=launches, seconds=seconds, peak=peak)
+            check(len(record) == steps, f'{name}: {len(record)} steps')
+            bad = [(i, k) for i, r in enumerate(record)
+                   for k, v in r['losses'].items() if not math.isfinite(v)]
+            check(not bad, f'{name}: non-finite losses {bad[:5]}')
+            check(all(r['launches'] == 5 for r in record),
+                  f'{name}: nms_keep launches per step '
+                  f'{[r["launches"] for r in record]}, expected 5')
+            check(launches == want_launches,
+                  f'{name}: {launches} nms_keep launches, expected '
+                  f'{want_launches} (5 a step, 1 an eval batch)')
+            check(sorted(os.listdir(os.path.join(wd, 'checkpoints'))) ==
+                  [f'{steps}.pth'], f'{name}: checkpoints not pruned')
+            check(os.path.exists(os.path.join(wd, 'best_bbox_mAP.pth')),
+                  f'{name}: no best_bbox_mAP.pth')
+            check(len([x for x in log if x['mode'] == 'val']) == epochs,
+                  f'{name}: {epochs} val lines expected')
+            del ret
+    finally:
+        train_api.make_train_step = make_step
+
+    through, pre = runs['through'], runs['preempted']
+    lr = {n: [x['lr'] for x in r['log'] if x['mode'] == 'train']
+          for n, r in runs.items()}
+    check([r['img_ids'] for r in pre['record']] ==
+          [r['img_ids'] for r in through['record']],
+          'the resumed run\'s img_ids per step differ from the first run\'s')
+    check(lr['preempted'] == lr['through'] and len(lr['through']) == steps,
+          'the resumed run\'s LR per step differs from the first run\'s')
+    check(ckpts_at_preemption == ['3.pth'],
+          f'checkpoints at preemption: {ckpts_at_preemption}')
+
+    # where the time goes, on the resumed run's model and optimizer
+    model, optimizer = pre['ret']['model'], pre['ret']['optimizer']
+    scheduler = pre['ret']['scheduler']
+    train_ds = build_dataset(cfg.data['train'])
+    loader = build_dataloader(train_ds, cfg.data['samples_per_gpu'], 1,
+                              cfg.pad_to, 100, seed=0)
+    list(loader)                                   # warm the native build
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / n_batches
+    prefetcher = DevicePrefetcher(loader, 'cuda')
+    batches = list(prefetcher)
+    bucket = list(batches[0]['image'].shape)
+    step = make_train_step(model, optimizer, scheduler)
+    step(batches[0])
+    torch.cuda.synchronize()
+    bare_ms = []
+    for b in batches[1:]:
+        t = time.perf_counter()
+        step(b)
+        torch.cuda.synchronize()
+        bare_ms.append((time.perf_counter() - t) * 1e3)
+    del batches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        n = 0
+        for b in prefetcher:
+            step(b)
+            n += 1
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    val_ds = build_dataset(cfg.data['val'])
+    eval_detector(model, val_ds, pad_hw=cfg.pad_to)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eval_detector(model, val_ds, pad_hw=cfg.pad_to)
+    eval_ms_per_image = (time.perf_counter() - t) * 1e3 / len(val_ds)
+    t = time.perf_counter()
+    path = save_checkpoint(os.path.join(work, 'timing'), model, optimizer,
+                           scheduler, steps)
+    save_ms = (time.perf_counter() - t) * 1e3
+    save_bytes = os.path.getsize(path)
+
+    # in-loop step time: log.json's per-step wall time, without the first
+    # step of each epoch (which also holds the previous epoch's checkpoint
+    # and eval, or the warm-up)
+    train_lines = [x for x in through['log'] if x['mode'] == 'train']
+    in_loop = [x['time'] * 1e3 for x in train_lines
+               if (x['iter'] - 1) % steps_per_epoch]
+    epoch_first = [x['time'] * 1e3 for x in train_lines
+                   if (x['iter'] - 1) % steps_per_epoch == 0]
+    emit(dict(phase='runtime', config=TRAIN_CONFIG, nvidia_smi=smi,
+              data='SyntheticDetectionDataset 12 train + 8 val, 480x640, '
+                   '80 classes, draw_boxes',
+              pipeline=[t['type'] for t in cfg.data['train']['pipeline']],
+              batch=bucket, steps=steps, epochs=epochs,
+              seconds_through=through['seconds'],
+              seconds_preempted_and_resumed=pre['seconds'],
+              nms_keep_launches=through['launches'],
+              nms_keep_launches_preempted_and_resumed=pre['launches'],
+              nms_keep_launches_expected=want_launches,
+              checkpoints_at_preemption=ckpts_at_preemption,
+              resumed_img_ids_equal=True, resumed_lr_equal=True,
+              lr=lr['through'],
+              loss_first=through['record'][0]['losses'],
+              loss_last=through['record'][-1]['losses'],
+              val=[{k: None if isinstance(v, float) and math.isnan(v)
+                    else v for k, v in x.items()}
+                   for x in through['log'] if x['mode'] == 'val'],
+              step_ms_in_loop=in_loop,
+              step_ms_in_loop_mean=sum(in_loop) / len(in_loop),
+              step_ms_first_of_epoch=epoch_first,
+              step_ms_bare=bare_ms,
+              step_ms_bare_mean=sum(bare_ms) / len(bare_ms),
+              loader_ms_per_batch=loader_ms,
+              loader_workers=loader.num_workers,
+              profiled_steps=n,
+              device_busy_share=(device_us / wall_us if device_us > 0
+                                 else 'not measured'),
+              device_ms_per_step=(device_us / n / 1e3 if device_us > 0
+                                  else 'not measured'),
+              wall_ms_per_step_profiled=wall_us / n / 1e3,
+              eval_ms_per_image=eval_ms_per_image,
+              checkpoint_save_ms=save_ms, checkpoint_bytes=save_bytes,
+              max_memory_allocated_bytes=through['peak']))
+    del model, optimizer, scheduler, pre, runs, prefetcher, prof, step, b
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return through['launches'] + want_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -582,13 +851,19 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        import cv2  # noqa: F401 — only decoding image files needs it
+        cv2_imports = True
+    except ImportError:
+        cv2_imports = False
     emit(dict(phase='device', name=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), nvidia_smi=smi,
               python=sys.version.split()[0], torch=torch.__version__,
               cuda=torch.version.cuda,
               cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
               matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-              cudnn_benchmark=torch.backends.cudnn.benchmark))
+              cudnn_benchmark=torch.backends.cudnn.benchmark,
+              cv2_imports=cv2_imports))
 
     t0 = time.perf_counter()
     lib = nms_cuda.build()
@@ -602,13 +877,15 @@ def main():
     del model, bench
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, smi)
+    runtime_launches = phase_runtime(torch, smi)
 
     print(smi.splitlines()[0], flush=True)
     emit(dict(kernels=[dict(
         name='nms_keep', route='cuda', source='ld_tpu_torch/csrc/nms_keep.cu',
         replaces='ld_tpu/ops/pallas_nms.py:23',
-        launches=launches + train_launches, launches_serve=launches,
-        launches_train=train_launches,
+        launches=launches + train_launches + runtime_launches,
+        launches_serve=launches, launches_train=train_launches,
+        launches_runtime=runtime_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

@@ -11,7 +11,10 @@ decode -> class-aware NMS on the CUDA greedy-NMS kernel) through
 step (ATSS targets, QFL / DFL / GIoU, LD + VLR + KD, feature imitation with
 the GI-region NMS on the same kernel, a frozen teacher, SGD) through
 `build_detector` / `parallel.build_lr_schedule` / `build_optimizer` /
-`make_train_step`.
+`make_train_step`; and the training runtime (a COCO-format data layer with
+a pinned, side-stream device feed; checkpoints, resume and preemption; the
+COCO evaluator) through `apis.train_detector` / `apis.eval_detector` and
+`tools/train.py`.
 """
 
 __version__ = '0.1.0'

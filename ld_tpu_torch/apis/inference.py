@@ -70,8 +70,9 @@ def prepare_batch(img: np.ndarray, device,
     scale_factor as tensors on `device`: the batch `forward_test` takes."""
     if not isinstance(img, np.ndarray):
         raise NotImplementedError('inference_detector takes a decoded BGR '
-                                  'image array; image files are read by the '
-                                  'data layer, which is not ported yet')
+                                  'image array; image paths are not ported '
+                                  'yet (decode a file with '
+                                  'ld_tpu_torch.data.LoadImageFromFile)')
     steps = [dict(t) for t in _TEST_PIPELINE]
     if img_scale is not None:
         steps[0]['img_scale'] = tuple(img_scale)

@@ -1,0 +1,491 @@
+"""Batched data loading with aspect-ratio grouping, thread prefetch and the
+copy to the card (port of `ld_tpu/data/loader.py:26-380`).
+
+  * GroupBatchSampler: aspect-ratio-homogeneous batches, shuffled
+    deterministically from seed + epoch. Group tails merge only within one
+    aspect flag, so no batch mixes orientations, and `len(loader)` is the
+    sum over flags of ceil(n_flag / batch) (floor with drop_last): exactly
+    the batches an epoch yields. (The JAX package merges the tails of all
+    groups; a mixed-orientation tail then finds no pad bucket.)
+  * DataLoader: a producer thread fetches and collates static-shape batches
+    ahead of the consumer, optionally fanning the samples of a batch out
+    over a thread pool (`num_workers`; the C++ preprocess releases the
+    interpreter lock). The five `scale_sampling` modes and the pad-bucket
+    grouping of fixed-scale configs are the JAX package's. An exception in
+    the producer is raised to the consumer, after the batches made before
+    it (the JAX package ends the epoch early without an error).
+  * DevicePrefetcher: collates into pinned host buffers that it owns and
+    reuses, and copies batch N+1 to the card on a side stream while step N
+    runs. The producer thread touches no CUDA state: the buffers are
+    allocated, and every copy is issued, on the consumer's thread.
+"""
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from .transforms import (BATCH_LAYOUT, FusedPreprocess, Resize, batch_shape,
+                         collate_batch, rescale_size, select_pad_bucket)
+
+_DONE = object()
+
+
+class _Failure:
+    """An exception raised in the producer, carried to the consumer."""
+
+    def __init__(self, exc: Exception):
+        self.exc = exc
+
+
+def _scale_carriers(dataset) -> List:
+    """The Resize / FusedPreprocess scale samplers of a dataset's pipeline,
+    which take the loader's per-image or per-batch scale override."""
+    out = []
+    for t in getattr(getattr(dataset, 'pipeline', None), 'transforms', []):
+        if isinstance(t, FusedPreprocess):
+            out.append(t._scale_sampler)
+        elif isinstance(t, Resize):
+            out.append(t)
+    return out
+
+
+def _image_dims(dataset) -> Optional[np.ndarray]:
+    """(N, 2) original (height, width) per index, or None where the dataset
+    does not carry image sizes."""
+    infos = getattr(dataset, 'img_infos', None)
+    if infos is None:
+        return None
+    try:
+        return np.asarray([[i['height'], i['width']] for i in infos],
+                          np.float64)
+    except (KeyError, TypeError):
+        return None
+
+
+class GroupBatchSampler:
+    """Aspect-ratio-grouped batch indices, deterministically shuffled."""
+
+    def __init__(self, flags: np.ndarray, batch_size: int, seed: int = 0,
+                 shuffle: bool = True, drop_last: bool = False):
+        self.flags = np.asarray(flags)
+        self.batch_size = batch_size
+        self.seed = seed
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+
+    def num_batches(self) -> int:
+        """The batches of every epoch: per aspect flag, ceil(n / batch)
+        (floor with drop_last)."""
+        b = self.batch_size
+        counts = np.unique(self.flags, return_counts=True)[1]
+        return int(sum(n // b if self.drop_last else -(-n // b)
+                       for n in counts))
+
+    def epoch_batches(self, epoch: int,
+                      keys: Optional[np.ndarray] = None) -> List[np.ndarray]:
+        """Index batches of one epoch. `keys` overrides the grouping key
+        (default: the aspect flags); the loader passes flag x pad-bucket
+        keys, so that each batch pads to its own bucket. Each key group is
+        shuffled and cut into full batches; its tail joins the tails of
+        the other groups of the same aspect flag, padded to a full batch by
+        repeats (or dropped with drop_last); then the batches are
+        shuffled."""
+        groups = self.flags if keys is None else np.asarray(keys)
+        rng = np.random.RandomState(self.seed + epoch)
+        batches, tails = [], {}
+        b = self.batch_size
+        for g in np.unique(groups):
+            idx = np.nonzero(groups == g)[0]
+            if self.shuffle:
+                idx = idx[rng.permutation(len(idx))]
+            rem = len(idx) % b
+            full = idx[:len(idx) - rem]
+            if len(full):
+                batches.extend(np.split(full, len(full) // b))
+            tail = idx[len(idx) - rem:]
+            for f in np.unique(self.flags[tail]):
+                tails.setdefault(int(f), []).append(
+                    tail[self.flags[tail] == f])
+        for f in sorted(tails):
+            left = np.concatenate(tails[f])
+            if self.drop_last:
+                left = left[:len(left) - len(left) % b]
+            else:
+                pad = (-len(left)) % b
+                if pad:
+                    left = np.concatenate(
+                        [left, left[rng.randint(0, len(left), pad)]])
+            if len(left):
+                batches.extend(np.split(left, len(left) // b))
+        if self.shuffle:
+            order = rng.permutation(len(batches))
+            batches = [batches[i] for i in order]
+        return batches
+
+
+def _put(q: queue.Queue, item, stop: threading.Event) -> bool:
+    """Put `item` unless the consumer has stopped; returns whether it was
+    put."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.1)
+            return True
+        except queue.Full:
+            pass
+    return False
+
+
+def _get(q: queue.Queue, stop: threading.Event):
+    """The next item of `q`, or None once the consumer has stopped."""
+    while not stop.is_set():
+        try:
+            return q.get(timeout=0.1)
+        except queue.Empty:
+            pass
+    return None
+
+
+class DataLoader:
+    """Iterates collated static-shape batches, made ahead by a thread."""
+
+    def __init__(self, dataset, batch_size: int, pad_hw, max_gts: int = 100,
+                 shuffle: bool = True, seed: int = 0, prefetch: int = 2,
+                 drop_last: bool = False, num_workers: int = 0,
+                 batch_scales=None, scale_sampling: str = 'image_range',
+                 group_pad_buckets: bool = True):
+        # pad_hw: one (H, W) static shape, or a list of pad buckets; each
+        # batch pads to the smallest bucket that fits it.
+        #
+        # batch_scales + scale_sampling: multi-scale (mstrain) training.
+        #   'image_range': each image draws its own scale, long and short
+        #       edges each by randint over the bounds of the given scales
+        #       (mmdet's range mode);
+        #   'image_value': each image picks one of the given scales;
+        #   'image_range_grouped' / 'image_value_grouped': the same draws,
+        #       with the batches grouped by the pad bucket each image's
+        #       drawn scale predicts;
+        #   'batch': one scale per batch, for all its images.
+        # Every mode hands the drawn scale to the pipeline's Resize /
+        # FusedPreprocess through a thread-local override.
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.pad_hw = tuple(map(tuple, pad_hw)) \
+            if isinstance(pad_hw[0], (tuple, list)) else tuple(pad_hw)
+        self.batch_scales = [tuple(s) for s in batch_scales] \
+            if batch_scales else None
+        if scale_sampling not in ('image_range', 'image_value', 'batch',
+                                  'image_range_grouped',
+                                  'image_value_grouped'):
+            raise ValueError(f'scale_sampling {scale_sampling!r}')
+        self.scale_sampling = scale_sampling
+        self.group_pad_buckets = group_pad_buckets
+        self._scale_carriers = _scale_carriers(dataset)
+        self.max_gts = max_gts
+        self.sampler = GroupBatchSampler(
+            getattr(dataset, 'flag', np.zeros(len(dataset), np.uint8)),
+            batch_size, seed=seed, shuffle=shuffle, drop_last=drop_last)
+        self.prefetch = prefetch
+        self.num_workers = num_workers
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __len__(self):
+        # exact: the LR schedule's steps per epoch and the resume
+        # arithmetic of train_detector depend on it
+        return self.sampler.num_batches()
+
+    def _epoch_scales(self) -> Optional[List]:
+        """The per-image multi-scale draw of this epoch, deterministic in
+        seed + epoch."""
+        if not self.batch_scales or self.scale_sampling == 'batch':
+            return None
+        rng = np.random.RandomState(self.sampler.seed + self.epoch + 1)
+        n = len(self.dataset)
+        if self.scale_sampling.startswith('image_value'):
+            picks = rng.randint(len(self.batch_scales), size=n)
+            return [self.batch_scales[j] for j in picks]
+        longs = [max(s) for s in self.batch_scales]
+        shorts = [min(s) for s in self.batch_scales]
+        ls = rng.randint(min(longs), max(longs) + 1, size=n)
+        ss = rng.randint(min(shorts), max(shorts) + 1, size=n)
+        return list(zip(ls.tolist(), ss.tolist()))
+
+    def _fixed_scales(self) -> Optional[List]:
+        """Per-image scales for pad-bucket grouping at one fixed keep-ratio
+        scale with several pad buckets: each image's resized shape follows
+        from its size, so same-bucket images batch together (a 4:3 image
+        resizes to 800x1067 and pads to (800, 1088), not the (800, 1344)
+        maximum). None where the resized shape cannot be predicted, or with
+        `group_pad_buckets=False`."""
+        if not self.group_pad_buckets or self.batch_scales \
+                or not isinstance(self.pad_hw[0], tuple) \
+                or len(self.pad_hw) <= 1:
+            return None
+        seen = set()
+        for t in self._scale_carriers:
+            sc = getattr(t, 'img_scale', None)
+            if (sc is None or not getattr(t, 'keep_ratio', False)
+                    or getattr(t, 'ratio_range', None) is not None
+                    or isinstance(sc[0], (tuple, list))):
+                return None
+            seen.add(tuple(sc))
+        if len(seen) != 1:
+            return None
+        return [seen.pop()] * len(self.dataset)
+
+    def _bucket_keys(self, scales: List) -> np.ndarray:
+        """flag x pad-bucket grouping key per image: each image's resized,
+        /32-padded shape predicted from its size and drawn scale, mapped to
+        the smallest fitting bucket. collate_batch selects each batch's
+        bucket from the actual shapes, so a wrong prediction costs padding,
+        never correctness."""
+        buckets = list(self.pad_hw) if isinstance(self.pad_hw[0], tuple) \
+            else [self.pad_hw]
+        bucket_ids = {tuple(b): i for i, b in enumerate(buckets)}
+        dims = _image_dims(self.dataset)
+        flags = self.sampler.flags
+        keys = np.zeros(len(scales), np.int64)
+        for i, sc in enumerate(scales):
+            if dims is not None and i < len(dims):
+                h0, w0 = int(dims[i][0]), int(dims[i][1])
+                f = rescale_size(h0, w0, sc)
+                hw = (int(h0 * f + 0.5), int(w0 * f + 0.5))
+            else:
+                # no size: assume the image fills the scale in its flag's
+                # orientation (an upper bound)
+                long_s, short_s = max(sc), min(sc)
+                landscape = i < len(flags) and flags[i] == 1
+                hw = (short_s, long_s) if landscape else (long_s, short_s)
+            b = select_pad_bucket(buckets if len(buckets) > 1
+                                  else buckets[0], hw)
+            flag = flags[i] if i < len(flags) else 0
+            keys[i] = int(flag) * len(buckets) + bucket_ids[tuple(b)]
+        return keys
+
+    def _index_batches(self, scales) -> List[np.ndarray]:
+        """The index batches of the current epoch, in order."""
+        if scales is not None and 'grouped' in self.scale_sampling:
+            keys = self._bucket_keys(scales)
+        else:
+            fixed = self._fixed_scales()
+            keys = self._bucket_keys(fixed) if fixed is not None else None
+        return self.sampler.epoch_batches(self.epoch, keys=keys)
+
+    def _produce(self, batches, scales, out_q, stop, skip, slots):
+        pool = None
+        if self.num_workers > 0:
+            from concurrent.futures import ThreadPoolExecutor
+            pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        scale_rng = np.random.RandomState(self.sampler.seed + self.epoch + 1)
+        batch_scale = [None]   # 'batch' mode: the current batch's scale
+
+        def fetch(i):
+            # a pipeline may drop a sample (returns None): draw another, as
+            # mmdet's CustomDataset._rand_another does
+            i = int(i)
+            tries = 0
+            while True:
+                if self._scale_carriers:
+                    sc = batch_scale[0] if scales is None else scales[i]
+                    for t in self._scale_carriers:
+                        t.set_scale_override(sc)
+                try:
+                    s = self.dataset[i]
+                finally:
+                    for t in self._scale_carriers:
+                        t.set_scale_override(None)
+                if s is not None:
+                    return s
+                tries += 1
+                if tries > 100:
+                    raise RuntimeError('the pipeline returned None for 100 '
+                                       'consecutive redraws: is every '
+                                       'sample being filtered?')
+                i = int(np.random.randint(len(self.dataset)))
+
+        try:
+            for n, idx in enumerate(batches):
+                if self.batch_scales and scales is None:
+                    batch_scale[0] = self.batch_scales[
+                        scale_rng.randint(len(self.batch_scales))]
+                samples = list(pool.map(fetch, idx)) if pool is not None \
+                    else [fetch(i) for i in idx]
+                # skipped batches are fetched all the same: their random
+                # draws keep the later batches those of a run from the start
+                if n < skip or stop.is_set():
+                    continue
+                if slots is None:
+                    item = collate_batch(samples, self.pad_hw, self.max_gts)
+                else:
+                    slot = _get(slots, stop)
+                    if slot is None:
+                        return
+                    item = (collate_batch(samples, self.pad_hw, self.max_gts,
+                                          out=slot.arrays), slot)
+                if not _put(out_q, item, stop):
+                    return
+            _put(out_q, _DONE, stop)
+        except Exception as e:   # handed to the consumer, which raises it
+            _put(out_q, _Failure(e), stop)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+
+    def iterate(self, skip: int = 0, slots: Optional[queue.Queue] = None
+                ) -> Iterator:
+        """The batches of the current epoch after the first `skip`: numpy
+        dicts, or with `slots` (a queue of free buffer slots, see
+        DevicePrefetcher) (batch, slot) pairs, the batch written into the
+        slot's buffers."""
+        scales = self._epoch_scales()
+        batches = self._index_batches(scales)
+        out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        producer = threading.Thread(
+            target=self._produce, daemon=True,
+            args=(batches, scales, out_q, stop, skip, slots))
+        producer.start()
+        try:
+            while True:
+                item = out_q.get()
+                if item is _DONE:
+                    return
+                if isinstance(item, _Failure):
+                    raise item.exc
+                yield item
+        finally:
+            stop.set()
+            producer.join(timeout=60)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self.iterate()
+
+
+def build_dataloader(dataset, samples_per_gpu: int, num_replicas: int = 1,
+                     pad_hw=(800, 1344), max_gts: int = 100,
+                     shuffle: bool = True, seed: int = 0,
+                     drop_last: bool = False,
+                     num_workers: Optional[int] = None,
+                     batch_scales=None,
+                     scale_sampling: str = 'image_range',
+                     group_pad_buckets: bool = True) -> DataLoader:
+    """A loader of samples_per_gpu * num_replicas images a batch.
+    num_workers=None sizes the fetch thread pool to the host: cpu_count - 1,
+    at most the batch size."""
+    batch = samples_per_gpu * num_replicas
+    if num_workers is None:
+        num_workers = min(max((os.cpu_count() or 1) - 1, 0), batch)
+    return DataLoader(dataset, batch, pad_hw, max_gts, shuffle=shuffle,
+                      seed=seed, drop_last=drop_last,
+                      num_workers=num_workers, batch_scales=batch_scales,
+                      scale_sampling=scale_sampling,
+                      group_pad_buckets=group_pad_buckets)
+
+
+class _Slot:
+    """One batch's pinned host buffers (flat, sized for the largest pad
+    bucket), as torch tensors and as numpy views of the same memory."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        self.tensors = tensors
+        self.arrays = {k: t.numpy() for k, t in tensors.items()}
+
+
+class DevicePrefetcher:
+    """A DataLoader's batches as tensors on `device`.
+
+    On the card: the loader's producer collates each batch into one of
+    `prefetch + 2` slots of pinned host memory; this iterator copies batch
+    N+1 to the card on a side stream while the caller's step N runs, makes
+    the caller's stream wait for a batch's copy before handing it over
+    (`wait_stream`), marks the batch's tensors as used on that stream
+    (`record_stream`), and returns the slot once its copy has finished.
+    On the CPU it wraps the loader's fresh arrays without a copy.
+    `img_ids` stays a numpy array on the host.
+    """
+    HOST_KEYS = ('img_ids', )
+
+    def __init__(self, loader: DataLoader, device):
+        self.loader = loader
+        self.device = torch.device(device)
+        self._slots = None
+        self._stream = None
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch: int):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        return self.iterate()
+
+    def iterate(self, skip: int = 0) -> Iterator[Dict]:
+        """The current epoch's batches after the first `skip`."""
+        if self.device.type != 'cuda':
+            for batch in self.loader.iterate(skip):
+                yield {k: v if k in self.HOST_KEYS else torch.from_numpy(v)
+                       for k, v in batch.items()}
+            return
+        if self._slots is None:
+            self._slots = self._alloc_slots()
+            self._stream = torch.cuda.Stream(self.device)
+        free: queue.Queue = queue.Queue()
+        for slot in self._slots:
+            free.put(slot)
+        current = torch.cuda.current_stream(self.device)
+        pending = None
+        for batch, slot in self.loader.iterate(skip, slots=free):
+            if pending is not None:
+                ready = self._hand_over(pending, current, free)
+            issued = self._copy(batch, slot)
+            if pending is not None:
+                yield ready
+            pending = issued
+        if pending is not None:
+            yield self._hand_over(pending, current, free)
+
+    def _alloc_slots(self) -> List[_Slot]:
+        loader = self.loader
+        buckets = loader.pad_hw if isinstance(loader.pad_hw[0], tuple) \
+            else (loader.pad_hw, )
+        biggest = max(buckets, key=lambda hw: hw[0] * hw[1])
+        slots = []
+        for _ in range(loader.prefetch + 2):
+            tensors = {}
+            for key, (dtype, _) in BATCH_LAYOUT.items():
+                n = int(np.prod(batch_shape(key, loader.batch_size, biggest,
+                                            loader.max_gts)))
+                tensors[key] = torch.empty(
+                    n, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                    pin_memory=True)
+            slots.append(_Slot(tensors))
+        return slots
+
+    def _copy(self, batch: Dict[str, np.ndarray], slot: _Slot):
+        """Issue the copies of a batch in `slot` on the side stream."""
+        host = {k: batch[k].copy() for k in self.HOST_KEYS}
+        with torch.cuda.stream(self._stream):
+            dev = {k: slot.tensors[k][:a.size].view(a.shape).to(
+                self.device, non_blocking=True)
+                for k, a in batch.items() if k not in self.HOST_KEYS}
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return dev, host, done, slot
+
+    def _hand_over(self, pending, current, free: queue.Queue) -> Dict:
+        dev, host, done, slot = pending
+        current.wait_stream(self._stream)
+        for t in dev.values():
+            t.record_stream(current)
+        done.synchronize()      # the slot's memory may be written again
+        free.put(slot)
+        dev.update(host)
+        return dev

@@ -1,29 +1,51 @@
-"""Host-side test pipeline: dict-in/dict-out transforms (port of the inference
-subset of `ld_tpu/data/transforms.py:114-292,606-694`).
+"""Host-side pipeline: dict-in/dict-out transforms (port of
+`ld_tpu/data/transforms.py:30-348,532-694`, boxes and labels only).
 
-  * Resize keep_ratio: factor = min(long/max(h,w), short/min(h,w)),
-    new = int(dim * factor + 0.5), bilinear. The JAX package resizes with
-    cv2 INTER_LINEAR; here `F.interpolate(mode='bilinear',
-    align_corners=False, antialias=False)` samples the same points, and a
-    uint8 image is rounded back to uint8. cv2 rounds its fixed-point weights
-    on uint8, so the two differ by at most one grey level.
-  * Normalize: BGR->RGB, then the two roundings of the JAX package's
-    cv2 calls: f32(f64(img) - mean), then f32(f64(.) * (1/std)).
-  * Pad: zero-pad bottom/right to size_divisor.
+  * LoadImageFromFile / LoadAnnotations: decode an image file (cv2, imported
+    at first use) and take the boxes and labels of its annotation.
+  * Resize: keep-ratio factor = min(long/max(h,w), short/min(h,w)),
+    new = int(dim * factor + 0.5), bilinear; the `range` / `value` multiscale
+    modes, `ratio_range`, a `scale` in the results, `override` and
+    `keep_ratio=False`, as the JAX package has them; gt boxes scaled and
+    clipped. The JAX package resizes with cv2 INTER_LINEAR; here
+    `F.interpolate(mode='bilinear', align_corners=False, antialias=False)`
+    samples the same points, and a uint8 image is rounded back to uint8.
+    cv2 rounds its fixed-point weights on uint8, so the two differ by at most
+    one grey level.
+  * RandomFlip: draws from the global `np.random` as the JAX package does.
+  * Normalize: BGR->RGB, then the two roundings of the JAX package's cv2
+    calls: f32(f64(img) - mean), then f32(f64(.) * (1/std)).
+  * Pad: zero-pad bottom/right to a fixed size or to size_divisor.
+  * FusedPreprocess: Resize + BGR->RGB + Normalize + Pad in one native pass
+    (`csrc/host/image_prep.cpp`, the JAX package's C++), which normalizes
+    the bilinear float sample without rounding it to uint8 first.
   * collate_batch: stack into one static-shape NCHW batch, padded to the
-    smallest fitting pad bucket.
-Options no test pipeline of the port uses (keep_ratio=False, a fixed pad
-size, ground truth) are not ported yet.
+    smallest fitting pad bucket, with `max_gts` gt slots and a validity
+    mask, optionally into caller-owned (pinned) buffers.
+Masks are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import os
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ld_tpu_torch.utils.registry import PIPELINES
+
+
+def _cv2():
+    """cv2, imported at first use: only file decoding needs it."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError('LoadImageFromFile needs cv2 (opencv-python) to '
+                          'decode image files, and cv2 is not '
+                          'installed') from e
+    return cv2
 
 
 def rescale_size(h: int, w: int, scale: Tuple[int, int]) -> float:
@@ -44,18 +66,129 @@ def resize_bilinear(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
 
 
 @PIPELINES.register_module()
+class LoadImageFromFile:
+    """Decode `img_prefix/img_info['filename']` with cv2 (BGR, HWC), with
+    mmcv's `color_type` flags."""
+    _FLAGS = {
+        'color': ('IMREAD_COLOR', ),
+        'grayscale': ('IMREAD_GRAYSCALE', ),
+        'unchanged': ('IMREAD_UNCHANGED', ),
+        'color_ignore_orientation': ('IMREAD_COLOR',
+                                     'IMREAD_IGNORE_ORIENTATION'),
+        'grayscale_ignore_orientation': ('IMREAD_GRAYSCALE',
+                                         'IMREAD_IGNORE_ORIENTATION'),
+    }
+
+    def __init__(self, to_float32=False, color_type='color'):
+        if color_type not in self._FLAGS:
+            raise ValueError(f'color_type {color_type!r}')
+        self.to_float32 = to_float32
+        self.color_type = color_type
+
+    def __call__(self, results: Dict) -> Dict:
+        cv2 = _cv2()
+        flag = 0
+        for name in self._FLAGS[self.color_type]:
+            flag |= getattr(cv2, name)
+        path = results['img_info']['filename']
+        if results.get('img_prefix'):
+            path = os.path.join(results['img_prefix'], path)
+        img = cv2.imread(path, flag)
+        if img is None:
+            raise FileNotFoundError(path)
+        if self.to_float32:
+            img = img.astype(np.float32)
+        results['img'] = img
+        results['img_shape'] = img.shape
+        results['ori_shape'] = img.shape
+        return results
+
+
+@PIPELINES.register_module()
+class LoadAnnotations:
+    def __init__(self, with_bbox=True, with_label=True, with_mask=False,
+                 **kwargs):
+        if with_mask:
+            raise NotImplementedError('LoadAnnotations(with_mask=True): '
+                                      'masks are not ported to ld_tpu_torch '
+                                      'yet (see ROADMAP.md)')
+        self.with_bbox = with_bbox
+        self.with_label = with_label
+
+    def __call__(self, results: Dict) -> Dict:
+        ann = results['ann_info']
+        if self.with_bbox:
+            results['gt_bboxes'] = ann['bboxes'].astype(np.float32)
+        if self.with_label:
+            results['gt_labels'] = ann['labels'].astype(np.int64)
+        return results
+
+
+@PIPELINES.register_module()
 class Resize:
-    def __init__(self, img_scale=(1333, 800), keep_ratio=True):
-        if not keep_ratio:
-            raise NotImplementedError('Resize keep_ratio=False is not ported '
-                                      'to ld_tpu_torch yet (see ROADMAP.md)')
-        self.img_scale = tuple(img_scale)
+    def __init__(self, img_scale=(1333, 800), keep_ratio=True,
+                 ratio_range=None, multiscale_mode='range',
+                 override=False, bbox_clip_border=True):
+        if multiscale_mode not in ('range', 'value'):
+            raise ValueError(f'multiscale_mode {multiscale_mode!r}')
+        self.img_scale = img_scale if isinstance(img_scale, list) \
+            else tuple(img_scale)
+        self.keep_ratio = keep_ratio
+        self.ratio_range = ratio_range
+        self.multiscale_mode = multiscale_mode
+        # a later Resize resamples its own scale instead of reusing a
+        # `scale` in the results (mmdet's crop -> re-resize augmentation)
+        self.override = override
+        self.bbox_clip_border = bbox_clip_border
+        self._tls = threading.local()
+
+    def set_scale_override(self, scale) -> None:
+        """Arm a thread-local one-image scale override (the DataLoader's
+        per-image or per-batch multi-scale draw): concurrent fetch workers
+        never see each other's scales, and the transform's own config is
+        left as it is."""
+        self._tls.scale = tuple(scale) if scale is not None else None
+
+    def _sample_scale(self) -> Tuple[int, int]:
+        """mmdet's Resize._random_scale: ratio_range -> one base scale times
+        a uniform ratio; a list in 'range' mode -> long and short edges each
+        drawn by randint over the bounds of the scales; a list in 'value'
+        mode -> a uniform pick. A thread-local override wins."""
+        override = getattr(self._tls, 'scale', None)
+        if override is not None:
+            return override
+        scale = self.img_scale
+        if self.ratio_range is not None:
+            if isinstance(scale, list):
+                if len(scale) != 1:
+                    raise ValueError('ratio_range takes one base scale')
+                scale = scale[0]
+            lo, hi = self.ratio_range
+            r = np.random.random_sample() * (hi - lo) + lo
+            return (int(scale[0] * r), int(scale[1] * r))
+        if isinstance(scale, list):
+            if self.multiscale_mode == 'range':
+                if len(scale) != 2:
+                    raise ValueError('range mode needs exactly two bounding '
+                                     'scales')
+                longs = [max(s) for s in scale]
+                shorts = [min(s) for s in scale]
+                return (int(np.random.randint(min(longs), max(longs) + 1)),
+                        int(np.random.randint(min(shorts), max(shorts) + 1)))
+            return tuple(scale[np.random.randint(len(scale))])
+        return tuple(scale)
 
     def __call__(self, results: Dict) -> Dict:
         img = results['img']
         h, w = img.shape[:2]
-        factor = rescale_size(h, w, self.img_scale)
-        new_w, new_h = int(w * factor + 0.5), int(h * factor + 0.5)
+        # an explicit 'scale' in the results wins, unless `override`
+        scale = (self._sample_scale() if self.override
+                 else results.get('scale') or self._sample_scale())
+        if self.keep_ratio:
+            factor = rescale_size(h, w, scale)
+            new_w, new_h = int(w * factor + 0.5), int(h * factor + 0.5)
+        else:
+            new_w, new_h = scale[0], scale[1]
         out = resize_bilinear(img, new_w, new_h)
         w_scale = new_w / w
         h_scale = new_h / h
@@ -63,6 +196,49 @@ class Resize:
         results['img_shape'] = out.shape
         results['scale_factor'] = np.array(
             [w_scale, h_scale, w_scale, h_scale], np.float32)
+        if 'gt_bboxes' in results:
+            results['gt_bboxes'] = _scale_boxes(
+                results['gt_bboxes'], results['scale_factor'], new_w, new_h,
+                self.bbox_clip_border)
+        return results
+
+
+def _scale_boxes(boxes, scale_factor, new_w, new_h, clip=True):
+    bb = boxes * scale_factor
+    if clip:
+        bb[:, 0::2] = bb[:, 0::2].clip(0, new_w)
+        bb[:, 1::2] = bb[:, 1::2].clip(0, new_h)
+    return bb
+
+
+@PIPELINES.register_module()
+class RandomFlip:
+    def __init__(self, flip_ratio=0.5, direction='horizontal'):
+        self.flip_ratio = flip_ratio or 0.0
+        self.direction = direction
+
+    def __call__(self, results: Dict) -> Dict:
+        flip = np.random.rand() < self.flip_ratio
+        results['flip'] = flip
+        results['flip_direction'] = self.direction
+        if not flip:
+            return results
+        horiz = self.direction == 'horizontal'
+        sl = (slice(None), slice(None, None, -1)) if horiz \
+            else (slice(None, None, -1), )
+        results['img'] = np.ascontiguousarray(results['img'][sl])
+        if 'gt_bboxes' in results:
+            src = results['gt_bboxes']
+            bb = src.copy()
+            if horiz:
+                w = results['img_shape'][1]
+                bb[:, 0] = w - src[:, 2]
+                bb[:, 2] = w - src[:, 0]
+            else:
+                h = results['img_shape'][0]
+                bb[:, 1] = h - src[:, 3]
+                bb[:, 3] = h - src[:, 1]
+            results['gt_bboxes'] = bb
         return results
 
 
@@ -89,19 +265,95 @@ class Normalize:
 
 @PIPELINES.register_module()
 class Pad:
-    def __init__(self, size_divisor=32, pad_val=0):
+    def __init__(self, size=None, size_divisor=32, pad_val=0):
+        self.size = size
         self.size_divisor = size_divisor
         self.pad_val = pad_val
 
     def __call__(self, results: Dict) -> Dict:
         img = results['img']
         h, w = img.shape[:2]
-        d = self.size_divisor
-        th, tw = ((h + d - 1) // d) * d, ((w + d - 1) // d) * d
+        if self.size is not None:
+            th, tw = self.size
+        else:
+            d = self.size_divisor
+            th, tw = ((h + d - 1) // d) * d, ((w + d - 1) // d) * d
         out = np.full((th, tw) + img.shape[2:], self.pad_val, img.dtype)
         out[:h, :w] = img
         results['img'] = out
         results['pad_shape'] = out.shape
+        return results
+
+
+@PIPELINES.register_module()
+class Collect:
+    def __init__(self, keys=('img', 'gt_bboxes', 'gt_labels'), meta_keys=()):
+        self.keys = keys
+
+    def __call__(self, results: Dict) -> Dict:
+        out = {k: results[k] for k in self.keys if k in results}
+        out['img_shape'] = results.get('img_shape')
+        out['ori_shape'] = results.get('ori_shape')
+        out['pad_shape'] = results.get('pad_shape', results.get('img_shape'))
+        out['scale_factor'] = results.get(
+            'scale_factor', np.ones(4, np.float32))
+        out['img_id'] = results.get('img_info', {}).get('id', -1)
+        return out
+
+
+@PIPELINES.register_module()
+class FusedPreprocess:
+    """Resize(keep_ratio) + BGR->RGB + Normalize + Pad(size_divisor) in one
+    native pass over the output (`csrc/host/image_prep.cpp`); takes a uint8
+    image. Scale sampling (single, value, range and ratio_range modes) is
+    Resize's."""
+
+    def __init__(self, img_scale=(1333, 800), size_divisor=32,
+                 mean=(123.675, 116.28, 103.53),
+                 std=(58.395, 57.12, 57.375), to_rgb=True,
+                 ratio_range=None, multiscale_mode='range'):
+        self.img_scale = img_scale
+        self.size_divisor = size_divisor
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+        self.to_rgb = to_rgb
+        self._scale_sampler = Resize(img_scale=img_scale, keep_ratio=True,
+                                     ratio_range=ratio_range,
+                                     multiscale_mode=multiscale_mode)
+
+    def __call__(self, results: Dict) -> Dict:
+        import ctypes
+
+        from ld_tpu_torch import native
+        img = results['img']
+        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+            raise TypeError('FusedPreprocess takes an (H, W, 3) uint8 image, '
+                            f'got {img.dtype} {img.shape}')
+        lib = native.load('image_prep')
+        h, w = img.shape[:2]
+        factor = rescale_size(h, w, results.get('scale')
+                              or self._scale_sampler._sample_scale())
+        new_w, new_h = int(w * factor + 0.5), int(h * factor + 0.5)
+        d = self.size_divisor
+        dh = ((new_h + d - 1) // d) * d
+        dw = ((new_w + d - 1) // d) * d
+        out = np.empty((dh, dw, 3), np.float32)
+        src = np.ascontiguousarray(img)
+        lib.image_prep(native.ptr(src, ctypes.c_uint8), h, w,
+                       native.ptr(out, ctypes.c_float), dh, dw, new_h, new_w,
+                       native.ptr(self.mean, ctypes.c_float),
+                       native.ptr(self.std, ctypes.c_float),
+                       1 if self.to_rgb else 0)
+        w_scale = new_w / w
+        h_scale = new_h / h
+        results['img'] = out
+        results['img_shape'] = (new_h, new_w, 3)
+        results['pad_shape'] = out.shape
+        results['scale_factor'] = np.array(
+            [w_scale, h_scale, w_scale, h_scale], np.float32)
+        if 'gt_bboxes' in results:
+            results['gt_bboxes'] = _scale_boxes(
+                results['gt_bboxes'], results['scale_factor'], new_w, new_h)
         return results
 
 
@@ -113,6 +365,8 @@ class Compose:
     def __call__(self, results):
         for t in self.transforms:
             results = t(results)
+            if results is None:     # a transform dropped the sample
+                return None
         return results
 
 
@@ -130,27 +384,70 @@ def select_pad_bucket(pad_hw, batch_max_hw: Tuple[int, int]):
     return tuple(pad_hw)
 
 
-def collate_batch(samples: List[Dict], pad_hw) -> Dict[str, np.ndarray]:
-    """Stack per-image dicts into one static-shape batch.
+# the collated batch: key -> (dtype, shape without the batch dimension);
+# the layout of `ld_tpu_torch.testing.detection_batch`, plus scale_factor
+# and img_ids. 'H', 'W' and 'G' stand for the pad bucket and max_gts.
+BATCH_LAYOUT = {
+    'image': (np.float32, (3, 'H', 'W')),
+    'gt_bboxes': (np.float32, ('G', 4)),
+    'gt_labels': (np.int64, ('G', )),
+    'gt_valid': (np.bool_, ('G', )),
+    'img_hw': (np.float32, (2, )),
+    'scale_factor': (np.float32, (4, )),
+    'img_ids': (np.int64, ()),
+}
+
+
+def batch_shape(key: str, b: int, hw: Tuple[int, int], max_gts: int):
+    """The shape of `key` in a batch of b images padded to `hw`."""
+    dims = {'H': hw[0], 'W': hw[1], 'G': max_gts}
+    return (b, ) + tuple(dims.get(d, d) for d in BATCH_LAYOUT[key][1])
+
+
+def collate_batch(samples: List[Dict], pad_hw, max_gts: int = 100,
+                  out: Optional[Dict[str, np.ndarray]] = None
+                  ) -> Dict[str, np.ndarray]:
+    """Stack per-image dicts into one static-shape NCHW batch.
 
     Images are zero-padded to `pad_hw` (one shape, or a list of buckets —
-    the smallest fitting one is used) and laid out NCHW. `img_hw` carries the
-    true (resized, un-padded) image shape used for box clipping. (Ground
-    truth, which the JAX collate also pads, comes with the training slice.)
+    the smallest fitting one is used). `img_hw` carries the true (resized,
+    un-padded) image shape used for anchor valid flags and box clipping;
+    gt boxes and labels fill `max_gts` slots, with `gt_valid` marking the
+    real ones. `out`, where given, holds one flat buffer per key of
+    BATCH_LAYOUT, large enough for the largest bucket: the batch is written
+    into the leading elements of each (e.g. pinned memory owned by a
+    DevicePrefetcher), and the returned arrays are views of them.
     """
     b = len(samples)
     th, tw = select_pad_bucket(
         pad_hw, (max(s['img'].shape[0] for s in samples),
                  max(s['img'].shape[1] for s in samples)))
-    images = np.zeros((b, 3, th, tw), np.float32)
-    img_hw = np.zeros((b, 2), np.float32)
-    scale_factor = np.ones((b, 4), np.float32)
+    batch = {}
+    for key, (dtype, _) in BATCH_LAYOUT.items():
+        shape = batch_shape(key, b, (th, tw), max_gts)
+        if out is None:
+            batch[key] = np.zeros(shape, dtype)
+        else:
+            batch[key] = out[key][:int(np.prod(shape))].reshape(shape)
+            if key != 'image':
+                batch[key][...] = 0
+    images = batch['image']
     for i, s in enumerate(samples):
         img = s['img']
         h, w = img.shape[:2]
         if h > th or w > tw:
             raise ValueError(f'image {img.shape} does not fit {(th, tw)}')
         images[i, :, :h, :w] = img.transpose(2, 0, 1)
-        img_hw[i] = s['img_shape'][:2]
-        scale_factor[i] = s.get('scale_factor', np.ones(4, np.float32))
-    return dict(image=images, img_hw=img_hw, scale_factor=scale_factor)
+        if out is not None:     # a reused buffer: clear the padding
+            images[i, :, h:, :] = 0
+            images[i, :, :h, w:] = 0
+        batch['img_hw'][i] = s['img_shape'][:2]
+        batch['scale_factor'][i] = s.get('scale_factor',
+                                         np.ones(4, np.float32))
+        batch['img_ids'][i] = s.get('img_id', -1)
+        if 'gt_bboxes' in s:
+            n = min(len(s['gt_bboxes']), max_gts)
+            batch['gt_bboxes'][i, :n] = s['gt_bboxes'][:n]
+            batch['gt_labels'][i, :n] = s['gt_labels'][:n]
+            batch['gt_valid'][i, :n] = True
+    return batch

@@ -1,8 +1,9 @@
 """Weights in and out of the port.
 
-  * `load_checkpoint`: a published mmdet `.pth` (or a bare state dict) loads
-    straight into the port's modules with `load_state_dict(strict=True)`,
-    because the port uses mmdet's module names.
+  * `load_checkpoint`: a published mmdet `.pth` (or a bare state dict, or a
+    JAX `.npz`) loads straight into the port's modules with
+    `load_state_dict(strict=True)`, because the port uses mmdet's module
+    names.
   * `state_dict_from_jax`: the exact inverse of
     `ld_tpu.utils.checkpoint.convert_torch_state_dict` for the ResNet / FPN /
     GFL-head families (the LD head has the GFL head's parameters). It takes
@@ -12,23 +13,35 @@
   * `load_from_jax`: loads such trees strictly into a model and, for a
     distillation detector, the JAX package's separate teacher tree into
     `model.teacher`.
+  * The train state (in place of the JAX package's orbax checkpoints,
+    `ld_tpu/utils/checkpoint.py:29-51`): `save_checkpoint` writes the
+    model's state dict, the optimizer's and LR scheduler's states and the
+    step to `work_dir/checkpoints/<step>.pth`, keeping the newest
+    `max_keep_ckpts`; `load_train_state` restores the latest (or a named
+    file) into a model, optimizer and scheduler.
+  * `merge_state_dict`: the lenient, shape-checked load of `load_from`,
+    reporting what loaded and what was skipped.
+  * `read_state_dict`: the state dict of a `.pth`, or of the JAX package's
+    `save_variables` `.npz` through `state_dict_from_jax`, so that
+    `load_checkpoint(model.teacher, path)` loads a teacher trained by
+    either package, strictly.
 """
 from __future__ import annotations
 
+import os
 import re
 from collections import OrderedDict
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load an mmdet checkpoint ({'state_dict': ...}) or a bare state dict
-    into `model`, strictly: every key must match."""
-    ckpt = torch.load(path, map_location='cpu', weights_only=False)
-    sd = ckpt.get('state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
-    model.load_state_dict(sd, strict=True)
+    """Load an mmdet checkpoint ({'state_dict': ...}), a bare state dict or
+    a JAX `.npz` (see `read_state_dict`) into `model`, strictly: every key
+    must match."""
+    model.load_state_dict(read_state_dict(path), strict=True)
     return model
 
 
@@ -151,3 +164,112 @@ def load_from_jax(model: torch.nn.Module, variables: Dict,
         model.teacher.load_state_dict(state_dict_from_jax(teacher_variables),
                                       strict=True)
     return model
+
+
+# --------------------------------------------------------------------------
+# train state: save / resume
+# --------------------------------------------------------------------------
+
+def _ckpt_dir(work_dir: str) -> str:
+    return os.path.join(work_dir, 'checkpoints')
+
+
+def _saved_steps(work_dir: str) -> List[int]:
+    path = _ckpt_dir(work_dir)
+    if not os.path.isdir(path):
+        return []
+    return sorted(int(f[:-4]) for f in os.listdir(path)
+                  if f.endswith('.pth') and f[:-4].isdigit())
+
+
+def latest_checkpoint(work_dir: str) -> Optional[str]:
+    """The newest `checkpoints/<step>.pth` of `work_dir`, or None."""
+    steps = _saved_steps(work_dir)
+    return os.path.join(_ckpt_dir(work_dir), f'{steps[-1]}.pth') \
+        if steps else None
+
+
+def save_checkpoint(work_dir: str, model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer,
+                    scheduler: torch.optim.lr_scheduler.LRScheduler,
+                    step: int, keep: int = 3) -> str:
+    """Write the train state at `step` to `work_dir/checkpoints/<step>.pth`
+    (atomically: a crash leaves the previous checkpoint the latest), then
+    delete all but the newest `keep`; returns the file's path."""
+    path = _ckpt_dir(work_dir)
+    os.makedirs(path, exist_ok=True)
+    out = os.path.join(path, f'{step}.pth')
+    tmp = f'{out}.{os.getpid()}.tmp'
+    torch.save(dict(state_dict=model.state_dict(),
+                    optimizer=optimizer.state_dict(),
+                    scheduler=scheduler.state_dict(), step=int(step)), tmp)
+    os.replace(tmp, out)
+    if keep:
+        for old in _saved_steps(work_dir)[:-keep]:
+            os.remove(os.path.join(path, f'{old}.pth'))
+    return out
+
+
+def load_train_state(path: str, model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer,
+                     scheduler: torch.optim.lr_scheduler.LRScheduler
+                     ) -> int:
+    """Restore a train state saved by `save_checkpoint` (the latest of a
+    work dir, or the file named) strictly into `model`, `optimizer` and
+    `scheduler`; returns its step."""
+    if os.path.isdir(path):
+        found = latest_checkpoint(path)
+        if found is None:
+            raise FileNotFoundError(f'no checkpoint under {path}')
+        path = found
+    device = next(model.parameters()).device
+    ckpt = torch.load(path, map_location=device, weights_only=False)
+    model.load_state_dict(ckpt['state_dict'], strict=True)
+    optimizer.load_state_dict(ckpt['optimizer'])
+    scheduler.load_state_dict(ckpt['scheduler'])
+    return int(ckpt['step'])
+
+
+# --------------------------------------------------------------------------
+# load_from and teachers
+# --------------------------------------------------------------------------
+
+def load_variables(path: str) -> Dict:
+    """A JAX `save_variables` `.npz` (flat 'a/b/c' keys) as nested dicts of
+    numpy arrays."""
+    tree: Dict = {}
+    with np.load(path, allow_pickle=False) as data:
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split('/')
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return tree
+
+
+def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict in a `.pth` (an mmdet checkpoint, a train state of
+    `save_checkpoint`, or a bare state dict) or in a JAX `.npz`."""
+    if path.endswith('.npz'):
+        return state_dict_from_jax(load_variables(path))
+    ckpt = torch.load(path, map_location='cpu', weights_only=False)
+    return ckpt.get('state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
+
+
+def merge_state_dict(model: torch.nn.Module,
+                     state_dict: Dict[str, torch.Tensor]
+                     ) -> Tuple[List[str], List[str]]:
+    """Copy every entry of `state_dict` whose name and shape match one of
+    `model`'s; the rest of the model keeps its values (mmcv's
+    `load_checkpoint(strict=False)`, for fine-tuning). Returns (loaded,
+    skipped) names."""
+    own = model.state_dict()
+    loaded, skipped = [], []
+    for name, value in state_dict.items():
+        if name in own and tuple(own[name].shape) == tuple(value.shape):
+            loaded.append(name)
+        else:
+            skipped.append(name)
+    model.load_state_dict({n: state_dict[n] for n in loaded}, strict=False)
+    return loaded, skipped

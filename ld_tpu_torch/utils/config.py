@@ -44,6 +44,15 @@ def _to_config_dict(obj: Any) -> Any:
     return obj
 
 
+def _to_plain(obj: Any) -> Any:
+    """ConfigDicts as plain dicts, so that their repr is Python source."""
+    if isinstance(obj, dict):
+        return {k: _to_plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_plain(x) for x in obj)
+    return obj
+
+
 def _merge_a_into_b(a: dict, b: dict) -> dict:
     """Deep-merge dict a (child) into dict b (base); a wins on conflicts."""
     b = copy.deepcopy(b)
@@ -149,6 +158,14 @@ class Config:
             for k in keys[:-1]:
                 d = d.setdefault(k, ConfigDict())
             d[keys[-1]] = _to_config_dict(value)
+
+    def dump(self, path: str):
+        """Write the merged config as a Python file that `fromfile` reads
+        back."""
+        import pprint
+        with open(path, 'w') as f:
+            for k, v in self._cfg_dict.items():
+                f.write(f'{k} = {pprint.pformat(_to_plain(v), width=100)}\n')
 
     def __repr__(self):
         return f'Config(file={self._filename}): {dict(self._cfg_dict)!r}'

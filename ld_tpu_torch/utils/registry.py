@@ -100,5 +100,6 @@ NECKS = Registry('neck')
 HEADS = Registry('head')
 DETECTORS = Registry('detector')
 PIPELINES = Registry('pipeline')
+DATASETS = Registry('dataset')
 LOSSES = Registry('loss')
 ASSIGNERS = Registry('assigner')

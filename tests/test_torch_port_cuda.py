@@ -8,7 +8,8 @@ JAX, where tests/conftest.py (which imports jax) is left out:
 
 The hand-made edge sets of the block-wise sweep come from
 `ld_tpu_torch.testing`; `chip_smoke.py` checks the kernel on the same sets.
-The training caller, `LDHead._gi_mask`, is checked at the GI path's shapes.
+The training caller, `LDHead._gi_mask`, is checked at the GI path's shapes,
+and the loader's `DevicePrefetcher` against a plain copy to the card.
 """
 import pytest
 import torch
@@ -98,3 +99,45 @@ def test_gi_mask_kernel_equals_plain_keep(h, w):
     want = head._gi_mask(*inputs, keep_fn=nms_keep_ref)
     assert torch.equal(got, want)
     assert 0 < int(got.sum()) <= head.gi_top
+
+
+@pytest.mark.cuda
+def test_device_prefetcher_equals_a_plain_copy():
+    """Batches through the pinned slots and the side stream equal a plain
+    `.to('cuda')` of the same collated batches: 11 batches over two pad
+    buckets, more than the slots, all held until the end; and after a
+    skip."""
+    _need_card()
+    import numpy as np
+
+    from ld_tpu_torch.data import (DataLoader, DevicePrefetcher,
+                                   SyntheticDetectionDataset)
+    norm = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
+                to_rgb=True)
+    pipe = [dict(type='FusedPreprocess', img_scale=(128, 72), **norm),
+            dict(type='Collect', keys=['img', 'gt_bboxes', 'gt_labels'])]
+    ds = SyntheticDetectionDataset(num_images=22, hw=(60, 90),
+                                   num_classes=20, pipeline=pipe)
+    loader = DataLoader(ds, 2, [(64, 96), (96, 128)], max_gts=8, seed=1,
+                        batch_scales=[(96, 40), (128, 72)],
+                        scale_sampling='image_range_grouped')
+    loader.set_epoch(1)
+    plain = list(loader)
+    prefetcher = DevicePrefetcher(loader, 'cuda')
+    got = list(prefetcher)
+    torch.cuda.synchronize()
+    assert len(got) == len(plain) == 11
+    assert len({b['image'].shape for b in plain}) == 2
+    for g, p in zip(got, plain):
+        assert sorted(g) == sorted(p)
+        np.testing.assert_array_equal(g['img_ids'], p['img_ids'])
+        for k, v in p.items():
+            if k != 'img_ids':
+                want = torch.from_numpy(v).to('cuda')
+                assert g[k].device.type == 'cuda'
+                assert g[k].dtype == want.dtype and torch.equal(g[k], want), k
+    tail = list(prefetcher.iterate(skip=8))
+    assert [b['img_ids'].tolist() for b in tail] == \
+        [b['img_ids'].tolist() for b in plain[8:]]
+    assert all(torch.equal(a['image'], b['image'])
+               for a, b in zip(tail, got[8:]))

@@ -321,13 +321,16 @@ def _imports(path):
 
 def test_port_and_chip_smoke_import_neither_jax_nor_ld_tpu():
     """Every module of ld_tpu_torch imported in a fresh interpreter loads no
-    jax / flax / ld_tpu module, and no source of the port or chip_smoke.py
-    names one in an import statement."""
+    jax / flax / ld_tpu module and no cv2 (which only decoding an image
+    file imports, at first use), and no source of the port or chip_smoke.py
+    names jax / flax / ld_tpu in an import statement."""
     code = ('import pkgutil, sys, importlib, ld_tpu_torch; '
             '[importlib.import_module(m.name) for m in pkgutil.walk_packages('
             'ld_tpu_torch.__path__, "ld_tpu_torch.")]; '
+            'import ld_tpu_torch.tools.train, chip_smoke; '
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
-            '("jax", "jaxlib", "flax", "optax", "ld_tpu")); print(bad)')
+            '("jax", "jaxlib", "flax", "optax", "ld_tpu", "cv2")); '
+            'print(bad)')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=ROOT),
                          capture_output=True, text=True, timeout=300)
