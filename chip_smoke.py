@@ -1,5 +1,5 @@
-"""Drive the ld_tpu_torch serving, training and training-runtime paths on one
-CUDA card and check them.
+"""Drive the ld_tpu_torch serving, training, training-runtime and evaluation
+paths on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
@@ -13,7 +13,8 @@ Phases, one JSON object per line each:
                sets of ld_tpu_torch.testing at K in {1, 8, 63, 64, 65, 127,
                128, 512, 1000, 1024, 2048, 4100, 8192} and B in {1, 3, 8},
                and at K = 16800, B = 1; then, on the dense-kept and
-               sparse-kept sets at (K, B) in {(512, 1), (1024, 1), (1024, 8)}:
+               sparse-kept sets at (K, B) in {(512, 1), (1024, 1), (1024, 8),
+               (2048, 1)}:
                CUDA-event time per call over back-to-back calls, the host's
                time to issue them, each kernel's device time from
                torch.profiler, the kept count, the plain version's time and
@@ -57,10 +58,31 @@ Phases, one JSON object per line each:
                in the loop against a bare `make_train_step` on the loader's
                batches, the loader's ms a batch, the device busy share of an
                epoch under the profiler, eval ms an image, checkpoint save
-               ms and bytes, and peak memory.
+               ms and bytes, and peak memory;
+  8. voc     — configs/ld/ld_r50_gflv1_r101_fpn_voc_1x.py at full width (R50
+               student from the config's seed 0, R101 teacher from a seed-1
+               `.pth`; the checkpoint tools/test.py reads has the trained
+               student's gfl_cls bias set to 0) over a seeded synthetic
+               VOC devkit (6 + 6 trainval images of VOC2007 and VOC2012, 8
+               VOC2007 test images, at 500x375 and 375x500, 1-4 objects of
+               the 20 classes, some difficult): `train_detector` over the
+               config's own data (RepeatDataset x3, the unfused pipeline, the
+               (608, 1024) / (1024, 608) buckets), one epoch and its eval at
+               AP50:95, every loss finite; then tools/test.py on the
+               checkpoint with `--eval mAP --out` (every image detected, the
+               detections equal to eval_detector's) and with `--aug-test` at
+               two scales and their flips (each image's TTA again, equal, and
+               the first image's K = 2048 merge keep mask identical with the
+               plain version); the kernel launched once an eval batch and
+               once a TTA image, none a train step; the test split's gts
+               score AP 1.0; then the TTA merge kernel's time, the AP50:95
+               sweep's host time, the decode ms an image, the loader's ms a
+               batch and the step time at (608, 1024).
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
 (the main path's case: dense-kept set, K = 1024, B = 1; `device_ms` is the
-profiler's mask + sweep time; `launches` counts all main paths), and last
+profiler's mask + sweep time; the `_k2048` keys the dense-kept set at
+K = 2048, B = 1, the `_tta_merge` keys the first TTA image's own merge;
+`launches` counts all main paths), and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script exits
 non-zero and prints no result; so does a host without CUDA.
 """
@@ -85,8 +107,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the two kernels of csrc/nms_keep.cu, as the profiler names them
 NMS_KERNELS = ('nms_mask_tri_kernel', 'nms_block_sweep_kernel')
 # the timed cases (K, B): K = 1024 is multiclass_nms's candidate count,
-# K = 512 the GI path's
-TIME_CASES = ((512, 1), (1024, 1), (1024, 8))
+# K = 512 the GI path's, K = 2048 the TTA merge's (one image)
+TIME_CASES = ((512, 1), (1024, 1), (1024, 8), (2048, 1))
+VOC_CONFIG = 'configs/ld/ld_r50_gflv1_r101_fpn_voc_1x.py'
+# the synthetic devkit: 07+12 trainval and 07 test, at VOC's 500x375 and
+# 375x500 in turn
+VOC_SPLITS = {'VOC2007': {'trainval': 6, 'test': 8},
+              'VOC2012': {'trainval': 6}}
+# --aug-scales of the TTA run: two scales, each with its flip
+TTA_SCALES = (1000, 600, 1333, 800)
 
 
 def emit(obj):
@@ -143,10 +172,12 @@ def kernel_device_ms(torch, fn, names, iters=50, tries=3):
     return None
 
 
-def nms_bound_ms(b, k):
+def nms_bound_ms(b, k, n_valid=None):
     """Least time for the keep mask: IoU ops over the fp32 peak vs boxes,
-    valid and keep bytes over the HBM rate; returns (ms, bound_by)."""
-    ops = b * k * (k - 1) / 2 * IOU_OPS_PER_PAIR
+    valid and keep bytes over the HBM rate; returns (ms, bound_by). With
+    `n_valid` (per image) only the pairs of valid boxes need their IoU."""
+    n = k if n_valid is None else n_valid
+    ops = b * n * (n - 1) / 2 * IOU_OPS_PER_PAIR
     nbytes = b * k * (16 + 1 + 1)
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -199,7 +230,9 @@ def phase_kernel(torch):
             emit(row)
             if (name, k, b) == ('dense_kept', 1024, 1):
                 main_case = row
-    return max_err, main_case
+            if (name, k, b) == ('dense_kept', 2048, 1):
+                tta_case = row
+    return max_err, main_case, tta_case
 
 
 def phase_e2e(torch, np):
@@ -836,6 +869,280 @@ def phase_runtime(torch, smi, steps_per_epoch=6, epochs=2, eval_batches=2):
     return through['launches'] + want_launches
 
 
+def load_tool(name):
+    """A script of ld_tpu_torch/tools (run as a file, not a package module)
+    as a module, so that its `main(argv)` runs in this process."""
+    import importlib.util
+    path = os.path.join(ROOT, 'ld_tpu_torch', 'tools', f'{name}.py')
+    spec = importlib.util.spec_from_file_location(f'tool_{name}', path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def voc_cfg(devkit, teacher_path):
+    """The VOC LD config over the devkit at `devkit`: its own data
+    (RepeatDataset x3 of 07+12 trainval with the unfused pipeline, its pad
+    buckets, 07 test), one epoch and its eval hook at AP50:95, a log line a
+    step, one checkpoint kept, and the teacher from `teacher_path`."""
+    from ld_tpu_torch import Config
+    cfg = Config.fromfile(os.path.join(ROOT, VOC_CONFIG))
+    for d in (cfg.data.train.dataset, cfg.data.val, cfg.data.test):
+        for key in ('ann_file', 'img_prefix'):
+            v = d[key]
+            d[key] = [x.replace('data/VOCdevkit/', devkit + '/') for x in v] \
+                if isinstance(v, list) else v.replace('data/VOCdevkit/',
+                                                      devkit + '/')
+    cfg.runner = dict(type='EpochBasedRunner', max_epochs=1)
+    cfg.log_config = dict(cfg.log_config, interval=1)
+    cfg.checkpoint_config = dict(interval=1, max_keep_ckpts=1)
+    cfg.model.teacher_ckpt = teacher_path
+    cfg.dtype = 'float32'
+    return cfg
+
+
+def same_results(np, a, b):
+    """Two lists of per-image detections, bit for bit."""
+    return len(a) == len(b) and all(
+        np.array_equal(x['boxes'], y['boxes']) and
+        np.array_equal(x['labels'], y['labels']) for x, y in zip(a, b))
+
+
+def phase_voc(torch, np, smi):
+    """The evaluation entry point and the paper's VOC path at full width:
+    train_detector over the VOC config's own data, then tools/test.py on
+    its checkpoint (--eval mAP --out, then --aug-test); returns the kernel's
+    launch count over the three runs and the TTA merge's keep-mask figures
+    at K = 2048, B = 1."""
+    import shutil
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.apis import (eval_detector, init_detector,
+                                   train_detector)
+    from ld_tpu_torch.apis.aug_test import aug_test, build_aug_views
+    from ld_tpu_torch.data import (DevicePrefetcher, LoadImageFromFile,
+                                   build_dataloader, build_dataset)
+    from ld_tpu_torch.data.transforms import _cv2
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    from ld_tpu_torch.parallel import make_train_step
+    from ld_tpu_torch.testing import write_voc_devkit
+    from ld_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                               read_state_dict)
+
+    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_voc')
+    shutil.rmtree(work, ignore_errors=True)
+    devkit = os.path.join(work, 'VOCdevkit')
+    t0 = time.perf_counter()
+    write_voc_devkit(devkit, VOC_SPLITS, seed=0)
+    # the R101 teacher from seed 1, in a .pth, so that the strict
+    # teacher_ckpt path runs
+    teacher_path = os.path.join(work, 'teacher_r101_seed1.pth')
+    cfg = voc_cfg(devkit, teacher_path)
+    teacher = build_detector(Config.fromfile(os.path.join(
+        ROOT, cfg.model.teacher_config)).model)
+    teacher.init_weights(torch.Generator().manual_seed(1))
+    torch.save(dict(state_dict=teacher.state_dict()), teacher_path)
+    del teacher
+    cfg_path = os.path.join(work, 'ld_r50_voc_smoke.py')
+    cfg.dump(cfg_path)
+    cfg = Config.fromfile(cfg_path)
+    train_ds = build_dataset(cfg.data['train'])
+    test_ds = build_dataset(cfg.data['test'])
+    check(type(train_ds).__name__ == 'RepeatDataset' and train_ds.times == 3
+          and len(train_ds.dataset) == 12 and
+          train_ds.dataset.ids[-1].startswith('2008_') and len(test_ds) == 8,
+          'the VOC config\'s data over the synthetic devkit')
+    check([t['type'] for t in cfg.data['train']['dataset']['pipeline']] ==
+          ['LoadImageFromFile', 'LoadAnnotations', 'Resize', 'RandomFlip',
+           'Normalize', 'Pad', 'Collect'], 'the VOC train pipeline')
+    # eval_detector's batches (4 images, one aspect group each)
+    eval_batches = len(build_dataloader(test_ds, 4, 1, cfg.pad_to, max_gts=1,
+                                        shuffle=False))
+    setup_s = time.perf_counter() - t0
+
+    # ---- the main path: counts from 0, read right after ------------------
+    wd = os.path.join(work, 'train')
+    nms_keep.launches = 0
+    t0 = time.perf_counter()
+    ret = train_detector(Config.fromfile(cfg_path), wd)
+    train_s = time.perf_counter() - t0
+    train_launches = nms_keep.launches
+    # ----------------------------------------------------------------------
+    log = read_log(wd)
+    train_lines = [x for x in log if x['mode'] == 'train']
+    val_lines = [x for x in log if x['mode'] == 'val']
+    check(not ret['diverged'] and not ret['preempted'] and
+          ret['step'] == ret['steps_per_epoch'] == len(train_lines),
+          f'{ret["step"]} steps, {len(train_lines)} log lines')
+    bad = [(x['iter'], k) for x in train_lines for k, v in x.items()
+           if k.startswith('loss') and not math.isfinite(v)]
+    check(not bad, f'non-finite losses {bad[:5]}')
+    check(len(val_lines) == 1 and all(f'AP{t}' in val_lines[0]
+                                       for t in range(50, 100, 5)),
+          f'the eval hook\'s AP50:95 line: {val_lines}')
+    check(train_launches == eval_batches,
+          f'{train_launches} nms_keep launches in training, expected '
+          f'{eval_batches} (none a step, 1 an eval batch)')
+    # the trained student with its gfl_cls bias set to 0, as in the e2e
+    # phase, so that the barely trained model clears score_thr everywhere
+    state = read_state_dict(latest_checkpoint(wd))
+    state['bbox_head.gfl_cls.bias'].zero_()
+    ckpt = os.path.join(work, 'student_trained_cls_bias0.pth')
+    torch.save(dict(state_dict=state), ckpt)
+
+    tool = load_tool('test')
+    out_json = os.path.join(work, 'metrics.json')
+    # ---- the main path: counts from 0, read right after ------------------
+    nms_keep.launches = 0
+    t0 = time.perf_counter()
+    cli = tool.main([cfg_path, ckpt, '--eval', 'mAP', '--out', out_json])
+    cli_s = time.perf_counter() - t0
+    cli_launches = nms_keep.launches
+    # ----------------------------------------------------------------------
+    nms_keep.launches = 0
+    t0 = time.perf_counter()
+    tta = tool.main([cfg_path, ckpt, '--eval', 'AP50:95', '--aug-test',
+                     '--aug-scales', *map(str, TTA_SCALES)])
+    tta_s = time.perf_counter() - t0
+    tta_launches = nms_keep.launches
+    # ----------------------------------------------------------------------
+    check(cli_launches == eval_batches,
+          f'tools/test.py launched nms_keep {cli_launches} times for '
+          f'{eval_batches} eval batches')
+    check(tta_launches == len(test_ds),
+          f'tools/test.py --aug-test launched nms_keep {tta_launches} times '
+          f'for {len(test_ds)} images')
+    with open(out_json) as f:
+        check(json.load(f) == cli['metrics'], '--out differs from the print')
+    for name, res in (('--eval', cli['results']),
+                      ('--aug-test', tta['results'])):
+        check(len(res) == len(test_ds) and
+              all(0 < len(r['boxes']) <= 100 and np.isfinite(r['boxes']).all()
+                  for r in res), f'{name}: an image without detections')
+
+    # the same checkpoint through eval_detector: the same detections
+    model = init_detector(cfg_path, ckpt)
+    want = eval_detector(model, test_ds, pad_hw=cfg.pad_to)
+    check(same_results(np, cli['results'], want),
+          'tools/test.py detections differ from eval_detector\'s')
+    t0 = time.perf_counter()
+    eval_detector(model, test_ds, pad_hw=cfg.pad_to)
+    eval_img_per_s = len(test_ds) / (time.perf_counter() - t0)
+
+    # TTA of each image again, timed; the first image's K = 2048 merge
+    # keep mask recomputed with the plain version
+    norm = [t for t in cfg.data['test']['pipeline']
+            if t['type'] == 'Normalize'][0]
+    norm = dict(mean=norm['mean'], std=norm['std'], to_rgb=norm['to_rgb'])
+    scales = [TTA_SCALES[i:i + 2] for i in range(0, len(TTA_SCALES), 2)]
+    captured = []
+
+    def capture(boxes, valid, thr):
+        keep = nms_keep(boxes, valid, thr)
+        captured.append((boxes, valid, thr, keep))
+        return keep
+    tta_ms = []
+    for i, info in enumerate(test_ds.img_infos):
+        img = _cv2().imread(os.path.join(test_ds.id_prefixes[i],
+                                         info['filename']))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = aug_test(model, build_aug_views(img, scales, flip=True, **norm),
+                       img.shape[:2], keep_fn=capture)
+        tta_ms.append((time.perf_counter() - t0) * 1e3)
+        check(same_results(np, [res], [tta['results'][i]]),
+              f'image {i}: aug_test differs from tools/test.py --aug-test')
+    boxes, valid, thr, keep = captured[0]
+    check(tuple(boxes.shape) == (1, 2048, 4), f'TTA merge K {boxes.shape}')
+    check(torch.equal(keep, nms_keep_ref(boxes, valid, thr)),
+          'the TTA merge keep mask differs from the plain version')
+    merge_ms, merge_host_ms = cuda_ms(lambda: nms_keep(boxes, valid, thr),
+                                      iters=200)
+    merge_dev = kernel_device_ms(torch, lambda: nms_keep(boxes, valid, thr),
+                                 NMS_KERNELS)
+    merge_plain, _ = cuda_ms(lambda: nms_keep_ref(boxes, valid, thr),
+                             iters=20)
+    merge_bound, merge_bound_by = nms_bound_ms(1, 2048, int(valid.sum()))
+    merge = dict(K=2048, B=1, valid=int(valid.sum()), kept=int(keep.sum()),
+                 ms=merge_ms, host_ms=merge_host_ms,
+                 device_ms=merge_dev and sum(merge_dev.values()),
+                 plain_ms=merge_plain, bound_ms=merge_bound,
+                 bound_by=merge_bound_by)
+
+    # the evaluator: the test split's own gts score 1 at every threshold;
+    # then the AP50:95 sweep of the detections, timed
+    gts = [[np.concatenate([a['bboxes'][a['labels'] == c],
+                            np.ones((int((a['labels'] == c).sum()), 1))], 1)
+            for c in range(len(test_ds.CLASSES))]
+           for a in test_ds.annotations]
+    check(test_ds.evaluate(gts, metric='mAP')['mAP'] == 1.0 and
+          all(v == 1.0 for v in test_ds.evaluate(gts, 'AP50:95').values()),
+          'gt-derived detections do not score AP 1.0')
+    t0 = time.perf_counter()
+    sweep = test_ds.evaluate(cli['results'], metric='AP50:95')
+    eval_map_ms = (time.perf_counter() - t0) * 1e3
+
+    # where a step's time goes: the decode, the loader, and bare steps of
+    # the trained model on the batches of the first (landscape) bucket
+    prefix = train_ds.dataset.id_prefixes
+    decode_ms = []
+    for i, info in enumerate(train_ds.dataset.img_infos):
+        t0 = time.perf_counter()
+        LoadImageFromFile()(dict(img_info=info, img_prefix=prefix[i]))
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    loader = build_dataloader(train_ds, cfg.data['samples_per_gpu'], 1,
+                              cfg.pad_to, cfg.max_gts_per_image, seed=0)
+    list(loader)
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / n_batches
+    bucket = tuple(cfg.pad_to[0])
+    batches = [b for b in DevicePrefetcher(loader, 'cuda')
+               if tuple(b['image'].shape[-2:]) == bucket]
+    step = make_train_step(ret['model'], ret['optimizer'], ret['scheduler'],
+                           (cfg.get('optimizer_config') or {}).get(
+                               'grad_clip'))
+    step(batches[0])
+    torch.cuda.synchronize()
+    step_ms = []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        step(b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    emit(dict(phase='voc', config=VOC_CONFIG, nvidia_smi=smi,
+              data='synthetic VOC devkit: 07 trainval 6 + 12 trainval 6 '
+                   '(RepeatDataset x3), 07 test 8; 500x375 and 375x500',
+              setup_s=setup_s, train_s=train_s, steps=ret['step'],
+              loss_first=train_lines[0], loss_last=train_lines[-1],
+              val=val_lines[0], cli_eval_s=cli_s,
+              cli_eval_img_per_s=len(test_ds) / cli_s,
+              eval_detector_img_per_s=eval_img_per_s,
+              cli_metrics=cli['metrics'], cli_tta_s=tta_s,
+              tta_metrics=tta['metrics'], tta_scales=scales,
+              tta_ms_per_image=tta_ms,
+              tta_ms_per_image_mean=sum(tta_ms) / len(tta_ms),
+              detections_per_image=[len(r['boxes']) for r in cli['results']],
+              tta_detections_per_image=[len(r['boxes'])
+                                        for r in tta['results']],
+              eval_batches=eval_batches,
+              nms_keep_launches_train=train_launches,
+              nms_keep_launches_cli=cli_launches,
+              nms_keep_launches_tta=tta_launches,
+              tta_merge_keep_plain_identical=True, tta_merge=merge,
+              gt_ap50=1.0, eval_map_ap50_95_ms=eval_map_ms,
+              eval_map_ap50_95=sweep['mAP'],
+              decode_ms_per_image=sum(decode_ms) / len(decode_ms),
+              loader_ms_per_batch=loader_ms,
+              step_bucket=bucket, step_ms=step_ms,
+              step_ms_mean=sum(step_ms) / len(step_ms)))
+    del model, ret, step, batches
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return train_launches + cli_launches + tta_launches, merge
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -870,7 +1177,7 @@ def main():
     emit(dict(phase='build', library=os.path.relpath(lib),
               seconds=time.perf_counter() - t0))
 
-    max_err, main_case = phase_kernel(torch)
+    max_err, main_case, tta_case = phase_kernel(torch)
     model, launches, bench = phase_e2e(torch, np)
     phase_profile(torch, model, bench)
     phase_reference(torch, np, model)
@@ -878,20 +1185,26 @@ def main():
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, smi)
     runtime_launches = phase_runtime(torch, smi)
+    voc_launches, merge = phase_voc(torch, np, smi)
 
     print(smi.splitlines()[0], flush=True)
     emit(dict(kernels=[dict(
         name='nms_keep', route='cuda', source='ld_tpu_torch/csrc/nms_keep.cu',
         replaces='ld_tpu/ops/pallas_nms.py:23',
-        launches=launches + train_launches + runtime_launches,
+        launches=launches + train_launches + runtime_launches + voc_launches,
         launches_serve=launches, launches_train=train_launches,
-        launches_runtime=runtime_launches,
+        launches_runtime=runtime_launches, launches_voc=voc_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,
         device_ms=main_case['device_ms'], host_ms=main_case['host_ms'],
         **{f'device_ms_{n}': main_case[f'device_ms_{n}']
-           for n in NMS_KERNELS})]))
+           for n in NMS_KERNELS},
+        ms_k2048=tta_case['ms'], device_ms_k2048=tta_case['device_ms'],
+        plain_ms_k2048=tta_case['plain_ms'],
+        bound_ms_k2048=tta_case['bound_ms'],
+        ms_tta_merge=merge['ms'], device_ms_tta_merge=merge['device_ms'],
+        plain_ms_tta_merge=merge['plain_ms'])]))
     emit(dict(ok=True, device=dict(platform='gpu',
                                    kind=torch.cuda.get_device_name(0),
                                    count=torch.cuda.device_count())))

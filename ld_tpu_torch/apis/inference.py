@@ -1,9 +1,12 @@
-"""Single-image inference API (port of `ld_tpu/apis/inference.py:21-80`).
+"""Single-image inference API (port of `ld_tpu/apis/inference.py:21-147`).
 
 The test pipeline (keep-ratio resize to (1333, 800), normalize, pad/32) runs
 on the host; forward, decode and NMS run on the model's device. Entry points
 run on the card unless the caller passes `device='cpu'`; without a card they
-raise instead of moving to the CPU.
+raise instead of moving to the CPU. An image is a BGR HWC uint8 array or a
+path, decoded with cv2 (a missing file raises FileNotFoundError).
+`show_result` / `imshow_gt_det_bboxes` draw detections (and gts) with cv2;
+`async_inference_detector` runs one request in the event loop's executor.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ld_tpu_torch.data.transforms import Compose, collate_batch
+from ld_tpu_torch.data.transforms import Compose, _cv2, collate_batch
 from ld_tpu_torch.models import build_detector
 from ld_tpu_torch.utils.checkpoint import load_checkpoint
 from ld_tpu_torch.utils.config import Config
@@ -62,17 +65,24 @@ _TEST_PIPELINE = [
 ]
 
 
-def prepare_batch(img: np.ndarray, device,
+def _load_img(img: Union[str, np.ndarray]) -> np.ndarray:
+    """A BGR image: a path decoded with cv2, or a copy of an array."""
+    if isinstance(img, str):
+        loaded = _cv2().imread(img)
+        if loaded is None:      # cv2.imread returns None instead of raising
+            raise FileNotFoundError(img)
+        return loaded
+    return np.array(img)
+
+
+def prepare_batch(img: Union[str, np.ndarray], device,
                   pad_hw=((800, 1344), (1344, 800)),
                   img_scale: Optional[Tuple[int, int]] = None
                   ) -> Dict[str, torch.Tensor]:
     """The test pipeline on the host, then image (1, 3, H, W), img_hw and
     scale_factor as tensors on `device`: the batch `forward_test` takes."""
-    if not isinstance(img, np.ndarray):
-        raise NotImplementedError('inference_detector takes a decoded BGR '
-                                  'image array; image paths are not ported '
-                                  'yet (decode a file with '
-                                  'ld_tpu_torch.data.LoadImageFromFile)')
+    if isinstance(img, str):
+        img = _load_img(img)
     steps = [dict(t) for t in _TEST_PIPELINE]
     if img_scale is not None:
         steps[0]['img_scale'] = tuple(img_scale)
@@ -83,11 +93,11 @@ def prepare_batch(img: np.ndarray, device,
             for k in ('image', 'img_hw', 'scale_factor')}
 
 
-def inference_detector(model: torch.nn.Module, img: np.ndarray,
+def inference_detector(model: torch.nn.Module, img: Union[str, np.ndarray],
                        score_thr: float = 0.0,
                        pad_hw=((800, 1344), (1344, 800)),
                        img_scale: Optional[Tuple[int, int]] = None) -> Dict:
-    """Detect objects in one BGR HWC image array.
+    """Detect objects in one image (a path or a BGR HWC array).
 
     img_scale: keep-ratio resize target (max_long, max_short); defaults to
     the mmdet test scale (1333, 800). Must fit inside `pad_hw` after /32
@@ -105,3 +115,54 @@ def inference_detector(model: torch.nn.Module, img: np.ndarray,
     labels = labels[0].cpu().numpy()
     valid = valid[0].cpu().numpy() & (dets[:, 4] >= score_thr)
     return dict(boxes=dets[valid], labels=labels[valid])
+
+
+def _draw_boxes(img, boxes, labels, color, class_names=None, scores=None):
+    cv2 = _cv2()
+    for i, (box, label) in enumerate(zip(boxes, labels)):
+        x1, y1, x2, y2 = np.asarray(box[:4]).astype(int)
+        cv2.rectangle(img, (x1, y1), (x2, y2), color, 2)
+        name = class_names[int(label)] if class_names else str(int(label))
+        if scores is not None:
+            name = f'{name}:{scores[i]:.2f}'
+        cv2.putText(img, name, (x1, max(y1 - 4, 0)),
+                    cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, 1)
+    return img
+
+
+def show_result(img: Union[str, np.ndarray], result: Dict, class_names=None,
+                score_thr: float = 0.3, out_file: Optional[str] = None
+                ) -> np.ndarray:
+    """Draw the detections of `result` scoring at least `score_thr` (green,
+    with class name and score) on a copy of the image; written to
+    `out_file` where given. Returns the drawn image."""
+    img = _load_img(img)
+    boxes = np.asarray(result['boxes']).reshape(-1, 5)
+    keep = boxes[:, 4] >= score_thr
+    _draw_boxes(img, boxes[keep], np.asarray(result['labels'])[keep],
+                (0, 255, 0), class_names, scores=boxes[keep, 4])
+    if out_file:
+        _cv2().imwrite(out_file, img)
+    return img
+
+
+def imshow_gt_det_bboxes(img: Union[str, np.ndarray], annotation: Dict,
+                         result: Dict, class_names=None,
+                         score_thr: float = 0.3,
+                         out_file: Optional[str] = None) -> np.ndarray:
+    """The gt boxes of `annotation` (blue), then the detections as
+    `show_result` draws them."""
+    img = _load_img(img)
+    _draw_boxes(img, annotation.get('bboxes', []),
+                annotation.get('labels', []), (255, 144, 30), class_names)
+    return show_result(img, result, class_names=class_names,
+                       score_thr=score_thr, out_file=out_file)
+
+
+async def async_inference_detector(model: torch.nn.Module, img, **kwargs):
+    """`inference_detector` in the running loop's default executor, so that
+    a server's coroutines can overlap the host side of several requests."""
+    import asyncio
+    loop = asyncio.get_running_loop()
+    return await loop.run_in_executor(
+        None, lambda: inference_detector(model, img, **kwargs))

@@ -19,24 +19,25 @@ def eval_detector(model: torch.nn.Module, dataset, samples_per_gpu: int = 4,
 
     The batches reach the card through a DevicePrefetcher and run under
     `inference_mode`. The pipeline is one deep: batch N+1 is dispatched
-    before batch N's results are read back. A tail batch repeats images to
-    fill its slots; only an image's first result is kept. The model is left
-    in the mode (train or eval) it was found in.
+    before batch N's results are read back. A result goes to the slot of its
+    image's dataset index (the batch's `img_idx`), so any dataset or wrapper
+    works, whatever its image ids are (the JAX package looks results up by
+    `int(img_id)`, and so finds none for VOC's string ids). A tail batch
+    repeats images to fill its slots; only an image's first result is kept.
+    The model is left in the mode (train or eval) it was found in.
     """
     device = next(model.parameters()).device
     loader = build_dataloader(dataset, samples_per_gpu, 1, pad_hw,
                               max_gts=1, shuffle=False)
-    index_of = {info['id']: i for i, info in enumerate(dataset.img_infos)}
     results = [None] * len(dataset)
     seen = 0
 
-    def drain(img_ids, outs):
+    def drain(img_idx, outs):
         """Device outputs -> per-image host results (waits for the card)."""
         nonlocal seen
         dets, labels, valid = (o.cpu().numpy() for o in outs)
-        for i, img_id in enumerate(img_ids):
-            idx = index_of.get(int(img_id))
-            if idx is None or results[idx] is not None:
+        for i, idx in enumerate(img_idx):
+            if results[idx] is not None:
                 continue
             m = valid[i]
             results[idx] = dict(boxes=dets[i][m], labels=labels[i][m])
@@ -51,7 +52,7 @@ def eval_detector(model: torch.nn.Module, dataset, samples_per_gpu: int = 4,
                 outs = model.forward_test(batch, rescale=rescale)
                 if pending is not None:
                     drain(*pending)
-                pending = (batch['img_ids'], outs)
+                pending = (batch['img_idx'], outs)
                 if max_images and seen >= max_images:
                     break
             if pending is not None:

@@ -11,9 +11,13 @@ copy to the card (port of `ld_tpu/data/loader.py:26-380`).
     ahead of the consumer, optionally fanning the samples of a batch out
     over a thread pool (`num_workers`; the C++ preprocess releases the
     interpreter lock). The five `scale_sampling` modes and the pad-bucket
-    grouping of fixed-scale configs are the JAX package's. An exception in
-    the producer is raised to the consumer, after the batches made before
-    it (the JAX package ends the epoch early without an error).
+    grouping of fixed-scale configs are the JAX package's; both reach the
+    pipelines and image sizes through any nesting of dataset wrappers (the
+    JAX package's scale override misses a Concat inside a Repeat). An
+    exception in the producer is raised to the consumer, after the batches
+    made before it (the JAX package ends the epoch early without an
+    error). Each batch carries the dataset index of each of its images
+    (`img_idx`).
   * DevicePrefetcher: collates into pinned host buffers that it owns and
     reuses, and copies batch N+1 to the card on a side stream while step N
     runs. The producer thread touches no CUDA state: the buffers are
@@ -42,21 +46,47 @@ class _Failure:
         self.exc = exc
 
 
+def _leaf_datasets(dataset) -> Iterator:
+    """The datasets under any nesting of the Concat (`datasets`) and
+    Repeat / ClassBalanced (`dataset`) wrappers."""
+    if hasattr(dataset, 'datasets'):
+        for d in dataset.datasets:
+            yield from _leaf_datasets(d)
+    elif hasattr(dataset, 'dataset'):
+        yield from _leaf_datasets(dataset.dataset)
+    else:
+        yield dataset
+
+
 def _scale_carriers(dataset) -> List:
-    """The Resize / FusedPreprocess scale samplers of a dataset's pipeline,
-    which take the loader's per-image or per-batch scale override."""
+    """The Resize / FusedPreprocess scale samplers of the pipelines of a
+    dataset or of the datasets it wraps, which take the loader's per-image
+    or per-batch scale override."""
     out = []
-    for t in getattr(getattr(dataset, 'pipeline', None), 'transforms', []):
-        if isinstance(t, FusedPreprocess):
-            out.append(t._scale_sampler)
-        elif isinstance(t, Resize):
-            out.append(t)
+    for ds in _leaf_datasets(dataset):
+        for t in getattr(getattr(ds, 'pipeline', None), 'transforms', []):
+            if isinstance(t, FusedPreprocess):
+                out.append(t._scale_sampler)
+            elif isinstance(t, Resize):
+                out.append(t)
     return out
 
 
 def _image_dims(dataset) -> Optional[np.ndarray]:
-    """(N, 2) original (height, width) per index, or None where the dataset
-    does not carry image sizes."""
+    """(N, 2) original (height, width) per index of a dataset or wrapper,
+    or None where a dataset does not carry image sizes."""
+    if hasattr(dataset, 'datasets'):                          # Concat
+        parts = [_image_dims(d) for d in dataset.datasets]
+        if any(p is None for p in parts):
+            return None
+        return np.concatenate(parts, axis=0)
+    if hasattr(dataset, 'dataset'):
+        base = _image_dims(dataset.dataset)
+        if base is None:
+            return None
+        if hasattr(dataset, 'indices'):                       # ClassBalanced
+            return base[np.asarray(dataset.indices, np.int64)]
+        return np.tile(base, (dataset.times, 1))              # Repeat
     infos = getattr(dataset, 'img_infos', None)
     if infos is None:
         return None
@@ -302,6 +332,7 @@ class DataLoader:
                     for t in self._scale_carriers:
                         t.set_scale_override(None)
                 if s is not None:
+                    s['img_idx'] = i
                     return s
                 tries += 1
                 if tries > 100:
@@ -408,9 +439,9 @@ class DevicePrefetcher:
     (`wait_stream`), marks the batch's tensors as used on that stream
     (`record_stream`), and returns the slot once its copy has finished.
     On the CPU it wraps the loader's fresh arrays without a copy.
-    `img_ids` stays a numpy array on the host.
+    `img_ids` and `img_idx` stay numpy arrays on the host.
     """
-    HOST_KEYS = ('img_ids', )
+    HOST_KEYS = ('img_ids', 'img_idx')
 
     def __init__(self, loader: DataLoader, device):
         self.loader = loader

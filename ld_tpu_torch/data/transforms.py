@@ -1,5 +1,6 @@
 """Host-side pipeline: dict-in/dict-out transforms (port of
-`ld_tpu/data/transforms.py:30-348,532-694`, boxes and labels only).
+`ld_tpu/data/transforms.py:30-348,532-694,770-935`, boxes and labels
+only).
 
   * LoadImageFromFile / LoadAnnotations: decode an image file (cv2, imported
     at first use) and take the boxes and labels of its annotation.
@@ -19,6 +20,12 @@
   * FusedPreprocess: Resize + BGR->RGB + Normalize + Pad in one native pass
     (`csrc/host/image_prep.cpp`, the JAX package's C++), which normalizes
     the bilinear float sample without rounding it to uint8 first.
+  * DefaultFormatBundle (float32 image, typed boxes and labels) and the
+    layout steps ImageToTensor / ToTensor / ToDataContainer /
+    WrapFieldsToLists, no-ops since `collate_batch` makes the NCHW batch;
+    Transpose; FilterAnnotations (drops small gts, and the sample when none
+    is left).
+  * MultiScaleFlipAug: the test-time (scale, flip) views of one image.
   * collate_batch: stack into one static-shape NCHW batch, padded to the
     smallest fitting pad bucket, with `max_gts` gt slots and a validity
     mask, optionally into caller-owned (pinned) buffers.
@@ -26,8 +33,10 @@ Masks are not ported yet.
 """
 from __future__ import annotations
 
+import copy
 import os
 import threading
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,13 +47,13 @@ from ld_tpu_torch.utils.registry import PIPELINES
 
 
 def _cv2():
-    """cv2, imported at first use: only file decoding needs it."""
+    """cv2, imported at first use: only image files (decoding, drawing)
+    need it."""
     try:
         import cv2
     except ImportError as e:
-        raise ImportError('LoadImageFromFile needs cv2 (opencv-python) to '
-                          'decode image files, and cv2 is not '
-                          'installed') from e
+        raise ImportError('reading or writing image files needs cv2 '
+                          '(opencv-python), and cv2 is not installed') from e
     return cv2
 
 
@@ -302,6 +311,129 @@ class Collect:
 
 
 @PIPELINES.register_module()
+class DefaultFormatBundle:
+    """mmdet's to-tensor bundle. The port's pipeline stays HWC numpy up to
+    `collate_batch`, which makes the NCHW tensor; here the image becomes
+    contiguous float32 and the boxes and labels float32 and int64."""
+
+    def __call__(self, results: Dict) -> Dict:
+        if 'img' in results:
+            results['img'] = np.ascontiguousarray(
+                results['img'].astype(np.float32))
+        for k in ('gt_bboxes', 'gt_bboxes_ignore'):
+            if k in results:
+                results[k] = np.asarray(results[k], np.float32)
+        if 'gt_labels' in results:
+            results['gt_labels'] = np.asarray(results['gt_labels'], np.int64)
+        return results
+
+
+@PIPELINES.register_module()
+class ImageToTensor:
+    """mmdet's HWC -> CHW tensor step, a no-op here: `collate_batch` makes
+    the NCHW batch. Accepted so that configs build."""
+
+    def __init__(self, keys=('img', )):
+        self.keys = keys
+
+    def __call__(self, results: Dict) -> Dict:
+        return results
+
+
+@PIPELINES.register_module()
+class ToTensor(ImageToTensor):
+    pass
+
+
+@PIPELINES.register_module()
+class ToDataContainer(ImageToTensor):
+    pass
+
+
+@PIPELINES.register_module()
+class WrapFieldsToLists(ImageToTensor):
+    pass
+
+
+@PIPELINES.register_module()
+class Transpose:
+    """Permute the axes of each of `keys` by `order`."""
+
+    def __init__(self, keys, order):
+        self.keys = keys
+        self.order = order
+
+    def __call__(self, results: Dict) -> Dict:
+        for k in self.keys:
+            results[k] = results[k].transpose(self.order)
+        return results
+
+
+@PIPELINES.register_module()
+class FilterAnnotations:
+    """Drop gt boxes whose width or height is not above `min_gt_bbox_wh`;
+    the whole sample is dropped (None) when none is left."""
+
+    def __init__(self, min_gt_bbox_wh):
+        self.min_gt_bbox_wh = min_gt_bbox_wh
+
+    def __call__(self, results: Dict):
+        bb = results['gt_bboxes']
+        keep = ((bb[:, 2] - bb[:, 0]) > self.min_gt_bbox_wh[0]) & \
+               ((bb[:, 3] - bb[:, 1]) > self.min_gt_bbox_wh[1])
+        if not keep.any():
+            return None
+        for key in ('gt_bboxes', 'gt_labels'):
+            if key in results:
+                results[key] = results[key][keep]
+        return results
+
+
+@PIPELINES.register_module()
+class MultiScaleFlipAug:
+    """mmdet's test-time augmentation wrapper. Each (scale, flip) view runs
+    the wrapped transforms on its own copy of the input, the scale handed to
+    Resize as `results['scale']` and the flip done first. One view (the
+    standard test pipeline) is returned as it is; with several, the first
+    view carries the list of all of them under 'aug_views' (the batched
+    eval path uses the first; `apis.aug_test` merges them all)."""
+
+    def __init__(self, transforms, img_scale=None, flip=False,
+                 flip_direction='horizontal', scale_factor=None):
+        self.pipeline = Compose([dict(t) if isinstance(t, dict) else t
+                                 for t in transforms])
+        scales = img_scale if isinstance(img_scale, list) else [img_scale]
+        self.img_scales = [tuple(s) if s else None for s in scales]
+        self.flip = flip
+        self.flip_direction = flip_direction
+        self.scale_factor = scale_factor
+        if len(self.img_scales) > 1 or flip:
+            warnings.warn(
+                'MultiScaleFlipAug with multiple views: the batched eval '
+                'path uses only the first (unflipped) view; merged TTA runs '
+                "through ld_tpu_torch.apis.aug_test, which reads the "
+                "'aug_views' list this transform attaches.", stacklevel=2)
+
+    def __call__(self, results: Dict) -> Dict:
+        views = []
+        for scale in self.img_scales:
+            for do_flip in ([False, True] if self.flip else [False]):
+                r = copy.deepcopy(results)
+                if scale is not None:
+                    r['scale'] = scale
+                if do_flip:
+                    r = RandomFlip(flip_ratio=1.0,
+                                   direction=self.flip_direction)(r)
+                r = self.pipeline(r)
+                r['flip'] = do_flip
+                views.append(r)
+        out = views[0]
+        if len(views) > 1:
+            out['aug_views'] = views
+        return out
+
+
+@PIPELINES.register_module()
 class FusedPreprocess:
     """Resize(keep_ratio) + BGR->RGB + Normalize + Pad(size_divisor) in one
     native pass over the output (`csrc/host/image_prep.cpp`); takes a uint8
@@ -385,8 +517,11 @@ def select_pad_bucket(pad_hw, batch_max_hw: Tuple[int, int]):
 
 
 # the collated batch: key -> (dtype, shape without the batch dimension);
-# the layout of `ld_tpu_torch.testing.detection_batch`, plus scale_factor
-# and img_ids. 'H', 'W' and 'G' stand for the pad bucket and max_gts.
+# the layout of `ld_tpu_torch.testing.detection_batch`, plus scale_factor,
+# img_ids (the dataset's integer image ids, as COCO's; -1 where an id is not
+# an integer, as VOC's '2008_000001') and img_idx (each image's index in the
+# dataset, set by the loader; -1 outside it). 'H', 'W' and 'G' stand for the
+# pad bucket and max_gts.
 BATCH_LAYOUT = {
     'image': (np.float32, (3, 'H', 'W')),
     'gt_bboxes': (np.float32, ('G', 4)),
@@ -395,6 +530,7 @@ BATCH_LAYOUT = {
     'img_hw': (np.float32, (2, )),
     'scale_factor': (np.float32, (4, )),
     'img_ids': (np.int64, ()),
+    'img_idx': (np.int64, ()),
 }
 
 
@@ -444,7 +580,10 @@ def collate_batch(samples: List[Dict], pad_hw, max_gts: int = 100,
         batch['img_hw'][i] = s['img_shape'][:2]
         batch['scale_factor'][i] = s.get('scale_factor',
                                          np.ones(4, np.float32))
-        batch['img_ids'][i] = s.get('img_id', -1)
+        img_id = s.get('img_id', -1)
+        batch['img_ids'][i] = img_id if isinstance(img_id, (int, np.integer)) \
+            else -1
+        batch['img_idx'][i] = s.get('img_idx', -1)
         if 'gt_bboxes' in s:
             n = min(len(s['gt_bboxes']), max_gts)
             batch['gt_bboxes'][i, :n] = s['gt_bboxes'][:n]

@@ -84,6 +84,9 @@ ARCH_SETTINGS = {
 _UNPORTED_KEYS = dict(deep_stem=False, avg_down=False, dcn=None, sac=None,
                       plugins=None, zero_init_residual=False, groups=1,
                       base_width=64)
+# where the port's plan has them
+_ROADMAP_ITEMS = dict(dcn='ROADMAP.md item 21', groups='ROADMAP.md item 22',
+                      base_width='ROADMAP.md item 22')
 
 
 @BACKBONES.register_module()
@@ -114,7 +117,7 @@ class ResNet(nn.Module):
             if key in _UNPORTED_KEYS and value != _UNPORTED_KEYS[key]:
                 raise NotImplementedError(
                     f'ResNet {key}={value!r} is not ported to ld_tpu_torch '
-                    'yet (see ROADMAP.md)')
+                    f'yet (see {_ROADMAP_ITEMS.get(key, "ROADMAP.md")})')
             # stage_with_dcn / stage_with_sac only matter with dcn / sac set
             if key not in _UNPORTED_KEYS and key not in ('stage_with_dcn',
                                                          'stage_with_sac'):

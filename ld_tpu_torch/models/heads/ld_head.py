@@ -266,3 +266,9 @@ class LDHead(GFLHead):
                     total = total + fg_term
             lo = hi
         return self.loss_im.loss_weight * total
+
+
+@HEADS.register_module()
+class IMHead(LDHead):
+    """The head of the feature-imitation study configs (`configs/im/`): the
+    LDHead, whose imitation arm those configs switch on."""

@@ -11,9 +11,17 @@ against `nms_keep_ref`.
 layer's padded batches (100 gt slots per image), with the valid gts of
 varied size and class. The CPU tests and `chip_smoke.py`'s train phase take
 their batches from it. Needs numpy and torch only.
+
+`write_voc_devkit` writes a seeded synthetic PASCAL VOC devkit (XML
+annotations, JPEGs, split files) that VOC configs read through their
+`data_root`; it needs cv2 to write the JPEGs.
 """
+import os
+
 import numpy as np
 import torch
+
+from ld_tpu_torch.data.voc import VOC_CLASSES
 
 NMS_SETS = ('identical', 'disjoint', 'invalid', 'chain_invalid',
             'boundary_chain', 'sparse_kept', 'dense_kept')
@@ -144,3 +152,76 @@ def detection_batch(b, h, w, num_classes=80, max_gts=100, seed=0,
     return {k: torch.from_numpy(v).to(device)
             for k, v in detection_batch_np(b, h, w, num_classes, max_gts,
                                            seed).items()}
+
+
+def _voc_xml(img_id, folder, w, h, objects):
+    lines = ['<annotation>', f'  <folder>{folder}</folder>',
+             f'  <filename>{img_id}.jpg</filename>',
+             f'  <size><width>{w}</width><height>{h}</height>'
+             '<depth>3</depth></size>']
+    for name, difficult, (x1, y1, x2, y2) in objects:
+        lines += ['  <object>', f'    <name>{name}</name>',
+                  f'    <difficult>{difficult}</difficult>',
+                  f'    <bndbox><xmin>{x1}</xmin><ymin>{y1}</ymin>'
+                  f'<xmax>{x2}</xmax><ymax>{y2}</ymax></bndbox>',
+                  '  </object>']
+    return '\n'.join(lines + ['</annotation>', ''])
+
+
+def write_voc_devkit(root, splits, seed=0, sizes=((375, 500), (500, 375)),
+                     max_objects=4, difficult_share=0.2):
+    """A seeded synthetic VOC devkit under `root`.
+
+    splits: {year folder: {split: image count}}, e.g. {'VOC2007':
+    {'trainval': 6, 'test': 8}, 'VOC2012': {'trainval': 6}}. Ids follow
+    VOC's forms: '000001', ... in VOC2007 and '2008_000001', ... in the
+    other years. Image sizes (h, w) alternate over `sizes` (VOC's 375x500
+    landscape and 500x375 portrait by default). Each image holds 1 to
+    `max_objects` objects of the 20 classes, 1-based corners, at least
+    24 px a side, each painted in a colour of its class over a dim noise
+    background; each but the first is `difficult` with probability
+    `difficult_share`.
+    Writes Annotations/<id>.xml, JPEGImages/<id>.jpg and
+    ImageSets/Main/<split>.txt per year; returns {(year, split): ids}.
+    """
+    from ld_tpu_torch.data.transforms import _cv2
+    cv2 = _cv2()
+    rs = np.random.RandomState(seed)
+    written = {}
+    count = 0
+    for year, year_splits in splits.items():
+        for sub in ('Annotations', 'JPEGImages', 'ImageSets/Main'):
+            os.makedirs(os.path.join(root, year, sub), exist_ok=True)
+        for split, n in year_splits.items():
+            ids = []
+            for _ in range(n):
+                count += 1
+                img_id = f'{count:06d}' if year == 'VOC2007' \
+                    else f'2008_{count:06d}'
+                h, w = sizes[count % len(sizes)]
+                img = (rs.randint(0, 256, (h, w, 3)) // 4).astype(np.uint8)
+                objects = []
+                for j in range(rs.randint(1, max_objects + 1)):
+                    bw = rs.randint(24, w // 2)
+                    bh = rs.randint(24, h // 2)
+                    x1 = rs.randint(1, w - bw)
+                    y1 = rs.randint(1, h - bh)
+                    label = rs.randint(len(VOC_CLASSES))
+                    color = np.random.RandomState(label + 1).randint(100, 256,
+                                                                     3)
+                    img[y1 - 1:y1 - 1 + bh, x1 - 1:x1 - 1 + bw] = color
+                    objects.append((VOC_CLASSES[label],
+                                    int(j > 0 and
+                                        rs.uniform() < difficult_share),
+                                    (x1, y1, x1 + bw, y1 + bh)))
+                with open(os.path.join(root, year, 'Annotations',
+                                       f'{img_id}.xml'), 'w') as f:
+                    f.write(_voc_xml(img_id, year, w, h, objects))
+                cv2.imwrite(os.path.join(root, year, 'JPEGImages',
+                                         f'{img_id}.jpg'), img)
+                ids.append(img_id)
+            with open(os.path.join(root, year, 'ImageSets', 'Main',
+                                   f'{split}.txt'), 'w') as f:
+                f.write('\n'.join(ids) + '\n')
+            written[(year, split)] = ids
+    return written

@@ -9,7 +9,6 @@ Runs on the card unless `--device cpu` is given; without a card it stops
 with an error. The merged config is written to `<work-dir>/config_dump.py`.
 """
 import argparse
-import ast
 import os
 import sys
 
@@ -18,6 +17,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 
 from ld_tpu_torch import Config  # noqa: E402
 from ld_tpu_torch.apis import train_detector  # noqa: E402
+from ld_tpu_torch.utils.config import parse_cfg_options  # noqa: E402
 
 
 def parse_args(argv=None):
@@ -35,23 +35,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _parse_options(pairs):
-    out = {}
-    for pair in pairs:
-        key, value = pair.split('=', 1)
-        try:
-            value = ast.literal_eval(value)
-        except (ValueError, SyntaxError):
-            pass
-        out[key] = value
-    return out
-
-
 def main(argv=None):
     args = parse_args(argv)
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
-        cfg.merge_from_dict(_parse_options(args.cfg_options))
+        cfg.merge_from_dict(parse_cfg_options(args.cfg_options))
     if args.seed is not None:
         cfg['seed'] = args.seed
     if args.resume_from:

@@ -9,6 +9,7 @@ overrides (`a.b.c=x`).
 """
 from __future__ import annotations
 
+import ast
 import copy
 import os
 import types
@@ -169,3 +170,18 @@ class Config:
 
     def __repr__(self):
         return f'Config(file={self._filename}): {dict(self._cfg_dict)!r}'
+
+
+def parse_cfg_options(pairs) -> Dict[str, Any]:
+    """The command line's `--cfg-options key=value ...` as a dict for
+    `merge_from_dict`; each value is a Python literal where it parses as
+    one, else the string."""
+    out = {}
+    for pair in pairs:
+        key, value = pair.split('=', 1)
+        try:
+            value = ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            pass
+        out[key] = value
+    return out

@@ -23,6 +23,10 @@ class Registry:
     def __init__(self, name: str):
         self._name = name
         self._module_dict: Dict[str, Any] = {}
+        # names of the JAX package's components that are not ported yet ->
+        # where the port's plan has them; building one raises
+        # NotImplementedError instead of KeyError
+        self.not_ported: Dict[str, str] = {}
 
     @property
     def name(self) -> str:
@@ -86,6 +90,10 @@ def build_from_cfg(cfg: dict, registry: Registry,
     obj_type = args.pop('type')
     if isinstance(obj_type, str):
         obj_cls = registry.get(obj_type)
+        if obj_cls is None and obj_type in registry.not_ported:
+            raise NotImplementedError(
+                f'{obj_type} is not ported to ld_tpu_torch yet (see '
+                f'{registry.not_ported[obj_type]})')
         if obj_cls is None:
             raise KeyError(f'{obj_type} is not in the {registry.name} registry')
     elif inspect.isclass(obj_type) or inspect.isfunction(obj_type):

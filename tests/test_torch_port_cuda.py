@@ -130,9 +130,10 @@ def test_device_prefetcher_equals_a_plain_copy():
     assert len({b['image'].shape for b in plain}) == 2
     for g, p in zip(got, plain):
         assert sorted(g) == sorted(p)
-        np.testing.assert_array_equal(g['img_ids'], p['img_ids'])
+        for k in DevicePrefetcher.HOST_KEYS:      # img_ids, img_idx
+            np.testing.assert_array_equal(g[k], p[k])
         for k, v in p.items():
-            if k != 'img_ids':
+            if k not in DevicePrefetcher.HOST_KEYS:
                 want = torch.from_numpy(v).to('cuda')
                 assert g[k].device.type == 'cuda'
                 assert g[k].dtype == want.dtype and torch.equal(g[k], want), k

@@ -25,6 +25,7 @@ from ld_tpu.data import coco as j_coco
 from ld_tpu.data import loader as j_loader
 from ld_tpu.data import transforms as j_tf
 from ld_tpu_torch.data import coco, loader, transforms as tf
+from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
             to_rgb=True)

@@ -19,6 +19,7 @@ from ld_tpu.data import coco as j_coco
 from ld_tpu.evaluation import coco_eval as j_eval
 from ld_tpu_torch.data import coco
 from ld_tpu_torch.evaluation import coco_eval
+from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 
 def _write_coco(path, n=12, seed=0):

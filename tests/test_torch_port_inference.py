@@ -27,6 +27,7 @@ from ld_tpu_torch.data import transforms
 from ld_tpu_torch.utils.checkpoint import state_dict_from_jax
 from ld_tpu_torch.utils.config import Config
 from test_torch_port_model import jax_variables, model_cfg
+from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -107,8 +108,9 @@ def test_entry_points_do_not_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA'):
         init_detector(Config(dict(model=model_cfg(18))))
     model = init_detector(Config(dict(model=model_cfg(18))), device='cpu')
-    with pytest.raises(NotImplementedError):
-        inference_detector(model, 'demo.jpg')
+    # an image path is decoded; a missing file raises, nothing falls back
+    with pytest.raises(FileNotFoundError):
+        inference_detector(model, os.path.join(ROOT, 'no_such_image.jpg'))
 
 
 def test_port_imports_neither_jax_nor_ld_tpu():

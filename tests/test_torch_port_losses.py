@@ -45,6 +45,7 @@ from ld_tpu_torch.ops.atss_assigner import ATSSAssigner
 from ld_tpu_torch.parallel.optim import build_lr_schedule
 from ld_tpu_torch.testing import detection_batch_np
 from ld_tpu_torch.utils.checkpoint import load_from_jax
+from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5

@@ -23,6 +23,7 @@ from ld_tpu.models import build_detector as jax_build_detector
 from ld_tpu.utils.checkpoint import convert_torch_state_dict
 from ld_tpu_torch.models import build_detector
 from ld_tpu_torch.utils.checkpoint import state_dict_from_jax
+from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 TEST_CFG = dict(nms_pre=50, score_thr=0.05,
                 nms=dict(type='nms', iou_threshold=0.6), max_per_img=100)

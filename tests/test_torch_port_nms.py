@@ -19,6 +19,7 @@ from ld_tpu.ops.pallas_nms import pallas_nms_keep
 from ld_tpu_torch.ops import nms as port_nms
 from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
 from ld_tpu_torch.testing import NMS_SETS, nms_set
+from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 
 def _sorted_candidates(rng, k, classes=4):

@@ -15,6 +15,7 @@ from ld_tpu.ops.integral import integral as jax_integral
 from ld_tpu_torch.ops import anchors as port_anchors
 from ld_tpu_torch.ops import boxes as port_boxes
 from ld_tpu_torch.ops.integral import integral as port_integral
+from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 TOL = 1e-6
 

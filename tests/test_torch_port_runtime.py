@@ -42,6 +42,7 @@ from ld_tpu_torch.models import build_detector
 from ld_tpu_torch.parallel import (build_lr_schedule, build_optimizer,
                                    make_train_step)
 from ld_tpu_torch.utils.checkpoint import load_checkpoint
+from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LD_CFG = os.path.join(ROOT, 'configs/ld/ld_r18_self_2x_3x_voc.py')
@@ -115,17 +116,6 @@ def _preempt_after(monkeypatch, n):
         return preempting
     monkeypatch.setattr(train_api, 'make_train_step', wrapped)
     return seen
-
-
-@pytest.fixture(scope='module', autouse=True)
-def _one_thread():
-    """One intra-op thread. These steps are small, and the tests run beside
-    other test processes: a pool of spinning threads per process, on shared
-    cores, slowed this file 15-fold and every other file with it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')

@@ -42,6 +42,7 @@ from ld_tpu_torch.parallel import (build_lr_schedule, build_optimizer,
 from ld_tpu_torch.testing import detection_batch_np
 from ld_tpu_torch.utils.checkpoint import load_from_jax, state_dict_from_jax
 from ld_tpu_torch.utils.fuse_conv_bn import fuse_conv_bn_cfg_ok
+from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LD_CFG = os.path.join(ROOT, 'configs/ld/ld_r18_self_2x_3x_voc.py')
