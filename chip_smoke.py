@@ -1,5 +1,5 @@
 """Drive the ld_tpu_torch serving, training, training-runtime and evaluation
-paths on one CUDA card and check them.
+paths, and the other GFL-family heads, on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
@@ -78,6 +78,26 @@ Phases, one JSON object per line each:
                score AP 1.0; then the TTA merge kernel's time, the AP50:95
                sweep's host time, the decode ms an image, the loader's ms a
                batch and the step time at (608, 1024).
+  9. gfl_family — the other GFL-family heads at full width, float32, on
+               seeded synthetic batches (ld_tpu_torch.testing) through
+               build_detector / make_train_step / forward_test: the LDv2
+               config configs/ldv2/ld_r50_gflv2_r101_fpn_1x.py (R50
+               GFocalV2 student from seed 0, R101 GFocalV2 teacher from
+               seed 1 with its BNs folded, gibox imitation) for 2 + 5 steps
+               at batch 2, 800x1344, 5 kernel launches a step, its GI masks
+               and loss_im identical with the plain keep mask; the IMv2
+               config for one step (loss_dfl 0, 5 launches); LD on ATSS-,
+               FCOS- (caffe-style R101 teacher) and Retina-GFL
+               (configs/ld/ld_r50_{atss,fcos}_r101_1x.py, ld_retina_r50_1x.py)
+               for 2 + 3 steps each, no launch; every loss finite; the
+               first step of each (but IMv2) at 1x3x128x192 on the card
+               against the CPU, rtol 1e-3 a term (and identical GI masks);
+               step, teacher and profile figures. Then forward_test at
+               800x1344 of GFocalV2-R50, ATSS-GFL-R50, FCOS-GFL-R50 and
+               Retina-GFL at R50 (cls prediction bias 0): 1 launch a call,
+               the detections bit-identical with the plain keep mask, the
+               first detection's score the largest class probability, and
+               the NMS candidate count K.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
 (the main path's case: dense-kept set, K = 1024, B = 1; `device_ms` is the
 profiler's mask + sweep time; the `_k2048` keys the dense-kept set at
@@ -116,6 +136,18 @@ VOC_SPLITS = {'VOC2007': {'trainval': 6, 'test': 8},
               'VOC2012': {'trainval': 6}}
 # --aug-scales of the TTA run: two scales, each with its flip
 TTA_SCALES = (1000, 600, 1333, 800)
+# the gfl_family phase's LD configs (each with its R101 teacher): (config,
+# nms_keep launches a step, warm-up steps, timed steps, card-vs-CPU check)
+FAMILY_LD = (('configs/ldv2/ld_r50_gflv2_r101_fpn_1x.py', 5, 2, 5, True),
+             ('configs/imv2/im_r50_gflv2_r101_1x.py', 5, 0, 1, False),
+             ('configs/ld/ld_r50_atss_r101_1x.py', 0, 2, 3, True),
+             ('configs/ld/ld_r50_fcos_r101_1x.py', 0, 2, 3, True),
+             ('configs/ld/ld_retina_r50_1x.py', 0, 2, 3, True))
+# its serving configs: (config, backbone depth in place of the config's)
+FAMILY_SERVE = (('configs/gfl/gflv2_r50_fpn_1x_coco.py', None),
+                ('configs/gfl/atss_gfl_r50_1x.py', None),
+                ('configs/gfl/fcos_gfl_r50_center.py', None),
+                ('configs/gfl/retinagfl_r101_2x_coco.py', 50))
 
 
 def emit(obj):
@@ -412,12 +444,12 @@ def phase_reference(torch, np, model):
               max_median_rel_diff=worst_med, tol_abs=5e-3, tol_median_rel=2e-4))
 
 
-def build_ld(torch):
-    """The GI config's LD detector on the CPU: R50 student from seed 0, R101
+def build_ld(torch, config=TRAIN_CONFIG):
+    """An LD config's detector on the CPU: the student from seed 0, the
     teacher from seed 1 with its BNs folded; returns (cfg, model)."""
     from ld_tpu_torch import Config
     from ld_tpu_torch.models import build_detector
-    cfg = Config.fromfile(os.path.join(ROOT, TRAIN_CONFIG))
+    cfg = Config.fromfile(os.path.join(ROOT, config))
     model = build_detector(cfg.model)
     model.init_weights(torch.Generator().manual_seed(0))
     model.init_teacher_weights(torch.Generator().manual_seed(1))
@@ -443,8 +475,8 @@ def gi_score_gap(torch, head, outs, t_outs, masks):
     """Per level, the smallest |GI score| difference between a picked and an
     unpicked candidate: how far the scores are from reordering a pick."""
     from ld_tpu_torch.models.heads.gfl_head import flatten_levels
-    z = (torch.sigmoid(flatten_levels(t_outs[0])) -
-         torch.sigmoid(flatten_levels(outs[0])))
+    cls, soft_label, _, _ = head.gi_levels(outs, t_outs)
+    z = head.gi_scores(flatten_levels(cls), flatten_levels(soft_label))
     score = z.abs().amax(dim=-1)                               # (B, N)
     gaps, lo = [], 0
     for mask in masks:
@@ -460,10 +492,11 @@ def gi_score_gap(torch, head, outs, t_outs, masks):
     return gaps
 
 
-def phase_train_reference(torch, cfg, base):
+def phase_train_reference(torch, cfg, base, gi=True,
+                          phase='train_reference'):
     """The first step on 1x3x128x192 on the card against the same model on
-    the CPU: the loss dict within rtol 1e-3, term by term, and the GI masks
-    of that step identical."""
+    the CPU: the loss dict within rtol 1e-3, term by term, and (with `gi`)
+    the GI masks of that step identical."""
     import copy
     from ld_tpu_torch.testing import detection_batch
     rtol = 1e-3
@@ -472,14 +505,18 @@ def phase_train_reference(torch, cfg, base):
         model = copy.deepcopy(base).to(device)
         batch = detection_batch(1, 128, 192, seed=0, device=device)
         step, _ = make_step(cfg, model)
-        with torch.no_grad():
-            outs = model(batch['image'])
-            t_outs = model.teacher(batch['image'])
-            masks = model.bbox_head.gi_masks(outs, t_outs)
-            gaps = gi_score_gap(torch, model.bbox_head, outs, t_outs, masks)
+        masks, gaps = [], []
+        if gi:
+            with torch.no_grad():
+                outs = model(batch['image'])
+                t_outs = model.teacher(batch['image'])
+                masks = model.bbox_head.gi_masks(outs, t_outs)
+                gaps = gi_score_gap(torch, model.bbox_head, outs, t_outs,
+                                    masks)
         losses = step(batch)
         runs[device] = ({k: float(v) for k, v in losses.items()},
                         [m.cpu() for m in masks], gaps)
+        del model, step
     (c_loss, c_masks, c_gaps), (g_loss, g_masks, _) = runs['cpu'], \
         runs['cuda']
     for k, c in c_loss.items():
@@ -487,33 +524,51 @@ def phase_train_reference(torch, cfg, base):
               f'{k}: card {g_loss[k]!r} vs CPU {c!r} beyond rtol {rtol}')
     check(all(torch.equal(a, b) for a, b in zip(g_masks, c_masks)),
           'GI masks differ between the card and the CPU')
-    emit(dict(phase='train_reference', input='1x3x128x192', rtol=rtol,
-              loss_cpu=c_loss, loss_card=g_loss,
-              max_rel_diff=max(abs(g_loss[k] - c) / abs(c)
-                               for k, c in c_loss.items() if c),
-              gi_masks_identical=True,
-              gi_picks=[int(m.sum()) for m in c_masks],
-              gi_candidates=[min(512, m.numel()) for m in c_masks],
-              gi_min_score_gap_per_level=c_gaps))
+    row = dict(phase=phase, config=os.path.relpath(cfg.filename, ROOT),
+               input='1x3x128x192',
+               rtol=rtol, loss_cpu=c_loss, loss_card=g_loss,
+               max_rel_diff=max(abs(g_loss[k] - c) / abs(c)
+                                for k, c in c_loss.items() if c))
+    if gi:
+        row.update(gi_masks_identical=True,
+                   gi_picks=[int(m.sum()) for m in c_masks],
+                   gi_candidates=[min(512, m.numel()) for m in c_masks],
+                   gi_min_score_gap_per_level=c_gaps)
+    emit(row)
 
 
 def phase_train(torch, smi, warmup=2, timed=5, batch_size=2,
                 pad=(800, 1344)):
-    """The LD training step at full width on the card; returns the kernel's
-    launch count over the main path's steps."""
+    """The GI config's LD training step at full width on the card; returns
+    the kernel's launch count over the main path's steps."""
+    return ld_steps(torch, smi, TRAIN_CONFIG, 5, warmup, timed,
+                    batch_size=batch_size, pad=pad, phase='train')[0]
+
+
+def ld_steps(torch, smi, config, per_step, warmup, timed, reference=True,
+             batch_size=2, pad=(800, 1344), phase='gfl_family'):
+    """An LD config's training step at full width on the card: the student
+    from seed 0, the teacher from seed 1 with its BNs folded, the config's
+    SGD and schedule, `warmup` + `timed` steps on a batch of `batch_size`
+    at `pad`; every loss finite and `per_step` nms_keep launches a step.
+    With GI (`per_step` 5), the GI masks and loss_im of one step recomputed
+    with the plain keep mask, identical. With `reference`: the teacher's
+    forward time, the device time of a step by kernel, then the first step
+    at 1x3x128x192 on the card against the CPU. Returns the launch count
+    of the steps and the emitted row."""
     import copy
-    from torch.profiler import ProfilerActivity, profile
     from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
     from ld_tpu_torch.testing import detection_batch
 
     t0 = time.perf_counter()
-    cfg, base = build_ld(torch)
+    cfg, base = build_ld(torch, config)
     check(cfg.data['samples_per_gpu'] == batch_size, 'samples_per_gpu')
     model = copy.deepcopy(base).to('cuda')
     step, optimizer = make_step(cfg, model)
     head = model.bbox_head
-    check(head.loss_im.loss_weight == 2 and head.imitation_method == 'gibox',
-          'the GI config lost its imitation arm')
+    gi = per_step > 0
+    check(gi == (getattr(head, 'imitation_method', None) == 'gibox' and
+                 head.loss_im.loss_weight > 0), f'{config}: GI arm')
     batch = detection_batch(batch_size, *pad, num_classes=80, seed=0,
                             device='cuda')
     torch.cuda.synchronize()
@@ -529,45 +584,78 @@ def phase_train(torch, smi, warmup=2, timed=5, batch_size=2,
         t = time.perf_counter()
         metrics = step(batch)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
         if i >= warmup:
-            step_ms.append(ms)
+            step_ms.append((time.perf_counter() - t) * 1e3)
         history.append({k: float(v) for k, v in metrics.items()})
         bad = [k for k, v in history[-1].items() if not math.isfinite(v)]
-        check(not bad, f'step {i}: non-finite {bad}')
-        check(nms_keep.launches - before == 5,
-              f'step {i}: {nms_keep.launches - before} nms_keep launches, '
-              'expected 5 (one GI NMS per FPN level)')
+        check(not bad, f'{config} step {i}: non-finite {bad}')
+        check(nms_keep.launches - before == per_step,
+              f'{config} step {i}: {nms_keep.launches - before} nms_keep '
+              f'launches, expected {per_step}')
     launches = nms_keep.launches
     # ----------------------------------------------------------------------
-    check(launches == 5 * (warmup + timed), f'{launches} launches')
     peak = torch.cuda.max_memory_allocated()
+    row = dict(phase=phase, config=config, nvidia_smi=smi,
+               dtype='float32 (the config dtype bfloat16 is not applied)',
+               head=type(head).__name__,
+               teacher_head=type(model.teacher.bbox_head).__name__,
+               batch=[batch_size, 3, *pad],
+               valid_gts=batch['gt_valid'].sum(dim=1).tolist(),
+               params_student=sum(p.numel() for p in model.parameters()),
+               params_trainable=sum(p.numel() for p in model.parameters()
+                                    if p.requires_grad),
+               params_teacher=sum(p.numel()
+                                  for p in model.teacher.parameters()),
+               build_s=build_s, warmup_steps=warmup, timed_steps=timed,
+               step_ms=step_ms, step_ms_mean=sum(step_ms) / len(step_ms),
+               step_ms_max=max(step_ms),
+               img_per_s=batch_size * 1e3 * len(step_ms) / sum(step_ms),
+               lr=lrs, loss_first=history[0], loss_last=history[-1],
+               nms_keep_launches=launches,
+               nms_keep_launches_per_step=per_step,
+               max_memory_allocated_bytes=peak)
+    if gi:
+        with torch.no_grad():
+            outs, feats = model(batch['image'], output_features=True)
+            t_outs, t_feats = model.teacher(batch['image'],
+                                            output_features=True)
+            sizes = [tuple(c.shape[-2:]) for c in outs[0]]
+            got = head.gi_masks(outs, t_outs, keep_fn=nms_keep)
+            want = head.gi_masks(outs, t_outs, keep_fn=nms_keep_ref)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f'{config}: GI masks with the kernel differ from the '
+                  'plain keep mask')
+            im = [head.loss(outs, batch, sizes, t_outs, feats, t_feats,
+                            keep_fn=fn)['loss_im'] for fn in (nms_keep,
+                                                              nms_keep_ref)]
+            check(torch.equal(im[0], im[1]),
+                  f'{config}: loss_im {float(im[0])} with the kernel, '
+                  f'{float(im[1])} with the plain keep mask')
+        row.update(gi_candidates=[min(head.gi_candidates, m.numel())
+                                  for m in got],
+                   gi_picks=[int(m.sum()) for m in got],
+                   gi_plain_keep_identical=True)
+        del outs, feats, t_outs, t_feats
+    if reference:
+        with torch.no_grad():
+            row['teacher_forward_ms'], _ = cuda_ms(
+                lambda: model.teacher(batch['image'], output_features=True),
+                iters=5, warmup=1)
+        row.update(step_profile(torch, step, batch))
+    emit(row)
+    del model, step, optimizer, batch
+    torch.cuda.empty_cache()
+    if reference:
+        phase_train_reference(torch, cfg, base, gi=gi,
+                              phase=f'{phase}_reference')
+    return launches, row
 
-    # loss_im and the GI masks of one step, with the plain keep mask
-    with torch.no_grad():
-        outs, feats = model(batch['image'], output_features=True)
-        t_outs, t_feats = model.teacher(batch['image'], output_features=True)
-        sizes = [tuple(c.shape[-2:]) for c in outs[0]]
-        got = head.gi_masks(outs, t_outs, keep_fn=nms_keep)
-        want = head.gi_masks(outs, t_outs, keep_fn=nms_keep_ref)
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              'GI masks with the kernel differ from the plain keep mask')
-        im = [head.loss(outs, batch, sizes, t_outs, feats, t_feats,
-                        keep_fn=fn)['loss_im'] for fn in (nms_keep,
-                                                          nms_keep_ref)]
-        check(torch.equal(im[0], im[1]),
-              f'loss_im {float(im[0])} with the kernel, {float(im[1])} with '
-              'the plain keep mask')
-    gi_k = [min(head.gi_candidates, m.numel()) for m in got]
 
-    # the teacher's forward alone
-    with torch.no_grad():
-        teacher_ms, _ = cuda_ms(lambda: model.teacher(batch['image'],
-                                                      output_features=True),
-                                iters=5, warmup=1)
-
-    # device time of a step by kernel
-    prof_steps = 2
+def step_profile(torch, step, batch, prof_steps=2, top_n=10):
+    """Device time of `prof_steps` steps by kernel, from torch.profiler:
+    device ms a step against its wall ms (the busy share), device ops a
+    step, the GI NMS kernels' ms a step and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -578,10 +666,12 @@ def phase_train(torch, smi, warmup=2, timed=5, batch_size=2,
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in kernels)
+    if total_us <= 0:
+        return dict(device_time='not measured')
     nms_us = sum(e.self_device_time_total for e in kernels
                  if any(n in e.key for n in NMS_KERNELS))
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    profile_row = (dict(device_time='not measured') if total_us <= 0 else dict(
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
+    return dict(
         device_ms_per_step=total_us / prof_steps / 1e3,
         wall_ms_per_step=wall_us / prof_steps / 1e3,
         device_busy_share=total_us / wall_us,
@@ -589,31 +679,7 @@ def phase_train(torch, smi, warmup=2, timed=5, batch_size=2,
         gi_nms_device_ms_per_step=nms_us / prof_steps / 1e3,
         top_kernels=[dict(name=e.key[:90], calls=e.count // prof_steps,
                           ms_per_step=e.self_device_time_total /
-                          prof_steps / 1e3) for e in top]))
-
-    emit(dict(phase='train', config=TRAIN_CONFIG, nvidia_smi=smi,
-              dtype='float32 (the config dtype bfloat16 is not applied)',
-              batch=[batch_size, 3, *pad],
-              valid_gts=batch['gt_valid'].sum(dim=1).tolist(),
-              params_student=sum(p.numel() for p in model.parameters()),
-              params_trainable=sum(p.numel() for p in model.parameters()
-                                   if p.requires_grad),
-              params_teacher=sum(p.numel()
-                                 for p in model.teacher.parameters()),
-              build_s=build_s, warmup_steps=warmup, timed_steps=timed,
-              step_ms=step_ms, step_ms_mean=sum(step_ms) / len(step_ms),
-              step_ms_max=max(step_ms),
-              img_per_s=batch_size * 1e3 * len(step_ms) / sum(step_ms),
-              teacher_forward_ms=teacher_ms, lr=lrs,
-              loss_first=history[0], loss_last=history[-1],
-              nms_keep_launches=launches, nms_keep_launches_per_step=5,
-              gi_candidates=gi_k, gi_picks=[int(m.sum()) for m in got],
-              gi_plain_keep_identical=True,
-              max_memory_allocated_bytes=peak, **profile_row))
-    del model, step, optimizer, batch, prof
-    torch.cuda.empty_cache()
-    phase_train_reference(torch, cfg, base)
-    return launches
+                          prof_steps / 1e3) for e in top])
 
 
 def runtime_cfg(teacher_path):
@@ -1143,6 +1209,118 @@ def phase_voc(torch, np, smi):
     return train_launches + cli_launches + tta_launches, merge
 
 
+def top_score(torch, head, outs):
+    """The largest class probability over every anchor and class of one
+    image, computed apart from the decode: the first detection's score,
+    since the best candidate always survives the top-k and the NMS."""
+    name = type(head).__name__
+    if name == 'GFocalHead':
+        probs = outs[0]
+    elif name in ('ATSSGFLHead', 'FCOSGFLHead'):
+        probs = [torch.sigmoid(c) * torch.sigmoid(r)
+                 for c, r in zip(outs[0], outs[2])]
+    else:
+        probs = [torch.sigmoid(c) for c in outs[0]]
+    return max(float(p.max()) for p in probs)
+
+
+def family_serve(torch, smi, config, depth=None, warmup=2, timed=10,
+                 hw=(800, 1344)):
+    """`forward_test` of a GFL-family config at 800x1344, batch 1, at full
+    width (random weights from seed 0, the cls prediction bias 0 so that
+    NMS sees candidates); 1 nms_keep launch a call, the detections
+    bit-identical with the plain keep mask, and the first detection's score
+    the largest class probability (no second sigmoid on probabilities).
+    Returns the launch count and the emitted row."""
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+
+    cfg = Config.fromfile(os.path.join(ROOT, config))
+    if depth is not None:
+        cfg.model.backbone.depth = depth
+    model = build_detector(cfg.model)
+    model.init_weights(torch.Generator().manual_seed(0))
+    head = model.bbox_head
+    with torch.no_grad():
+        getattr(head, head.cls_pred_name).bias.zero_()
+    model = model.to('cuda').eval()
+    bench = dict(image=torch.randn(1, 3, *hw, device='cuda',
+                                   generator=torch.Generator('cuda')
+                                   .manual_seed(0)),
+                 img_hw=torch.tensor([hw], dtype=torch.float32,
+                                     device='cuda'))
+    with torch.inference_mode():
+        # ---- the main path: counts from 0, read right after --------------
+        nms_keep.launches = 0
+        for _ in range(warmup):
+            model.forward_test(bench)
+        torch.cuda.synchronize()
+        call_ms = []
+        for _ in range(timed):
+            t = time.perf_counter()
+            dets, _, valid = model.forward_test(bench)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t) * 1e3)
+        launches = nms_keep.launches
+        # ------------------------------------------------------------------
+        check(launches == warmup + timed,
+              f'{config}: nms_keep launched {launches} times for '
+              f'{warmup + timed} forward_test calls')
+        check(tuple(dets.shape) == (1, 100, 5) and
+              bool(torch.isfinite(dets).all()) and int(valid.sum()) > 0,
+              f'{config}: forward_test output at {hw}')
+        outs = model(bench['image'])
+        captured = []
+
+        def capture(boxes, valid, thr):
+            captured.append((tuple(boxes.shape), int(valid.sum())))
+            return nms_keep(boxes, valid, thr)
+        got = head.get_bboxes(outs, bench['img_hw'], keep_fn=capture)
+        want = head.get_bboxes(outs, bench['img_hw'], keep_fn=nms_keep_ref)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f'{config}: detections with the kernel differ from the plain '
+              'keep mask')
+        dets, valid = got[0], got[2]
+        best = top_score(torch, head, outs)
+        check(abs(float(dets[0, 0, 4]) - best) <= 1e-6,
+              f'{config}: first detection score {float(dets[0, 0, 4])} is '
+              f'not the largest class probability {best}')
+    (_, k, _), n_valid = captured[0]
+    row = dict(phase='gfl_family_serve', config=config, nvidia_smi=smi,
+               depth=cfg.model.backbone.depth, head=type(head).__name__,
+               input=[1, 3, *hw], warmup_calls=warmup, timed_calls=timed,
+               forward_test_ms=call_ms,
+               forward_test_ms_mean=sum(call_ms) / len(call_ms),
+               forward_test_ms_max=max(call_ms),
+               nms_keep_launches=launches, nms_keep_launches_per_call=1,
+               nms_k=k, nms_valid_candidates=n_valid,
+               detections=int(valid.sum()),
+               top_score=float(dets[0, 0, 4]), plain_keep_identical=True)
+    emit(row)
+    del model, outs, bench
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def phase_gfl_family(torch, smi):
+    """The other GFL-family heads at full width: LDv2 (2 + 5 steps), IMv2
+    (1 step), LD on ATSS-, FCOS- and Retina-GFL (2 + 3 steps each), then
+    `forward_test` of a GFocalV2, ATSS-, FCOS- and Retina-GFL R50; returns
+    the kernel's launch count over their main paths."""
+    launches = 0
+    for config, per_step, warmup, timed, reference in FAMILY_LD:
+        n, row = ld_steps(torch, smi, config, per_step, warmup, timed,
+                          reference)
+        if 'imv2' in config:
+            check(row['loss_first']['loss_dfl'] == 0.0,
+                  f'{config}: loss_dfl {row["loss_first"]["loss_dfl"]}')
+        launches += n
+    for config, depth in FAMILY_SERVE:
+        launches += family_serve(torch, smi, config, depth)[0]
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1186,14 +1364,17 @@ def main():
     train_launches = phase_train(torch, smi)
     runtime_launches = phase_runtime(torch, smi)
     voc_launches, merge = phase_voc(torch, np, smi)
+    family_launches = phase_gfl_family(torch, smi)
 
     print(smi.splitlines()[0], flush=True)
     emit(dict(kernels=[dict(
         name='nms_keep', route='cuda', source='ld_tpu_torch/csrc/nms_keep.cu',
         replaces='ld_tpu/ops/pallas_nms.py:23',
-        launches=launches + train_launches + runtime_launches + voc_launches,
+        launches=(launches + train_launches + runtime_launches +
+                  voc_launches + family_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
+        launches_gfl_family=family_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

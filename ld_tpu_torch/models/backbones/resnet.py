@@ -1,12 +1,15 @@
 """ResNet backbones (port of `ld_tpu/models/backbones/resnet.py:63-334`), NCHW.
 
-'pytorch'-style blocks (stride on the 3x3 conv of a bottleneck) with the
-detection semantics of the JAX package:
+'pytorch'-style blocks put a bottleneck's stride on its 3x3 conv2,
+'caffe'-style ones (the Detectron-lineage weights of the FCOS-GFL teachers)
+on its 1x1 conv1. The detection semantics of the JAX package:
 
   * `norm_eval=True`: every BatchNorm uses its running statistics, also when
     the module is in training mode (`train()` keeps the BNs in eval).
   * `frozen_stages=k`: the stem and the first k stages get no gradient
     (`requires_grad=False`) and keep their BNs in eval.
+  * `norm_cfg=dict(type='BN', requires_grad=False)`: no BN affine of the
+    backbone gets a gradient.
 
 Module names are mmdet's (`conv1`, `bn1`, `layer1.0.conv1`,
 `layer1.0.downsample.{0,1}`, ...), so a published mmdet/torchvision
@@ -31,8 +34,11 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, dilation=1,
-                 downsample=None, conv_cfg=None, norm_cfg=None):
+                 downsample=None, conv_cfg=None, norm_cfg=None,
+                 style='pytorch'):
         super().__init__()
+        # one stride placement: `style` changes nothing here, as in mmdet
+        del style
         self.conv1 = make_conv(conv_cfg, inplanes, planes, 3, stride)
         self.bn1 = make_norm(norm_cfg, planes)
         self.conv2 = make_conv(conv_cfg, planes, planes, 3, 1)
@@ -51,11 +57,13 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, dilation=1,
-                 downsample=None, conv_cfg=None, norm_cfg=None):
+                 downsample=None, conv_cfg=None, norm_cfg=None,
+                 style='pytorch'):
         super().__init__()
-        self.conv1 = make_conv(conv_cfg, inplanes, planes, 1, 1)
+        s1, s2 = (stride, 1) if style == 'caffe' else (1, stride)
+        self.conv1 = make_conv(conv_cfg, inplanes, planes, 1, s1)
         self.bn1 = make_norm(norm_cfg, planes)
-        self.conv2 = make_conv(conv_cfg, planes, planes, 3, stride,
+        self.conv2 = make_conv(conv_cfg, planes, planes, 3, s2,
                                padding=dilation, dilation=dilation)
         self.bn2 = make_norm(norm_cfg, planes)
         self.conv3 = make_conv(conv_cfg, planes, planes * self.expansion, 1, 1)
@@ -110,9 +118,8 @@ class ResNet(nn.Module):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise KeyError(f'invalid depth {depth} for resnet')
-        if style != 'pytorch':
-            raise NotImplementedError(f'ResNet style={style!r} is not ported '
-                                      'to ld_tpu_torch yet (see ROADMAP.md)')
+        if style not in ('pytorch', 'caffe'):
+            raise ValueError(f'ResNet style={style!r}')
         for key, value in kwargs.items():
             if key in _UNPORTED_KEYS and value != _UNPORTED_KEYS[key]:
                 raise NotImplementedError(
@@ -151,12 +158,16 @@ class ResNet(nn.Module):
                                   1, s),
                         make_norm(norm_cfg, planes * block.expansion))
                 layers.append(block(inplanes, planes, s, dilation,
-                                    downsample, conv_cfg, norm_cfg))
+                                    downsample, conv_cfg, norm_cfg, style))
                 inplanes = planes * block.expansion
             name = f'layer{i + 1}'
             self.add_module(name, nn.Sequential(*layers))
             self.res_layers.append(name)
         self._freeze_stages()
+        if (norm_cfg or {}).get('requires_grad', True) is False:
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.requires_grad_(False)
 
     def _freeze_stages(self):
         if self.frozen_stages >= 0:

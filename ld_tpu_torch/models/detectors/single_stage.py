@@ -68,6 +68,8 @@ class SingleStageDetector(nn.Module):
             outs, batch['img_hw'], batch.get('scale_factor'), rescale=rescale)
 
 
-# named wrapper so the config `type='GFL'` resolves
-DETECTORS.register_module(name='GFL', module=type(
-    'GFL', (SingleStageDetector, ), {}))
+# named wrappers so the configs' `type=` names of the GFL-family detectors
+# resolve
+for _name in ('GFL', 'ATSS', 'FCOS', 'RetinaNet'):
+    DETECTORS.register_module(name=_name, module=type(
+        _name, (SingleStageDetector, ), {}))

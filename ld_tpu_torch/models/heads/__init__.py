@@ -1,13 +1,12 @@
-from ld_tpu_torch.utils.registry import HEADS
-
+from .atss_gfl_head import ATSSGFLHead, LDATSSHead
+from .fcos_gfl_head import FCOSGFLHead, LDFCOSCompareHead, LDFCOSHead
 from .gfl_head import GFLHead
+from .gfocal_head import GFocalHead
+from .ld_gflv2 import IMv2Head, LDv2Head
 from .ld_head import IMHead, LDHead
+from .retina_gfl_head import LDRetinaHead, RetinaGFLHead
 
-# the JAX package's other GFL-family heads
-HEADS.not_ported.update(
-    {name: 'ROADMAP.md item 20'
-     for name in ('GFocalHead', 'LDv2Head', 'IMv2Head', 'ATSSGFLHead',
-                  'LDATSSHead', 'FCOSGFLHead', 'LDFCOSHead',
-                  'LDFCOSCompareHead', 'RetinaGFLHead', 'LDRetinaHead')})
-
-__all__ = ['GFLHead', 'IMHead', 'LDHead']
+__all__ = ['GFLHead', 'IMHead', 'LDHead', 'GFocalHead', 'LDv2Head',
+           'IMv2Head', 'ATSSGFLHead', 'LDATSSHead', 'FCOSGFLHead',
+           'LDFCOSHead', 'LDFCOSCompareHead', 'RetinaGFLHead',
+           'LDRetinaHead']

@@ -12,13 +12,17 @@ Port of `ld_tpu/models/heads/gfl_head.py:39-104` (towers), `:200-311`
     per-level loops over gathered positives. The positive count is the
     batch total, clamped once; the IoU quality target and the max-class
     weight are detached;
-  * get_bboxes: per level, the `nms_pre` top-k on the max class LOGIT (before
-    the sigmoid), integral decode x stride, `distance2bbox` clipped to the
-    image, optional rescale, then class-aware `multiclass_nms`, batched over
-    images.
+  * get_bboxes: per level, the `nms_pre` top-k on the max class score (the
+    LOGIT when the sigmoid comes after, as here), integral decode x stride,
+    `distance2bbox` clipped to the image, optional rescale, then class-aware
+    `multiclass_nms`, batched over images. The sigmoid is applied only when
+    the scores are logits (`use_sigmoid_cls`, or the caller's `use_sigmoid`):
+    the GFLv2 heads and the heads that fold a centerness in hand over
+    probabilities.
 
 Module names are mmdet's (`cls_convs.i.{conv,gn}`, `gfl_cls`, `gfl_reg`,
-`scales.i.scale`).
+`scales.i.scale`). The other GFL-family heads subclass this one and replace
+`_build_predictors` / `forward` (and the towers, for Retina).
 """
 from __future__ import annotations
 
@@ -70,9 +74,14 @@ def flatten_level(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).reshape(b, -1, c)
 
 
-def flatten_levels(xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """[(B, C, H, W)] per level -> (B, sum(H*W), C)."""
-    return torch.cat([flatten_level(x) for x in xs], dim=1)
+def flatten_levels(xs: Sequence[torch.Tensor], per_anchor: int = None
+                   ) -> torch.Tensor:
+    """[(B, A*c, H, W)] per level -> (B, sum(H*W*A), c), the anchor minor
+    (`c` = `per_anchor`, or all channels with one anchor)."""
+    b = xs[0].shape[0]
+    return torch.cat([flatten_level(x).reshape(b, -1, per_anchor or
+                                               x.shape[1]) for x in xs],
+                     dim=1)
 
 
 @HEADS.register_module()
@@ -130,8 +139,16 @@ class GFLHead(nn.Module):
         # level_pack is the JAX package's one-canvas TPU tower: same
         # parameters and outputs, so there is nothing to port
         del level_pack
+        self.num_anchors = self.anchor_generator.num_base_anchors[0]
+        self._build_towers(in_channels, feat_channels, stacked_convs,
+                           (norm_cfg or {}).get('num_groups', 32))
+        self._build_predictors(feat_channels)
 
-        groups = (norm_cfg or {}).get('num_groups', 32)
+    # the prediction conv that carries the prior-0.01 bias
+    cls_pred_name = 'gfl_cls'
+
+    def _build_towers(self, in_channels, feat_channels, stacked_convs,
+                      groups):
         self.cls_convs = nn.ModuleList(
             ConvGNBlock(in_channels if i == 0 else feat_channels,
                         feat_channels, groups)
@@ -140,15 +157,19 @@ class GFLHead(nn.Module):
             ConvGNBlock(in_channels if i == 0 else feat_channels,
                         feat_channels, groups)
             for i in range(stacked_convs))
-        self.gfl_cls = nn.Conv2d(feat_channels, num_classes, 3, padding=1)
-        self.gfl_reg = nn.Conv2d(feat_channels, 4 * (reg_max + 1), 3,
+
+    def _build_predictors(self, feat_channels):
+        self.gfl_cls = nn.Conv2d(feat_channels, self.num_classes, 3,
+                                 padding=1)
+        self.gfl_reg = nn.Conv2d(feat_channels, 4 * (self.reg_max + 1), 3,
                                  padding=1)
         self.scales = nn.ModuleList(Scale(1.0)
                                     for _ in range(self.num_levels))
 
     def init_weights(self, generator: torch.Generator):
-        """The JAX package's initializers: normal(0.01) conv kernels, the
-        prior-0.01 bias on `gfl_cls`, GN scale 1 / bias 0, scales 1."""
+        """The JAX package's initializers: normal(0.01) conv kernels, zero
+        conv biases but the prior-0.01 one of the cls prediction conv, GN
+        scale 1 / bias 0, scales 1."""
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, nn.Conv2d):
@@ -157,19 +178,25 @@ class GFLHead(nn.Module):
                         nn.init.zeros_(m.bias)
                 elif isinstance(m, nn.GroupNorm):
                     m.reset_parameters()
-            nn.init.constant_(self.gfl_cls.bias, _CLS_BIAS_INIT)
-            for s in self.scales:
+            nn.init.constant_(getattr(self, self.cls_pred_name).bias,
+                              _CLS_BIAS_INIT)
+            for s in getattr(self, 'scales', ()):
                 s.scale.fill_(1.0)
+
+    def _towers(self, x):
+        """One level through the cls and the reg tower."""
+        cls_feat, reg_feat = x, x
+        for conv in self.cls_convs:
+            cls_feat = conv(cls_feat)
+        for conv in self.reg_convs:
+            reg_feat = conv(reg_feat)
+        return cls_feat, reg_feat
 
     def forward(self, feats: Sequence[torch.Tensor]):
         """feats: NCHW per level -> (cls_scores, bbox_preds), NCHW per level."""
         cls_scores, bbox_preds = [], []
         for lvl, x in enumerate(feats):
-            cls_feat, reg_feat = x, x
-            for conv in self.cls_convs:
-                cls_feat = conv(cls_feat)
-            for conv in self.reg_convs:
-                reg_feat = conv(reg_feat)
+            cls_feat, reg_feat = self._towers(x)
             cls_scores.append(self.gfl_cls(cls_feat))
             bbox_preds.append(self.scales[lvl](self.gfl_reg(reg_feat)))
         return cls_scores, bbox_preds
@@ -279,8 +306,14 @@ class GFLHead(nn.Module):
                     pred_corners=pred_corners, centers=centers,
                     decoded=decoded, num_total_samples=num_total_samples)
 
+    def level_centers(self, featmap_sizes, device) -> List[torch.Tensor]:
+        """The decode's points per level, (H*W*A, 2) each: anchor centres."""
+        return [anchor_center(a) for a in
+                self.anchor_generator.grid_anchors(featmap_sizes, device)]
+
     def get_bboxes(self, outputs, img_hw, scale_factor=None, rescale=False,
-                   cfg=None, with_nms=True, keep_fn=nms_keep):
+                   cfg=None, with_nms=True, keep_fn=nms_keep,
+                   use_sigmoid=None):
         """Decode head outputs into final detections.
 
         Args:
@@ -289,26 +322,31 @@ class GFLHead(nn.Module):
             scale_factor: (B, 4) resize factors for rescale to original.
             keep_fn: the keep-mask function handed to `multiclass_nms`,
                 `nms_keep` (the kernel on the card).
+            use_sigmoid: whether `cls_scores` are logits that want a sigmoid
+                (default `use_sigmoid_cls`); False for probabilities.
         Returns:
             dets (B, max_per_img, 5), labels (B, max_per_img), valid mask;
             with_nms=False: boxes (B, N, 4) and scores (B, N, C).
         """
         cfg = cfg or self.test_cfg
-        cls_scores, bbox_preds = outputs
+        if use_sigmoid is None:
+            use_sigmoid = self.use_sigmoid_cls
+        cls_scores, bbox_preds = outputs[0], outputs[1]
         device = cls_scores[0].device
         b = cls_scores[0].shape[0]
         featmap_sizes = [tuple(c.shape[-2:]) for c in cls_scores]
         nms_pre = cfg.get('nms_pre', 1000)
-        mlvl_anchors = self.anchor_generator.grid_anchors(featmap_sizes,
-                                                          device)
+        mlvl_centers = self.level_centers(featmap_sizes, device)
         img_hw = torch.as_tensor(img_hw, dtype=torch.float32, device=device)
 
         boxes_all: List[torch.Tensor] = []
         scores_all: List[torch.Tensor] = []
         for lvl in range(self.num_levels):
-            scores = flatten_level(cls_scores[lvl])               # (B, n, C)
-            pred = flatten_level(bbox_preds[lvl])                 # (B, n, 68)
-            anchors = mlvl_anchors[lvl].expand(b, -1, 4)
+            scores = flatten_level(cls_scores[lvl]).reshape(
+                b, -1, self.cls_out_channels)                     # (B, n, C)
+            pred = flatten_level(bbox_preds[lvl]).reshape(
+                b, -1, 4 * (self.reg_max + 1))                    # (B, n, 68)
+            centers = mlvl_centers[lvl].expand(b, -1, 2)
             n = scores.shape[1]
             if nms_pre > 0 and n > nms_pre:
                 # top-k BEFORE sigmoid/integral: sigmoid is monotonic, so
@@ -316,12 +354,12 @@ class GFLHead(nn.Module):
                 _, topk = torch.topk(scores.amax(dim=-1), nms_pre)
                 scores = _gather_rows(scores, topk)
                 pred = _gather_rows(pred, topk)
-                anchors = _gather_rows(anchors, topk)
+                centers = _gather_rows(centers, topk)
             stride = float(self.anchor_generator.strides[lvl][0])
             dist = integral(pred, self.reg_max) * stride
-            boxes_all.append(distance2bbox(anchor_center(anchors), dist,
-                                           max_shape=img_hw))
-            scores_all.append(torch.sigmoid(scores))
+            boxes_all.append(distance2bbox(centers, dist, max_shape=img_hw))
+            scores_all.append(torch.sigmoid(scores) if use_sigmoid
+                              else scores)
         boxes = torch.cat(boxes_all, dim=1)
         scores = torch.cat(scores_all, dim=1)
         if rescale and scale_factor is not None:

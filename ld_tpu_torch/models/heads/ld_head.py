@@ -34,6 +34,16 @@ from ld_tpu_torch.utils.registry import HEADS, LOSSES
 from .gfl_head import GFLHead, flatten_levels
 
 
+def class_kd_per_level(kd_el, posf, level_id, num_levels, loss_weight):
+    """Class KD summed over the positives, each normalised by its level's
+    positive count over the batch (the reference's per-level
+    avg_factor=pos_inds.shape[0]): kd_el, posf (B, N); level_id (N,)."""
+    n_pos_level = torch.zeros(num_levels, device=posf.device).index_add_(
+        0, level_id, posf.sum(dim=0))
+    per_anchor_norm = n_pos_level.clamp(min=1.0)[level_id]         # (N,)
+    return loss_weight * (kd_el * posf / per_anchor_norm[None, :]).sum()
+
+
 @HEADS.register_module()
 class LDHead(GFLHead):
 
@@ -101,6 +111,11 @@ class LDHead(GFLHead):
         return t
 
     # ---- GI region ----------------------------------------------------------
+    def gi_scores(self, cls_flat, soft_label_flat):
+        """The per-class GI score difference, teacher minus student, on
+        class probabilities."""
+        return torch.sigmoid(soft_label_flat) - torch.sigmoid(cls_flat)
+
     @torch.no_grad()
     def _gi_mask(self, cls_flat, soft_label_flat, pred_flat, soft_pred_flat,
                  centers, gi_candidates=512, gi_top=10, keep_fn=nms_keep):
@@ -113,7 +128,7 @@ class LDHead(GFLHead):
             centers: (n, 2) anchor centres in units of the level's stride.
             keep_fn: the keep-mask function of the NMS.
         """
-        z = torch.sigmoid(soft_label_flat) - torch.sigmoid(cls_flat)
+        z = self.gi_scores(cls_flat, soft_label_flat)
         gi_score = z.abs().amax(dim=-1)
         cls_idx = z.abs().argmax(dim=-1)      # the first class on a tie
         teacher_bigger = z.gather(-1, cls_idx[:, None])[:, 0] >= 0
@@ -134,17 +149,22 @@ class LDHead(GFLHead):
         return torch.zeros(n, device=gi_score.device).scatter_reduce(
             0, cand_idx[idx], valid.to(torch.float32), 'amax')
 
+    def gi_levels(self, outputs, soft_teacher):
+        """The per-level NCHW maps the GI region compares, from the
+        student's and the teacher's outputs: (student cls, teacher cls,
+        student box, teacher box)."""
+        return outputs[0], soft_teacher[0], outputs[1], soft_teacher[1]
+
     def gi_masks(self, outputs, soft_teacher, keep_fn=nms_keep
                  ) -> List[torch.Tensor]:
         """The GI-region mask of each level, (B * H_l * W_l,) each, from the
-        student's and the teacher's per-level (cls, bbox) NCHW outputs."""
-        featmap_sizes = [tuple(c.shape[-2:]) for c in outputs[0]]
+        student's and the teacher's per-level NCHW outputs."""
+        levels = self.gi_levels(outputs, soft_teacher)
+        featmap_sizes = [tuple(c.shape[-2:]) for c in levels[0]]
         anchors, num_lvl, _, _ = self.level_geometry(
-            featmap_sizes, outputs[0][0].device)
-        return self._gi_masks_flat(
-            flatten_levels(outputs[0]), flatten_levels(soft_teacher[0]),
-            flatten_levels(outputs[1]), flatten_levels(soft_teacher[1]),
-            anchors, num_lvl, keep_fn)
+            featmap_sizes, levels[0][0].device)
+        return self._gi_masks_flat(*(flatten_levels(x) for x in levels),
+                                   anchors, num_lvl, keep_fn)
 
     def _gi_masks_flat(self, cls_flat, soft_label, pred_flat, soft_target,
                        anchors, num_lvl, keep_fn) -> List[torch.Tensor]:
@@ -167,7 +187,7 @@ class LDHead(GFLHead):
     # ---- loss ----------------------------------------------------------------
     def loss(self, outputs, batch, featmap_sizes, soft_teacher,
              student_feats=None, teacher_feats=None,
-             keep_fn=nms_keep) -> Dict[str, torch.Tensor]:
+             keep_fn=nms_keep, kd_logits=None) -> Dict[str, torch.Tensor]:
         """The full LD loss.
 
         Args:
@@ -176,6 +196,8 @@ class LDHead(GFLHead):
             student_feats / teacher_feats: the FPN features, needed when
                 loss_im has a nonzero weight.
             keep_fn: the keep-mask function of the GI NMS.
+            kd_logits: the (student, teacher) per-level class maps of the
+                class KD, when they are not `outputs[0]` / `soft_teacher[0]`.
         """
         cls_scores, bbox_preds = outputs[0], outputs[1]
         t = self.build_targets(featmap_sizes, batch['gt_bboxes'],
@@ -185,6 +207,8 @@ class LDHead(GFLHead):
         pred_flat = flatten_levels(bbox_preds)
         soft_label = flatten_levels(soft_teacher[0])
         soft_target = flatten_levels(soft_teacher[1])
+        kd_student, kd_teacher = (cls_flat, soft_label) if kd_logits is None \
+            else (flatten_levels(kd_logits[0]), flatten_levels(kd_logits[1]))
 
         core = self._core_losses(cls_flat, pred_flat, t)
         losses = dict(loss_cls=core['loss_cls'], loss_bbox=core['loss_bbox'],
@@ -208,16 +232,13 @@ class LDHead(GFLHead):
                                                  avg_factor=16.0)
 
         # class KD on positives, normalised by each LEVEL's positive count
-        # (the reference's avg_factor=pos_inds.shape[0] per level)
         kd_el = knowledge_distillation_kl_div_loss(
-            cls_flat, soft_label, reduction='none', T=self.loss_kd.T)  # (B, N)
-        level_id = t['level_id']
+            kd_student, kd_teacher, reduction='none',
+            T=self.loss_kd.T)                                      # (B, N)
         posf = core['posf'] * core['label_weights']
-        n_pos_level = torch.zeros(self.num_levels, device=posf.device
-                                  ).index_add_(0, level_id, posf.sum(dim=0))
-        per_anchor_norm = n_pos_level.clamp(min=1.0)[level_id]         # (N,)
-        losses['loss_kd'] = self.loss_kd.loss_weight * (
-            kd_el * posf / per_anchor_norm[None, :]).sum()
+        losses['loss_kd'] = class_kd_per_level(kd_el, posf, t['level_id'],
+                                               self.num_levels,
+                                               self.loss_kd.loss_weight)
         # the reference computes a VLR-region KD term and multiplies it by 0
         losses['loss_kd_neg'] = torch.zeros((), device=posf.device)
 

@@ -17,13 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ld_tpu_torch.utils.registry import LOSSES
+from .focal_loss import bce_with_logits
 from .utils import weighted_loss
-
-
-def _bce_with_logits(pred, target):
-    # numerically stable binary cross entropy on logits
-    return pred.clamp(min=0) - pred * target + torch.log1p(
-        torch.exp(-pred.abs()))
 
 
 def _bce_on_probs(pred, target, eps=1e-12):
@@ -47,7 +42,7 @@ def quality_focal_loss(pred: torch.Tensor, target, beta: float = 2.0,
     label, score = target
     num_classes = pred.shape[-1]
     if use_sigmoid:
-        bce = _bce_with_logits
+        bce = bce_with_logits
         pred_sigmoid = torch.sigmoid(pred)
     else:
         bce = _bce_on_probs

@@ -4,7 +4,7 @@ MSE; port of `ld_tpu/models/losses/kd_loss.py:24-84`.
   * knowledge_distillation_kl_div_loss: KL(softmax(t/T) || softmax(s/T))
     averaged over the last dim and scaled by T^2, including the p*log(p)
     term of the target (F.kl_div's pointwise form), with the target
-    detached.
+    detached; evaluated in float64 (see its docstring).
   * IMLoss: the plain MSE over all elements, a scalar.
 
 Both registry names of the KL loss resolve to one class:
@@ -33,11 +33,17 @@ def knowledge_distillation_kl_div_loss(pred: torch.Tensor,
         soft_label: (N, K) teacher logits.
         T: distillation temperature.
     Returns:
-        (N,) loss: mean_k[p_k * (log p_k - log q_k)] * T^2
+        (N,) loss in pred's dtype: mean_k[p_k * (log p_k - log q_k)] * T^2,
+        evaluated in float64. Between two nearly equal distributions (a
+        fresh student and teacher, a high T) the sum cancels to a value
+        second order in their difference, and the float32 rounding of the
+        two log-softmaxes reaches ~1e-3 of it.
     """
     if pred.shape != soft_label.shape:
         raise ValueError(f'pred {tuple(pred.shape)} and soft_label '
                          f'{tuple(soft_label.shape)} differ')
+    dtype = pred.dtype
+    pred, soft_label = pred.double(), soft_label.double()
     target_logp = F.log_softmax(soft_label / T, dim=-1)
     target = target_logp.exp()
     if detach_target:
@@ -45,7 +51,7 @@ def knowledge_distillation_kl_div_loss(pred: torch.Tensor,
         target_logp = target_logp.detach()
     logp = F.log_softmax(pred / T, dim=-1)
     kd = target * (target_logp - logp)
-    return kd.mean(dim=-1) * (T * T)
+    return (kd.mean(dim=-1) * (T * T)).to(dtype)
 
 
 @weighted_loss

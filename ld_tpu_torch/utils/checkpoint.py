@@ -5,8 +5,10 @@
     `load_state_dict(strict=True)`, because the port uses mmdet's module
     names.
   * `state_dict_from_jax`: the exact inverse of
-    `ld_tpu.utils.checkpoint.convert_torch_state_dict` for the ResNet / FPN /
-    GFL-head families (the LD head has the GFL head's parameters). It takes
+    `ld_tpu.utils.checkpoint.convert_torch_state_dict` for the ResNet / FPN
+    and the GFL, GFocalV2, ATSS-GFL and Retina-GFL heads (an LD head has its
+    base head's parameters; the JAX FCOS-GFL head is left out, its final
+    convs carry the ATSS head's names). It takes
     the JAX package's {'params', 'batch_stats'} tree as nested dicts of
     numpy arrays and returns the port's mmdet-named state dict, so both
     packages can run on the same weights.
@@ -102,10 +104,22 @@ def _neck_key(path: tuple, num_laterals: int) -> str:
     return f'fpn_convs.{i}.conv.{name}'
 
 
+# the JAX heads' final convs -> mmdet's names; the JAX FCOS-GFL head's
+# atss_* convs are mmdet's conv_* and cannot be told from the ATSS head's
+_HEAD_CONVS = {'gfl_cls': 'gfl_cls', 'gfl_reg': 'gfl_reg',
+               'atss_cls': 'atss_cls', 'atss_reg': 'atss_reg',
+               'atss_centerness': 'atss_centerness',
+               'retina_cls': 'atss_cls', 'retina_reg': 'atss_reg',
+               'reg_conf_1': 'reg_conf.0', 'reg_conf_2': 'reg_conf.2'}
+
+
 def _head_key(path: tuple) -> str:
+    leaf_name = {'kernel': 'weight', 'bias': 'bias'}
     m = re.fullmatch(r'(cls|reg)_conv(\d+)', path[0])
     if m is not None:
         kind, i = m.groups()
+        if len(path) == 2:        # the Retina towers' bare biased convs
+            return f'{kind}_convs.{i}.conv.{leaf_name[path[1]]}'
         sub, leaf = path[1:]
         if sub == 'Conv_0' and leaf == 'kernel':
             return f'{kind}_convs.{i}.conv.weight'
@@ -113,8 +127,8 @@ def _head_key(path: tuple) -> str:
             return f'{kind}_convs.{i}.gn.' + {'scale': 'weight',
                                               'bias': 'bias'}[leaf]
         raise KeyError(path)
-    if path[0] in ('gfl_cls', 'gfl_reg') and len(path) == 2:
-        return f'{path[0]}.' + {'kernel': 'weight', 'bias': 'bias'}[path[1]]
+    if path[0] in _HEAD_CONVS and len(path) == 2:
+        return f'{_HEAD_CONVS[path[0]]}.{leaf_name[path[1]]}'
     raise KeyError(path)
 
 

@@ -9,7 +9,8 @@ JAX, where tests/conftest.py (which imports jax) is left out:
 The hand-made edge sets of the block-wise sweep come from
 `ld_tpu_torch.testing`; `chip_smoke.py` checks the kernel on the same sets.
 The training caller, `LDHead._gi_mask`, is checked at the GI path's shapes,
-and the loader's `DevicePrefetcher` against a plain copy to the card.
+the LDv2 head's GI masks at full width, and the loader's `DevicePrefetcher`
+against a plain copy to the card.
 """
 import pytest
 import torch
@@ -99,6 +100,38 @@ def test_gi_mask_kernel_equals_plain_keep(h, w):
     want = head._gi_mask(*inputs, keep_fn=nms_keep_ref)
     assert torch.equal(got, want)
     assert 0 < int(got.sum()) <= head.gi_top
+
+
+@pytest.mark.cuda
+def test_ldv2_gi_masks_kernel_equals_plain_keep():
+    """The LDv2 step's GI region (raw teacher logits minus student
+    probabilities, one NMS a level): configs/ldv2/ld_r50_gflv2_r101_fpn_1x.py
+    at full width (R50 from seed 0, GFocalV2-R101 teacher from seed 1) on
+    1x3x128x192, its 5 masks through the kernel and through
+    `nms_keep_ref`, bit for bit."""
+    _need_card()
+    import os
+
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.testing import detection_batch
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config.fromfile(os.path.join(
+        root, 'configs/ldv2/ld_r50_gflv2_r101_fpn_1x.py'))
+    model = build_detector(cfg.model)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.init_teacher_weights(torch.Generator().manual_seed(1))
+    model = model.cuda().eval()
+    image = detection_batch(1, 128, 192, seed=0)['image']
+    with torch.no_grad():
+        outs, t_outs = model(image), model.teacher(image)
+        launches = nms_keep.launches
+        got = model.bbox_head.gi_masks(outs, t_outs, keep_fn=nms_keep)
+        torch.cuda.synchronize()
+        assert nms_keep.launches == launches + 5
+        want = model.bbox_head.gi_masks(outs, t_outs, keep_fn=nms_keep_ref)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(0 < int(g.sum()) <= model.bbox_head.gi_top for g in got)
 
 
 @pytest.mark.cuda

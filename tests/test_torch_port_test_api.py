@@ -261,10 +261,12 @@ def test_runbook_rows_and_dry_runs(tmp_path, capsys):
     assert [line.split()[0] for line in listed] == list(runbook.ROWS)
     not_ported = runbook.main([
         '--dry-run', '--convert-only', '--row', 'gfl_r18_voc', '--row',
-        'ld_r18_self_1x', '--row', 'ldv2_r50_1x', '--work-dir',
-        str(tmp_path), '--device', 'cpu'])
-    assert list(not_ported) == ['ldv2_r50_1x']
-    assert 'ROADMAP.md item 20' in not_ported['ldv2_r50_1x']
+        'ld_r18_self_1x', '--row', 'ldv2_r50_1x', '--row', 'ld_r101_dcn_2x',
+        '--work-dir', str(tmp_path), '--device', 'cpu'])
+    assert list(not_ported) == ['ld_r101_dcn_2x']
+    assert 'ROADMAP.md item 21' in not_ported['ld_r101_dcn_2x']
+    assert 'ldv2_r50_1x: synth teacher ckpt: strict load OK' in \
+        capsys.readouterr().out
     assert runbook.main(['--dry-run', '--row', 'gfl_r18_voc', '--work-dir',
                          str(tmp_path), '--device', 'cpu']) == {}
     out = capsys.readouterr().out

@@ -49,8 +49,7 @@ VOC_CONFIGS = sorted(
     ['configs/ld/ld_r18_self_2x_3x_voc.py'])
 NOT_PORTED = {'configs/gfl/gfl_r101_dcn_fpn_voc.py': 'item 21',
               'configs/ld/ld_r101_gflv1_r101dcn_fpn_voc_1x.py': 'item 21',
-              'configs/ld/ld_r34_gflv1_r101dcn_fpn_voc_1x.py': 'item 21',
-              'configs/gfl/gflv2_r101_fpn_2x_voc.py': 'item 20'}
+              'configs/ld/ld_r34_gflv1_r101dcn_fpn_voc_1x.py': 'item 21'}
 NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
             to_rgb=True)
 PIPELINE = [dict(type='LoadImageFromFile'),
