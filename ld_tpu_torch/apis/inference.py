@@ -10,7 +10,6 @@ path, decoded with cv2 (a missing file raises FileNotFoundError).
 """
 from __future__ import annotations
 
-import warnings
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -37,18 +36,15 @@ def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
     JAX package's initializers) or loaded from an mmdet `.pth` checkpoint,
     in eval mode on `device` (default: the card).
 
-    The port computes in float32. A config's top-level `dtype`
-    (`configs/_base_/default_runtime.py` sets 'bfloat16', the JAX package's
-    TPU compute dtype) is reported with a warning and not applied: bf16
-    inference is not ported yet.
+    The towers compute in the config's top-level `dtype`
+    (`configs/_base_/default_runtime.py` sets 'bfloat16'; a path teacher
+    stays float32), as the JAX package's `init_detector` builds them; the
+    parameters and the predictions stay float32. `cfg.dtype = 'float32'`
+    gives the float32 detector.
     """
     device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
-    if cfg.get('dtype') not in (None, 'float32'):
-        warnings.warn(f"config dtype {cfg.get('dtype')!r} is not applied: "
-                      'ld_tpu_torch computes in float32 (bf16 inference is '
-                      'not ported yet)', stacklevel=2)
-    model = build_detector(cfg.model)
+    model = build_detector(cfg.model, dtype=cfg.get('dtype'))
     if checkpoint is None:
         model.init_weights(torch.Generator().manual_seed(seed))
     else:

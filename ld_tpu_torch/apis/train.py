@@ -99,9 +99,6 @@ def train_detector(cfg, work_dir: str, dataset=None,
     logger = get_root_logger(log_file)
     seed = int(cfg.get('seed') or 0)
     generator = set_random_seed(seed)
-    if cfg.get('dtype') not in (None, 'float32'):
-        logger.warning(f"config dtype {cfg.get('dtype')!r} is not applied: "
-                       'ld_tpu_torch computes in float32')
 
     dataset = dataset or build_dataset(cfg.data['train'])
     samples_per_gpu = cfg.data.get('samples_per_gpu', 2)
@@ -131,7 +128,9 @@ def train_detector(cfg, work_dir: str, dataset=None,
         max_epochs = runner_cfg.get('max_epochs', 12)
         lr_steps_per_epoch = steps_per_epoch
 
-    model = build_detector(cfg.model)
+    # the config's top-level dtype lowers the towers' compute; parameters,
+    # gradients, optimizer state and checkpoints stay float32
+    model = build_detector(cfg.model, dtype=cfg.get('dtype'))
     has_teacher = hasattr(model, 'teacher')
     # mmdet's NumClassCheckHook: the dataset's classes against the head's
     ds_classes = getattr(dataset, 'CLASSES', None)

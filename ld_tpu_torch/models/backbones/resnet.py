@@ -17,7 +17,12 @@ checkpoint loads with `load_state_dict(strict=True)`.
 
 The stem is a plain 7x7/2 conv. The JAX stem is `SpaceToDepthStem`, a TPU
 reformulation of the same conv with the same (7, 7, 3, 64) parameter; the two
-differ only by fp32 summation order.
+differ only by summation order.
+
+`dtype` (a config's compute dtype, e.g. 'bfloat16') lowers every conv and BN
+of the trunk (`models/layers.py`): the stem, the blocks and their shortcuts
+then compute in it, and so do the ReLUs, the max-pool and the residual adds
+between them; the parameters and running statistics stay float32.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from ld_tpu_torch.models.layers import lecun_normal_, make_conv, make_norm
+from ld_tpu_torch.models.layers import (Conv2d, lecun_normal_,
+                                        lowered_dtype, make_conv, make_norm)
 from ld_tpu_torch.utils.registry import BACKBONES
 
 
@@ -35,14 +41,15 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes, planes, stride=1, dilation=1,
                  downsample=None, conv_cfg=None, norm_cfg=None,
-                 style='pytorch'):
+                 style='pytorch', dtype=None):
         super().__init__()
         # one stride placement: `style` changes nothing here, as in mmdet
         del style
-        self.conv1 = make_conv(conv_cfg, inplanes, planes, 3, stride)
-        self.bn1 = make_norm(norm_cfg, planes)
-        self.conv2 = make_conv(conv_cfg, planes, planes, 3, 1)
-        self.bn2 = make_norm(norm_cfg, planes)
+        self.conv1 = make_conv(conv_cfg, inplanes, planes, 3, stride,
+                               dtype=dtype)
+        self.bn1 = make_norm(norm_cfg, planes, dtype)
+        self.conv2 = make_conv(conv_cfg, planes, planes, 3, 1, dtype=dtype)
+        self.bn2 = make_norm(norm_cfg, planes, dtype)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
@@ -58,16 +65,18 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes, planes, stride=1, dilation=1,
                  downsample=None, conv_cfg=None, norm_cfg=None,
-                 style='pytorch'):
+                 style='pytorch', dtype=None):
         super().__init__()
         s1, s2 = (stride, 1) if style == 'caffe' else (1, stride)
-        self.conv1 = make_conv(conv_cfg, inplanes, planes, 1, s1)
-        self.bn1 = make_norm(norm_cfg, planes)
+        self.conv1 = make_conv(conv_cfg, inplanes, planes, 1, s1, dtype=dtype)
+        self.bn1 = make_norm(norm_cfg, planes, dtype)
         self.conv2 = make_conv(conv_cfg, planes, planes, 3, s2,
-                               padding=dilation, dilation=dilation)
-        self.bn2 = make_norm(norm_cfg, planes)
-        self.conv3 = make_conv(conv_cfg, planes, planes * self.expansion, 1, 1)
-        self.bn3 = make_norm(norm_cfg, planes * self.expansion)
+                               padding=dilation, dilation=dilation,
+                               dtype=dtype)
+        self.bn2 = make_norm(norm_cfg, planes, dtype)
+        self.conv3 = make_conv(conv_cfg, planes, planes * self.expansion, 1, 1,
+                               dtype=dtype)
+        self.bn3 = make_norm(norm_cfg, planes * self.expansion, dtype)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
@@ -114,6 +123,7 @@ class ResNet(nn.Module):
                  conv_cfg: dict = None,
                  style: str = 'pytorch',
                  in_channels: int = 3,
+                 dtype=None,
                  **kwargs):
         super().__init__()
         if depth not in ARCH_SETTINGS:
@@ -137,9 +147,9 @@ class ResNet(nn.Module):
         self.frozen_stages = frozen_stages
         self.norm_eval = norm_eval
 
-        self.conv1 = nn.Conv2d(in_channels, base_channels, 7, 2, 3,
-                               bias=False)
-        self.bn1 = make_norm(norm_cfg, base_channels)
+        self.conv1 = Conv2d(in_channels, base_channels, 7, 2, 3, bias=False,
+                            compute_dtype=lowered_dtype(dtype))
+        self.bn1 = make_norm(norm_cfg, base_channels, dtype)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
 
@@ -155,10 +165,11 @@ class ResNet(nn.Module):
                 if b == 0 and (s != 1 or inplanes != planes * block.expansion):
                     downsample = nn.Sequential(
                         make_conv(conv_cfg, inplanes, planes * block.expansion,
-                                  1, s),
-                        make_norm(norm_cfg, planes * block.expansion))
+                                  1, s, dtype=dtype),
+                        make_norm(norm_cfg, planes * block.expansion, dtype))
                 layers.append(block(inplanes, planes, s, dilation,
-                                    downsample, conv_cfg, norm_cfg, style))
+                                    downsample, conv_cfg, norm_cfg, style,
+                                    dtype))
                 inplanes = planes * block.expansion
             name = f'layer{i + 1}'
             self.add_module(name, nn.Sequential(*layers))

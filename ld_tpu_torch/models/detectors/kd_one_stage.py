@@ -8,6 +8,11 @@ reference holds it), so it is in neither `parameters()` nor the student's
 mode whatever `train()` is called with. It runs under `torch.no_grad()`, and
 its outputs and FPN features reach the LD head detached, so no teacher
 graph is ever built.
+
+The teacher computes in float32 when `teacher_config` is a path (its file's
+model, built with no compute dtype, as in `ld_tpu/models/detectors/
+kd_one_stage.py:54-59`) and in the student's compute dtype when it is a dict
+with a `model`, which `apply_model_dtype` lowers with the student.
 """
 from __future__ import annotations
 

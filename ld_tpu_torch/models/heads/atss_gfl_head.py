@@ -84,11 +84,9 @@ class ATSSGFLHead(GFLHead):
             type='CrossEntropyLoss', use_sigmoid=True, loss_weight=1.0))
 
     def _build_predictors(self, feat_channels):
-        self.atss_cls = nn.Conv2d(feat_channels, self.num_classes, 3,
-                                  padding=1)
-        self.atss_reg = nn.Conv2d(feat_channels, 4 * (self.reg_max + 1), 3,
-                                  padding=1)
-        self.atss_centerness = nn.Conv2d(feat_channels, 1, 3, padding=1)
+        self.atss_cls = self._pred_conv(feat_channels, self.num_classes)
+        self.atss_reg = self._pred_conv(feat_channels, 4 * (self.reg_max + 1))
+        self.atss_centerness = self._pred_conv(feat_channels, 1)
         self.scales = nn.ModuleList(Scale(1.0)
                                     for _ in range(self.num_levels))
 
@@ -98,9 +96,10 @@ class ATSSGFLHead(GFLHead):
         cls_scores, bbox_preds, centernesses = [], [], []
         for lvl, x in enumerate(feats):
             cls_feat, reg_feat = self._towers(x)
-            cls_scores.append(self.atss_cls(cls_feat))
-            bbox_preds.append(self.scales[lvl](self.atss_reg(reg_feat)))
-            centernesses.append(self.atss_centerness(reg_feat))
+            cls_scores.append(self.atss_cls(cls_feat).float())
+            bbox_preds.append(self.scales[lvl](
+                self.atss_reg(reg_feat).float()))
+            centernesses.append(self.atss_centerness(reg_feat).float())
         return cls_scores, bbox_preds, centernesses
 
     def loss(self, outputs, batch, featmap_sizes) -> Dict[str, torch.Tensor]:

@@ -76,11 +76,9 @@ class FCOSGFLHead(ATSSGFLHead):
         self.centerness_on_reg = centerness_on_reg
 
     def _build_predictors(self, feat_channels):
-        self.conv_cls = nn.Conv2d(feat_channels, self.num_classes, 3,
-                                  padding=1)
-        self.conv_reg = nn.Conv2d(feat_channels, 4 * (self.reg_max + 1), 3,
-                                  padding=1)
-        self.conv_centerness = nn.Conv2d(feat_channels, 1, 3, padding=1)
+        self.conv_cls = self._pred_conv(feat_channels, self.num_classes)
+        self.conv_reg = self._pred_conv(feat_channels, 4 * (self.reg_max + 1))
+        self.conv_centerness = self._pred_conv(feat_channels, 1)
         self.scales = nn.ModuleList(Scale(1.0)
                                     for _ in range(self.num_levels))
 
@@ -90,10 +88,11 @@ class FCOSGFLHead(ATSSGFLHead):
         cls_scores, bbox_preds, centernesses = [], [], []
         for lvl, x in enumerate(feats):
             cls_feat, reg_feat = self._towers(x)
-            cls_scores.append(self.conv_cls(cls_feat))
-            bbox_preds.append(self.scales[lvl](self.conv_reg(reg_feat)))
+            cls_scores.append(self.conv_cls(cls_feat).float())
+            bbox_preds.append(self.scales[lvl](
+                self.conv_reg(reg_feat).float()))
             centernesses.append(self.conv_centerness(
-                reg_feat if self.centerness_on_reg else cls_feat))
+                reg_feat if self.centerness_on_reg else cls_feat).float())
         return cls_scores, bbox_preds, centernesses
 
     # ---- point geometry ----------------------------------------------------

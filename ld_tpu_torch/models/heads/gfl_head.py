@@ -23,6 +23,12 @@ Port of `ld_tpu/models/heads/gfl_head.py:39-104` (towers), `:200-311`
 Module names are mmdet's (`cls_convs.i.{conv,gn}`, `gfl_cls`, `gfl_reg`,
 `scales.i.scale`). The other GFL-family heads subclass this one and replace
 `_build_predictors` / `forward` (and the towers, for Retina).
+
+A compute `dtype` lowers the towers' convs and GroupNorms and the
+prediction convs (JAX `gfl_head.py:39-104`). Each prediction comes out cast
+to float32, and the level scale multiplies the float32 reg output, as JAX
+promotes the lowered conv output against its float32 scale before any
+rounding. Parameters, predictions and losses stay float32.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from typing import Dict, List, Sequence
 import torch
 from torch import nn
 
+from ld_tpu_torch.models.layers import Conv2d, GroupNorm, lowered_dtype
 from ld_tpu_torch.ops.anchors import AnchorGenerator
 from ld_tpu_torch.ops.boxes import (anchor_center, bbox2distance,
                                     bbox_overlaps, distance2bbox)
@@ -44,21 +51,24 @@ _CLS_BIAS_INIT = float(-math.log((1 - 0.01) / 0.01))  # prior prob 0.01
 
 
 class ConvGNBlock(nn.Module):
-    """3x3 conv (no bias) + GroupNorm(min(32, C), eps 1e-5) + ReLU."""
+    """3x3 conv (no bias) + GroupNorm(min(32, C), eps 1e-5) + ReLU, in
+    `dtype`."""
 
-    def __init__(self, in_channels, out_channels, groups=32):
+    def __init__(self, in_channels, out_channels, groups=32, dtype=None):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1,
-                              bias=False)
-        self.gn = nn.GroupNorm(min(groups, out_channels), out_channels,
-                               eps=1e-5)
+        self.conv = Conv2d(in_channels, out_channels, 3, padding=1,
+                           bias=False, compute_dtype=dtype)
+        self.gn = GroupNorm(min(groups, out_channels), out_channels,
+                            eps=1e-5, compute_dtype=dtype)
 
     def forward(self, x):
         return torch.relu(self.gn(self.conv(x)))
 
 
 class Scale(nn.Module):
-    """A learnable scalar (mmcv Scale: a 0-dim `scale` parameter)."""
+    """A learnable scalar (mmcv Scale: a 0-dim `scale` parameter). A
+    bfloat16 tensor times it stays bfloat16 in torch, where JAX promotes to
+    float32: a lowered head casts to float32 first."""
 
     def __init__(self, scale: float = 1.0):
         super().__init__()
@@ -102,6 +112,7 @@ class GFLHead(nn.Module):
                  norm_cfg=None,
                  conv_cfg=None,
                  level_pack=False,
+                 dtype=None,
                  **kwargs):
         super().__init__()
         if conv_cfg is not None or (norm_cfg or {}).get('type', 'GN') != 'GN':
@@ -140,6 +151,8 @@ class GFLHead(nn.Module):
         # parameters and outputs, so there is nothing to port
         del level_pack
         self.num_anchors = self.anchor_generator.num_base_anchors[0]
+        # the towers' and prediction convs' compute dtype (None: float32)
+        self.compute_dtype = lowered_dtype(dtype)
         self._build_towers(in_channels, feat_channels, stacked_convs,
                            (norm_cfg or {}).get('num_groups', 32))
         self._build_predictors(feat_channels)
@@ -151,18 +164,22 @@ class GFLHead(nn.Module):
                       groups):
         self.cls_convs = nn.ModuleList(
             ConvGNBlock(in_channels if i == 0 else feat_channels,
-                        feat_channels, groups)
+                        feat_channels, groups, self.compute_dtype)
             for i in range(stacked_convs))
         self.reg_convs = nn.ModuleList(
             ConvGNBlock(in_channels if i == 0 else feat_channels,
-                        feat_channels, groups)
+                        feat_channels, groups, self.compute_dtype)
             for i in range(stacked_convs))
 
+    def _pred_conv(self, in_channels, out_channels, kernel_size=3):
+        """A biased prediction conv in the head's compute dtype."""
+        return Conv2d(in_channels, out_channels, kernel_size,
+                      padding=kernel_size // 2,
+                      compute_dtype=self.compute_dtype)
+
     def _build_predictors(self, feat_channels):
-        self.gfl_cls = nn.Conv2d(feat_channels, self.num_classes, 3,
-                                 padding=1)
-        self.gfl_reg = nn.Conv2d(feat_channels, 4 * (self.reg_max + 1), 3,
-                                 padding=1)
+        self.gfl_cls = self._pred_conv(feat_channels, self.num_classes)
+        self.gfl_reg = self._pred_conv(feat_channels, 4 * (self.reg_max + 1))
         self.scales = nn.ModuleList(Scale(1.0)
                                     for _ in range(self.num_levels))
 
@@ -197,8 +214,8 @@ class GFLHead(nn.Module):
         cls_scores, bbox_preds = [], []
         for lvl, x in enumerate(feats):
             cls_feat, reg_feat = self._towers(x)
-            cls_scores.append(self.gfl_cls(cls_feat))
-            bbox_preds.append(self.scales[lvl](self.gfl_reg(reg_feat)))
+            cls_scores.append(self.gfl_cls(cls_feat).float())
+            bbox_preds.append(self.scales[lvl](self.gfl_reg(reg_feat).float()))
         return cls_scores, bbox_preds
 
     # ---- geometry ----------------------------------------------------------

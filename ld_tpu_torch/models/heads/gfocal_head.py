@@ -14,7 +14,10 @@ and `get_bboxes` read the first two; the default `loss_cls` is
 QualityFocalLoss(use_sigmoid=False), so neither applies a sigmoid again.
 
 `reg_conf` is `Sequential(conv, ReLU, conv, Sigmoid)`, whose keys
-`reg_conf.0.*` / `reg_conf.2.*` are mmdet's.
+`reg_conf.0.*` / `reg_conf.2.*` are mmdet's. With a compute `dtype`, the
+statistics are taken from the float32 distributions and `reg_conf` runs in
+the compute dtype; the quality, the logits and the scores come out float32
+(JAX `gfocal_head.py:70-83`).
 """
 from __future__ import annotations
 
@@ -41,8 +44,9 @@ class GFocalHead(GFLHead):
         self.add_mean = add_mean
         total_dim = reg_topk + (1 if add_mean else 0)
         self.reg_conf = nn.Sequential(
-            nn.Conv2d(4 * total_dim, reg_channels, 1), nn.ReLU(inplace=True),
-            nn.Conv2d(reg_channels, 1, 1), nn.Sigmoid())
+            self._pred_conv(4 * total_dim, reg_channels, 1),
+            nn.ReLU(inplace=True), self._pred_conv(reg_channels, 1, 1),
+            nn.Sigmoid())
 
     def forward(self, feats: Sequence[torch.Tensor]):
         """feats: NCHW per level -> (cls_scores (probabilities), bbox_preds,
@@ -50,7 +54,7 @@ class GFocalHead(GFLHead):
         cls_scores, bbox_preds, cls_logits = [], [], []
         for lvl, x in enumerate(feats):
             cls_feat, reg_feat = self._towers(x)
-            bbox_pred = self.scales[lvl](self.gfl_reg(reg_feat))
+            bbox_pred = self.scales[lvl](self.gfl_reg(reg_feat).float())
             b, _, h, w = bbox_pred.shape
             prob = F.softmax(bbox_pred.reshape(b, 4, self.reg_max + 1, h, w),
                              dim=2)
@@ -58,8 +62,8 @@ class GFocalHead(GFLHead):
             if self.add_mean:
                 stat = torch.cat([stat, stat.mean(dim=2, keepdim=True)],
                                  dim=2)
-            quality = self.reg_conf(stat.reshape(b, -1, h, w))
-            logits = self.gfl_cls(cls_feat)
+            quality = self.reg_conf(stat.reshape(b, -1, h, w)).float()
+            logits = self.gfl_cls(cls_feat).float()
             cls_scores.append(torch.sigmoid(logits) * quality)
             bbox_preds.append(bbox_pred)
             cls_logits.append(logits)

@@ -17,6 +17,11 @@ region (gibox) runs the greedy NMS of `ops/nms.py` on the `gi_candidates`
 highest GI scores of a level, through `keep_fn` (`nms_keep`, the CUDA kernel
 on the card): one NMS per FPN level and step. As in the reference, and the
 JAX package, that NMS pools the boxes of the WHOLE batch of one level.
+
+The losses run in float32 whatever the towers' compute dtype: the student's
+and the teacher's predictions and FPN features are cast to float32 first
+(JAX `ld_head.py:157-160, 210-211`), so a lowered student distils from a
+float32 teacher named by its config path.
 """
 from __future__ import annotations
 
@@ -203,12 +208,13 @@ class LDHead(GFLHead):
         t = self.build_targets(featmap_sizes, batch['gt_bboxes'],
                                batch['gt_labels'], batch['gt_valid'],
                                batch['img_hw'])
-        cls_flat = flatten_levels(cls_scores)
-        pred_flat = flatten_levels(bbox_preds)
-        soft_label = flatten_levels(soft_teacher[0])
-        soft_target = flatten_levels(soft_teacher[1])
+        cls_flat = flatten_levels(cls_scores).float()
+        pred_flat = flatten_levels(bbox_preds).float()
+        soft_label = flatten_levels(soft_teacher[0]).float()
+        soft_target = flatten_levels(soft_teacher[1]).float()
         kd_student, kd_teacher = (cls_flat, soft_label) if kd_logits is None \
-            else (flatten_levels(kd_logits[0]), flatten_levels(kd_logits[1]))
+            else (flatten_levels(kd_logits[0]).float(),
+                  flatten_levels(kd_logits[1]).float())
 
         core = self._core_losses(cls_flat, pred_flat, t)
         losses = dict(loss_cls=core['loss_cls'], loss_bbox=core['loss_bbox'],
@@ -255,8 +261,8 @@ class LDHead(GFLHead):
                                         soft_target, t['anchors'],
                                         t['num_level_anchors'], keep_fn)
         losses['loss_im'] = self._imitation_loss(
-            t, flatten_levels(student_feats),
-            flatten_levels(teacher_feats).detach(), masks)
+            t, flatten_levels(student_feats).float(),
+            flatten_levels(teacher_feats).detach().float(), masks)
         return losses
 
     def _imitation_loss(self, t, x, tx, gi_masks=None):

@@ -24,6 +24,7 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
+from ld_tpu_torch.models.layers import Conv2d
 from ld_tpu_torch.models.losses.kd_loss import \
     knowledge_distillation_kl_div_loss
 from ld_tpu_torch.ops.atss_assigner import ATSSAssigner
@@ -36,11 +37,13 @@ from .ld_head import class_kd_per_level
 
 
 class ConvReLU(nn.Module):
-    """A biased 3x3 conv + ReLU (mmcv ConvModule without norm: `.conv`)."""
+    """A biased 3x3 conv + ReLU (mmcv ConvModule without norm: `.conv`),
+    in `dtype`."""
 
-    def __init__(self, in_channels, out_channels):
+    def __init__(self, in_channels, out_channels, dtype=None):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv = Conv2d(in_channels, out_channels, 3, padding=1,
+                           compute_dtype=dtype)
 
     def forward(self, x):
         return torch.relu(self.conv(x))
@@ -66,18 +69,19 @@ class RetinaGFLHead(GFLHead):
     def _build_towers(self, in_channels, feat_channels, stacked_convs,
                       groups):
         self.cls_convs = nn.ModuleList(
-            ConvReLU(in_channels if i == 0 else feat_channels, feat_channels)
+            ConvReLU(in_channels if i == 0 else feat_channels, feat_channels,
+                     self.compute_dtype)
             for i in range(stacked_convs))
         self.reg_convs = nn.ModuleList(
-            ConvReLU(in_channels if i == 0 else feat_channels, feat_channels)
+            ConvReLU(in_channels if i == 0 else feat_channels, feat_channels,
+                     self.compute_dtype)
             for i in range(stacked_convs))
 
     def _build_predictors(self, feat_channels):
         a = self.num_anchors
-        self.atss_cls = nn.Conv2d(feat_channels, a * self.num_classes, 3,
-                                  padding=1)
-        self.atss_reg = nn.Conv2d(feat_channels, a * 4 * (self.reg_max + 1),
-                                  3, padding=1)
+        self.atss_cls = self._pred_conv(feat_channels, a * self.num_classes)
+        self.atss_reg = self._pred_conv(feat_channels,
+                                        a * 4 * (self.reg_max + 1))
 
     def forward(self, feats: Sequence[torch.Tensor]):
         """feats: NCHW per level -> (cls_scores (B, A*C, H, W), bbox_preds
@@ -85,8 +89,8 @@ class RetinaGFLHead(GFLHead):
         cls_scores, bbox_preds = [], []
         for x in feats:
             cls_feat, reg_feat = self._towers(x)
-            cls_scores.append(self.atss_cls(cls_feat))
-            bbox_preds.append(self.atss_reg(reg_feat))
+            cls_scores.append(self.atss_cls(cls_feat).float())
+            bbox_preds.append(self.atss_reg(reg_feat).float())
         return cls_scores, bbox_preds
 
     def _flatten(self, cls_scores, bbox_preds):

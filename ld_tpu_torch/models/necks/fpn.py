@@ -5,7 +5,9 @@ Lateral 1x1 convs + top-down nearest-neighbour upsampling (size-matched, so
 odd feature sizes work) + 3x3 output convs; extra levels by stride-2 3x3 convs
 on input/lateral/output (`add_extra_convs`), or by max-pool without extra
 convs. Module names are mmdet's (`lateral_convs.i.conv`, `fpn_convs.i.conv`,
-the extra convs continuing the `fpn_convs` indices).
+the extra convs continuing the `fpn_convs` indices). With a compute `dtype`
+every conv, and the top-down adds between them, compute in it (JAX
+`fpn.py:49-66`); the parameters stay float32.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ def upsample_nearest_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 class ConvModule(nn.Module):
     """mmcv ConvModule without norm/activation: keeps the `.conv` name."""
 
-    def __init__(self, conv: nn.Conv2d):
+    def __init__(self, conv: nn.Module):
         super().__init__()
         self.conv = conv
 
@@ -60,7 +62,8 @@ class FPN(nn.Module):
                  relu_before_extra_convs: bool = False,
                  no_norm_on_lateral: bool = False,
                  conv_cfg: dict = None,
-                 norm_cfg: dict = None):
+                 norm_cfg: dict = None,
+                 dtype=None):
         super().__init__()
         if norm_cfg is not None:
             raise NotImplementedError('FPN norm_cfg is not ported to '
@@ -77,11 +80,11 @@ class FPN(nn.Module):
 
         self.lateral_convs = nn.ModuleList(
             ConvModule(make_conv(conv_cfg, self.in_channels[lvl],
-                                 out_channels, 1, bias=True))
+                                 out_channels, 1, bias=True, dtype=dtype))
             for lvl in self.used)
         self.fpn_convs = nn.ModuleList(
             ConvModule(make_conv(conv_cfg, out_channels, out_channels, 3,
-                                 bias=True))
+                                 bias=True, dtype=dtype))
             for _ in self.used)
         if self.extra_mode:
             for j in range(num_outs - len(self.used)):
@@ -89,7 +92,8 @@ class FPN(nn.Module):
                     if j == 0 and self.extra_mode == 'on_input' \
                     else out_channels
                 self.fpn_convs.append(ConvModule(make_conv(
-                    conv_cfg, cin, out_channels, 3, 2, bias=True)))
+                    conv_cfg, cin, out_channels, 3, 2, bias=True,
+                    dtype=dtype)))
 
     def init_weights(self, generator: torch.Generator):
         """The JAX package's initializers: lecun-normal kernels, zero bias."""

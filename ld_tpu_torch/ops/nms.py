@@ -6,9 +6,11 @@ The greedy keep mask comes from `nms_cuda.nms_keep`: the CUDA kernel on the
 card, its plain version on the CPU.
 
 The JAX package's `topk_flat` lane split is a TPU sort device; here
-`torch.topk` gives the same indices on untied scores. Options that exist only
-for the TPU (`approx_topk`, reduced `iou_dtype`) and the NMS variants that are
-not ported yet (`soft_nms`, voting NMS) raise NotImplementedError.
+`torch.topk` gives the same indices on untied scores. A reduced `iou_dtype`
+(`test_cfg.nms.iou_dtype`) takes the JAX package's class-mask fixpoint in
+plain torch (`_nms_keep_classed`). `approx_topk`, a TPU lowering, and the NMS
+variants that are not ported yet (`soft_nms`, voting NMS) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from .boxes import bbox_overlaps
 from .nms_cuda import nms_keep
 
 
@@ -100,6 +103,8 @@ def multiclass_nms(mlvl_bboxes: torch.Tensor,
     Args:
         mlvl_bboxes: (B, N, 4).
         mlvl_scores: (B, N, C) sigmoid class scores WITHOUT background column.
+        iou_dtype: a dtype other than float32 (or its name) computes the IoU
+            matrix in it, by `_nms_keep_classed`, in place of `keep_fn`.
         keep_fn: the keep-mask function, `nms_keep` (the kernel on the card).
     Returns:
         dets: (B, max_per_img, 5) [x1, y1, x2, y2, score], zero-padded.
@@ -111,10 +116,10 @@ def multiclass_nms(mlvl_bboxes: torch.Tensor,
         approx_topk = nms_cfg.get('approx_topk')
     if iou_dtype is None:
         iou_dtype = nms_cfg.get('iou_dtype')
+    if iou_dtype is not None:
+        iou_dtype = _as_torch_dtype(iou_dtype)
     if approx_topk:
         _not_ported('approx_topk (a TPU approx_max_k lowering)')
-    if iou_dtype is not None and torch.float32 != _as_torch_dtype(iou_dtype):
-        _not_ported(f'iou_dtype={iou_dtype!r}')
     if nms_cfg.get('type', 'nms') != 'nms':
         _not_ported(f"nms type {nms_cfg['type']!r}")
     b, num_anchors, num_classes = mlvl_scores.shape
@@ -138,8 +143,12 @@ def multiclass_nms(mlvl_bboxes: torch.Tensor,
                         min=box_coord_bound)
     offset_boxes = cand_boxes + (class_idx.to(cand_boxes.dtype) *
                                  bound[:, None])[..., None]
-    keep = keep_fn(offset_boxes.contiguous(), cand_valid.contiguous(),
-                   iou_threshold)
+    if iou_dtype not in (None, torch.float32):
+        keep = _nms_keep_classed(cand_boxes, class_idx, iou_threshold,
+                                 cand_valid, iou_dtype)
+    else:
+        keep = keep_fn(offset_boxes.contiguous(), cand_valid.contiguous(),
+                       iou_threshold)
     return _finalize(keep, top_scores, cand_boxes, class_idx, max_per_img)
 
 
@@ -147,6 +156,40 @@ def _as_torch_dtype(dtype):
     if isinstance(dtype, torch.dtype):
         return dtype
     return getattr(torch, str(dtype))
+
+
+def _nms_keep_classed(boxes, class_idx, iou_threshold, valid, iou_dtype):
+    """Class-aware keep mask with the IoU matrix in a reduced dtype; port of
+    `ld_tpu/ops/nms.py:183-215`, batched over images.
+
+    The class offset would destroy the box geometry in bfloat16 (offsets
+    reach ~3e5, where its ulp is ~2048), so the IoU is taken on the raw
+    boxes in `iou_dtype` and an exact same-class mask gates suppression;
+    then the fixpoint of `nms_keep_ref`. The boxes are scaled by 1/32
+    first (exact) so that float16 areas stay below its 65504 max. Not exact
+    greedy NMS: the JAX package measured det-set agreement with float32 of
+    0.980 (float16) and 0.881 (bfloat16) on clustered COCO-scale candidates.
+
+    Args:
+        boxes: (B, K, 4) float32, each image sorted by descending score.
+        class_idx: (B, K) class of each box; valid: (B, K) bool.
+    Returns:
+        (B, K) bool keep mask.
+    """
+    k = boxes.shape[1]
+    small = (boxes * (1.0 / 32.0)).to(iou_dtype)
+    iou = bbox_overlaps(small, small)                       # (B, K, K)
+    tri = torch.ones(k, k, dtype=torch.bool, device=boxes.device).triu(1)
+    same = class_idx[:, :, None] == class_idx[:, None, :]
+    suppress = ((iou > iou_threshold) & tri & same).float()
+    keep = valid
+    for _ in range(k):
+        killed = torch.bmm(keep.float()[:, None, :], suppress)[:, 0] > 0.5
+        new_keep = valid & ~killed
+        if torch.equal(new_keep, keep):
+            break
+        keep = new_keep
+    return keep
 
 
 def _finalize(keep, top_scores, boxes, class_idx, max_per_img):

@@ -168,7 +168,6 @@ def test_nms_matches_jax():
 @pytest.mark.parametrize('kw', [
     dict(approx_topk=0.95),
     dict(nms_cfg=dict(approx_topk=0.95)),
-    dict(iou_dtype='bfloat16'),
     dict(nms_cfg=dict(type='soft_nms')),
     dict(nms_cfg=dict(type='voting_cluster_diounms')),
 ])

@@ -84,6 +84,8 @@ def _cfg(config_cls=Config, max_epochs=3, evaluate=False):
     cfg.checkpoint_config = dict(interval=1, max_keep_ckpts=2)
     cfg.evaluation = dict(interval=1 if evaluate else 0, metric='bbox',
                           save_best='bbox_mAP')
+    # float32, as the hand loop and the JAX schedule it is held against
+    cfg.dtype = 'float32'
     return cfg
 
 
