@@ -1,5 +1,6 @@
 """Drive the ld_tpu_torch serving, training, training-runtime and evaluation
-paths, and the other GFL-family heads, on one CUDA card and check them.
+paths, the other GFL-family heads, the configs' bf16 dtype and the DCN /
+ResNeXt rows on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
@@ -102,7 +103,7 @@ Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
 (the main path's case: dense-kept set, K = 1024, B = 1; `device_ms` is the
 profiler's mask + sweep time; the `_k2048` keys the dense-kept set at
 K = 2048, B = 1, the `_tta_merge` keys the first TTA image's own merge;
-`launches` counts all main paths), and last
+`launches` counts all main paths, `launches_<phase>` each), and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script exits
 non-zero and prints no result; so does a host without CUDA.
 """
@@ -148,6 +149,15 @@ FAMILY_SERVE = (('configs/gfl/gflv2_r50_fpn_1x_coco.py', None),
                 ('configs/gfl/atss_gfl_r50_1x.py', None),
                 ('configs/gfl/fcos_gfl_r50_center.py', None),
                 ('configs/gfl/retinagfl_r101_2x_coco.py', 50))
+# the dcn phase: the DCN teachers served, one DCN layer of each stage shape
+# (name, width, map at batch 2, conv groups), and the DCN LD configs (config,
+# warm-up steps, timed steps)
+DCN_SERVE = ('configs/gfl/gfl_r101_dcn_fpn_mstrain_2x_coco.py',
+             'configs/gfl/gfl_x101_32x4d_fpn_dconv_c4-c5_mstrain_2x_coco.py')
+DCN_LAYERS = (('r101_stage2', 128, (100, 168), 1),
+              ('x101_stage3', 512, (50, 84), 32))
+DCN_LD = (('configs/ld/ld_r101_gflv1_r101dcn_fpn_coco_2x.py', 2, 5),
+          ('configs/ld/ld_x101_32x4d_dcn_self_2x_coco.py', 2, 3))
 
 
 def emit(obj):
@@ -459,14 +469,17 @@ def float32_cfg(config):
 def build_ld(torch, config=TRAIN_CONFIG, dtype=None):
     """An LD config's detector on the CPU, its towers in `dtype` (None:
     float32; its teacher, named by a config path, stays float32): the
-    student from seed 0, the teacher from seed 1 with its BNs folded;
-    returns (cfg, model)."""
+    student from seed 0, the teacher from seed 1 (DCN offsets too) with its
+    BNs folded; returns (cfg, model)."""
     from ld_tpu_torch import Config
     from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.testing import randomize_dcn_offsets
     cfg = Config.fromfile(os.path.join(ROOT, config))
     model = build_detector(cfg.model, dtype=dtype)
     model.init_weights(torch.Generator().manual_seed(0))
     model.init_teacher_weights(torch.Generator().manual_seed(1))
+    randomize_dcn_offsets(model, seed=0)
+    randomize_dcn_offsets(model.teacher, seed=1)
     check(model.fold_teacher_bn(), 'the teacher BN fold was refused')
     return cfg, model
 
@@ -647,7 +660,9 @@ def ld_steps(torch, smi, config, per_step, warmup, timed, reference=True,
                lr=lrs, loss_first=history[0], loss_last=history[-1],
                nms_keep_launches=launches,
                nms_keep_launches_per_step=per_step,
-               max_memory_allocated_bytes=peak)
+               max_memory_allocated_bytes=peak,
+               dcn_layers_student=count_dcn(model),
+               dcn_layers_teacher=count_dcn(model.teacher))
     if dtype:
         params = list(model.parameters())
         check({p.dtype for p in params} == {torch.float32} and
@@ -707,6 +722,11 @@ def ld_steps(torch, smi, config, per_step, warmup, timed, reference=True,
         phase_train_reference(torch, cfg, base, gi=gi,
                               phase=f'{phase}_reference', dtype=dtype)
     return launches, row
+
+
+def count_dcn(module):
+    from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
+    return sum(isinstance(m, ModulatedDeformConv2d) for m in module.modules())
 
 
 def step_profile(torch, step, batch, prof_steps=2, top_n=10):
@@ -1284,22 +1304,25 @@ def top_score(torch, head, outs):
 
 
 def family_serve(torch, smi, config, depth=None, warmup=2, timed=10,
-                 hw=(800, 1344)):
+                 hw=(800, 1344), phase='gfl_family_serve', extra=None):
     """`forward_test` of a GFL-family config at 800x1344, batch 1, at full
-    width (random weights from seed 0, the cls prediction bias 0 so that
-    NMS sees candidates); 1 nms_keep launch a call, the detections
-    bit-identical with the plain keep mask, and the first detection's score
-    the largest class probability (no second sigmoid on probabilities).
-    Returns the launch count and the emitted row."""
+    width (random weights from seed 0, DCN offsets too, the cls prediction
+    bias 0 so that NMS sees candidates); 1 nms_keep launch a call, the
+    detections bit-identical with the plain keep mask, and the first
+    detection's score the largest class probability (no second sigmoid on
+    probabilities). `extra(model, bench)` adds figures to the row. Returns
+    the launch count and the emitted row."""
     from ld_tpu_torch import Config
     from ld_tpu_torch.models import build_detector
     from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    from ld_tpu_torch.testing import randomize_dcn_offsets
 
     cfg = Config.fromfile(os.path.join(ROOT, config))
     if depth is not None:
         cfg.model.backbone.depth = depth
     model = build_detector(cfg.model)
     model.init_weights(torch.Generator().manual_seed(0))
+    dcn_layers = randomize_dcn_offsets(model, seed=0)
     head = model.bbox_head
     with torch.no_grad():
         getattr(head, head.cls_pred_name).bias.zero_()
@@ -1309,6 +1332,8 @@ def family_serve(torch, smi, config, depth=None, warmup=2, timed=10,
                                    .manual_seed(0)),
                  img_hw=torch.tensor([hw], dtype=torch.float32,
                                      device='cuda'))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         # ---- the main path: counts from 0, read right after --------------
         nms_keep.launches = 0
@@ -1323,6 +1348,7 @@ def family_serve(torch, smi, config, depth=None, warmup=2, timed=10,
             call_ms.append((time.perf_counter() - t) * 1e3)
         launches = nms_keep.launches
         # ------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
         check(launches == warmup + timed,
               f'{config}: nms_keep launched {launches} times for '
               f'{warmup + timed} forward_test calls')
@@ -1346,16 +1372,21 @@ def family_serve(torch, smi, config, depth=None, warmup=2, timed=10,
               f'{config}: first detection score {float(dets[0, 0, 4])} is '
               f'not the largest class probability {best}')
     (_, k, _), n_valid = captured[0]
-    row = dict(phase='gfl_family_serve', config=config, nvidia_smi=smi,
+    row = dict(phase=phase, config=config, nvidia_smi=smi,
                depth=cfg.model.backbone.depth, head=type(head).__name__,
+               backbone=type(model.backbone).__name__, dcn_layers=dcn_layers,
                input=[1, 3, *hw], warmup_calls=warmup, timed_calls=timed,
                forward_test_ms=call_ms,
                forward_test_ms_mean=sum(call_ms) / len(call_ms),
                forward_test_ms_max=max(call_ms),
+               max_memory_allocated_bytes=peak,
                nms_keep_launches=launches, nms_keep_launches_per_call=1,
                nms_k=k, nms_valid_candidates=n_valid,
                detections=int(valid.sum()),
                top_score=float(dets[0, 0, 4]), plain_keep_identical=True)
+    if extra is not None:
+        with torch.no_grad():
+            row.update(extra(model, bench))
     emit(row)
     del model, outs, bench
     torch.cuda.empty_cache()
@@ -1522,6 +1553,238 @@ def phase_bf16(torch, smi):
     return launches
 
 
+def dcn_device_share(torch, model, fn, iters=3):
+    """Device time of `fn` (one forward_test call or teacher forward) and
+    of the DCN layers inside it, from torch.profiler: each
+    ModulatedDeformConv2d's forward runs in a `record_function` range, and
+    its `conv_offset` conv in one of its own, whose device time is that of
+    the kernels they launch. Also the HBM bound of those layers' gathers.
+    Returns a dict of per-call figures (the DCN time 'not measured' when
+    the profiler shows none)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
+    ranges, cols = [], []
+
+    def enter(name):
+        def hook(module, args):
+            ranges.append(record_function(name))
+            ranges[-1].__enter__()
+        return hook
+
+    def leave(module, args, out):
+        ranges.pop().__exit__(None, None, None)
+        if isinstance(module, ModulatedDeformConv2d):
+            b, _, oh, ow = out.shape
+            cols.append(b * oh * ow * 9 * module.in_channels)
+    dcns = [m for m in model.modules()
+            if isinstance(m, ModulatedDeformConv2d)]
+    hooks = [h for m, name in [(m, 'dcn_layer') for m in dcns] +
+             [(m.conv_offset, 'dcn_offset_conv') for m in dcns]
+             for h in (m.register_forward_pre_hook(enter(name)),
+                       m.register_forward_hook(leave))]
+    try:
+        fn()
+        torch.cuda.synchronize()
+        calls = len(cols)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for h in hooks:
+            h.remove()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == cuda and
+               e.key not in ('dcn_layer', 'dcn_offset_conv')]
+    total_us = sum(e.self_device_time_total for e in kernels)
+
+    def range_ms(name):
+        us = sum(e.device_time_total for e in events
+                 if e.key == name and e.device_type != cuda)
+        return us / iters / 1e3 if us > 0 else 'not measured'
+    # four corner reads and the columns' write, float32, a layer
+    bound_ms = sum(5 * 4 * n for n in cols[:calls]) / PEAK_HBM_BYTES * 1e3
+    out = dict(dcn_layers_called=calls, dcn_gather_bound_ms=bound_ms,
+               dcn_columns_bytes=4 * sum(cols[:calls]))
+    if total_us <= 0:
+        out['device_time'] = 'not measured'
+        return out
+    dcn_ms = range_ms('dcn_layer')
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    out.update(device_ms_per_call=total_us / iters / 1e3,
+               wall_ms_per_call_profiled=wall_us / iters / 1e3,
+               device_busy_share=total_us / wall_us,
+               device_ops_per_call=sum(e.count for e in kernels) / iters,
+               dcn_device_ms_per_call=dcn_ms,
+               dcn_offset_conv_device_ms_per_call=range_ms('dcn_offset_conv'),
+               dcn_device_share=(dcn_ms / (total_us / iters / 1e3)
+                                 if dcn_ms != 'not measured' else dcn_ms),
+               top_kernels=[dict(name=e.key[:90], calls=e.count // iters,
+                                 ms_per_call=e.self_device_time_total /
+                                 iters / 1e3) for e in top])
+    return out
+
+
+def teacher_forward(torch, model, batch_size=2, hw=(800, 1344)):
+    """The served DCN model as an LD config's teacher runs it: BNs folded,
+    no grad, float32, a batch of 2 at 800x1344; its forward ms and its DCN
+    layers' share of the device time."""
+    from ld_tpu_torch.testing import detection_batch
+    from ld_tpu_torch.utils.fuse_conv_bn import fuse_conv_bn
+    fuse_conv_bn(model)
+    image = detection_batch(batch_size, *hw, seed=0, device='cuda')['image']
+    with torch.no_grad():
+        ms, _ = cuda_ms(lambda: model(image, output_features=True), iters=5,
+                        warmup=1)
+        share = dcn_device_share(
+            torch, model, lambda: model(image, output_features=True))
+    return dict(teacher_forward_ms=ms, teacher_input=[batch_size, 3, *hw],
+                **{f'teacher_{k}': v for k, v in share.items()})
+
+
+def voting_serve(torch, model, bench, warmup=2, timed=5):
+    """The R101-DCN model's `forward_test` with test_cfg.nms.type
+    'voting_cluster_diounms': no nms_keep launch; its dets on the card
+    against the CPU on the same candidates (labels and valid identical,
+    boxes and scores within 1e-4 relative); its ms a call and the
+    fixpoint's rounds (the stop test syncs with the host once a round)."""
+    from ld_tpu_torch.ops.nms import multiclass_nms_voting
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    head = model.bbox_head
+    plain_nms = head.test_cfg['nms']
+    head.test_cfg['nms'] = dict(type='voting_cluster_diounms',
+                                iou_threshold=plain_nms['iou_threshold'])
+    try:
+        with torch.inference_mode():
+            # ---- the main path: counts from 0, read right after ----------
+            nms_keep.launches = 0
+            for _ in range(warmup):
+                model.forward_test(bench)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(timed):
+                dets, labels, valid = model.forward_test(bench)
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t) * 1e3 / timed
+            launches = nms_keep.launches
+            # --------------------------------------------------------------
+            rounds = multiclass_nms_voting.iterations
+            boxes, scores = head.get_bboxes(model(bench['image']),
+                                            bench['img_hw'], with_nms=False)
+            cfg = head.test_cfg
+            args = (cfg['score_thr'], cfg['nms']['iou_threshold'],
+                    cfg['max_per_img'])
+            t = time.perf_counter()
+            got = multiclass_nms_voting(boxes, scores, *args)
+            torch.cuda.synchronize()
+            nms_ms = (time.perf_counter() - t) * 1e3
+            want = multiclass_nms_voting(boxes.cpu(), scores.cpu(), *args)
+    finally:
+        head.test_cfg['nms'] = plain_nms
+    check(launches == 0, f'voting forward_test launched nms_keep '
+          f'{launches} times')
+    check(tuple(dets.shape) == (1, 100, 5) and int(valid.sum()) > 0 and
+          bool(torch.isfinite(dets).all()), 'voting forward_test output')
+    g_dets, g_labels, g_valid = (t.cpu() for t in got)
+    check(torch.equal(g_labels, want[1]) and torch.equal(g_valid, want[2]),
+          'voting NMS labels or valid flags differ between card and CPU')
+    rel = float(((g_dets - want[0]).abs() /
+                 want[0].abs().clamp(min=1.0)).max())
+    check(rel <= 1e-4, f'voting NMS dets differ by {rel} relative between '
+          'card and CPU')
+    return dict(voting_forward_test_ms=call_ms, voting_nms_ms=nms_ms,
+                voting_nms_keep_launches=launches,
+                voting_fixpoint_rounds=rounds,
+                voting_detections=int(valid.sum()),
+                voting_card_vs_cpu_max_rel=rel)
+
+
+def dcn_layer_check(torch, name, c, hw, groups, batch=2):
+    """One DCN layer at a full-width stage shape, with seeded weights and
+    non-zero offsets: on the card against the CPU on the same weights and
+    input (max abs <= 1e-4 x max |out|); with zero offsets and mask logits
+    of 30 equal to F.conv2d of its weight; its device ms against the HBM
+    bound of its gathers."""
+    from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
+    from ld_tpu_torch.testing import randomize_dcn_offsets
+    layer = ModulatedDeformConv2d(c, c, 3, 1, groups=groups)
+    layer.init_weights(torch.Generator().manual_seed(0))
+    randomize_dcn_offsets(layer, seed=0)
+    x = torch.randn(batch, c, *hw, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = layer(x)
+        layer = layer.cuda()
+        xc = x.cuda()
+        got = layer(xc).cpu()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= 1e-4 * scale, f'DCN {name}: card vs CPU max abs {err}, '
+              f'bound {1e-4 * scale}')
+        ms, host_ms = cuda_ms(lambda: layer(xc), iters=10, warmup=2)
+        dev = dcn_device_share(torch, layer, lambda: layer(xc))
+        conv_ms, _ = cuda_ms(lambda: torch.nn.functional.conv2d(
+            xc, layer.weight, padding=1, groups=groups), iters=10, warmup=2)
+        layer.conv_offset.weight.zero_()
+        layer.conv_offset.bias.zero_()
+        layer.conv_offset.bias[-9:] = 30.0
+        zero = layer(xc)
+        plain = torch.nn.functional.conv2d(xc, layer.weight, padding=1,
+                                           groups=groups)
+        zero_err = float((zero - plain).abs().max())
+        check(zero_err <= 1e-4 * float(plain.abs().max()),
+              f'DCN {name}: zero offsets differ from F.conv2d by {zero_err}')
+    row = dict(layer=name, input=[batch, c, *hw], groups=groups,
+               max_abs_err=err, max_abs_out=scale, ms=ms, host_ms=host_ms,
+               device_ms=dev.get('dcn_device_ms_per_call', 'not measured'),
+               offset_conv_device_ms=dev.get(
+                   'dcn_offset_conv_device_ms_per_call', 'not measured'),
+               conv2d_ms=conv_ms, zero_offset_conv2d_max_abs=zero_err,
+               gather_bound_ms=dev['dcn_gather_bound_ms'],
+               columns_bytes=dev['dcn_columns_bytes'])
+    del layer, x, xc
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_dcn(torch, smi):
+    """The paper's DCN-teacher and ResNeXt rows at full width: forward_test
+    of GFL-R101-DCN and GFL-X101-32x4d-DCN (1 launch a call, plain-keep
+    identical dets, the DCN layers' share of device time; the R101-DCN
+    model with the voting NMS; each model then as its LD config's teacher
+    runs it); one DCN layer of each stage shape on the card against the
+    CPU; 2 + 5 steps of the R101-DCN -> R101 LD config and 2 + 3 of the
+    X101-DCN self-LD one (no launch, card vs CPU at 1x3x128x192); one bf16
+    step of each. Returns the kernel's launch count over the main paths."""
+    launches = 0
+    for config in DCN_SERVE:
+        def extra(model, bench, voting='r101' in config):
+            out = dcn_device_share(
+                torch, model, lambda: model.forward_test(bench))
+            if voting:
+                out.update(voting_serve(torch, model, bench))
+            out.update(teacher_forward(torch, model))
+            return out
+        n, row = family_serve(torch, smi, config, warmup=2, timed=5,
+                              phase='dcn_serve', extra=extra)
+        check(row['dcn_layers'] == (30 if 'r101' in config else 26),
+              f'{config}: {row["dcn_layers"]} DCN layers')
+        launches += n
+    layers = [dcn_layer_check(torch, *spec) for spec in DCN_LAYERS]
+    emit(dict(phase='dcn_layers', nvidia_smi=smi, layers=layers))
+    for config, warmup, timed in DCN_LD:
+        n, row = ld_steps(torch, smi, config, 0, warmup, timed,
+                          phase='dcn_train')
+        check(row['dcn_layers_teacher'] > 0, f'{config}: no DCN teacher')
+        launches += n
+    for config, _, _ in DCN_LD:
+        launches += ld_steps(torch, smi, config, 0, 1, 1, reference=False,
+                             phase='dcn_bf16', dtype='bfloat16')[0]
+    return launches
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1567,16 +1830,21 @@ def main():
     voc_launches, merge = phase_voc(torch, np, smi)
     family_launches = phase_gfl_family(torch, smi)
     bf16_launches = phase_bf16(torch, smi)
+    t0 = time.perf_counter()
+    dcn_launches = phase_dcn(torch, smi)
+    emit(dict(phase='dcn_done', seconds=time.perf_counter() - t0))
 
     print(smi.splitlines()[0], flush=True)
     emit(dict(kernels=[dict(
         name='nms_keep', route='cuda', source='ld_tpu_torch/csrc/nms_keep.cu',
         replaces='ld_tpu/ops/pallas_nms.py:23',
         launches=(launches + train_launches + runtime_launches +
-                  voc_launches + family_launches + bf16_launches),
+                  voc_launches + family_launches + bf16_launches +
+                  dcn_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
+        launches_dcn=dcn_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

@@ -10,6 +10,12 @@ on its 1x1 conv1. The detection semantics of the JAX package:
     (`requires_grad=False`) and keep their BNs in eval.
   * `norm_cfg=dict(type='BN', requires_grad=False)`: no BN affine of the
     backbone gets a gradient.
+  * `groups` / `base_width` (ResNeXt): a bottleneck of width
+    int(planes * base_width / 64) * groups with a grouped conv2.
+  * `dcn=dict(type='DCNv2', deform_groups=g)` with `stage_with_dcn`: the
+    conv2 of every bottleneck of those stages is a `ModulatedDeformConv2d`
+    (`ops/deform_conv.py`), grouped like the plain one. `fallback_on_stride`
+    is accepted and, as in the JAX package, changes nothing.
 
 Module names are mmdet's (`conv1`, `bn1`, `layer1.0.conv1`,
 `layer1.0.downsample.{0,1}`, ...), so a published mmdet/torchvision
@@ -33,6 +39,7 @@ from torch import nn
 
 from ld_tpu_torch.models.layers import (Conv2d, lecun_normal_,
                                         lowered_dtype, make_conv, make_norm)
+from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
 from ld_tpu_torch.utils.registry import BACKBONES
 
 
@@ -65,16 +72,27 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes, planes, stride=1, dilation=1,
                  downsample=None, conv_cfg=None, norm_cfg=None,
-                 style='pytorch', dtype=None):
+                 style='pytorch', dtype=None, groups=1, base_width=64,
+                 dcn=None):
         super().__init__()
         s1, s2 = (stride, 1) if style == 'caffe' else (1, stride)
-        self.conv1 = make_conv(conv_cfg, inplanes, planes, 1, s1, dtype=dtype)
-        self.bn1 = make_norm(norm_cfg, planes, dtype)
-        self.conv2 = make_conv(conv_cfg, planes, planes, 3, s2,
-                               padding=dilation, dilation=dilation,
-                               dtype=dtype)
-        self.bn2 = make_norm(norm_cfg, planes, dtype)
-        self.conv3 = make_conv(conv_cfg, planes, planes * self.expansion, 1, 1,
+        # ResNeXt widens the bottleneck by groups * base_width / 64
+        width = int(planes * (base_width / 64.0)) * groups \
+            if groups > 1 else planes
+        self.conv1 = make_conv(conv_cfg, inplanes, width, 1, s1, dtype=dtype)
+        self.bn1 = make_norm(norm_cfg, width, dtype)
+        if dcn is not None:
+            # the DCN conv2 of a ResNeXt stays grouped
+            self.conv2 = ModulatedDeformConv2d(
+                width, width, 3, s2, dilation=dilation, groups=groups,
+                deform_groups=dcn.get('deform_groups', 1),
+                compute_dtype=lowered_dtype(dtype))
+        else:
+            self.conv2 = make_conv(conv_cfg, width, width, 3, s2,
+                                   padding=dilation, dilation=dilation,
+                                   groups=groups, dtype=dtype)
+        self.bn2 = make_norm(norm_cfg, width, dtype)
+        self.conv3 = make_conv(conv_cfg, width, planes * self.expansion, 1, 1,
                                dtype=dtype)
         self.bn3 = make_norm(norm_cfg, planes * self.expansion, dtype)
         self.relu = nn.ReLU(inplace=True)
@@ -97,13 +115,9 @@ ARCH_SETTINGS = {
 }
 
 # config keys of the JAX ResNet that select variants not ported yet, with the
-# value that means "off"
-_UNPORTED_KEYS = dict(deep_stem=False, avg_down=False, dcn=None, sac=None,
-                      plugins=None, zero_init_residual=False, groups=1,
-                      base_width=64)
-# where the port's plan has them
-_ROADMAP_ITEMS = dict(dcn='ROADMAP.md item 21', groups='ROADMAP.md item 22',
-                      base_width='ROADMAP.md item 22')
+# value that means "off" (ROADMAP.md A7)
+_UNPORTED_KEYS = dict(deep_stem=False, avg_down=False, sac=None,
+                      plugins=None, zero_init_residual=False)
 
 
 @BACKBONES.register_module()
@@ -123,6 +137,11 @@ class ResNet(nn.Module):
                  conv_cfg: dict = None,
                  style: str = 'pytorch',
                  in_channels: int = 3,
+                 groups: int = 1,
+                 base_width: int = 64,
+                 dcn: dict = None,
+                 stage_with_dcn: Sequence[bool] = (False, False, False,
+                                                   False),
                  dtype=None,
                  **kwargs):
         super().__init__()
@@ -134,15 +153,25 @@ class ResNet(nn.Module):
             if key in _UNPORTED_KEYS and value != _UNPORTED_KEYS[key]:
                 raise NotImplementedError(
                     f'ResNet {key}={value!r} is not ported to ld_tpu_torch '
-                    f'yet (see {_ROADMAP_ITEMS.get(key, "ROADMAP.md")})')
-            # stage_with_dcn / stage_with_sac only matter with dcn / sac set
-            if key not in _UNPORTED_KEYS and key not in ('stage_with_dcn',
-                                                         'stage_with_sac'):
+                    'yet (see ROADMAP.md A7)')
+            # stage_with_sac only matters with sac set
+            if key not in _UNPORTED_KEYS and key != 'stage_with_sac':
                 raise TypeError(f'unexpected ResNet argument {key!r}')
         if (norm_cfg or {}).get('type', 'BN') not in ('BN', 'SyncBN'):
             raise NotImplementedError('ResNet norm_cfg other than BN is not '
                                       'ported to ld_tpu_torch yet')
         block, stage_blocks = ARCH_SETTINGS[depth]
+        if dcn is not None and dcn.get('type', 'DCNv2') != 'DCNv2':
+            # the JAX layer is DCNv2 whatever the type; mmcv's DCNv1 ('DCN')
+            # has no mask and another conv_offset width
+            raise NotImplementedError(
+                f"ResNet dcn type {dcn['type']!r} is not ported to "
+                'ld_tpu_torch yet (see ROADMAP.md A7)')
+        if block is BasicBlock and (groups != 1 or (
+                dcn is not None and any(stage_with_dcn))):
+            # mmdet asserts the same: BasicBlock takes no groups or DCN
+            raise ValueError(f'ResNet-{depth} (BasicBlock) takes no groups '
+                             'or dcn')
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
         self.norm_eval = norm_eval
@@ -167,9 +196,13 @@ class ResNet(nn.Module):
                         make_conv(conv_cfg, inplanes, planes * block.expansion,
                                   1, s, dtype=dtype),
                         make_norm(norm_cfg, planes * block.expansion, dtype))
+                extra = {} if block is BasicBlock else dict(
+                    groups=groups, base_width=base_width,
+                    dcn=dcn if dcn is not None and stage_with_dcn[i]
+                    else None)
                 layers.append(block(inplanes, planes, s, dilation,
                                     downsample, conv_cfg, norm_cfg, style,
-                                    dtype))
+                                    dtype, **extra))
                 inplanes = planes * block.expansion
             name = f'layer{i + 1}'
             self.add_module(name, nn.Sequential(*layers))
@@ -191,9 +224,14 @@ class ResNet(nn.Module):
 
     def init_weights(self, generator: torch.Generator):
         """The JAX package's initializers: lecun-normal conv kernels, BN
-        scale 1 / bias 0 / running mean 0 / running var 1."""
+        scale 1 / bias 0 / running mean 0 / running var 1; a DCN conv2
+        he-normal, its `conv_offset` zero."""
+        offset_convs = {id(m.conv_offset) for m in self.modules()
+                        if isinstance(m, ModulatedDeformConv2d)}
         for m in self.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, ModulatedDeformConv2d):
+                m.init_weights(generator)
+            elif isinstance(m, nn.Conv2d) and id(m) not in offset_convs:
                 lecun_normal_(m.weight, generator)
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
@@ -218,3 +256,15 @@ class ResNet(nn.Module):
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)
+
+
+@BACKBONES.register_module()
+class ResNeXt(ResNet):
+    """ResNeXt: the ResNet with grouped bottlenecks, by default 32 groups of
+    base width 4 (X-101-32x4d; port of `ld_tpu/models/backbones/resnet.py:
+    338-345`)."""
+
+    def __init__(self, depth: int, groups: int = 32, base_width: int = 4,
+                 **kwargs):
+        super().__init__(depth, groups=groups, base_width=base_width,
+                         **kwargs)

@@ -58,7 +58,7 @@ class FCOSGFLHead(ATSSGFLHead):
         if dcn_on_last_conv:
             raise NotImplementedError('FCOSGFLHead dcn_on_last_conv is not '
                                       'ported to ld_tpu_torch yet (see '
-                                      'ROADMAP.md item 21)')
+                                      'ROADMAP.md A7)')
         if norm_on_bbox:
             raise NotImplementedError('FCOSGFLHead norm_on_bbox=True is '
                                       'implemented in neither package')

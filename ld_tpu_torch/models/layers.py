@@ -11,7 +11,9 @@ Each takes a compute dtype (`dtype`, the JAX modules' `dtype` field; None
 for float32), with flax's rounding points: a conv casts its input, weight
 and bias to the compute dtype and returns that dtype; a norm takes its
 statistics and affine in float32 and returns the compute dtype. Parameters,
-running statistics and gradients stay float32. With no compute dtype each
+running statistics and gradients stay float32. The DCN layer
+(`ops/deform_conv.py`) takes one too, its `conv_offset` a `Conv2d` of
+this file. With no compute dtype each
 module is the plain `torch.nn` one, bit for bit.
 """
 from __future__ import annotations
@@ -91,7 +93,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 def make_conv(conv_cfg, in_channels, out_channels, kernel_size, stride=1, *,
-              padding=None, dilation=1, bias=False, dtype=None) -> Conv2d:
+              padding=None, dilation=1, groups=1, bias=False,
+              dtype=None) -> Conv2d:
     """build_conv_layer equivalent, computing in `dtype`."""
     ctype = (conv_cfg or {}).get('type', 'Conv')
     if ctype not in ('Conv', 'Conv2d'):
@@ -100,7 +103,7 @@ def make_conv(conv_cfg, in_channels, out_channels, kernel_size, stride=1, *,
     if padding is None:
         padding = kernel_size // 2
     return Conv2d(in_channels, out_channels, kernel_size, stride, padding,
-                  dilation=dilation, bias=bias,
+                  dilation=dilation, groups=groups, bias=bias,
                   compute_dtype=lowered_dtype(dtype))
 
 
@@ -118,12 +121,19 @@ def make_norm(norm_cfg, num_features, dtype=None) -> nn.Module:
                               'ld_tpu_torch yet (see ROADMAP.md)')
 
 
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator,
+                  scale: float = 1.0):
     """flax's default conv kernel init (variance_scaling(1, 'fan_in',
     'truncated_normal')): a normal truncated to 2 std, rescaled so the
-    truncated distribution has variance 1/fan_in."""
+    truncated distribution has variance scale/fan_in."""
     fan_in = weight[0].numel()
-    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    std = math.sqrt(scale / fan_in) / .87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
                               generator=generator)
+
+
+def he_normal_(weight: torch.Tensor, generator: torch.Generator):
+    """flax's `he_normal` (variance_scaling(2, 'fan_in',
+    'truncated_normal')), the JAX DCN kernel's init."""
+    lecun_normal_(weight, generator, scale=2.0)

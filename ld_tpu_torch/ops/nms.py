@@ -8,8 +8,10 @@ card, its plain version on the CPU.
 The JAX package's `topk_flat` lane split is a TPU sort device; here
 `torch.topk` gives the same indices on untied scores. A reduced `iou_dtype`
 (`test_cfg.nms.iou_dtype`) takes the JAX package's class-mask fixpoint in
-plain torch (`_nms_keep_classed`). `approx_topk`, a TPU lowering, and the NMS
-variants that are not ported yet (`soft_nms`, voting NMS) raise
+plain torch (`_nms_keep_classed`). `nms_cfg` type 'voting_cluster_diounms'
+takes `multiclass_nms_voting`, the cluster-DIoU fixpoint with Gaussian score
+voting, in plain torch: its suppression is not the keep kernel's IoU test.
+`approx_topk`, a TPU lowering, and `soft_nms` (not ported yet) raise
 NotImplementedError.
 """
 from __future__ import annotations
@@ -103,6 +105,8 @@ def multiclass_nms(mlvl_bboxes: torch.Tensor,
     Args:
         mlvl_bboxes: (B, N, 4).
         mlvl_scores: (B, N, C) sigmoid class scores WITHOUT background column.
+        nms_cfg: `type` 'voting_cluster_diounms' returns
+            `multiclass_nms_voting` (no `keep_fn`, no `iou_dtype`).
         iou_dtype: a dtype other than float32 (or its name) computes the IoU
             matrix in it, by `_nms_keep_classed`, in place of `keep_fn`.
         keep_fn: the keep-mask function, `nms_keep` (the kernel on the card).
@@ -120,6 +124,10 @@ def multiclass_nms(mlvl_bboxes: torch.Tensor,
         iou_dtype = _as_torch_dtype(iou_dtype)
     if approx_topk:
         _not_ported('approx_topk (a TPU approx_max_k lowering)')
+    if nms_cfg.get('type') == 'voting_cluster_diounms':
+        return multiclass_nms_voting(mlvl_bboxes, mlvl_scores, score_thr,
+                                     iou_threshold, max_per_img,
+                                     max_candidates, box_coord_bound)
     if nms_cfg.get('type', 'nms') != 'nms':
         _not_ported(f"nms type {nms_cfg['type']!r}")
     b, num_anchors, num_classes = mlvl_scores.shape
@@ -190,6 +198,80 @@ def _nms_keep_classed(boxes, class_idx, iou_threshold, valid, iou_dtype):
             break
         keep = new_keep
     return keep
+
+
+def multiclass_nms_voting(mlvl_bboxes: torch.Tensor,
+                          mlvl_scores: torch.Tensor,
+                          score_thr: float,
+                          iou_threshold: float,
+                          max_per_img: int = 100,
+                          max_candidates: int = 1024,
+                          box_coord_bound: float = 4096.0,
+                          beta: float = 0.8,
+                          sigma: float = 0.025):
+    """Cluster-DIoU NMS with Gaussian score voting over each image's
+    candidates (port of `ld_tpu/ops/nms.py:360-423`, the reference's
+    `voting_cluster_diounms`).
+
+    The top `max_candidates` (anchor, class) pairs compete on class-offset
+    boxes (offset max(box_coord_bound, boxes.max() + 1), as in
+    `multiclass_nms`): a candidate is suppressed by a kept higher-scored one
+    whose DIoU = IoU - (d²/c²)^beta exceeds `iou_threshold`, iterated to a
+    fixpoint of at most K rounds (the stop test reads the keep mask on the
+    host once a round). Each kept box is then the average of the candidates
+    from itself down (suppressed ones too) whose DIoU with it exceeds 0.7,
+    weighted exp(-(1 - DIoU)² / sigma) * score.
+
+    Shapes as `multiclass_nms`. The rounds of the last call are in
+    `multiclass_nms_voting.iterations`.
+    """
+    b, num_anchors, num_classes = mlvl_scores.shape
+    masked = torch.where(mlvl_scores > score_thr, mlvl_scores,
+                         torch.zeros_like(mlvl_scores))
+    k = min(max_candidates, num_anchors * num_classes)
+    top_scores, top_idx = _topk_pairs(masked, k)
+    class_idx = top_idx % num_classes
+    cand_boxes = torch.gather(mlvl_bboxes, 1, (top_idx // num_classes)[
+        ..., None].expand(b, k, 4))
+    cand_valid = top_scores > 0.0
+    bound = torch.clamp(cand_boxes.amax(dim=(1, 2)) + 1.0,
+                        min=box_coord_bound)
+    ob = cand_boxes + (class_idx.to(cand_boxes.dtype) *
+                       bound[:, None])[..., None]
+
+    iou = bbox_overlaps(ob, ob)                              # (B, K, K)
+    cx = (ob[..., 0] + ob[..., 2]) / 2
+    cy = (ob[..., 1] + ob[..., 3]) / 2
+    enc_l = torch.minimum(ob[:, :, None, 0], ob[:, None, :, 0])
+    enc_t = torch.minimum(ob[:, :, None, 1], ob[:, None, :, 1])
+    enc_r = torch.maximum(ob[:, :, None, 2], ob[:, None, :, 2])
+    enc_b = torch.maximum(ob[:, :, None, 3], ob[:, None, :, 3])
+    d2 = ((cx[:, None, :] - cx[:, :, None])**2 +
+          (cy[:, None, :] - cy[:, :, None])**2)
+    c2 = (enc_r - enc_l)**2 + (enc_b - enc_t)**2 + 1e-7
+    diou = iou - torch.clamp(d2 / c2, 0.0, 1.0)**beta
+
+    ones = torch.ones(k, k, dtype=torch.bool, device=ob.device)
+    suppress = ((diou > iou_threshold) & ones.triu(1)).float()
+    keep, rounds = cand_valid, 0
+    while rounds < k:
+        rounds += 1
+        killed = torch.bmm(keep.float()[:, None, :], suppress)[:, 0] > 0.5
+        new_keep = cand_valid & ~killed
+        if torch.equal(new_keep, keep):
+            break
+        keep = new_keep
+    multiclass_nms_voting.iterations = rounds
+
+    gate = ones.triu() & (diou > 0.7) & cand_valid[:, None, :]
+    w = torch.where(gate, torch.exp(-(1.0 - diou)**2 / sigma) *
+                    top_scores[:, None, :], torch.zeros_like(diou))
+    voted = torch.bmm(w, cand_boxes) / torch.clamp(
+        w.sum(-1, keepdim=True), min=1e-6)
+    return _finalize(keep, top_scores, voted, class_idx, max_per_img)
+
+
+multiclass_nms_voting.iterations = 0
 
 
 def _finalize(keep, top_scores, boxes, class_idx, max_per_img):

@@ -12,6 +12,11 @@ layer's padded batches (100 gt slots per image), with the valid gts of
 varied size and class. The CPU tests and `chip_smoke.py`'s train phase take
 their batches from it. Needs numpy and torch only.
 
+`randomize_dcn_offsets` gives every DCN layer of a model seeded non-zero
+offsets and masks: with `conv_offset` at its zero init a DCN layer is half
+a plain conv, and a check of it would see neither the offset layout nor the
+bilinear sample.
+
 `write_voc_devkit` writes a seeded synthetic PASCAL VOC devkit (XML
 annotations, JPEGs, split files) that VOC configs read through their
 `data_root`; it needs cv2 to write the JPEGs.
@@ -152,6 +157,26 @@ def detection_batch(b, h, w, num_classes=80, max_gts=100, seed=0,
     return {k: torch.from_numpy(v).to(device)
             for k, v in detection_batch_np(b, h, w, num_classes, max_gts,
                                            seed).items()}
+
+
+def randomize_dcn_offsets(model, seed=0, shift=2.0):
+    """Seeded normal `conv_offset` weights and biases for every
+    `ModulatedDeformConv2d` of `model`, in place: weights of std
+    shift / sqrt(fan_in), so that on unit-scale inputs the taps move by
+    about `shift` pixels and some fall off the map, and biases of std 1
+    (offsets and mask logits). Returns the number of layers."""
+    from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
+    rs = np.random.RandomState(seed)
+    layers = [m for m in model.modules()
+              if isinstance(m, ModulatedDeformConv2d)]
+    with torch.no_grad():
+        for m in layers:
+            w, b = m.conv_offset.weight, m.conv_offset.bias
+            std = shift / np.sqrt(w[0].numel())
+            w.copy_(torch.from_numpy(
+                (rs.randn(*w.shape) * std).astype(np.float32)))
+            b.copy_(torch.from_numpy(rs.randn(*b.shape).astype(np.float32)))
+    return len(layers)
 
 
 def _voc_xml(img_id, folder, w, h, objects):

@@ -5,7 +5,8 @@
     `load_state_dict(strict=True)`, because the port uses mmdet's module
     names.
   * `state_dict_from_jax`: the exact inverse of
-    `ld_tpu.utils.checkpoint.convert_torch_state_dict` for the ResNet / FPN
+    `ld_tpu.utils.checkpoint.convert_torch_state_dict` for the ResNet /
+    ResNeXt (with DCN stages) / FPN
     and the GFL, GFocalV2, ATSS-GFL and Retina-GFL heads (an LD head has its
     base head's parameters; the JAX FCOS-GFL head is left out, its final
     convs carry the ATSS head's names). It takes
@@ -65,8 +66,9 @@ _BN_LEAVES = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
 
 
 def _backbone_key(path: tuple) -> str:
-    """('conv1', 'kernel') / ('layer1_0', 'norm2', 'bn', 'scale') / ... ->
-    the mmdet ResNet name after 'backbone.'."""
+    """('conv1', 'kernel') / ('layer1_0', 'norm2', 'bn', 'scale') /
+    ('layer3_0', 'conv2', 'conv_offset', 'bias') / ... -> the mmdet ResNet
+    name after 'backbone.'."""
     *mods, leaf = path
     if mods[-1] == 'bn':          # BatchNorm: .../normX/bn/<leaf>
         norm = mods[-2]
@@ -74,6 +76,10 @@ def _backbone_key(path: tuple) -> str:
         name = {'norm1': 'bn1', 'norm2': 'bn2', 'norm3': 'bn3',
                 'downsample_norm': 'downsample.1'}[norm]
         return '.'.join(_block_prefix(owner) + [name, _BN_LEAVES[leaf]])
+    if mods[-1] == 'conv_offset':  # a DCN conv2's offset / mask conv
+        return '.'.join(_block_prefix(mods[:-2]) + [
+            mods[-2], 'conv_offset', {'kernel': 'weight',
+                                      'bias': 'bias'}[leaf]])
     if leaf != 'kernel':
         raise KeyError(path)
     conv = mods[-1]
@@ -88,6 +94,48 @@ def _block_prefix(owner) -> list:
     if m is None or len(owner) != 1:
         raise KeyError(owner)
     return [f'layer{m.group(1)}', m.group(2)]
+
+
+def _dcn_offset_perm(out_ch: int, k: int) -> np.ndarray:
+    """The JAX converter's `conv_offset` channel permutation (a copy of
+    `ld_tpu/utils/checkpoint.py:92-111`): perm[jax channel] = mmcv channel.
+    mmcv's channels are (o1, o2, mask) thirds, the offsets read per deform
+    group as interleaved (dy, dx) pairs a tap; the JAX layer's are
+    component-major (all dy, all dx, all mask) blocks per deform group."""
+    g = out_ch // (3 * k * k)
+    if g * 3 * k * k != out_ch:
+        raise ValueError(f'{out_ch} conv_offset channels for k={k}')
+    kk = k * k
+    perm = np.empty(out_ch, np.int64)
+    for gi in range(g):
+        for t in range(kk):
+            perm[gi * 3 * kk + t] = gi * 2 * kk + 2 * t
+            perm[gi * 3 * kk + kk + t] = gi * 2 * kk + 2 * t + 1
+            perm[gi * 3 * kk + 2 * kk + t] = 2 * g * kk + gi * kk + t
+    return perm
+
+
+def _dcn_value(params: Dict, rest: tuple, value: np.ndarray):
+    """A DCN conv2 leaf of the JAX backbone as the port's tensor, or None
+    for any other leaf. k and the input channels per conv group come from
+    the layer's own `conv_offset` kernel (k, k, C, 3*g*k*k):
+      * the main kernel (k*k*C/groups, O), grouped-HWIO rows, -> OIHW;
+      * `conv_offset`'s kernel and bias, the inverse of `_dcn_offset_perm`
+        on their output channels."""
+    if 'conv_offset' in rest:
+        owner = rest[:rest.index('conv_offset') + 1]
+    elif rest[-1] == 'kernel' and value.ndim == 2:
+        owner = rest[:-1] + ('conv_offset', )
+    else:
+        return None
+    node = params
+    for p in owner:
+        node = node[p]
+    k = np.shape(node['kernel'])[0]
+    if 'conv_offset' not in rest:
+        return _conv_weight(value.reshape(k, k, -1, value.shape[-1]))
+    inv = np.argsort(_dcn_offset_perm(value.shape[-1], k))
+    return (_conv_weight(value) if value.ndim == 4 else value)[inv]
 
 
 def _neck_key(path: tuple, num_laterals: int) -> str:
@@ -151,6 +199,11 @@ def state_dict_from_jax(variables: Dict) -> 'OrderedDict[str, torch.Tensor]':
                 if rest[-2:] == ('bn', 'scale'):
                     sd[key[:-len('weight')] + 'num_batches_tracked'] = \
                         np.zeros((), np.int64)
+                dcn = _dcn_value(params['backbone'], rest, value) \
+                    if coll == 'params' else None
+                if dcn is not None:
+                    sd[key] = dcn
+                    continue
             elif scope == 'neck':
                 key = 'neck.' + _neck_key(rest, num_laterals)
             elif scope == 'head_net' and rest == ('scales', ):

@@ -1,8 +1,9 @@
 """Conv + BatchNorm folding; port of `ld_tpu/utils/fuse_conv_bn.py:32-103`.
 
 At eval a BatchNorm computes y = (x - mean) * gamma / sqrt(var + eps) + beta.
-When x is the output of a conv, the factor f = gamma / sqrt(var + eps) folds
-into the conv's output channels:
+When x is the output of a conv, or of a DCN conv (linear in its `weight`,
+whatever its offsets), the factor f = gamma / sqrt(var + eps) folds into the
+conv's output channels:
 
     weight' = weight * f
     and the BN is left as a bias add:
@@ -20,6 +21,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
 
 
 def fuse_conv_bn_cfg_ok(model_cfg) -> bool:
@@ -45,7 +48,8 @@ def _conv_of(parent: nn.Module, bn_name: str):
         conv = parent[int(bn_name) - 1]
     else:
         conv = None
-    return conv if isinstance(conv, nn.Conv2d) else None
+    return conv if isinstance(conv, (nn.Conv2d, ModulatedDeformConv2d)) \
+        else None
 
 
 @torch.no_grad()

@@ -10,7 +10,9 @@ The hand-made edge sets of the block-wise sweep come from
 `ld_tpu_torch.testing`; `chip_smoke.py` checks the kernel on the same sets.
 The training caller, `LDHead._gi_mask`, is checked at the GI path's shapes,
 the LDv2 head's GI masks at full width, and the loader's `DevicePrefetcher`
-against a plain copy to the card.
+against a plain copy to the card. The ops of the DCN teachers that run in
+plain torch on the card, the DCN layer and the voting NMS, are held against
+the CPU.
 """
 import pytest
 import torch
@@ -175,3 +177,95 @@ def test_device_prefetcher_equals_a_plain_copy():
         [b['img_ids'].tolist() for b in plain[8:]]
     assert all(torch.equal(a['image'], b['image'])
                for a, b in zip(tail, got[8:]))
+
+
+@pytest.fixture
+def no_tf32():
+    """cuDNN's TF32 off (torch's default is on for convs), as chip_smoke.py
+    runs: the offsets of a DCN layer come from a conv."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        flags
+
+
+def _dcn_layer(c, stride, groups, seed=0):
+    from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
+    from ld_tpu_torch.testing import randomize_dcn_offsets
+    layer = ModulatedDeformConv2d(c, c, 3, stride, groups=groups)
+    layer.init_weights(torch.Generator().manual_seed(seed))
+    randomize_dcn_offsets(layer, seed)
+    return layer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('c,hw,stride,groups', [
+    (64, (50, 84), 1, 1), (128, (100, 168), 2, 1), (512, (25, 42), 1, 32)])
+def test_dcn_layer_on_the_card_equals_the_cpu(no_tf32, c, hw, stride,
+                                              groups):
+    """The DCN layer (plain torch, no kernel of its own) on the card against
+    the same weights and input on the CPU, with seeded non-zero offsets, to
+    1e-4 of the largest output; and its input, weight and conv_offset
+    gradients the same way."""
+    _need_card()
+    layer = _dcn_layer(c, stride, groups)
+    x = torch.randn(2, c, *hw, generator=torch.Generator().manual_seed(1))
+    outs, grads = [], []
+    for device in ('cpu', 'cuda'):
+        m = _dcn_layer(c, stride, groups).to(device)
+        m.load_state_dict(layer.state_dict())
+        xi = x.detach().to(device).requires_grad_(True)
+        out = m(xi)
+        out.square().mean().backward()
+        outs.append(out.detach().cpu())
+        grads.append([t.grad.cpu() for t in (xi, m.weight,
+                                             m.conv_offset.weight)])
+    assert outs[1].shape == outs[0].shape
+    assert float((outs[1] - outs[0]).abs().max()) <= \
+        1e-4 * float(outs[0].abs().max())
+    for g, c_ in zip(grads[1], grads[0]):
+        assert float((g - c_).abs().max()) <= 1e-4 * float(c_.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('groups', [1, 32])
+def test_dcn_layer_with_zero_offsets_is_the_conv(no_tf32, groups):
+    """Zero offsets and mask logits of 30 (sigmoid 1.0 in float32): the
+    layer is `F.conv2d` of its weight."""
+    _need_card()
+    layer = _dcn_layer(512, 1, groups).cuda()
+    with torch.no_grad():
+        layer.conv_offset.weight.zero_()
+        layer.conv_offset.bias.zero_()
+        layer.conv_offset.bias[-9:] = 30.0
+        x = torch.randn(2, 512, 25, 42, device='cuda')
+        got = layer(x)
+        want = torch.nn.functional.conv2d(x, layer.weight, padding=1,
+                                          groups=groups)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_voting_nms_on_the_card_equals_the_cpu():
+    """`multiclass_nms_voting` (plain torch: its DIoU test is not the keep
+    kernel's) on the card against the CPU: labels and valid identical,
+    boxes and scores within 1e-4 relative; no nms_keep launch."""
+    _need_card()
+    from ld_tpu_torch.ops.nms import multiclass_nms_voting
+    g = torch.Generator().manual_seed(3)
+    xy = torch.rand(2, 4000, 2, generator=g) * 1200
+    boxes = torch.cat([xy, xy + 10 + torch.rand(2, 4000, 2, generator=g) *
+                       150], -1)
+    scores = torch.rand(2, 4000, 20, generator=g) ** 3
+    launches = nms_keep.launches
+    got = multiclass_nms_voting(boxes.cuda(), scores.cuda(), 0.05, 0.6)
+    torch.cuda.synchronize()
+    assert nms_keep.launches == launches
+    want = multiclass_nms_voting(boxes, scores, 0.05, 0.6)
+    dets, labels, valid = (t.cpu() for t in got)
+    assert int(valid.sum()) > 0
+    assert torch.equal(labels, want[1]) and torch.equal(valid, want[2])
+    assert torch.allclose(dets, want[0], rtol=1e-4, atol=1e-4)

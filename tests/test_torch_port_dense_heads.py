@@ -20,8 +20,8 @@ test_torch_port_bridge.py); inputs come from numpy seeds:
   * the caffe-style R50 (stride on conv1, frozen BN affine) at 1x3x64x64
     to 1e-4 of the largest output;
   * every LD / LDv2 config, the IMv2 config and the GFL-family configs
-    build in the port, or raise NotImplementedError naming their ROADMAP
-    item.
+    build in the port, the DCN and ResNeXt ones with their DCN stages and
+    conv groups.
 """
 import glob
 import os
@@ -41,6 +41,7 @@ from ld_tpu_torch import Config
 from ld_tpu_torch.models import build_detector
 from ld_tpu_torch.models.backbones import ResNet
 from ld_tpu_torch.ops import AnchorGenerator, MaxIoUAssigner
+from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
 from ld_tpu_torch.testing import detection_batch_np
 from ld_tpu_torch.utils.checkpoint import state_dict_from_jax
 from ld_tpu_torch.utils.registry import LOSSES
@@ -336,36 +337,38 @@ CONFIGS = sorted(
                                               'configs/gfl/*.py')
      for p in glob.glob(os.path.join(ROOT, pattern))] +
     ['configs/imv2/im_r50_gflv2_r101_1x.py'])
-NOT_PORTED = {
-    'configs/ld/ld_r101_gflv1_r101dcn_fpn_coco_2x.py': 'item 21',
-    'configs/ld/ld_r101_gflv1_r101dcn_fpn_voc_1x.py': 'item 21',
-    'configs/ld/ld_r34_gflv1_r101dcn_fpn_voc_1x.py': 'item 21',
-    'configs/ld/ld_x101_32x4d_dcn_self_2x_coco.py': 'item 22',
-    'configs/ld/ld_x101_self_2x_coco.py': 'item 22',
-    'configs/gfl/gfl_r101_dcn_fpn_mstrain_2x_coco.py': 'item 21',
-    'configs/gfl/gfl_r101_dcn_fpn_voc.py': 'item 21',
-    'configs/gfl/gfl_r101_fpn_dconv_c3-c5_mstrain_2x_coco.py': 'item 21',
-    'configs/gfl/gfl_x101_32x4d_fpn_dconv_c4-c5_mstrain_2x_coco.py':
-        'item 22',
-    'configs/gfl/gfl_x101_32x4d_fpn_mstrain_2x_coco.py': 'item 22',
-    'configs/gfl/gfl_x101_fpn_2x_coco.py': 'item 22',
-}
+# the blocks of each ResNet / ResNeXt stage
+STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
+                101: (3, 4, 23, 3)}
+
+
+def _assert_backbone_as_configured(backbone, cfg):
+    """The DCN conv2s sit in the stages `stage_with_dcn` names (each
+    bottleneck of them), and every conv2 has the config's groups."""
+    dcn_stages = cfg.get('stage_with_dcn', (False, ) * 4) \
+        if cfg.get('dcn') else (False, ) * 4
+    want = sum(n for n, on in zip(STAGE_BLOCKS[cfg['depth']], dcn_stages)
+               if on)
+    dcns = [m for m in backbone.modules()
+            if isinstance(m, ModulatedDeformConv2d)]
+    assert len(dcns) == want
+    groups = cfg.get('groups', 32 if cfg['type'] == 'ResNeXt' else 1)
+    assert {blk.conv2.groups for i in range(1, 5)
+            for blk in getattr(backbone, f'layer{i}')} == {groups}
 
 
 @pytest.mark.parametrize('path', CONFIGS)
 def test_config_builds(path):
     """Every config of the LD tables and of the GFL family builds (on the
-    meta device: no memory, no init), or names its ROADMAP item."""
+    meta device: no memory, no init), the DCN and ResNeXt ones too, with
+    the backbone its config asks for."""
     cfg = Config.fromfile(os.path.join(ROOT, path))
-    if path in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match=NOT_PORTED[path]):
-            with torch.device('meta'):
-                build_detector(cfg.model)
-        return
     with torch.device('meta'):
         model = build_detector(cfg.model)
-    want = JConfig.fromfile(os.path.join(ROOT, path)).model['bbox_head']
-    assert type(model.bbox_head).__name__ == want['type']
+    want = JConfig.fromfile(os.path.join(ROOT, path)).model
+    assert type(model.bbox_head).__name__ == want['bbox_head']['type']
+    assert type(model.backbone).__name__ == want['backbone']['type']
+    _assert_backbone_as_configured(model.backbone, want['backbone'])
 
 
 def test_config_list_holds_every_teacher():

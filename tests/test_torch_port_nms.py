@@ -172,8 +172,20 @@ def test_nms_matches_jax():
     dict(nms_cfg=dict(type='voting_cluster_diounms')),
 ])
 def test_unported_nms_keys_raise(kw):
+    """The keys not ported raise; the voting type, ported, routes to
+    `multiclass_nms_voting` and returns `max_per_img` rows an image."""
     boxes, scores = _mc_inputs(np.random.RandomState(0), 1, 20, 3)
+    args = (torch.from_numpy(boxes), torch.from_numpy(scores), 0.05, 0.6)
+    if kw.get('nms_cfg', {}).get('type') == 'voting_cluster_diounms':
+        dets, labels, valid = port_nms.multiclass_nms(*args, max_per_img=30,
+                                                      **kw)
+        assert dets.shape == (1, 30, 5) and labels.shape == valid.shape == \
+            (1, 30)
+        assert 0 < int(valid.sum()) <= 30
+        for got, want in zip((dets, labels, valid),
+                             port_nms.multiclass_nms_voting(*args, 30)):
+            assert torch.equal(got, want)
+        return
     with pytest.raises(NotImplementedError):
-        port_nms.multiclass_nms(torch.from_numpy(boxes),
-                                torch.from_numpy(scores), 0.05, 0.6, **kw)
+        port_nms.multiclass_nms(*args, **kw)
 

@@ -36,20 +36,17 @@ from ld_tpu_torch.data import build_dataset, loader
 from ld_tpu_torch.data import transforms as tf
 from ld_tpu_torch.evaluation import class_names, mean_ap
 from ld_tpu_torch.models import build_detector
+from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
 from ld_tpu_torch.testing import write_voc_devkit
 from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the VOC configs of the LD and GFL tables; the models the port lacks raise
-# NotImplementedError naming their ROADMAP.md item
+# the VOC configs of the LD and GFL tables (the R101-DCN teachers' too)
 VOC_CONFIGS = sorted(
     [os.path.relpath(p, ROOT) for pattern in ('configs/ld/*_voc_1x.py',
                                               'configs/gfl/*voc*.py')
      for p in glob.glob(os.path.join(ROOT, pattern))] +
     ['configs/ld/ld_r18_self_2x_3x_voc.py'])
-NOT_PORTED = {'configs/gfl/gfl_r101_dcn_fpn_voc.py': 'item 21',
-              'configs/ld/ld_r101_gflv1_r101dcn_fpn_voc_1x.py': 'item 21',
-              'configs/ld/ld_r34_gflv1_r101dcn_fpn_voc_1x.py': 'item 21'}
 NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
             to_rgb=True)
 PIPELINE = [dict(type='LoadImageFromFile'),
@@ -144,8 +141,8 @@ def test_voc_dataset_matches_jax(voc_roots, which, min_size):
 @pytest.mark.parametrize('path', VOC_CONFIGS)
 def test_voc_configs_build(path):
     """Each split's pipeline (unwrapped from its RepeatDataset) builds, and
-    the model builds with 20 classes (on the meta device: shapes only), or
-    raises naming the ROADMAP.md item that ports it."""
+    the model builds with 20 classes (on the meta device: shapes only); a
+    DCN teacher config with its DCN conv2s."""
     cfg = Config.fromfile(os.path.join(ROOT, path))
     for split in ('train', 'val', 'test'):
         d = cfg.data[split]
@@ -155,11 +152,11 @@ def test_voc_configs_build(path):
         assert tf.Compose([dict(t) for t in d['pipeline']]).transforms
     assert cfg.evaluation['metric'] == 'AP50:95'
     with torch.device('meta'):
-        if path in NOT_PORTED:
-            with pytest.raises(NotImplementedError, match=NOT_PORTED[path]):
-                build_detector(cfg.model)
-        else:
-            assert build_detector(cfg.model).bbox_head.num_classes == 20
+        model = build_detector(cfg.model)
+    assert model.bbox_head.num_classes == 20
+    dcns = [m for m in model.backbone.modules()
+            if isinstance(m, ModulatedDeformConv2d)]
+    assert len(dcns) == (30 if cfg.model.backbone.get('dcn') else 0)
 
 
 def test_voc_classes_and_get_classes():
