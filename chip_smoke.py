@@ -1,6 +1,7 @@
 """Drive the ld_tpu_torch serving, training, training-runtime and evaluation
-paths, the other GFL-family heads, the configs' bf16 dtype and the DCN /
-ResNeXt rows on one CUDA card and check them.
+paths, the other GFL-family heads, the configs' bf16 dtype, the DCN /
+ResNeXt rows and data-parallel training and evaluation on one CUDA card and
+check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
@@ -99,6 +100,26 @@ Phases, one JSON object per line each:
                the detections bit-identical with the plain keep mask, the
                first detection's score the largest class probability, and
                the NMS candidate count K.
+ 10. bf16, dcn — the configs' bf16 dtype; the DCN / ResNeXt rows.
+ 11. ddp     — data parallelism over 2 ranks sharing the card (gloo; NCCL
+               where there is a card a rank): (a) 4 steps of the GI config
+               at full width, float32, batch 2 a rank at 800x1344 in 2
+               spawned ranks against one process at batch 4 over the same
+               images and weights (loss terms rtol 1e-3, GI masks
+               identical, parameters after the step within 1e-5 of their
+               largest value, 5 launches a step a rank); (b) this script
+               in its worker mode under `python -m torch.distributed.run
+               --nproc_per_node 2` on tools/train.py --launcher pytorch
+               with the runtime phase's config, through, and preempted by
+               a SIGTERM to rank 0 after step 3 and resumed (the same
+               img_ids a rank, the same LR a step; rank 0 alone writes;
+               5 launches a step a rank + 1 an eval batch); (c) the same
+               on tools/test.py --launcher pytorch --eval bbox (every test
+               image once, in dataset order, the detections those of a
+               one-process forward_test of the same per-rank batches); (d)
+               step ms against one process, the gradient all-reduce's ms,
+               peak memory a rank, the phase's seconds: the collective
+               path's cost on a shared card, not a scaling figure.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
 (the main path's case: dense-kept set, K = 1024, B = 1; `device_ms` is the
 profiler's mask + sweep time; the `_k2048` keys the dense-kept set at
@@ -1785,8 +1806,305 @@ def phase_dcn(torch, smi):
                              phase='dcn_bf16', dtype='bfloat16')[0]
     return launches
 
+# ---- ddp: data parallelism over ranks ----------------------------------------
+
+DDP_RANKS = 2
+
+
+def ddp_backend(torch):
+    """NCCL takes a card a rank; ranks that share the one card run gloo."""
+    return 'nccl' if torch.cuda.device_count() >= DDP_RANKS else 'gloo'
+
+
+def rel_max_diff(np, got, want):
+    """max |got - want| over max |want|, over every array of two dicts."""
+    diff = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+    return diff / max(float(np.abs(want[k]).max()) for k in want)
+
+
+def ddp_step(torch, np, warmup=1, timed=3):
+    """(a) The GI config's step at full width, float32, over 2 spawned
+    ranks x 2 images of testing.detection_batch at 800x1344, against one
+    process at 4 images over the same images and weights: each loss term
+    within rtol 1e-3, the GI masks identical, the parameters after the
+    step within 1e-5 of their largest value, 5 launches a step a rank.
+    Returns the ranks' launches and the figures."""
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.testing import detection_batch_np, ld_step_rank, spawn
+    cfg = Config.fromfile(os.path.join(ROOT, TRAIN_CONFIG))
+    batch = detection_batch_np(2 * DDP_RANKS, 800, 1344, seed=0)
+    steps = warmup + timed
+    tmp = os.path.join(ROOT, 'work_dirs', 'chip_smoke_ddp', 'spawn')
+    torch.cuda.empty_cache()
+    # ---- the main path: each child counts its launches from 0 ----------
+    ranks = spawn(ld_step_rank, DDP_RANKS, ddp_backend(torch), tmp,
+                  device='cuda', args=(cfg, batch, steps, True))
+    # --------------------------------------------------------------------
+    ref = ld_step_rank(0, 1, 'cuda', cfg, batch, steps)
+    torch.cuda.empty_cache()
+    for r, out in enumerate(ranks):
+        bad = {k: (v, ref['metrics'][k]) for k, v in out['metrics'].items()
+               if abs(v - ref['metrics'][k]) >
+               1e-3 * abs(ref['metrics'][k]) + 1e-7}
+        check(sorted(out['metrics']) == sorted(ref['metrics']) and not bad,
+              f'ddp rank {r}: loss terms off the one-process step: {bad}')
+        check(out['launches'] == 5,
+              f'ddp rank {r}: {out["launches"]} launches a step, not 5')
+    check(ref['launches'] == 5, f'one process: {ref["launches"]} launches')
+    same_masks = all(np.array_equal(np.concatenate(
+        [out['masks'][lvl] for out in ranks]), m)
+        for lvl, m in enumerate(ref['masks']))
+    check(len(ref['masks']) == 5 and same_masks,
+          'ddp: the ranks\' GI masks differ from the one-process ones')
+    params_rel = rel_max_diff(np, ranks[0]['params'], ref['params'])
+    grads_rel = rel_max_diff(np, ranks[0]['grads'], ref['grads'])
+    check(params_rel <= 1e-5,
+          f'ddp: parameters after the step {params_rel:.3g} off (rel max)')
+    rank_ms = [sum(out['step_ms'][warmup:]) / timed for out in ranks]
+    one_ms = sum(ref['step_ms'][warmup:]) / timed
+    return sum(out['launches'] * steps for out in ranks), dict(
+        backend=ddp_backend(torch), ranks=DDP_RANKS, batch_per_rank=2,
+        hw=[800, 1344], loss=ranks[0]['metrics'],
+        loss_one_process=ref['metrics'],
+        loss_max_rel_diff=max(abs(v - ref['metrics'][k]) /
+                              max(abs(ref['metrics'][k]), 1e-12)
+                              for k, v in ranks[0]['metrics'].items()),
+        gi_masks_identical=True, gi_picks=[float(m.sum())
+                                           for m in ref['masks']],
+        params_rel_max_diff=params_rel, grads_rel_max_diff=grads_rel,
+        step_ms_ranks=[out['step_ms'] for out in ranks],
+        step_ms_ranks_mean=rank_ms, step_ms_one_process=ref['step_ms'],
+        step_ms_one_process_mean=one_ms,
+        collectives_rank0=ranks[0]['collectives'],
+        grad_allreduce_ms_ranks=[out['allreduce_ms'] for out in ranks],
+        grad_bytes=ranks[0]['grad_bytes'],
+        peak_bytes_ranks=[out['peak_bytes'] for out in ranks],
+        peak_bytes_one_process=ref['peak_bytes'],
+        launches_per_step_ranks=[out['launches'] for out in ranks])
+
+
+def torchrun(args, timeout=600):
+    """`python -m torch.distributed.run --standalone` with DDP_RANKS ranks
+    on this script's worker mode; raises unless every rank exits 0. On a
+    time-out the whole process group is killed."""
+    import signal
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc_per_node', str(DDP_RANKS), os.path.abspath(__file__),
+           *map(str, args)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    check(proc.returncode == 0,
+          f'torchrun {args[:2]} exited {proc.returncode}:\n{out[-4000:]}')
+
+
+def ddp_worker(argv):
+    """torchrun's target in the ddp phase, one rank:
+    `--ddp-train-worker OUT PREEMPT -- ARGS` runs tools/train.py's main on
+    ARGS, recording this rank's img_ids, losses and launches a step (the
+    `make_train_step` of train_detector wrapped; rank 0 raises SIGTERM
+    after its step PREEMPT unless it is 0); `--ddp-test-worker OUT 0 --
+    ARGS` runs tools/test.py's main. Writes OUT.rank<r>.pt."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import ld_tpu_torch.apis.train as train_api
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    # as the phases of this process: float32 convs and matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mode, out, preempt = argv[0], argv[1], int(argv[2])
+    rank = int(os.environ['RANK'])
+    nms_keep.launches = 0
+    record = []
+    if mode == '--ddp-train-worker':
+        instrument_steps(train_api, record,
+                         preempt_after=preempt if rank == 0 and preempt
+                         else None)
+        ret = load_tool('train').main(argv[4:])
+        res = dict(preempted=ret['preempted'], step=ret['step'])
+    else:
+        res = dict(results=load_tool('test').main(argv[4:])['results'])
+    torch.save(dict(res, record=record, launches=nms_keep.launches,
+                    peak_bytes=torch.cuda.max_memory_allocated()),
+               f'{out}.rank{rank}.pt')
+    return 0
+
+
+def ddp_read(torch, out):
+    return [torch.load(f'{out}.rank{r}.pt', weights_only=False)
+            for r in range(DDP_RANKS)]
+
+
+def ddp_cli(torch, np, work, steps_per_epoch=3, epochs=2):
+    """(b) tools/train.py --launcher pytorch over 2 ranks with the runtime
+    phase's config (12 + 8 synthetic images, 2 epochs, the eval hook):
+    through, and preempted by a SIGTERM to rank 0 after step 3 and resumed
+    (the same img_ids per rank, the same LR per step); rank 0 alone
+    writes; the checkpoint loads into a one-process model; 5 launches a
+    step a rank plus 1 an eval batch. (c) tools/test.py --launcher pytorch
+    --eval bbox on that checkpoint: every test image once, in dataset
+    order, the detections those of a one-process forward_test over the
+    same per-rank batches. Returns the launches and the figures."""
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.data import (DevicePrefetcher, build_dataloader,
+                                   build_dataset)
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.utils.checkpoint import load_checkpoint
+    teacher_path = os.path.join(work, 'teacher_r101_seed1.pth')
+    teacher = build_detector(Config.fromfile(os.path.join(
+        ROOT, runtime_cfg(teacher_path).model.teacher_config)).model)
+    teacher.init_weights(torch.Generator().manual_seed(1))
+    torch.save(dict(state_dict=teacher.state_dict()), teacher_path)
+    del teacher
+    cfg = runtime_cfg(teacher_path)
+    cfg.data['test'] = cfg.data['val']
+    # a model 6 steps old scores below the config's 0.05
+    cfg.model.test_cfg.score_thr = 0.001
+    cfg_path = os.path.join(work, 'ddp_cfg.py')
+    cfg.dump(cfg_path)
+    opts = ['--cfg-options', f'dist_params.backend={ddp_backend(torch)}']
+    steps = steps_per_epoch * epochs
+    runs, seconds = {}, {}
+    for name, preempt in (('through', 0), ('preempted', 3),
+                          ('resumed', 0)):
+        wd = os.path.join(work, 'through' if name == 'through' else 'cut')
+        args = ['--ddp-train-worker', os.path.join(work, name), preempt,
+                '--', cfg_path, '--work-dir', wd, '--launcher', 'pytorch',
+                *opts]
+        if name == 'resumed':
+            args += ['--resume-from', wd]
+        t0 = time.perf_counter()
+        torchrun(args)
+        seconds[name] = time.perf_counter() - t0
+        runs[name] = ddp_read(torch, os.path.join(work, name))
+        if name == 'preempted':
+            ckpts_at_preemption = sorted(os.listdir(os.path.join(
+                wd, 'checkpoints')))
+    through, cut = runs['through'], runs['preempted']
+    for r in range(DDP_RANKS):
+        rec = through[r]['record']
+        check(len(rec) == steps and all(x['launches'] == 5 for x in rec),
+              f'ddp cli rank {r}: {len(rec)} steps, launches '
+              f'{[x["launches"] for x in rec]}')
+        check(through[r]['launches'] == 5 * steps + epochs,
+              f'ddp cli rank {r}: {through[r]["launches"]} launches, not '
+              f'{5 * steps + epochs} (5 a step, 1 an eval batch)')
+        check(cut[r]['preempted'] and cut[r]['step'] == 3,
+              f'ddp cli rank {r}: preempted at step {cut[r]["step"]}')
+        check([x['img_ids'] for x in cut[r]['record'] +
+               runs['resumed'][r]['record']] ==
+              [x['img_ids'] for x in rec],
+              f'ddp cli rank {r}: the resumed img_ids differ')
+        bad = [k for x in rec for k, v in x['losses'].items()
+               if not math.isfinite(v)]
+        check(not bad, f'ddp cli rank {r}: non-finite {bad[:3]}')
+    check(all(set(a) & set(b) == set() for a, b in zip(
+        *[[x['img_ids'] for x in through[r]['record']]
+          for r in range(DDP_RANKS)])), 'ddp cli: a step ran an image twice')
+    check(ckpts_at_preemption == ['3.pth'],
+          f'ddp cli: checkpoints at preemption {ckpts_at_preemption}')
+    logs = {n: read_log(os.path.join(work, n)) for n in ('through', 'cut')}
+    lr = {n: [x['lr'] for x in log if x['mode'] == 'train']
+          for n, log in logs.items()}
+    check(lr['through'] == lr['cut'] and len(lr['through']) == steps,
+          f'ddp cli: LR per step {lr}')
+    with open(os.path.join(work, 'through', 'train.log')) as f:
+        check(f.read().count('start training') == 1,
+              'ddp cli: more than one rank wrote train.log')
+    check(len([x for x in logs['through'] if x['mode'] == 'val']) == epochs,
+          'ddp cli: val lines')
+    ckpt = os.path.join(work, 'through', 'checkpoints', f'{steps}.pth')
+    check(sorted(os.listdir(os.path.join(work, 'through', 'checkpoints')))
+          == [f'{steps}.pth'] and os.path.exists(os.path.join(
+              work, 'through', 'best_bbox_mAP.pth')),
+          'ddp cli: checkpoints')
+    model = build_detector(cfg.model)
+    load_checkpoint(model, ckpt)
+
+    # (c) the test CLI on the checkpoint
+    out = os.path.join(work, 'test')
+    t0 = time.perf_counter()
+    torchrun(['--ddp-test-worker', out, 0, '--', cfg_path, ckpt, '--eval',
+              'bbox', '--launcher', 'pytorch', *opts])
+    seconds['test'] = time.perf_counter() - t0
+    tests = ddp_read(torch, out)
+    val = build_dataset(cfg.data['val'])
+    results = tests[0]['results']
+    check(len(results) == len(val) and all(len(x['labels']) for x in
+                                            results),
+          'ddp test: not one result with detections an image')
+    model.cuda().eval()
+    diff, compared = 0.0, set()
+    with torch.inference_mode():
+        for r in range(DDP_RANKS):
+            loader = build_dataloader(val, 4, DDP_RANKS, cfg.pad_to,
+                                      max_gts=1, shuffle=False, rank=r)
+            for batch in DevicePrefetcher(loader, 'cuda'):
+                dets, labels, valid = (o.cpu().numpy() for o in
+                                       model.forward_test(batch,
+                                                          rescale=True))
+                for i, idx in enumerate(batch['img_idx']):
+                    if idx in compared:
+                        continue
+                    compared.add(int(idx))
+                    got = results[idx]
+                    check(np.array_equal(got['labels'],
+                                         labels[i][valid[i]]),
+                          f'ddp test: image {idx} labels differ')
+                    diff = max(diff, float(np.abs(
+                        got['boxes'] - dets[i][valid[i]]).max()))
+    check(compared == set(range(len(val))) and diff <= 1e-4,
+          f'ddp test: detections {diff:.3g} off one process')
+    launches = sum(x['launches'] for x in through) + \
+        sum(x['launches'] for x in runs['preempted']) + \
+        sum(x['launches'] for x in runs['resumed']) + \
+        sum(x['launches'] for x in tests)
+    check(all(x['launches'] == 1 for x in tests),
+          f'ddp test: launches {[x["launches"] for x in tests]}, not 1 a '
+          'rank')
+    return launches, dict(
+        cli_seconds=seconds, cli_steps=steps,
+        cli_launches_ranks=[x['launches'] for x in through],
+        cli_step_ms_rank0=[x['time'] * 1e3 for x in logs['through']
+                           if x['mode'] == 'train'],
+        cli_lr=lr['through'], cli_peak_bytes_ranks=[
+            x['peak_bytes'] for x in through],
+        checkpoints_at_preemption=ckpts_at_preemption,
+        test_images=len(val), test_dets_max_abs_diff=diff,
+        test_launches_ranks=[x['launches'] for x in tests])
+
+
+def phase_ddp(torch, np, smi):
+    """The ddp phase: (a) one step over 2 ranks against one process, (b)
+    the training CLI over 2 ranks, preempted and resumed, (c) the test CLI
+    over 2 ranks, (d) their figures beside the card's name and power
+    limit. On one card the ranks share it over gloo: these figures are the
+    collective path's cost there, not a scaling figure. Returns the
+    kernel's launches over the ranks' main paths."""
+    import shutil
+    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_ddp')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    step_launches, step_row = ddp_step(torch, np)
+    cli_launches, cli_row = ddp_cli(torch, np, work)
+    emit(dict(phase='ddp', config=TRAIN_CONFIG, nvidia_smi=smi,
+              launches=step_launches + cli_launches, **step_row, **cli_row,
+              seconds=time.perf_counter() - t0))
+    shutil.rmtree(work, ignore_errors=True)
+    return step_launches + cli_launches
+
+
 def main():
     import torch
+    if len(sys.argv) > 1 and sys.argv[1].startswith('--ddp-'):
+        return ddp_worker(sys.argv[1:])
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false',
               file=sys.stderr)
@@ -1833,6 +2151,8 @@ def main():
     t0 = time.perf_counter()
     dcn_launches = phase_dcn(torch, smi)
     emit(dict(phase='dcn_done', seconds=time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+    ddp_launches = phase_ddp(torch, np, smi)
 
     print(smi.splitlines()[0], flush=True)
     emit(dict(kernels=[dict(
@@ -1840,11 +2160,11 @@ def main():
         replaces='ld_tpu/ops/pallas_nms.py:23',
         launches=(launches + train_launches + runtime_launches +
                   voc_launches + family_launches + bf16_launches +
-                  dcn_launches),
+                  dcn_launches + ddp_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
-        launches_dcn=dcn_launches,
+        launches_dcn=dcn_launches, launches_ddp=ddp_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

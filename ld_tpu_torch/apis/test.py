@@ -1,5 +1,6 @@
 """Evaluation API: batched inference over a dataset (port of
-`ld_tpu/apis/test.py:20-89`, one device)."""
+`ld_tpu/apis/test.py:20-89`), on one device or over the ranks of a
+process group."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional
@@ -8,6 +9,8 @@ import numpy as np
 import torch
 
 from ld_tpu_torch.data import DevicePrefetcher, build_dataloader
+from ld_tpu_torch.parallel.dist import (all_gather_object, all_reduce_host,
+                                        get_dist_info)
 
 
 def eval_detector(model: torch.nn.Module, dataset, samples_per_gpu: int = 4,
@@ -25,40 +28,58 @@ def eval_detector(model: torch.nn.Module, dataset, samples_per_gpu: int = 4,
     `int(img_id)`, and so finds none for VOC's string ids). A tail batch
     repeats images to fill its slots; only an image's first result is kept.
     The model is left in the mode (train or eval) it was found in.
+
+    Over R ranks (a process group up), each global batch holds R x
+    `samples_per_gpu` images, as the JAX package shards one over its mesh:
+    rank r runs slots [r*b, (r+1)*b) of each, and every rank returns the
+    whole list, gathered, with each image's first result in the order of
+    the one-process run. `max_images` counts the images of every rank.
     """
     device = next(model.parameters()).device
-    loader = build_dataloader(dataset, samples_per_gpu, 1, pad_hw,
-                              max_gts=1, shuffle=False)
-    results = [None] * len(dataset)
+    rank, world = get_dist_info()
+    loader = build_dataloader(dataset, samples_per_gpu, world, pad_hw,
+                              max_gts=1, shuffle=False, rank=rank)
+    # (position in the one-process order, dataset index, result) of each
+    # image this rank ran; the position is (global batch, slot)
+    found = []
     seen = 0
 
-    def drain(img_idx, outs):
+    def drain(n, img_idx, outs):
         """Device outputs -> per-image host results (waits for the card)."""
         nonlocal seen
         dets, labels, valid = (o.cpu().numpy() for o in outs)
         for i, idx in enumerate(img_idx):
-            if results[idx] is not None:
-                continue
             m = valid[i]
-            results[idx] = dict(boxes=dets[i][m], labels=labels[i][m])
-            seen += 1
+            found.append(((n, rank * samples_per_gpu + i), int(idx),
+                          dict(boxes=dets[i][m], labels=labels[i][m])))
+        if max_images:
+            # the images this batch adds, over the ranks
+            fresh = set(map(int, img_idx)) - done
+            done.update(fresh)
+            seen += int(all_reduce_host([len(fresh)])[0])
 
+    done = set()
     was_training = model.training
     model.eval()
     try:
         with torch.inference_mode():
             pending = None
-            for batch in DevicePrefetcher(loader, device):
+            for n, batch in enumerate(DevicePrefetcher(loader, device)):
                 outs = model.forward_test(batch, rescale=rescale)
                 if pending is not None:
                     drain(*pending)
-                pending = (batch['img_idx'], outs)
+                pending = (n, batch['img_idx'], outs)
                 if max_images and seen >= max_images:
                     break
             if pending is not None:
                 drain(*pending)
     finally:
         model.train(was_training)
+    results = [None] * len(dataset)
+    for _, idx, r in sorted((f for part in all_gather_object(found)
+                             for f in part), key=lambda f: f[0]):
+        if results[idx] is None:
+            results[idx] = r
     for i, r in enumerate(results):
         if r is None:
             results[i] = dict(boxes=np.zeros((0, 5), np.float32),

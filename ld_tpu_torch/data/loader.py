@@ -18,6 +18,15 @@ copy to the card (port of `ld_tpu/data/loader.py:26-380`).
     made before it (the JAX package ends the epoch early without an
     error). Each batch carries the dataset index of each of its images
     (`img_idx`).
+  * Data parallelism (`num_replicas` R, `rank` r): the sampler cuts global
+    batches of R x b images, in the same order on every rank, and rank r
+    fetches, decodes and collates only slots [r*b, (r+1)*b) of each, so
+    `len(loader)` is the same on every rank and the ranks' slices
+    concatenate to the one-replica loader's batches. Every rank pads to
+    the one bucket of its global batch (JAX pads the global batch to one
+    shape): predicted from the images' sizes and drawn scales where the
+    dataset carries them, else agreed by an all-reduce MAX over the
+    ranks' padded shapes.
   * DevicePrefetcher: collates into pinned host buffers that it owns and
     reuses, and copies batch N+1 to the card on a side stream while step N
     runs. The producer thread touches no CUDA state: the buffers are
@@ -28,13 +37,15 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .transforms import (BATCH_LAYOUT, FusedPreprocess, Resize, batch_shape,
-                         collate_batch, rescale_size, select_pad_bucket)
+from ld_tpu_torch.parallel.dist import all_reduce_host, get_dist_info
+from .transforms import (BATCH_LAYOUT, FusedPreprocess, Pad, Resize,
+                         batch_shape, collate_batch, rescale_size,
+                         select_pad_bucket)
 
 _DONE = object()
 
@@ -70,6 +81,23 @@ def _scale_carriers(dataset) -> List:
             elif isinstance(t, Resize):
                 out.append(t)
     return out
+
+
+def _pad_divisor(dataset) -> Optional[int]:
+    """The size divisor every pipeline pads its images to (1 where none
+    pads); None where the pipelines differ or one pads to a fixed size."""
+    seen = set()
+    for ds in _leaf_datasets(dataset):
+        d = 1
+        for t in getattr(getattr(ds, 'pipeline', None), 'transforms', []):
+            if isinstance(t, FusedPreprocess):
+                d = t.size_divisor
+            elif isinstance(t, Pad):
+                if t.size is not None:
+                    return None
+                d = t.size_divisor
+        seen.add(d)
+    return seen.pop() if len(seen) == 1 else None
 
 
 def _image_dims(dataset) -> Optional[np.ndarray]:
@@ -187,9 +215,13 @@ class DataLoader:
                  shuffle: bool = True, seed: int = 0, prefetch: int = 2,
                  drop_last: bool = False, num_workers: int = 0,
                  batch_scales=None, scale_sampling: str = 'image_range',
-                 group_pad_buckets: bool = True):
+                 group_pad_buckets: bool = True, num_replicas: int = 1,
+                 rank: int = 0):
         # pad_hw: one (H, W) static shape, or a list of pad buckets; each
         # batch pads to the smallest bucket that fits it.
+        #
+        # batch_size is the global batch; rank `rank` of `num_replicas`
+        # takes its batch_size / num_replicas slots of each.
         #
         # batch_scales + scale_sampling: multi-scale (mstrain) training.
         #   'image_range': each image draws its own scale, long and short
@@ -222,6 +254,31 @@ class DataLoader:
         self.prefetch = prefetch
         self.num_workers = num_workers
         self.epoch = 0
+        if batch_size % num_replicas or not 0 <= rank < num_replicas:
+            raise ValueError(f'rank {rank} of {num_replicas} replicas, '
+                             f'global batch {batch_size}')
+        self.num_replicas, self.rank = num_replicas, rank
+        self.rank_batch = batch_size // num_replicas
+        # where the ranks' images differ in pad bucket, each rank pads to
+        # the global batch's: predicted from sizes and scales, or agreed
+        self._predict_pad = self._agree_pad = False
+        if num_replicas > 1 and isinstance(self.pad_hw[0], tuple) and \
+                len(self.pad_hw) > 1:
+            fixed = self._keep_ratio_scale()
+            self._pad_divisor = _pad_divisor(dataset)
+            self._predict_pad = (_image_dims(dataset) is not None and
+                                 self._pad_divisor is not None and
+                                 bool(self._scale_carriers) and
+                                 fixed is not False and
+                                 (fixed is not None or
+                                  bool(self.batch_scales)))
+            self._agree_pad = not self._predict_pad
+            if self._agree_pad and get_dist_info()[1] != num_replicas:
+                raise ValueError(
+                    'the pad bucket of a global batch cannot be predicted '
+                    'here (no image sizes, or a resize that does not keep '
+                    'the ratio): the ranks agree on it over a process '
+                    f'group of {num_replicas} ranks, which is not up')
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -247,6 +304,23 @@ class DataLoader:
         ss = rng.randint(min(shorts), max(shorts) + 1, size=n)
         return list(zip(ls.tolist(), ss.tolist()))
 
+    def _keep_ratio_scale(self):
+        """The pipelines' one fixed keep-ratio scale; None where they draw
+        their scales from several; False where a resize does not keep the
+        ratio (or scales by a random ratio), so that no resized shape can
+        be predicted."""
+        seen = set()
+        for t in self._scale_carriers:
+            sc = getattr(t, 'img_scale', None)
+            if (sc is None or not getattr(t, 'keep_ratio', False)
+                    or getattr(t, 'ratio_range', None) is not None):
+                return False
+            if isinstance(sc[0], (tuple, list)):
+                seen.add(None)
+            else:
+                seen.add(tuple(sc))
+        return seen.pop() if len(seen) == 1 else None
+
     def _fixed_scales(self) -> Optional[List]:
         """Per-image scales for pad-bucket grouping at one fixed keep-ratio
         scale with several pad buckets: each image's resized shape follows
@@ -258,17 +332,49 @@ class DataLoader:
                 or not isinstance(self.pad_hw[0], tuple) \
                 or len(self.pad_hw) <= 1:
             return None
-        seen = set()
-        for t in self._scale_carriers:
-            sc = getattr(t, 'img_scale', None)
-            if (sc is None or not getattr(t, 'keep_ratio', False)
-                    or getattr(t, 'ratio_range', None) is not None
-                    or isinstance(sc[0], (tuple, list))):
-                return None
-            seen.add(tuple(sc))
-        if len(seen) != 1:
-            return None
-        return [seen.pop()] * len(self.dataset)
+        sc = self._keep_ratio_scale()
+        return [sc] * len(self.dataset) if sc else None
+
+    def _predicted_hw(self, i: int, sc, dims) -> Tuple[int, int]:
+        """Image i's resized (h, w) at scale `sc`, from its size in `dims`;
+        without a size, the scale filled in its flag's orientation (an
+        upper bound)."""
+        if dims is not None and i < len(dims):
+            h0, w0 = int(dims[i][0]), int(dims[i][1])
+            f = rescale_size(h0, w0, sc)
+            return int(h0 * f + 0.5), int(w0 * f + 0.5)
+        flags = self.sampler.flags
+        long_s, short_s = max(sc), min(sc)
+        landscape = i < len(flags) and flags[i] == 1
+        return (short_s, long_s) if landscape else (long_s, short_s)
+
+    def _pad_floor(self, idx, scales, batch_scale, dims):
+        """The largest padded (h, w) predicted for the images of the global
+        batch `idx`: every rank pads to the bucket that fits them all."""
+        one = batch_scale or self._keep_ratio_scale()
+        d = self._pad_divisor
+        hws = [self._predicted_hw(int(i), one if scales is None
+                                  else scales[int(i)], dims) for i in idx]
+        return (-(-max(h for h, _ in hws) // d) * d,
+                -(-max(w for _, w in hws) // d) * d)
+
+    def _agreed(self, batch, slot):
+        """The batch padded to the smallest bucket that fits every rank's
+        padded shape (an all-reduce MAX), re-padded where that is larger
+        than its own."""
+        img = batch['image']
+        hw = select_pad_bucket(self.pad_hw, tuple(
+            int(v) for v in all_reduce_host(list(img.shape[-2:]), 'max')))
+        if tuple(img.shape[-2:]) == hw:
+            return batch
+        shape = img.shape[:2] + hw
+        src = img.copy()
+        out = np.zeros(shape, img.dtype) if slot is None else \
+            slot.arrays['image'][:int(np.prod(shape))].reshape(shape)
+        out[...] = 0
+        out[:, :, :src.shape[2], :src.shape[3]] = src
+        batch['image'] = out
+        return batch
 
     def _bucket_keys(self, scales: List) -> np.ndarray:
         """flag x pad-bucket grouping key per image: each image's resized,
@@ -283,16 +389,7 @@ class DataLoader:
         flags = self.sampler.flags
         keys = np.zeros(len(scales), np.int64)
         for i, sc in enumerate(scales):
-            if dims is not None and i < len(dims):
-                h0, w0 = int(dims[i][0]), int(dims[i][1])
-                f = rescale_size(h0, w0, sc)
-                hw = (int(h0 * f + 0.5), int(w0 * f + 0.5))
-            else:
-                # no size: assume the image fills the scale in its flag's
-                # orientation (an upper bound)
-                long_s, short_s = max(sc), min(sc)
-                landscape = i < len(flags) and flags[i] == 1
-                hw = (short_s, long_s) if landscape else (long_s, short_s)
+            hw = self._predicted_hw(i, sc, dims)
             b = select_pad_bucket(buckets if len(buckets) > 1
                                   else buckets[0], hw)
             flag = flags[i] if i < len(flags) else 0
@@ -315,6 +412,8 @@ class DataLoader:
             pool = ThreadPoolExecutor(max_workers=self.num_workers)
         scale_rng = np.random.RandomState(self.sampler.seed + self.epoch + 1)
         batch_scale = [None]   # 'batch' mode: the current batch's scale
+        dims = _image_dims(self.dataset) if self._predict_pad else None
+        lo = self.rank * self.rank_batch
 
         def fetch(i):
             # a pipeline may drop a sample (returns None): draw another, as
@@ -346,20 +445,33 @@ class DataLoader:
                 if self.batch_scales and scales is None:
                     batch_scale[0] = self.batch_scales[
                         scale_rng.randint(len(self.batch_scales))]
-                samples = list(pool.map(fetch, idx)) if pool is not None \
-                    else [fetch(i) for i in idx]
+                mine = idx[lo:lo + self.rank_batch]
+                samples = list(pool.map(fetch, mine)) if pool is not None \
+                    else [fetch(i) for i in mine]
                 # skipped batches are fetched all the same: their random
                 # draws keep the later batches those of a run from the start
                 if n < skip or stop.is_set():
                     continue
+                floor = self._pad_floor(idx, scales, batch_scale[0], dims) \
+                    if self._predict_pad else None
                 if slots is None:
-                    item = collate_batch(samples, self.pad_hw, self.max_gts)
+                    item = collate_batch(samples, self.pad_hw, self.max_gts,
+                                         min_hw=floor)
+                    hw = item['image'].shape[-2:]
                 else:
                     slot = _get(slots, stop)
                     if slot is None:
                         return
                     item = (collate_batch(samples, self.pad_hw, self.max_gts,
-                                          out=slot.arrays), slot)
+                                          out=slot.arrays, min_hw=floor),
+                            slot)
+                    hw = item[0]['image'].shape[-2:]
+                if floor is not None and \
+                        tuple(hw) != select_pad_bucket(self.pad_hw, floor):
+                    raise RuntimeError(
+                        f'rank {self.rank}: its images need the pad bucket '
+                        f'{tuple(hw)}, larger than the {floor} predicted '
+                        'for the global batch from the image sizes')
                 if not _put(out_q, item, stop):
                     return
             _put(out_q, _DONE, stop)
@@ -390,6 +502,13 @@ class DataLoader:
                     return
                 if isinstance(item, _Failure):
                     raise item.exc
+                if self._agree_pad:
+                    # on the consumer's thread, in step with the other
+                    # ranks' consumers
+                    if slots is None:
+                        item = self._agreed(item, None)
+                    else:
+                        item = (self._agreed(*item), item[1])
                 yield item
         finally:
             stop.set()
@@ -406,18 +525,21 @@ def build_dataloader(dataset, samples_per_gpu: int, num_replicas: int = 1,
                      num_workers: Optional[int] = None,
                      batch_scales=None,
                      scale_sampling: str = 'image_range',
-                     group_pad_buckets: bool = True) -> DataLoader:
-    """A loader of samples_per_gpu * num_replicas images a batch.
+                     group_pad_buckets: bool = True,
+                     rank: int = 0) -> DataLoader:
+    """Rank `rank`'s loader of global batches of samples_per_gpu *
+    num_replicas images: samples_per_gpu images a batch, its slots of each.
     num_workers=None sizes the fetch thread pool to the host: cpu_count - 1,
-    at most the batch size."""
-    batch = samples_per_gpu * num_replicas
+    at most the rank's batch."""
     if num_workers is None:
-        num_workers = min(max((os.cpu_count() or 1) - 1, 0), batch)
-    return DataLoader(dataset, batch, pad_hw, max_gts, shuffle=shuffle,
-                      seed=seed, drop_last=drop_last,
-                      num_workers=num_workers, batch_scales=batch_scales,
+        num_workers = min(max((os.cpu_count() or 1) - 1, 0), samples_per_gpu)
+    return DataLoader(dataset, samples_per_gpu * num_replicas, pad_hw,
+                      max_gts, shuffle=shuffle, seed=seed,
+                      drop_last=drop_last, num_workers=num_workers,
+                      batch_scales=batch_scales,
                       scale_sampling=scale_sampling,
-                      group_pad_buckets=group_pad_buckets)
+                      group_pad_buckets=group_pad_buckets,
+                      num_replicas=num_replicas, rank=rank)
 
 
 class _Slot:
@@ -492,7 +614,7 @@ class DevicePrefetcher:
         for _ in range(loader.prefetch + 2):
             tensors = {}
             for key, (dtype, _) in BATCH_LAYOUT.items():
-                n = int(np.prod(batch_shape(key, loader.batch_size, biggest,
+                n = int(np.prod(batch_shape(key, loader.rank_batch, biggest,
                                             loader.max_gts)))
                 tensors[key] = torch.empty(
                     n, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,

@@ -541,7 +541,8 @@ def batch_shape(key: str, b: int, hw: Tuple[int, int], max_gts: int):
 
 
 def collate_batch(samples: List[Dict], pad_hw, max_gts: int = 100,
-                  out: Optional[Dict[str, np.ndarray]] = None
+                  out: Optional[Dict[str, np.ndarray]] = None,
+                  min_hw: Optional[Tuple[int, int]] = None
                   ) -> Dict[str, np.ndarray]:
     """Stack per-image dicts into one static-shape NCHW batch.
 
@@ -553,11 +554,14 @@ def collate_batch(samples: List[Dict], pad_hw, max_gts: int = 100,
     BATCH_LAYOUT, large enough for the largest bucket: the batch is written
     into the leading elements of each (e.g. pinned memory owned by a
     DevicePrefetcher), and the returned arrays are views of them.
+    `min_hw`: a shape the bucket must fit besides the images (a data-
+    parallel rank pads to its global batch's bucket).
     """
     b = len(samples)
+    lo_h, lo_w = min_hw or (0, 0)
     th, tw = select_pad_bucket(
-        pad_hw, (max(s['img'].shape[0] for s in samples),
-                 max(s['img'].shape[1] for s in samples)))
+        pad_hw, (max(lo_h, *(s['img'].shape[0] for s in samples)),
+                 max(lo_w, *(s['img'].shape[1] for s in samples))))
     batch = {}
     for key, (dtype, _) in BATCH_LAYOUT.items():
         shape = batch_shape(key, b, (th, tw), max_gts)

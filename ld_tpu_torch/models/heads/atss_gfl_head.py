@@ -29,6 +29,7 @@ from ld_tpu_torch.models.losses.kd_loss import \
 from ld_tpu_torch.ops.boxes import anchor_center, distance2bbox
 from ld_tpu_torch.ops.integral import integral
 from ld_tpu_torch.ops.nms_cuda import nms_keep
+from ld_tpu_torch.parallel.dist import global_sum
 from ld_tpu_torch.utils.registry import HEADS, LOSSES
 from .gfl_head import GFLHead, Scale, flatten_levels
 from .ld_head import class_kd_per_level
@@ -120,8 +121,8 @@ class ATSSGFLHead(GFLHead):
         posf = pos.to(torch.float32)
         label_weights = t['anchor_valid'].to(torch.float32)
         strides = t['strides']
-        # the batch-total positive count, clamped once
-        num_total_samples = posf.sum().clamp(min=1.0)
+        # the global batch's positive count, clamped once
+        num_total_samples = global_sum(posf.sum()).clamp(min=1.0)
         loss_cls = self.loss_cls(cls_flat, t['labels'], weight=label_weights,
                                  avg_factor=num_total_samples)
 
@@ -134,8 +135,8 @@ class ATSSGFLHead(GFLHead):
         loss_bbox = self.loss_bbox(decoded.reshape(-1, 4),
                                    target_boxes.reshape(-1, 4),
                                    weight=ctr_targets.reshape(-1),
-                                   avg_factor=ctr_targets.sum().clamp(
-                                       min=1e-6))
+                                   avg_factor=global_sum(
+                                       ctr_targets.sum()).clamp(min=1e-6))
         loss_centerness = centerness_bce(
             ctr_flat, ctr_targets, posf, num_total_samples,
             self.loss_centerness.loss_weight)

@@ -33,6 +33,7 @@ from ld_tpu_torch.models.losses.kd_loss import \
     knowledge_distillation_kl_div_loss
 from ld_tpu_torch.ops.boxes import distance2bbox
 from ld_tpu_torch.ops.integral import integral
+from ld_tpu_torch.parallel.dist import global_sum
 from ld_tpu_torch.utils.registry import HEADS, LOSSES
 from .atss_gfl_head import ATSSGFLHead, _centerness, centerness_bce
 from .gfl_head import Scale, flatten_levels
@@ -178,7 +179,7 @@ class FCOSGFLHead(ATSSGFLHead):
         ctr_flat = flatten_levels(outputs[2])[..., 0]
         pos = t['pos']
         posf = pos.to(torch.float32)
-        num_pos = posf.sum().clamp(min=1.0)
+        num_pos = global_sum(posf.sum()).clamp(min=1.0)
         loss_cls = self.loss_cls(cls_flat, t['labels'], avg_factor=num_pos)
 
         bt = t['bbox_targets']
@@ -190,8 +191,8 @@ class FCOSGFLHead(ATSSGFLHead):
         loss_bbox = self.loss_bbox(decoded.reshape(-1, 4),
                                    decoded_targets.reshape(-1, 4),
                                    weight=ctr_targets.reshape(-1),
-                                   avg_factor=ctr_targets.sum().clamp(
-                                       min=1e-6))
+                                   avg_factor=global_sum(
+                                       ctr_targets.sum()).clamp(min=1e-6))
         loss_centerness = centerness_bce(ctr_flat, ctr_targets, posf, num_pos,
                                          self.loss_centerness.loss_weight)
         return dict(loss_cls=loss_cls, loss_bbox=loss_bbox,

@@ -44,6 +44,7 @@ from ld_tpu_torch.ops.boxes import (anchor_center, bbox2distance,
                                     bbox_overlaps, distance2bbox)
 from ld_tpu_torch.ops.integral import integral
 from ld_tpu_torch.ops.nms import multiclass_nms
+from ld_tpu_torch.parallel.dist import global_sum
 from ld_tpu_torch.ops.nms_cuda import nms_keep
 from ld_tpu_torch.utils.registry import ASSIGNERS, HEADS, LOSSES
 
@@ -280,10 +281,11 @@ class GFLHead(nn.Module):
         posf = pos.to(torch.float32)
         label_weights = t['anchor_valid'].to(torch.float32)
 
-        # the batch-total positive count, clamped ONCE (the reference's
-        # reduce_mean(num_total_pos).clamp(min=1)); a per-image clamp would
-        # inflate the denominator whenever an image has no gt
-        num_total_samples = posf.sum().clamp(min=1.0)
+        # the positive count of the global batch (every rank's), clamped
+        # ONCE (the reference's reduce_mean(num_total_pos).clamp(min=1)); a
+        # per-image or per-rank clamp would inflate the denominator
+        # whenever an image or a rank has no gt
+        num_total_samples = global_sum(posf.sum()).clamp(min=1.0)
 
         centers = anchor_center(t['anchors'])[None] / strides[None, :, None]
         pred_corners = bbox_pred.reshape(*bbox_pred.shape[:-1], 4,
@@ -301,7 +303,7 @@ class GFLHead(nn.Module):
             else cls_score
         weight_targets = torch.where(pos, cls_prob.detach().amax(dim=-1),
                                      zero)
-        avg_factor = weight_targets.sum() + 1e-6
+        avg_factor = global_sum(weight_targets.sum()) + 1e-6
 
         loss_cls = self.loss_cls(cls_score, (t['labels'], score),
                                  weight=label_weights,

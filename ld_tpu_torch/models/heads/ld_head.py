@@ -16,7 +16,13 @@ Regions are dense masks over the flattened (batch, anchors) axis. The GI
 region (gibox) runs the greedy NMS of `ops/nms.py` on the `gi_candidates`
 highest GI scores of a level, through `keep_fn` (`nms_keep`, the CUDA kernel
 on the card): one NMS per FPN level and step. As in the reference, and the
-JAX package, that NMS pools the boxes of the WHOLE batch of one level.
+JAX package, that NMS pools the boxes of the WHOLE batch of one level; under
+data parallelism, of the global batch (every rank gathers the candidates).
+
+Every count that normalises a loss is a count over the global batch
+(`parallel.dist.global_sum`); the constant factors (LD at 4, VLR at 16)
+are left to the train step, whose objective at R ranks is R x the rank's
+share, so that DDP's gradient mean is the gradient of the global sum.
 
 The losses run in float32 whatever the towers' compute dtype: the student's
 and the teacher's predictions and FPN features are cast to float32 first
@@ -35,16 +41,18 @@ from ld_tpu_torch.ops.boxes import anchor_center, bbox_overlaps, distance2bbox
 from ld_tpu_torch.ops.integral import integral
 from ld_tpu_torch.ops.nms import nms
 from ld_tpu_torch.ops.nms_cuda import nms_keep
+from ld_tpu_torch.parallel.dist import all_gather, get_dist_info, global_sum
 from ld_tpu_torch.utils.registry import HEADS, LOSSES
 from .gfl_head import GFLHead, flatten_levels
 
 
 def class_kd_per_level(kd_el, posf, level_id, num_levels, loss_weight):
     """Class KD summed over the positives, each normalised by its level's
-    positive count over the batch (the reference's per-level
+    positive count over the global batch (the reference's per-level
     avg_factor=pos_inds.shape[0]): kd_el, posf (B, N); level_id (N,)."""
-    n_pos_level = torch.zeros(num_levels, device=posf.device).index_add_(
-        0, level_id, posf.sum(dim=0))
+    n_pos_level = global_sum(torch.zeros(
+        num_levels, device=posf.device).index_add_(0, level_id,
+                                                   posf.sum(dim=0)))
     per_anchor_norm = n_pos_level.clamp(min=1.0)[level_id]         # (N,)
     return loss_weight * (kd_el * posf / per_anchor_norm[None, :]).sum()
 
@@ -124,8 +132,9 @@ class LDHead(GFLHead):
     @torch.no_grad()
     def _gi_mask(self, cls_flat, soft_label_flat, pred_flat, soft_pred_flat,
                  centers, gi_candidates=512, gi_top=10, keep_fn=nms_keep):
-        """GI-region mask of one level, pooled over the batch: (n,) float
-        0/1 with at most gi_top ones (reference ld_head.py:613-638).
+        """GI-region mask of one level, pooled over the global batch: (n,)
+        float 0/1 of this rank's rows, with at most gi_top ones over the
+        ranks (reference ld_head.py:613-638).
 
         Args:
             cls_flat, soft_label_flat: (n, C) student / teacher class logits.
@@ -147,12 +156,32 @@ class LDHead(GFLHead):
         cand_scores, cand_idx = torch.sort(gi_score, descending=True,
                                            stable=True)
         cand_scores, cand_idx = cand_scores[:k], cand_idx[:k]
-        idx, valid = nms(gibox[cand_idx], cand_scores, 0.3, gi_top,
+        cand_boxes = gibox[cand_idx]
+        rank, world = get_dist_info()
+        if world > 1:
+            # JAX pools the level over the global batch. Rank r holds its
+            # rows r*n..(r+1)*n-1, and its top k hold its share of the
+            # global top k; gathered in rank order, a stable sort keeps
+            # equal scores in global index order. Every rank runs the same
+            # NMS and keeps the picks in its own rows.
+            cand_idx = all_gather(cand_idx + rank * n)
+            cand_boxes = all_gather(cand_boxes)
+            cand_scores, order = torch.sort(all_gather(cand_scores),
+                                            descending=True, stable=True)
+            order = order[:min(gi_candidates, world * n)]
+            cand_scores = cand_scores[:len(order)]
+            cand_idx = cand_idx[order] - rank * n
+            cand_boxes = cand_boxes[order]
+        idx, valid = nms(cand_boxes, cand_scores, 0.3, gi_top,
                          keep_fn=keep_fn)
-        # the slots past the kept boxes point anywhere and carry 0: amax
-        # keeps a pick that such a slot names again, an assignment would not
+        picks = cand_idx[idx]
+        mine = (picks >= 0) & (picks < n)
+        # the slots past the kept boxes (and another rank's picks) point
+        # anywhere and carry 0: amax keeps a pick that such a slot names
+        # again, an assignment would not
         return torch.zeros(n, device=gi_score.device).scatter_reduce(
-            0, cand_idx[idx], valid.to(torch.float32), 'amax')
+            0, picks.clamp(0, n - 1), (valid & mine).to(torch.float32),
+            'amax')
 
     def gi_levels(self, outputs, soft_teacher):
         """The per-level NCHW maps the GI region compares, from the
@@ -277,17 +306,20 @@ class LDHead(GFLHead):
                     tx[:, lo:hi].reshape(-1, cf))**2).mean(dim=-1)
             if self.imitation_method == 'gibox':
                 mask = gi_masks[lvl]
-                total = total + (mse * mask).sum() / mask.sum().clamp(min=1.0)
+                total = total + (mse * mask).sum() / global_sum(
+                    mask.sum()).clamp(min=1.0)
             else:
                 fg = t['im_region'][:, lo:hi].reshape(-1).to(torch.float32)
-                fg_term = (mse * fg).sum() / fg.sum().clamp(min=1.0)
+                fg_term = (mse * fg).sum() / global_sum(
+                    fg.sum()).clamp(min=1.0)
                 if self.imitation_method == 'decouple':
                     # the reference's decouple branch cannot run (it indexes
                     # mismatched fg/bg sets into F.mse_loss, ld_head.py:
                     # 177-183); this is its DeFeat-style intent, as in the
                     # JAX package: fg MSE + 2x bg MSE
                     bg = 1.0 - fg
-                    bg_term = (mse * bg).sum() / bg.sum().clamp(min=1.0)
+                    bg_term = (mse * bg).sum() / global_sum(
+                        bg.sum()).clamp(min=1.0)
                     total = total + fg_term + 2.0 * bg_term
                 else:
                     total = total + fg_term

@@ -31,6 +31,7 @@ from ld_tpu_torch.ops.atss_assigner import ATSSAssigner
 from ld_tpu_torch.ops.boxes import anchor_center, distance2bbox
 from ld_tpu_torch.ops.integral import integral
 from ld_tpu_torch.ops.nms_cuda import nms_keep
+from ld_tpu_torch.parallel.dist import global_sum
 from ld_tpu_torch.utils.registry import HEADS, LOSSES
 from .gfl_head import GFLHead, flatten_levels
 from .ld_head import class_kd_per_level
@@ -108,7 +109,7 @@ class RetinaGFLHead(GFLHead):
         pos = t['pos_mask']
         posf = pos.to(torch.float32)
         strides = t['strides']
-        num_total_samples = posf.sum().clamp(min=1.0)
+        num_total_samples = global_sum(posf.sum()).clamp(min=1.0)
         loss_cls = self.loss_cls(cls_flat, t['labels'],
                                  weight=t['anchor_valid'].to(torch.float32),
                                  avg_factor=num_total_samples)

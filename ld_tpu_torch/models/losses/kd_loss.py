@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ld_tpu_torch.parallel.dist import global_mean
 from ld_tpu_torch.utils.registry import LOSSES
 from .utils import weighted_loss
 
@@ -54,11 +55,11 @@ def knowledge_distillation_kl_div_loss(pred: torch.Tensor,
     return (kd.mean(dim=-1) * (T * T)).to(dtype)
 
 
-@weighted_loss
 def im_loss(x: torch.Tensor, soft_target: torch.Tensor):
-    """Feature-imitation loss: the scalar MSE, so weight and avg_factor do
-    nothing (the reference wraps F.mse_loss the same way)."""
-    return ((x - soft_target)**2).mean()
+    """Feature-imitation loss: the scalar MSE over the global batch; every
+    reduction of a scalar is the scalar, so it takes none (the reference
+    wraps F.mse_loss the same way)."""
+    return global_mean((x - soft_target)**2)
 
 
 @LOSSES.register_module(name=['KnowledgeDistillationKLDivLoss',
@@ -91,5 +92,4 @@ class IMLoss(nn.Module):
 
     def forward(self, x, soft_target, weight=None, avg_factor=None,
                 reduction_override=None):
-        reduction = reduction_override or self.reduction
-        return self.loss_weight * im_loss(x, soft_target, reduction=reduction)
+        return self.loss_weight * im_loss(x, soft_target)

@@ -5,7 +5,10 @@ An element-wise loss is multiplied by an optional per-element weight, then
 reduced by `reduction` (none / mean / sum). With `avg_factor`, 'mean' is
 `sum / avg_factor`, 'none' returns the weighted loss, and 'sum' raises.
 Elements that are absent carry weight 0, so these reductions stand in for a
-gather of the positive rows.
+gather of the positive rows. Under data parallelism a 'mean' without
+`avg_factor` is over the global batch (every rank's elements), as the JAX
+package's mean over its sharded batch; a caller's `avg_factor` is its own
+to make global.
 """
 from __future__ import annotations
 
@@ -13,12 +16,14 @@ import functools
 
 import torch
 
+from ld_tpu_torch.parallel.dist import global_mean
+
 
 def reduce_loss(loss: torch.Tensor, reduction: str) -> torch.Tensor:
     if reduction == 'none':
         return loss
     if reduction == 'mean':
-        return loss.mean()
+        return global_mean(loss)
     if reduction == 'sum':
         return loss.sum()
     raise ValueError(f'unknown reduction {reduction}')

@@ -20,8 +20,16 @@ bilinear sample.
 `write_voc_devkit` writes a seeded synthetic PASCAL VOC devkit (XML
 annotations, JPEGs, split files) that VOC configs read through their
 `data_root`; it needs cv2 to write the JPEGs.
+
+`spawn` runs a function in R spawned processes joined in a process group
+over a FileStore (no port to clash over), with one intra-op thread each;
+the rank-side checks of data parallelism live here
+(`loader_batches_rank`, `head_losses_rank`, `ld_step_rank`,
+`train_eval_rank`), so that a spawned child imports the port alone, never
+a test module.
 """
 import os
+import time
 
 import numpy as np
 import torch
@@ -250,3 +258,269 @@ def write_voc_devkit(root, splits, seed=0, sizes=((375, 500), (500, 375)),
                 f.write('\n'.join(ids) + '\n')
             written[(year, split)] = ids
     return written
+
+
+# ---- data parallelism: spawned ranks ----------------------------------------
+
+SPAWN_TIMEOUT_S = 600.0
+
+
+def spawn(fn, world_size, backend, tmp_dir, device='cpu', args=()):
+    """Run `fn(rank, world_size, device, *args)` in `world_size` spawned
+    processes, joined in a `backend` process group over a FileStore under
+    `tmp_dir` (`parallel.dist.init_dist` from RANK / WORLD_SIZE /
+    LOCAL_RANK; with device 'cuda', rank r takes card r % count). Each child
+    sets one intra-op thread and this process's TF32 switches. Returns the
+    ranks' return values in rank order; a failed rank raises here, and so
+    does a run past SPAWN_TIMEOUT_S seconds (its processes are killed)."""
+    import torch.multiprocessing as mp
+    os.makedirs(tmp_dir, exist_ok=True)
+    store = os.path.join(tmp_dir, 'store')
+    if os.path.exists(store):
+        os.remove(store)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    ctx = mp.start_processes(
+        _rank_main, args=(fn, world_size, backend, tmp_dir, device, tf32,
+                          args),
+        nprocs=world_size, join=False, start_method='spawn')
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f'{world_size} spawned ranks ran past '
+                                   f'{SPAWN_TIMEOUT_S} s')
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [torch.load(os.path.join(tmp_dir, f'rank{r}.pt'),
+                       weights_only=False) for r in range(world_size)]
+
+
+def _rank_main(rank, fn, world_size, backend, tmp_dir, device, tf32, args):
+    import torch.distributed as dist
+    from ld_tpu_torch.parallel.dist import init_dist
+    torch.set_num_threads(1)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size),
+                      LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world_size))
+    device = init_dist('pytorch', backend, device=device,
+                       init_method='file://' + os.path.join(tmp_dir, 'store'))
+    try:
+        out = fn(rank, world_size, device, *args)
+        torch.save(out, os.path.join(tmp_dir, f'rank{rank}.pt'))
+    finally:
+        dist.destroy_process_group()
+
+
+def rank_calls(rank, world, device, calls):
+    """Each (fn, args) of `calls` as fn(rank, world, device, *args), in
+    order: several rank-side checks in one spawn."""
+    return [fn(rank, world, device, *args) for fn, args in calls]
+
+
+def rank_slice(batch_np, rank, world, device):
+    """Rank `rank`'s images of a global numpy batch, as tensors."""
+    b = len(batch_np['gt_bboxes']) // world
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v[rank * b:(rank + 1) * b])).to(device) for k, v in batch_np.items()}
+
+
+def loader_batches_rank(rank, world, device, dataset_cfg, samples_per_gpu,
+                        pad_hw, kwargs, epochs=2):
+    """This rank's loader batches, (img_ids, image) numpy each, for
+    `epochs` epochs."""
+    from ld_tpu_torch.data import build_dataloader, build_dataset
+    loader = build_dataloader(build_dataset(dataset_cfg), samples_per_gpu,
+                              world, pad_hw, 8, rank=rank, num_workers=0,
+                              **kwargs)
+    out = []
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        out.append([(b['img_ids'].copy(), b['image'].copy())
+                    for b in loader])
+    return out
+
+
+def head_losses_rank(rank, world, device, cases):
+    """The port head's loss dict of each case on this rank's images, as the
+    train step logs it (R x the rank's share; the ranks' mean is the
+    global batch's loss). A case: dict(head=registry cfg, outs=the
+    student's per-part lists of per-level NCHW numpy arrays of the global
+    batch, teacher=the same for the teacher, batch=a numpy batch,
+    feats=(student, teacher) FPN features, or None)."""
+    from ld_tpu_torch.utils.registry import HEADS
+
+    def mine(parts):
+        b = len(parts[0][0]) // world
+        return tuple([torch.from_numpy(np.ascontiguousarray(
+            a[rank * b:(rank + 1) * b])).to(device) for a in part]
+            for part in parts)
+
+    out = []
+    for case in cases:
+        head = HEADS.build(dict(case['head'])).to(device)
+        outs = mine(case['outs'])
+        kw = {}
+        if case.get('feats') is not None:
+            feats = mine(case['feats'])
+            kw = dict(student_feats=feats[0], teacher_feats=feats[1])
+        losses = head.loss(outs, rank_slice(case['batch'], rank, world,
+                                            device),
+                           [tuple(a.shape[-2:]) for a in outs[0]],
+                           mine(case['teacher']), **kw)
+        out.append({k: float(v) * world for k, v in losses.items()})
+    return out
+
+
+def ld_step_rank(rank, world, device, cfg, batch_np, steps=1,
+                 profile=False):
+    """`make_train_step` steps of the LD config `cfg` (float32; student
+    from seed 0, teacher from seed 1 with its BNs folded) on this rank's
+    images of the global numpy batch `batch_np`. Returns dict(metrics
+    (the first step's, as logged), masks (the first step's GI masks of
+    this rank's rows, per level), launches (nms_keep kernel launches a
+    step), step_ms (host clock, synced, each step), peak_bytes (the card's
+    peak) and, on rank 0, params and grads (after the clip) of the first
+    step, numpy); the schedule takes 1000 steps an epoch. With `profile`, one more step runs under
+    torch.profiler (at R > 1), `collectives` holds its collective ops (name ->
+    (calls, host ms); an asynchronous one shows only its enqueue), and
+    `allreduce_ms` the host time of all-reducing the student's gradients
+    as one flat tensor (`grad_bytes`), the mean of 3, synced."""
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.ops import nms_cuda
+    from ld_tpu_torch.parallel import (build_lr_schedule, build_optimizer,
+                                       make_train_step)
+    model = build_detector(cfg.model)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.init_teacher_weights(torch.Generator().manual_seed(1))
+    model.fold_teacher_bn()
+    model.to(device)
+    schedule = build_lr_schedule(cfg.optimizer['lr'], cfg.lr_config, 1000,
+                                 cfg.runner['max_epochs'])
+    optimizer, scheduler = build_optimizer(cfg.optimizer, schedule, model)
+    step = make_train_step(model, optimizer, scheduler,
+                           (cfg.get('optimizer_config') or {}).get(
+                               'grad_clip'))
+    masks = []
+    head = model.bbox_head
+    gi_mask = head._gi_mask
+
+    def record(*args, **kwargs):
+        m = gi_mask(*args, **kwargs)
+        masks.append(m.cpu().numpy())
+        return m
+    head._gi_mask = record
+    batch = rank_slice(batch_np, rank, world, device)
+    cuda = torch.device(device).type == 'cuda'
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    out = dict(step_ms=[])
+    launches = nms_cuda.nms_keep.launches
+    for n in range(steps):
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        if cuda:
+            torch.cuda.synchronize()
+        out['step_ms'].append((time.perf_counter() - t0) * 1e3)
+        if n == 0:
+            out['metrics'] = {k: float(v) for k, v in metrics.items()}
+            out['masks'] = list(masks)
+            if rank == 0:
+                out['params'] = {k: p.detach().cpu().numpy().copy()
+                                 for k, p in model.named_parameters()}
+                out['grads'] = {k: p.grad.cpu().numpy().copy()
+                                for k, p in model.named_parameters()
+                                if p.grad is not None}
+    out['launches'] = (nms_cuda.nms_keep.launches - launches) / steps
+    out['peak_bytes'] = torch.cuda.max_memory_allocated() if cuda else 0
+    if profile and world > 1:
+        from torch.profiler import ProfilerActivity, profile as prof
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                         else [])
+        with prof(activities=acts) as p:
+            step(batch)
+            if cuda:
+                torch.cuda.synchronize()
+        out['collectives'] = {
+            e.key: (e.count, e.cpu_time_total / 1e3)
+            for e in p.key_averages()
+            if e.key.startswith(('c10d::', 'gloo:', 'nccl:'))}
+        import torch.distributed as dist
+        flat = torch.cat([p.grad.flatten() for p in model.parameters()
+                          if p.grad is not None])
+        out['grad_bytes'] = flat.numel() * flat.element_size()
+        times = []
+        for _ in range(4):
+            dist.barrier()
+            t0 = time.perf_counter()
+            dist.all_reduce(flat)
+            if cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out['allreduce_ms'] = sum(times[1:]) / 3
+    return out
+
+
+def train_eval_rank(rank, world, device, cfg_path, work_dir, preempt_after):
+    """Training over the ranks on the config file `cfg_path`: a run
+    through `tools/train.py --launcher pytorch` in `work_dir`/full, then
+    `train_detector` preempted by a SIGTERM to rank 0 after its step
+    `preempt_after` in `work_dir`/cut and resumed there; then
+    `eval_detector` of the full run's model over `data.val` and
+    `tools/test.py --launcher pytorch --eval bbox` on its last checkpoint.
+    Returns this rank's img_ids and LR of each step of each run, the steps
+    the preempted run took, and the two evaluations' results."""
+    import copy
+    import signal
+
+    from ld_tpu_torch.apis import eval_detector
+    from ld_tpu_torch.apis import train as train_api
+    from ld_tpu_torch.data import build_dataset
+    from ld_tpu_torch.tools import test as test_tool
+    from ld_tpu_torch.tools import train as train_tool
+    from ld_tpu_torch.utils.checkpoint import latest_checkpoint
+    from ld_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(cfg_path)
+    full = os.path.join(work_dir, 'full')
+    make_step = train_api.make_train_step
+    seen = {}
+
+    def wrapped(model, optimizer, *args, **kwargs):
+        step = make_step(model, optimizer, *args, **kwargs)
+        log = seen.setdefault(run, [])
+
+        def recording(batch):
+            log.append((batch['img_ids'].tolist(),
+                        optimizer.param_groups[0]['lr']))
+            out = step(batch)
+            if run == 'cut' and rank == 0 and len(log) == preempt_after:
+                signal.raise_signal(signal.SIGTERM)
+            return out
+        return recording
+    train_api.make_train_step = wrapped
+    try:
+        run = 'full'
+        ret = train_tool.main([cfg_path, '--work-dir', full, '--launcher',
+                               'pytorch', '--device', str(device)])
+        run = 'cut'
+        cut = train_api.train_detector(cfg, os.path.join(work_dir, 'cut'),
+                                       device=device)
+        cfg = copy.deepcopy(cfg)
+        cfg['resume_from'] = os.path.join(work_dir, 'cut')
+        train_api.train_detector(cfg, os.path.join(work_dir, 'cut'),
+                                 device=device)
+    finally:
+        train_api.make_train_step = make_step
+    results = eval_detector(ret['model'], build_dataset(cfg.data['val']),
+                            samples_per_gpu=2, pad_hw=cfg.pad_to)
+    tool = test_tool.main([cfg_path, latest_checkpoint(full), '--eval',
+                           'bbox', '--launcher', 'pytorch', '--device',
+                           str(device)])
+    return dict(steps=seen, preempted=cut['preempted'], cut_step=cut['step'],
+                eval=results, tool=tool['results'])

@@ -4,7 +4,8 @@
     python ld_tpu_torch/tools/test.py CONFIG [CHECKPOINT] [--eval METRIC]
         [--out METRICS.json] [--max-images N] [--fuse-conv-bn]
         [--aug-test [--aug-scales LONG SHORT ...]]
-        [--device cuda|cpu] [--cfg-options key=value ...]
+        [--device cuda|cpu] [--launcher none|pytorch]
+        [--cfg-options key=value ...]
 
 Builds the model from CONFIG with the weights of CHECKPOINT (an mmdet or
 ld_tpu_torch `.pth`, or a JAX `.npz`; without one, random weights from seed
@@ -12,7 +13,12 @@ ld_tpu_torch `.pth`, or a JAX `.npz`; without one, random weights from seed
 as JSON; `--out` writes the same JSON to a file. `--aug-test` runs each
 image's scales (default (1333, 800)), each with its horizontal flip, and
 merges them by one NMS. Runs on the card unless `--device cpu` is given;
-without a card it stops with an error.
+without a card it stops with an error. Over N processes, each runs its
+share of every batch and rank 0 prints the metrics of all images
+(`--aug-test` runs in one process, as the JAX package's):
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        ld_tpu_torch/tools/test.py CONFIG CKPT --eval bbox --launcher pytorch
 """
 import argparse
 import json
@@ -23,10 +29,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
 import numpy as np  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from ld_tpu_torch import Config  # noqa: E402
 from ld_tpu_torch.apis import eval_detector, init_detector  # noqa: E402
 from ld_tpu_torch.data import build_dataset  # noqa: E402
+from ld_tpu_torch.parallel import get_dist_info, init_dist  # noqa: E402
 from ld_tpu_torch.utils.config import parse_cfg_options  # noqa: E402
 
 DEFAULT_NORM = dict(mean=[123.675, 116.28, 103.53],
@@ -50,6 +58,8 @@ def parse_args(argv=None):
                    help='fold each conv + BN pair (value-identical)')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (the default) or 'cpu'")
+    p.add_argument('--launcher', choices=['none', 'pytorch'], default='none',
+                   help="'pytorch': one rank of a torchrun launch")
     p.add_argument('--cfg-options', nargs='+', default=[],
                    help='key=value deep config overrides')
     return p.parse_args(argv)
@@ -93,7 +103,25 @@ def main(argv=None):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(parse_cfg_options(args.cfg_options))
-    model = init_detector(cfg, args.checkpoint, device=args.device)
+    if args.launcher == 'none':
+        return _evaluate(args, cfg, args.device)
+    owned = not dist.is_initialized()
+    device = init_dist('pytorch', (cfg.get('dist_params') or {}).get(
+        'backend'), device=args.device)
+    try:
+        if args.aug_test and get_dist_info()[1] > 1:
+            raise NotImplementedError(
+                '--aug-test runs in one process (as the JAX aug_test, on '
+                'one device): drop --launcher pytorch')
+        return _evaluate(args, cfg, device)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _evaluate(args, cfg, device):
+    rank = get_dist_info()[0]
+    model = init_detector(cfg, args.checkpoint, device=device)
     if args.fuse_conv_bn:
         from ld_tpu_torch.utils.fuse_conv_bn import (fuse_conv_bn,
                                                      fuse_conv_bn_cfg_ok)
@@ -110,6 +138,8 @@ def main(argv=None):
         results = eval_detector(model, dataset,
                                 pad_hw=cfg.get('pad_to', (800, 1344)),
                                 max_images=args.max_images)
+    if rank:
+        return dict(metrics=None, results=results)
     metrics = dataset.evaluate(results, metric=args.eval)
     print(json.dumps(metrics, indent=2, default=float))
     if args.out:

@@ -269,3 +269,39 @@ def test_voting_nms_on_the_card_equals_the_cpu():
     assert int(valid.sum()) > 0
     assert torch.equal(labels, want[1]) and torch.equal(valid, want[2])
     assert torch.allclose(dets, want[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_two_ranks_step_on_the_card_equals_one_process(no_tf32, tmp_path):
+    """The GI config at R18 over 2 spawned ranks sharing the card on gloo,
+    1 image each, against one process at 2 images: the loss terms, the GI
+    masks (5 kernel launches a step a rank) and the parameters after SGD."""
+    import os
+
+    import numpy as np
+
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.testing import detection_batch_np, ld_step_rank, spawn
+    _need_card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config.fromfile(os.path.join(
+        root, 'configs/ld/ld_r50_gflv1_r101_fpn_coco_1x_gi.py'))
+    teacher = Config.fromfile(os.path.join(root, cfg.model.teacher_config))
+    for m in (cfg.model, teacher.model):
+        m.backbone.depth = 18
+        m.neck.in_channels = [64, 128, 256, 512]
+    cfg.model.teacher_config = dict(model=teacher.model)
+    batch = detection_batch_np(2, 128, 192, seed=5)
+    ranks = spawn(ld_step_rank, 2, 'gloo', str(tmp_path), device='cuda',
+                  args=(cfg, batch))
+    ref = ld_step_rank(0, 1, 'cuda', cfg, batch)
+    for r in ranks:
+        assert r['launches'] == ref['launches'] == 5
+        for k, v in ref['metrics'].items():
+            assert r['metrics'][k] == pytest.approx(v, rel=1e-5, abs=1e-7), k
+    for lvl, m in enumerate(ref['masks']):
+        assert np.array_equal(np.concatenate([r['masks'][lvl]
+                                              for r in ranks]), m)
+    scale = max(np.abs(p).max() for p in ref['params'].values())
+    for k, p in ref['params'].items():
+        assert np.abs(ranks[0]['params'][k] - p).max() <= 1e-5 * scale, k
