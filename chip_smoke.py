@@ -1,7 +1,7 @@
 """Drive the ld_tpu_torch serving, training, training-runtime and evaluation
 paths, the other GFL-family heads, the configs' bf16 dtype, the DCN /
-ResNeXt rows and data-parallel training and evaluation on one CUDA card and
-check them.
+ResNeXt rows, the Res2Net-101-DCN teacher rows and data-parallel training
+and evaluation on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
@@ -100,7 +100,16 @@ Phases, one JSON object per line each:
                the detections bit-identical with the plain keep mask, the
                first detection's score the largest class probability, and
                the NMS candidate count K.
- 10. bf16, dcn — the configs' bf16 dtype; the DCN / ResNeXt rows.
+ 10. bf16, dcn, res2net — the configs' bf16 dtype; the DCN / ResNeXt
+               rows; the imitation tables' Res2Net-101-DCN teacher rows:
+               forward_test of configs/imv2/gflv2_r2n101_dcn_fpn_2x.py at
+               800x1344 (1 launch a call, 90 DCN layers, their device
+               share), the same model as a folded teacher at batch 2, its
+               head outputs at 1x3x128x192 on the card against the CPU, and
+               the three IMv2 configs that distil it at batch 2, 800x1344
+               (5 launches a step; the R101 student's first step against
+               the CPU, the self student in its bf16 dtype); the phase's
+               launch count must equal RES2NET_LAUNCHES.
  11. ddp     — data parallelism over 2 ranks sharing the card (gloo; NCCL
                where there is a card a rank): (a) 4 steps of the GI config
                at full width, float32, batch 2 a rank at 800x1344 in 2
@@ -179,6 +188,22 @@ DCN_LAYERS = (('r101_stage2', 128, (100, 168), 1),
               ('x101_stage3', 512, (50, 84), 32))
 DCN_LD = (('configs/ld/ld_r101_gflv1_r101dcn_fpn_coco_2x.py', 2, 5),
           ('configs/ld/ld_x101_32x4d_dcn_self_2x_coco.py', 2, 3))
+# the res2net phase: the GFLv2-Res2Net-101-DCN teacher served (warm-up and
+# timed forward_test calls), its DCN layer count, and the IMv2 configs that
+# distil it (config, warm-up steps, timed steps, student dtype, card vs CPU)
+RES2NET_TEACHER = 'configs/imv2/gflv2_r2n101_dcn_fpn_2x.py'
+RES2NET_SERVE_CALLS = (2, 10)
+RES2NET_DCN_LAYERS = 90
+RES2NET_IM = (('configs/imv2/im_r101_gflv2_r2n101_dcn_2x.py', 2, 5, None,
+               True),
+              ('configs/imv2/im_gflv2_r2n101_dcn_self-2x.py', 1, 3,
+               'bfloat16', False),
+              ('configs/imv2/im_gflv2_x101-32x4dr2n101_dcn_2x.py', 1, 2, None,
+               False))
+# its nms_keep launches, stated before the run: 1 a forward_test call, 5 a
+# gibox step (one GI NMS per FPN level)
+RES2NET_LAUNCHES = sum(RES2NET_SERVE_CALLS) + 5 * sum(
+    w + t for _, w, t, _, _ in RES2NET_IM)
 
 
 def emit(obj):
@@ -453,6 +478,19 @@ def phase_profile(torch, model, bench, iters=3, phase='profile'):
     return row
 
 
+def head_output_diff(cpu_outs, card_outs):
+    """The largest max-abs and median-relative differences over every
+    level of every head output, card against CPU."""
+    worst, worst_med = 0.0, 0.0
+    for c_part, g_part in zip(cpu_outs, card_outs):
+        for c, g in zip(c_part, g_part):
+            diff = (g.cpu() - c).abs()
+            worst = max(worst, float(diff.max()))
+            worst_med = max(worst_med,
+                            float((diff / (c.abs() + 1e-2)).median()))
+    return worst, worst_med
+
+
 def phase_reference(torch, np, model):
     """Head outputs on the card against the same model (same seed) on the
     CPU, small input, float32 on both (TF32 off): the bounds of the port's
@@ -464,14 +502,7 @@ def phase_reference(torch, np, model):
     x = torch.from_numpy(np.random.RandomState(1).randn(1, 3, 128, 192)
                          .astype(np.float32))
     with torch.inference_mode():
-        c_cls, c_reg = cpu(x)
-        g_cls, g_reg = model(x.cuda())
-    worst, worst_med = 0.0, 0.0
-    for c, g in zip(c_cls + c_reg, g_cls + g_reg):
-        diff = (g.cpu() - c).abs()
-        worst = max(worst, float(diff.max()))
-        worst_med = max(worst_med,
-                        float((diff / (c.abs() + 1e-2)).median()))
+        worst, worst_med = head_output_diff(cpu(x), model(x.cuda()))
     check(worst < 5e-3 and worst_med < 2e-4,
           f'card vs CPU head outputs: max {worst}, median rel {worst_med}')
     emit(dict(phase='reference', input='1x3x128x192', max_abs_diff=worst,
@@ -487,11 +518,12 @@ def float32_cfg(config):
     return cfg
 
 
-def build_ld(torch, config=TRAIN_CONFIG, dtype=None):
+def build_ld(torch, config=TRAIN_CONFIG, dtype=None, student_offsets=True):
     """An LD config's detector on the CPU, its towers in `dtype` (None:
     float32; its teacher, named by a config path, stays float32): the
-    student from seed 0, the teacher from seed 1 (DCN offsets too) with its
-    BNs folded; returns (cfg, model)."""
+    student from seed 0 (its DCN offsets seeded too, or, without
+    `student_offsets`, left at the init's zero), the teacher from seed 1
+    (DCN offsets too) with its BNs folded; returns (cfg, model)."""
     from ld_tpu_torch import Config
     from ld_tpu_torch.models import build_detector
     from ld_tpu_torch.testing import randomize_dcn_offsets
@@ -499,7 +531,8 @@ def build_ld(torch, config=TRAIN_CONFIG, dtype=None):
     model = build_detector(cfg.model, dtype=dtype)
     model.init_weights(torch.Generator().manual_seed(0))
     model.init_teacher_weights(torch.Generator().manual_seed(1))
-    randomize_dcn_offsets(model, seed=0)
+    if student_offsets:
+        randomize_dcn_offsets(model, seed=0)
     randomize_dcn_offsets(model.teacher, seed=1)
     check(model.fold_teacher_bn(), 'the teacher BN fold was refused')
     return cfg, model
@@ -612,7 +645,8 @@ def phase_train(torch, smi, warmup=2, timed=5, batch_size=2,
 
 
 def ld_steps(torch, smi, config, per_step, warmup, timed, reference=True,
-             batch_size=2, pad=(800, 1344), phase='gfl_family', dtype=None):
+             batch_size=2, pad=(800, 1344), phase='gfl_family', dtype=None,
+             cpu_check=True, student_offsets=True, prof_steps=2):
     """An LD config's training step at full width on the card: the student
     from seed 0, its towers in `dtype` (None: float32), the teacher from
     seed 1 with its BNs folded, the config's SGD and schedule, `warmup` +
@@ -622,15 +656,17 @@ def ld_steps(torch, smi, config, per_step, warmup, timed, reference=True,
     recomputed with the plain keep mask, identical. With `dtype`: every
     parameter and gradient float32 after the steps, the student's FPN
     features in `dtype` and the path teacher's float32. With `reference`:
-    the teacher's forward time, the device time of a step by kernel, then
-    the first step at 1x3x128x192 on the card against the CPU. Returns the
-    launch count of the steps and the emitted row."""
+    the teacher's forward time, the device time of a step by kernel, then,
+    with `cpu_check`, the first step at 1x3x128x192 on the card against the
+    CPU; `prof_steps` steps are profiled. `student_offsets` goes to
+    `build_ld`. Returns the launch count of the steps and the emitted
+    row."""
     import copy
     from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
     from ld_tpu_torch.testing import detection_batch
 
     t0 = time.perf_counter()
-    cfg, base = build_ld(torch, config, dtype)
+    cfg, base = build_ld(torch, config, dtype, student_offsets)
     check(cfg.data['samples_per_gpu'] == batch_size, 'samples_per_gpu')
     model = copy.deepcopy(base).to('cuda')
     step, optimizer = make_step(cfg, model)
@@ -735,11 +771,11 @@ def ld_steps(torch, smi, config, per_step, warmup, timed, reference=True,
             row['teacher_forward_ms'], _ = cuda_ms(
                 lambda: model.teacher(batch['image'], output_features=True),
                 iters=5, warmup=1)
-        row.update(step_profile(torch, step, batch))
+        row.update(step_profile(torch, step, batch, prof_steps))
     emit(row)
     del model, step, optimizer, batch
     torch.cuda.empty_cache()
-    if reference:
+    if reference and cpu_check:
         phase_train_reference(torch, cfg, base, gi=gi,
                               phase=f'{phase}_reference', dtype=dtype)
     return launches, row
@@ -1650,10 +1686,10 @@ def dcn_device_share(torch, model, fn, iters=3):
     return out
 
 
-def teacher_forward(torch, model, batch_size=2, hw=(800, 1344)):
+def teacher_forward(torch, model, batch_size=2, hw=(800, 1344), iters=3):
     """The served DCN model as an LD config's teacher runs it: BNs folded,
     no grad, float32, a batch of 2 at 800x1344; its forward ms and its DCN
-    layers' share of the device time."""
+    layers' share of the device time over `iters` profiled calls."""
     from ld_tpu_torch.testing import detection_batch
     from ld_tpu_torch.utils.fuse_conv_bn import fuse_conv_bn
     fuse_conv_bn(model)
@@ -1662,7 +1698,7 @@ def teacher_forward(torch, model, batch_size=2, hw=(800, 1344)):
         ms, _ = cuda_ms(lambda: model(image, output_features=True), iters=5,
                         warmup=1)
         share = dcn_device_share(
-            torch, model, lambda: model(image, output_features=True))
+            torch, model, lambda: model(image, output_features=True), iters)
     return dict(teacher_forward_ms=ms, teacher_input=[batch_size, 3, *hw],
                 **{f'teacher_{k}': v for k, v in share.items()})
 
@@ -1804,6 +1840,82 @@ def phase_dcn(torch, smi):
     for config, _, _ in DCN_LD:
         launches += ld_steps(torch, smi, config, 0, 1, 1, reference=False,
                              phase='dcn_bf16', dtype='bfloat16')[0]
+    return launches
+
+def teacher_reference(torch, np, config):
+    """A served config as an LD config's teacher (seed 1, DCN offsets too,
+    BNs folded, float32): its head outputs at 1x3x128x192 on the card
+    against the same model on the CPU, within the bounds of the port's CPU
+    tests against the JAX package (5e-3 max abs, 2e-4 median relative)."""
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.testing import randomize_dcn_offsets
+    from ld_tpu_torch.utils.fuse_conv_bn import fuse_conv_bn
+    cfg = Config.fromfile(os.path.join(ROOT, config))
+    model = build_detector(cfg.model)
+    model.init_weights(torch.Generator().manual_seed(1))
+    randomize_dcn_offsets(model, seed=1)
+    pairs = fuse_conv_bn(model)
+    x = torch.from_numpy(np.random.RandomState(1).randn(1, 3, 128, 192)
+                         .astype(np.float32))
+    with torch.inference_mode():
+        cpu_outs = model.eval()(x)
+        card_outs = model.cuda()(x.cuda())
+        worst, worst_med = head_output_diff(cpu_outs, card_outs)
+    emit(dict(phase='res2net_reference', config=config, input='1x3x128x192',
+              folded_pairs=pairs, max_abs_diff=worst,
+              max_median_rel_diff=worst_med, tol_abs=5e-3,
+              tol_median_rel=2e-4))
+    check(worst < 5e-3 and worst_med < 2e-4,
+          f'{config}: card vs CPU head outputs: max {worst}, median rel '
+          f'{worst_med}')
+    del model, card_outs
+    torch.cuda.empty_cache()
+
+
+def phase_res2net(torch, np, smi):
+    """The imitation tables' Res2Net-101-DCN teacher rows at full width:
+    forward_test of the GFLv2-R2N101-DCN config (1 launch a call, plain-keep
+    identical dets, the DCN layers' and their conv_offset convs' device
+    time), the same model as a teacher at batch 2 (BNs folded) and its
+    head outputs on the card against the CPU; then the IMv2 configs that
+    distil it, 5 launches a gibox step: the R101 student (2 + 5 steps,
+    float32, card vs CPU at 1x3x128x192), the R2N101-DCN self student in
+    its config's bf16 (1 + 3) and the X101-32x4d student (1 + 2). A
+    student's DCN offsets start at the init's zero, as from ImageNet
+    weights: the self student with seeded offsets (taps ~50 px off on its
+    layer-3 activations) diverges by its third SGD step in float32 and
+    bf16 alike (PERF.md, Findings). Returns the kernel's launch count over
+    the main paths."""
+    # one profiled call or step each: the profiler's post-processing of a
+    # Res2Net-DCN call's ~12.5k kernels and ~40k host events takes seconds
+    def extra(model, bench):
+        out = dcn_device_share(torch, model,
+                               lambda: model.forward_test(bench), iters=1)
+        out.update(teacher_forward(torch, model, iters=1))
+        return out
+    warmup, timed = RES2NET_SERVE_CALLS
+    launches, row = family_serve(torch, smi, RES2NET_TEACHER, warmup=warmup,
+                                 timed=timed, phase='res2net_serve',
+                                 extra=extra)
+    check(row['backbone'] == 'Res2Net' and
+          row['dcn_layers'] == RES2NET_DCN_LAYERS,
+          f'{RES2NET_TEACHER}: {row["backbone"]} with {row["dcn_layers"]} '
+          'DCN layers')
+    teacher_reference(torch, np, RES2NET_TEACHER)
+    for config, warmup, timed, dtype, cpu_check in RES2NET_IM:
+        n, row = ld_steps(torch, smi, config, 5, warmup, timed,
+                          phase='res2net_train', dtype=dtype,
+                          cpu_check=cpu_check, student_offsets=False,
+                          prof_steps=1)
+        check(row['dcn_layers_teacher'] == RES2NET_DCN_LAYERS and
+              row['loss_first']['loss_dfl'] == 0.0,
+              f'{config}: {row["dcn_layers_teacher"]} teacher DCN layers, '
+              f'loss_dfl {row["loss_first"]["loss_dfl"]}')
+        launches += n
+    check(launches == RES2NET_LAUNCHES,
+          f'res2net phase: {launches} nms_keep launches, expected '
+          f'{RES2NET_LAUNCHES}')
     return launches
 
 # ---- ddp: data parallelism over ranks ----------------------------------------
@@ -2152,6 +2264,10 @@ def main():
     dcn_launches = phase_dcn(torch, smi)
     emit(dict(phase='dcn_done', seconds=time.perf_counter() - t0))
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res2net_launches = phase_res2net(torch, np, smi)
+    emit(dict(phase='res2net_done', seconds=time.perf_counter() - t0))
+    torch.cuda.empty_cache()
     ddp_launches = phase_ddp(torch, np, smi)
 
     print(smi.splitlines()[0], flush=True)
@@ -2160,11 +2276,12 @@ def main():
         replaces='ld_tpu/ops/pallas_nms.py:23',
         launches=(launches + train_launches + runtime_launches +
                   voc_launches + family_launches + bf16_launches +
-                  dcn_launches + ddp_launches),
+                  dcn_launches + res2net_launches + ddp_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
-        launches_dcn=dcn_launches, launches_ddp=ddp_launches,
+        launches_dcn=dcn_launches, launches_res2net=res2net_launches,
+        launches_ddp=ddp_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

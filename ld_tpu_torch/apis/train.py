@@ -101,7 +101,8 @@ def _load_from(model, src, logger):
     missing or of another shape keep their init; optimizer and step start
     fresh (fine-tuning)."""
     logger.info(f'loading weights from {src}')
-    loaded, skipped = merge_state_dict(model, read_state_dict(src))
+    loaded, skipped = merge_state_dict(model, read_state_dict(
+        src, model.state_dict().keys()))
     if skipped:
         logger.warning(f'load_from: {len(skipped)} checkpoint entries '
                        'skipped (missing or shape-mismatched in the model; '

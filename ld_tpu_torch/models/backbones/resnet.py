@@ -16,12 +16,21 @@ on its 1x1 conv1. The detection semantics of the JAX package:
     conv2 of every bottleneck of those stages is a `ModulatedDeformConv2d`
     (`ops/deform_conv.py`), grouped like the plain one. `fallback_on_stride`
     is accepted and, as in the JAX package, changes nothing.
+  * `deep_stem` (ResNet-V1d): three 3x3 convs (base/2, base/2, base;
+    strides 2, 1, 1), each with its BN and ReLU, as the `stem` Sequential.
+  * `avg_down` (ResNet-V1d): a downsampling shortcut average-pools by its
+    stride (floor, as the JAX `nn.avg_pool`; mmdet's `ceil_mode=True`
+    agrees on every even map, ROADMAP.md Queue C caveat 15), then runs its
+    1x1 conv at stride 1: `downsample = Sequential(pool, conv, BN)`, the
+    pool an identity at stride 1.
 
 Module names are mmdet's (`conv1`, `bn1`, `layer1.0.conv1`,
-`layer1.0.downsample.{0,1}`, ...), so a published mmdet/torchvision
-checkpoint loads with `load_state_dict(strict=True)`.
+`layer1.0.downsample.{0,1}`, with `deep_stem` `stem.{0,3,6}` and
+`stem.{1,4,7}`, with `avg_down` `layer1.0.downsample.{1,2}`, ...), so a
+published mmdet/torchvision checkpoint loads with
+`load_state_dict(strict=True)`.
 
-The stem is a plain 7x7/2 conv. The JAX stem is `SpaceToDepthStem`, a TPU
+The plain stem is a 7x7/2 conv. The JAX stem is `SpaceToDepthStem`, a TPU
 reformulation of the same conv with the same (7, 7, 3, 64) parameter; the two
 differ only by summation order.
 
@@ -116,8 +125,52 @@ ARCH_SETTINGS = {
 
 # config keys of the JAX ResNet that select variants not ported yet, with the
 # value that means "off" (ROADMAP.md A7)
-_UNPORTED_KEYS = dict(deep_stem=False, avg_down=False, sac=None,
-                      plugins=None, zero_init_residual=False)
+_UNPORTED_KEYS = dict(sac=None, plugins=None, zero_init_residual=False)
+
+
+def make_deep_stem(in_channels, channels, dtype=None, conv_cfg=None,
+                   norm_cfg=None) -> nn.Sequential:
+    """The v1d deep stem: 3x3 convs to channels/2, channels/2 and
+    channels at strides 2, 1, 1, each followed by its BN and a ReLU."""
+    layers, c_in = [], in_channels
+    for c_out, stride in ((channels // 2, 2), (channels // 2, 1),
+                          (channels, 1)):
+        layers += [make_conv(conv_cfg, c_in, c_out, 3, stride, dtype=dtype),
+                   make_norm(norm_cfg, c_out, dtype), nn.ReLU(inplace=True)]
+        c_in = c_out
+    return nn.Sequential(*layers)
+
+
+def make_shortcut(inplanes, out_channels, stride, avg_down, dtype=None,
+                  conv_cfg=None, norm_cfg=None) -> nn.Sequential:
+    """A block's downsampling shortcut (port of `_shortcut`,
+    `ld_tpu/models/backbones/resnet.py:93-99`): a strided 1x1 conv and its
+    BN; with `avg_down`, an average pool by the stride, then the conv at
+    stride 1."""
+    if not avg_down:
+        return nn.Sequential(
+            make_conv(conv_cfg, inplanes, out_channels, 1, stride,
+                      dtype=dtype),
+            make_norm(norm_cfg, out_channels, dtype))
+    return nn.Sequential(
+        nn.AvgPool2d(stride, stride) if stride > 1 else nn.Identity(),
+        make_conv(conv_cfg, inplanes, out_channels, 1, 1, dtype=dtype),
+        make_norm(norm_cfg, out_channels, dtype))
+
+
+def init_trunk_weights(module: nn.Module, generator: torch.Generator):
+    """The JAX package's initializers over a backbone: lecun-normal conv
+    kernels, BN scale 1 / bias 0 / running mean 0 / running var 1; a DCN
+    conv he-normal, its `conv_offset` zero."""
+    offset_convs = {id(m.conv_offset) for m in module.modules()
+                    if isinstance(m, ModulatedDeformConv2d)}
+    for m in module.modules():
+        if isinstance(m, ModulatedDeformConv2d):
+            m.init_weights(generator)
+        elif isinstance(m, nn.Conv2d) and id(m) not in offset_convs:
+            lecun_normal_(m.weight, generator)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
 
 
 @BACKBONES.register_module()
@@ -142,6 +195,8 @@ class ResNet(nn.Module):
                  dcn: dict = None,
                  stage_with_dcn: Sequence[bool] = (False, False, False,
                                                    False),
+                 deep_stem: bool = False,
+                 avg_down: bool = False,
                  dtype=None,
                  **kwargs):
         super().__init__()
@@ -176,10 +231,16 @@ class ResNet(nn.Module):
         self.frozen_stages = frozen_stages
         self.norm_eval = norm_eval
 
-        self.conv1 = Conv2d(in_channels, base_channels, 7, 2, 3, bias=False,
-                            compute_dtype=lowered_dtype(dtype))
-        self.bn1 = make_norm(norm_cfg, base_channels, dtype)
-        self.relu = nn.ReLU(inplace=True)
+        self.deep_stem = deep_stem
+        if deep_stem:
+            self.stem = make_deep_stem(in_channels, base_channels, dtype,
+                                       conv_cfg, norm_cfg)
+        else:
+            self.conv1 = Conv2d(in_channels, base_channels, 7, 2, 3,
+                                bias=False,
+                                compute_dtype=lowered_dtype(dtype))
+            self.bn1 = make_norm(norm_cfg, base_channels, dtype)
+            self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
 
         inplanes = base_channels
@@ -192,10 +253,9 @@ class ResNet(nn.Module):
                 s = stride if b == 0 else 1
                 downsample = None
                 if b == 0 and (s != 1 or inplanes != planes * block.expansion):
-                    downsample = nn.Sequential(
-                        make_conv(conv_cfg, inplanes, planes * block.expansion,
-                                  1, s, dtype=dtype),
-                        make_norm(norm_cfg, planes * block.expansion, dtype))
+                    downsample = make_shortcut(
+                        inplanes, planes * block.expansion, s, avg_down,
+                        dtype, conv_cfg, norm_cfg)
                 extra = {} if block is BasicBlock else dict(
                     groups=groups, base_width=base_width,
                     dcn=dcn if dcn is not None and stage_with_dcn[i]
@@ -213,9 +273,12 @@ class ResNet(nn.Module):
                 if isinstance(m, nn.BatchNorm2d):
                     m.requires_grad_(False)
 
+    def _stem_modules(self):
+        return [self.stem] if self.deep_stem else [self.conv1, self.bn1]
+
     def _freeze_stages(self):
         if self.frozen_stages >= 0:
-            for m in (self.conv1, self.bn1):
+            for m in self._stem_modules():
                 for p in m.parameters():
                     p.requires_grad = False
         for i in range(1, self.frozen_stages + 1):
@@ -223,23 +286,14 @@ class ResNet(nn.Module):
                 p.requires_grad = False
 
     def init_weights(self, generator: torch.Generator):
-        """The JAX package's initializers: lecun-normal conv kernels, BN
-        scale 1 / bias 0 / running mean 0 / running var 1; a DCN conv2
-        he-normal, its `conv_offset` zero."""
-        offset_convs = {id(m.conv_offset) for m in self.modules()
-                        if isinstance(m, ModulatedDeformConv2d)}
-        for m in self.modules():
-            if isinstance(m, ModulatedDeformConv2d):
-                m.init_weights(generator)
-            elif isinstance(m, nn.Conv2d) and id(m) not in offset_convs:
-                lecun_normal_(m.weight, generator)
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
+        init_trunk_weights(self, generator)
 
     def train(self, mode: bool = True):
         super().train(mode)
         if mode:
-            frozen = [self.bn1] if self.frozen_stages >= 0 else []
+            # the stem's BNs run on their statistics with norm_eval or any
+            # frozen_stages >= 0, a frozen stage's too
+            frozen = self._stem_modules() if self.frozen_stages >= 0 else []
             frozen += [getattr(self, f'layer{i}')
                        for i in range(1, self.frozen_stages + 1)]
             for mod in ([self] if self.norm_eval else frozen):
@@ -249,7 +303,9 @@ class ResNet(nn.Module):
         return self
 
     def forward(self, x):
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.stem(x) if self.deep_stem else \
+            self.relu(self.bn1(self.conv1(x)))
+        x = self.maxpool(x)
         outs = []
         for i, name in enumerate(self.res_layers):
             x = getattr(self, name)(x)
@@ -267,4 +323,15 @@ class ResNeXt(ResNet):
     def __init__(self, depth: int, groups: int = 32, base_width: int = 4,
                  **kwargs):
         super().__init__(depth, groups=groups, base_width=base_width,
+                         **kwargs)
+
+
+@BACKBONES.register_module()
+class ResNetV1d(ResNet):
+    """ResNet-V1d: the deep 3x3 stem and avg-down shortcuts (port of
+    `ld_tpu/models/backbones/resnet.py:348-352`)."""
+
+    def __init__(self, depth: int, deep_stem: bool = True,
+                 avg_down: bool = True, **kwargs):
+        super().__init__(depth, deep_stem=deep_stem, avg_down=avg_down,
                          **kwargs)

@@ -12,7 +12,10 @@
     convs carry the ATSS head's names). It takes
     the JAX package's {'params', 'batch_stats'} tree as nested dicts of
     numpy arrays and returns the port's mmdet-named state dict, so both
-    packages can run on the same weights.
+    packages can run on the same weights. It also maps the deep stem, the
+    avg-down shortcut and Res2Net (DCN splits too), which that converter
+    leaves unmapped or mis-maps (ROADMAP.md Queue C, caveat 16): for those
+    it is the only way weights cross between the packages.
   * `load_from_jax`: loads such trees strictly into a model and, for a
     distillation detector, the JAX package's separate teacher tree into
     `model.teacher`.
@@ -34,7 +37,7 @@ from __future__ import annotations
 import os
 import re
 from collections import OrderedDict
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +47,8 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
     """Load an mmdet checkpoint ({'state_dict': ...}), a bare state dict or
     a JAX `.npz` (see `read_state_dict`) into `model`, strictly: every key
     must match."""
-    model.load_state_dict(read_state_dict(path), strict=True)
+    model.load_state_dict(read_state_dict(path, model.state_dict().keys()),
+                          strict=True)
     return model
 
 
@@ -65,26 +69,42 @@ _BN_LEAVES = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
               'var': 'running_var'}
 
 
-def _backbone_key(path: tuple) -> str:
+def _module_name(name: str, avg_down: bool) -> str:
+    """A JAX backbone module's name -> mmdet's: `normX` -> `bnX`, the deep
+    stem's `stem_convI` / `stem_normI` -> `stem.{3(I-1)}` / `stem.{3I-2}`,
+    Res2Net's `convsI` / `bnsI` -> `convs.I` / `bns.I`, and the shortcut's
+    `downsample_conv` / `downsample_norm` -> `downsample.{0,1}`, or, behind
+    an avg-down pool, `downsample.{1,2}`."""
+    m = re.fullmatch(r'stem_(conv|norm)(\d)', name)
+    if m is not None:
+        return f'stem.{3 * (int(m.group(2)) - 1) + (m.group(1) == "norm")}'
+    m = re.fullmatch(r'(convs|bns)(\d+)', name)
+    if m is not None:
+        return f'{m.group(1)}.{m.group(2)}'
+    shortcut = {'downsample_conv': 0, 'downsample_norm': 1}.get(name)
+    if shortcut is not None:
+        return f'downsample.{shortcut + avg_down}'
+    if re.fullmatch(r'conv\d', name):
+        return name
+    return {'norm1': 'bn1', 'norm2': 'bn2', 'norm3': 'bn3'}[name]
+
+
+def _backbone_key(path: tuple, avg_down: bool = False) -> str:
     """('conv1', 'kernel') / ('layer1_0', 'norm2', 'bn', 'scale') /
-    ('layer3_0', 'conv2', 'conv_offset', 'bias') / ... -> the mmdet ResNet
-    name after 'backbone.'."""
+    ('layer3_0', 'conv2', 'conv_offset', 'bias') / ... -> the mmdet
+    ResNet / Res2Net name after 'backbone.' (`_module_name`)."""
     *mods, leaf = path
     if mods[-1] == 'bn':          # BatchNorm: .../normX/bn/<leaf>
-        norm = mods[-2]
-        owner = mods[:-2]
-        name = {'norm1': 'bn1', 'norm2': 'bn2', 'norm3': 'bn3',
-                'downsample_norm': 'downsample.1'}[norm]
-        return '.'.join(_block_prefix(owner) + [name, _BN_LEAVES[leaf]])
-    if mods[-1] == 'conv_offset':  # a DCN conv2's offset / mask conv
         return '.'.join(_block_prefix(mods[:-2]) + [
-            mods[-2], 'conv_offset', {'kernel': 'weight',
-                                      'bias': 'bias'}[leaf]])
+            _module_name(mods[-2], avg_down), _BN_LEAVES[leaf]])
+    if mods[-1] == 'conv_offset':  # a DCN conv's offset / mask conv
+        return '.'.join(_block_prefix(mods[:-2]) + [
+            _module_name(mods[-2], avg_down), 'conv_offset',
+            {'kernel': 'weight', 'bias': 'bias'}[leaf]])
     if leaf != 'kernel':
         raise KeyError(path)
-    conv = mods[-1]
-    name = 'downsample.0' if conv == 'downsample_conv' else conv
-    return '.'.join(_block_prefix(mods[:-1]) + [name, 'weight'])
+    return '.'.join(_block_prefix(mods[:-1]) + [
+        _module_name(mods[-1], avg_down), 'weight'])
 
 
 def _block_prefix(owner) -> list:
@@ -116,7 +136,7 @@ def _dcn_offset_perm(out_ch: int, k: int) -> np.ndarray:
 
 
 def _dcn_value(params: Dict, rest: tuple, value: np.ndarray):
-    """A DCN conv2 leaf of the JAX backbone as the port's tensor, or None
+    """A DCN conv leaf (a ResNet conv2, a Res2Net split conv) of the JAX backbone as the port's tensor, or None
     for any other leaf. k and the input channels per conv group come from
     the layer's own `conv_offset` kernel (k, k, C, 3*g*k*k):
       * the main kernel (k*k*C/groups, O), grouped-HWIO rows, -> OIHW;
@@ -180,22 +200,41 @@ def _head_key(path: tuple) -> str:
     raise KeyError(path)
 
 
-def state_dict_from_jax(variables: Dict) -> 'OrderedDict[str, torch.Tensor]':
+def _avg_down(variables: Dict, keys: Optional[Iterable[str]]) -> bool:
+    """Whether the backbone's shortcuts pool before their conv (mmdet's
+    `downsample.{1,2}` names). The JAX tree does not say so for a ResNet:
+    the target's own `keys` do. Without them: a Res2Net tree (whose blocks
+    hold `convs0`) always pools, any other tree does not."""
+    if keys is not None:
+        return any(k.startswith('backbone.') and '.downsample.2.' in k
+                   for k in keys)
+    return any('convs0' in block for block in
+               variables['params'].get('backbone', {}).values()
+               if isinstance(block, dict))
+
+
+def state_dict_from_jax(variables: Dict,
+                        keys: Optional[Iterable[str]] = None
+                        ) -> 'OrderedDict[str, torch.Tensor]':
     """JAX {'params', 'batch_stats'} tree (numpy leaves) -> the port's
     mmdet-named state dict, including each BatchNorm's
     `num_batches_tracked` (0), so `load_state_dict(strict=True)` accepts it.
+    `keys`, the target model's state-dict keys, tell the shortcut layout
+    (`_avg_down`).
 
-    Raises KeyError on a leaf outside the ResNet / FPN / GFL-head families.
+    Raises KeyError on a leaf outside the ResNet / Res2Net / FPN / GFL-head
+    families.
     """
     sd: Dict[str, np.ndarray] = {}
     params = variables['params']
+    avg_down = _avg_down(variables, keys)
     num_laterals = sum(1 for k in params.get('neck', {})
                        if k.startswith('lateral_'))
     for coll in ('params', 'batch_stats'):
         for path, value in _leaves(variables.get(coll, {})):
             scope, rest = path[0], path[1:]
             if scope == 'backbone':
-                key = 'backbone.' + _backbone_key(rest)
+                key = 'backbone.' + _backbone_key(rest, avg_down)
                 if rest[-2:] == ('bn', 'scale'):
                     sd[key[:-len('weight')] + 'num_batches_tracked'] = \
                         np.zeros((), np.int64)
@@ -226,10 +265,12 @@ def load_from_jax(model: torch.nn.Module, variables: Dict,
     """Load the JAX package's variables into `model`, and its
     `teacher_variables` (a pytree of their own there) into `model.teacher`;
     every key must match on both."""
-    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    model.load_state_dict(state_dict_from_jax(
+        variables, model.state_dict().keys()), strict=True)
     if teacher_variables is not None:
-        model.teacher.load_state_dict(state_dict_from_jax(teacher_variables),
-                                      strict=True)
+        model.teacher.load_state_dict(state_dict_from_jax(
+            teacher_variables, model.teacher.state_dict().keys()),
+            strict=True)
     return model
 
 
@@ -315,11 +356,13 @@ def load_variables(path: str) -> Dict:
     return tree
 
 
-def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+def read_state_dict(path: str, keys: Optional[Iterable[str]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """The state dict in a `.pth` (an mmdet checkpoint, a train state of
-    `save_checkpoint`, or a bare state dict) or in a JAX `.npz`."""
+    `save_checkpoint`, or a bare state dict) or in a JAX `.npz`; `keys`
+    (the target's) name a JAX tree's shortcut layout."""
     if path.endswith('.npz'):
-        return state_dict_from_jax(load_variables(path))
+        return state_dict_from_jax(load_variables(path), keys)
     ckpt = torch.load(path, map_location='cpu', weights_only=False)
     return ckpt.get('state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
 

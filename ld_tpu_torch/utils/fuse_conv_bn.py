@@ -40,7 +40,9 @@ def fuse_conv_bn_cfg_ok(model_cfg) -> bool:
 
 def _conv_of(parent: nn.Module, bn_name: str):
     """The conv a BN follows, by the port's names: `bnX` after `convX`, and
-    in a `Sequential` (the ResNet `downsample`) the child before it."""
+    in a `Sequential` (a `downsample`, the v1d deep `stem`) the child before
+    it. A Res2Net block's split BNs (`bns`, a `ModuleList`) pair with none,
+    as the JAX fold pairs only `*norm*` with `*conv*` and leaves `bnsI`."""
     if bn_name.startswith('bn'):
         conv = getattr(parent, 'conv' + bn_name[2:], None)
     elif isinstance(parent, nn.Sequential) and bn_name.isdigit() \

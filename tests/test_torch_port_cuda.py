@@ -12,7 +12,8 @@ The training caller, `LDHead._gi_mask`, is checked at the GI path's shapes,
 the LDv2 head's GI masks at full width, and the loader's `DevicePrefetcher`
 against a plain copy to the card. The ops of the DCN teachers that run in
 plain torch on the card, the DCN layer and the voting NMS, are held against
-the CPU.
+the CPU, and so are a Res2Net-50-DCN trunk and the GI masks of an IMv2
+step with the Res2Net-101-DCN teacher.
 """
 import pytest
 import torch
@@ -305,3 +306,64 @@ def test_two_ranks_step_on_the_card_equals_one_process(no_tf32, tmp_path):
     scale = max(np.abs(p).max() for p in ref['params'].values())
     for k, p in ref['params'].items():
         assert np.abs(ranks[0]['params'][k] - p).max() <= 1e-5 * scale, k
+
+
+@pytest.mark.cuda
+def test_res2net_dcn_on_the_card_equals_the_cpu(no_tf32):
+    """A Res2Net-50 with the configs' DCN splits (plain torch: convs, the
+    DCN layer, the split adds and the avg-down pools) on the card against
+    the same weights and input on the CPU at 1x3x128x192, with seeded
+    non-zero offsets, each stage to 1e-4 of its largest output."""
+    _need_card()
+    from ld_tpu_torch.models.backbones import Res2Net
+    from ld_tpu_torch.testing import randomize_dcn_offsets
+    model = Res2Net(depth=50, frozen_stages=1,
+                    dcn=dict(type='DCNv2', deform_groups=1),
+                    stage_with_dcn=(False, True, True, True))
+    model.init_weights(torch.Generator().manual_seed(0))
+    assert randomize_dcn_offsets(model, seed=0) == 39
+    x = torch.randn(1, 3, 128, 192, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = model.eval()(x)
+        got = model.cuda()(x.cuda())
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())
+
+
+@pytest.mark.cuda
+def test_imv2_res2net_gi_masks_on_the_card_equal_the_cpu(no_tf32):
+    """The GI masks of one IMv2 Res2Net step (configs/imv2/
+    im_r101_gflv2_r2n101_dcn_2x.py at full width, the R101 student from
+    seed 0, the R2N101-DCN teacher from seed 1, offsets seeded, BNs folded)
+    on 1x3x128x192: through the kernel on the card (5 launches) and through
+    the plain keep mask on the CPU, identical."""
+    _need_card()
+    import copy
+    import os
+
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.testing import detection_batch, randomize_dcn_offsets
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config.fromfile(os.path.join(
+        root, 'configs/imv2/im_r101_gflv2_r2n101_dcn_2x.py'))
+    model = build_detector(cfg.model)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.init_teacher_weights(torch.Generator().manual_seed(1))
+    assert randomize_dcn_offsets(model.teacher, seed=1) == 90
+    assert model.fold_teacher_bn()
+    masks = {}
+    for device in ('cpu', 'cuda'):
+        m = copy.deepcopy(model).to(device).eval()
+        image = detection_batch(1, 128, 192, seed=0, device=device)['image']
+        with torch.no_grad():
+            outs, t_outs = m(image), m.teacher(image)
+            launches = nms_keep.launches
+            masks[device] = [g.cpu() for g in m.bbox_head.gi_masks(
+                outs, t_outs, keep_fn=nms_keep)]
+        assert nms_keep.launches == launches + (5 if device == 'cuda' else 0)
+    assert all(torch.equal(g, c) for g, c in zip(masks['cuda'],
+                                                 masks['cpu']))
+    assert all(0 < int(g.sum()) for g in masks['cuda'])
