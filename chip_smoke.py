@@ -1,7 +1,8 @@
 """Drive the ld_tpu_torch serving, training, training-runtime and evaluation
 paths, the other GFL-family heads, the configs' bf16 dtype, the DCN /
-ResNeXt rows, the Res2Net-101-DCN teacher rows and data-parallel training
-and evaluation on one CUDA card and check them.
+ResNeXt rows, the Res2Net-101-DCN teacher rows, data-parallel training
+and evaluation, the synthetic train-to-AP harness, the AP landscape, the
+HTTP server and the export on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
@@ -18,7 +19,8 @@ Phases, one JSON object per line each:
                sparse-kept sets at (K, B) in {(512, 1), (1024, 1), (1024, 8),
                (2048, 1)}:
                CUDA-event time per call over back-to-back calls, the host's
-               time to issue them, each kernel's device time from
+               time to issue them (and to launch the kernel without the
+               registered operator's dispatch), each kernel's device time from
                torch.profiler, the kept count, the plain version's time and
                the bound the card could not beat;
   4. e2e     — GFL-R50 (configs/gfl/gfl_r50_fpn_1x_coco.py, full width,
@@ -129,6 +131,34 @@ Phases, one JSON object per line each:
                step ms against one process, the gradient all-reduce's ms,
                peak memory a rank, the phase's seconds: the collective
                path's cost on a shared card, not a scaling figure.
+ 12. harness — ld_tpu_torch/tools/analysis_tools/ld_gain_experiment.py on
+               its own 96 + 32 drawable synthetic images at 160x224
+               (teacher 4 epochs, students 2), cuDNN deterministic: every
+               loss finite, no launch a step, 1 an eval batch; then the LD
+               student with its LD, VLR and KD weights 0 against the
+               baseline, losses within rtol 1e-5 a step; the three mAPs and
+               steps/s;
+ 13. landscape — ap_landscape.py on the harness's teacher and LD student
+               (their configs dumped beside the checkpoints, the held-out
+               split as test set): every statistic finite, Pearson in
+               [-1, 1], no launch;
+ 14. serve_http — tools/deployment/serve.py on GFL-R50 at 800x1344 (the
+               e2e phase's weights written to a `.pth`, max batch 4) and 12
+               concurrent seeded JPEG requests: every reply 200 and equal
+               to its batch (from its `X-Batch` header) run again, each
+               image's head outputs at batch 1 within 1e-4 of its slot in
+               that batch (relative past 1: a coordinate past 1024 px has
+               a float32 spacing of 1.22e-4), one launch a batch formed;
+               the replies equal to batch 1's detections counted (float32
+               noise between batch sizes reorders near-equal NMS
+               candidates of random weights); latency p50 / p90, images/s,
+               the batches formed, the host pipeline's share;
+ 15. export  — tools/deployment/export.py on the same model at 1x3x800x1344
+               (one ld_tpu_torch::nms_keep node in the graph), its
+               forward_test ms against eager, run_export.py in a fresh
+               interpreter (detections within 1e-4 of eager; 1 launch
+               counted there, of the framework only the operator's module
+               loaded), one call's keep mask identical with nms_keep_ref.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
 (the main path's case: dense-kept set, K = 1024, B = 1; `device_ms` is the
 profiler's mask + sweep time; the `_k2048` keys the dense-kept set at
@@ -140,6 +170,7 @@ non-zero and prints no result; so does a host without CUDA.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -276,7 +307,7 @@ def phase_kernel(torch):
     """Checks the kernel on the edge sets, then times it; returns the
     largest |kernel - plain| over the checks and the figures of the main
     path's case (dense-kept set, K = 1024, B = 1)."""
-    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    from ld_tpu_torch.ops.nms_cuda import launch, nms_keep, nms_keep_ref
     from ld_tpu_torch.testing import NMS_CHECK_KB, NMS_SETS, nms_batch
     max_err = 0.0
     for name in NMS_SETS:
@@ -305,12 +336,16 @@ def phase_kernel(torch):
                        valid=int(valid.sum()))
             ms, host_ms = cuda_ms(lambda: nms_keep(boxes, valid, 0.6),
                                   iters=200)
+            # the kernel's launch without the operator's dispatch
+            _, host_ms_launch = cuda_ms(lambda: launch(boxes, valid, 0.6),
+                                        iters=200)
             dev = kernel_device_ms(torch, lambda: nms_keep(boxes, valid, 0.6),
                                    NMS_KERNELS)
             plain, _ = cuda_ms(lambda: nms_keep_ref(boxes, valid, 0.6),
                                iters=20)
             bound, bound_by = nms_bound_ms(b, k)
-            row.update(ms=ms, host_ms=host_ms,
+            row.update(ms=ms, host_ms=host_ms, host_ms_launch=host_ms_launch,
+                       dispatch_host_ms=host_ms - host_ms_launch,
                        device_ms=dev and sum(dev.values()),
                        **{f'device_ms_{n}': dev and dev[n]
                           for n in NMS_KERNELS},
@@ -848,9 +883,9 @@ def runtime_cfg(teacher_path):
 
 def instrument_steps(train_api, record, preempt_after=None):
     """Wrap the make_train_step that train_detector calls: each step's
-    img_ids, loss dict and nms_keep launches go to `record`, and after the
-    `preempt_after`-th step of this run SIGTERM is raised in the main
-    thread, as a preempting scheduler would send it."""
+    img_ids, loss dict, nms_keep launches and end time go to `record`, and
+    after the `preempt_after`-th step of this run SIGTERM is raised in the
+    main thread, as a preempting scheduler would send it."""
     import signal
     from ld_tpu_torch.ops.nms_cuda import nms_keep
     from ld_tpu_torch.parallel import make_train_step
@@ -864,7 +899,8 @@ def instrument_steps(train_api, record, preempt_after=None):
             out = step(batch)
             record.append(dict(img_ids=batch['img_ids'].tolist(),
                                launches=nms_keep.launches - before,
-                               losses={k: float(v) for k, v in out.items()}))
+                               losses={k: float(v) for k, v in out.items()},
+                               t=time.perf_counter()))
             calls.append(1)
             if len(calls) == preempt_after:
                 signal.raise_signal(signal.SIGTERM)
@@ -2213,6 +2249,476 @@ def phase_ddp(torch, np, smi):
     return step_launches + cli_launches
 
 
+# the harness phase: ld_gain_experiment's schedule cut to (teacher epochs,
+# student epochs) over its own 96 + 32 images
+HARNESS_EPOCHS = (4, 2)
+# the serve_http phase: concurrent requests, the server's largest batch
+SERVE_REQUESTS = 12
+SERVE_MAX_BATCH = 4
+FULL_HW = (800, 1344)
+# run_export.py's main in a fresh interpreter with TF32 off, as here, then
+# the NMS kernel's launch count there and the framework modules it loaded
+RUN_EXPORT_CHILD = (
+    "import json, runpy, sys, torch; "
+    "torch.backends.cudnn.allow_tf32 = False; "
+    "torch.backends.cuda.matmul.allow_tf32 = False; "
+    "sys.argv = ['run_export.py', *sys.argv[1:]]; "
+    "runpy.run_path({path!r}, run_name='__main__'); "
+    "nms = sys.modules['ld_tpu_torch.ops.nms_cuda']; "
+    "print(json.dumps(dict(launches=nms.nms_keep.launches, modules=sorted("
+    "m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'flax', 'ld_tpu', 'ld_tpu_torch')))))")
+
+
+def scaled_diff(np, got, want):
+    """The largest |got - want| over max(|want|, 1): absolute below 1,
+    relative above, so that box coordinates past 1024 px, whose float32
+    spacing is 1.22e-4, are held to their own precision."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / np.maximum(np.abs(want), 1.0)).max())
+
+
+def same_detections(np, got, want):
+    """Two lists of detection records (JSON, score order): the same labels
+    in the same order and every box and score within 1e-4 by
+    `scaled_diff`."""
+    return (len(got) == len(want) and
+            [g['label'] for g in got] == [w['label'] for w in want] and
+            (not got or scaled_diff(np, [g['bbox'] + [g['score']]
+                                         for g in got],
+                                    [w['bbox'] + [w['score']]
+                                     for w in want]) <= 1e-4))
+
+
+def phase_harness(torch, smi, epochs=HARNESS_EPOCHS):
+    """The port's ld_gain_experiment on its own data at a cut schedule:
+    teacher, baseline and LD students through `main`, then the zero-weight
+    LD student against the baseline step by step. cuDNN runs its
+    deterministic algorithms here, so that the two runs are comparable at
+    all (losses within rtol 1e-5; its wgrad is not bitwise deterministic
+    otherwise). Every loss finite, no launch a step, 1 an eval batch.
+    Returns (launches, work dir, row)."""
+    from ld_tpu_torch.apis import train as train_api
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    from ld_tpu_torch.tools.analysis_tools import ld_gain_experiment as gain
+
+    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_harness')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    make_train_step = train_api.make_train_step
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    record = []
+    instrument_steps(train_api, record)
+    t0 = time.perf_counter()
+    try:
+        # ---- the main path: counts from 0, read right after --------------
+        nms_keep.launches = 0
+        summary = gain.main([
+            '--teacher-epochs', str(epochs[0]), '--student-epochs',
+            str(epochs[1]), '--work-dir', work,
+            '--out', os.path.join(work, 'ld_gain.json')])
+        launches = nms_keep.launches
+        # ------------------------------------------------------------------
+        seconds = time.perf_counter() - t0
+        runs = len(record)
+        train, val = gain.datasets()
+        zcfg = gain.ld_student_cfg(
+            epochs[1], gain.base_cfg(epochs[0])['model'],
+            os.path.join(work, 'teacher.pth'), ld=0.0, vlr=0.0, kd=0.0)
+        train_api.train_detector(zcfg, os.path.join(work, 'student_zero'),
+                                 dataset=train, device='cuda')
+    finally:
+        train_api.make_train_step = make_train_step
+        torch.backends.cudnn.deterministic = deterministic
+    steps_t = epochs[0] * len(train) // 2
+    steps_s = epochs[1] * len(train) // 2
+    check(runs == steps_t + 2 * steps_s and
+          len(record) == steps_t + 3 * steps_s,
+          f'harness ran {len(record)} steps, expected '
+          f'{steps_t} + 3 x {steps_s}')
+    teacher, base = record[:steps_t], record[steps_t:steps_t + steps_s]
+    ld, zero = record[steps_t + steps_s:runs], record[runs:]
+    check(all(math.isfinite(v) for r in record for v in r['losses'].values()),
+          'harness: a non-finite loss')
+    check(all(r['launches'] == 0 for r in record),
+          'harness: an nms_keep launch in a training step')
+    eval_batches = 3 * math.ceil(len(val) / 4)
+    check(launches == eval_batches,
+          f'harness: nms_keep launched {launches} times for {eval_batches} '
+          'eval batches')
+    worst = 0.0
+    for b, z in zip(base, zero):
+        for k, v in b['losses'].items():
+            worst = max(worst, abs(z['losses'][k] - v) / max(abs(v), 1e-12))
+        check(all(z['losses'][k] == 0.0
+                  for k in ('loss_ld', 'loss_ld_vlr', 'loss_kd')),
+              'harness: a zero-weight LD term is not 0')
+    check(worst <= 1e-5, f'harness: the zero-weight LD student differs from '
+          f'the baseline by rtol {worst}')
+    for name, run in (('teacher', teacher), ('baseline', base), ('ld', ld)):
+        check(all(r['losses']['loss'] > 0 for r in run),
+              f'harness: {name} loss not positive')
+
+    def steps_per_s(run):
+        return (len(run) - 1) / (run[-1]['t'] - run[0]['t'])
+    row = dict(phase='harness', nvidia_smi=smi,
+               tool='ld_tpu_torch/tools/analysis_tools/ld_gain_experiment.py',
+               teacher_epochs=epochs[0], student_epochs=epochs[1],
+               train_images=len(train), val_images=len(val),
+               cudnn_deterministic=True,
+               teacher_mAP=summary['teacher']['bbox_mAP'],
+               baseline_mAP=summary['baseline_student']['bbox_mAP'],
+               ld_mAP=summary['ld_student']['bbox_mAP'],
+               ld_gain_mAP=summary['ld_gain_mAP'],
+               steps=dict(teacher=len(teacher), baseline=len(base),
+                          ld=len(ld), zero=len(zero)),
+               steps_per_s=dict(teacher=steps_per_s(teacher),
+                                baseline=steps_per_s(base),
+                                ld=steps_per_s(ld),
+                                zero=steps_per_s(zero)),
+               first_loss=dict(teacher=teacher[0]['losses']['loss'],
+                               ld=ld[0]['losses']['loss']),
+               last_loss=dict(teacher=teacher[-1]['losses']['loss'],
+                              baseline=base[-1]['losses']['loss'],
+                              ld=ld[-1]['losses']['loss']),
+               zero_vs_baseline_max_rel_diff=worst,
+               nms_keep_launches=launches, eval_batches=eval_batches,
+               main_seconds=seconds)
+    emit(row)
+    return launches, work, row
+
+
+def phase_landscape(torch, smi, work, epochs=HARNESS_EPOCHS):
+    """ap_landscape on the harness's teacher and LD student (configs
+    dumped beside their checkpoints, the held-out split as the test set):
+    every statistic finite, Pearson in [-1, 1]; no NMS, so no launch.
+    Returns the launches."""
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    from ld_tpu_torch.tools.analysis_tools import ap_landscape
+    from ld_tpu_torch.tools.analysis_tools import ld_gain_experiment as gain
+    from ld_tpu_torch.utils.checkpoint import latest_checkpoint
+    test = dict(type='SyntheticDetectionDataset', num_images=32, hw=gain.HW,
+                num_classes=gain.NUM_CLASSES, max_boxes=4, seed=1,
+                draw_boxes=True,
+                pipeline=gain.PIPE[:-1] + [dict(type='Collect',
+                                                keys=['img'])])
+    paths = []
+    for name, cfg, run in (('teacher', gain.base_cfg(epochs[0]), 'teacher'),
+                           ('student_ld', gain.student_cfg(epochs[1]),
+                            'student_ld')):
+        cfg['data']['test'] = dict(test)
+        path = os.path.join(work, f'{name}_config.py')
+        cfg.dump(path)
+        paths += [path, latest_checkpoint(os.path.join(work, run))]
+    out = os.path.join(work, 'ap_landscape.json')
+    t0 = time.perf_counter()
+    # ---- the main path: counts from 0, read right after ------------------
+    nms_keep.launches = 0
+    res = ap_landscape.main([paths[0], paths[2], '--checkpoint1', paths[1],
+                             '--checkpoint2', paths[3], '--max-images', '32',
+                             '--out', out])
+    torch.cuda.synchronize()
+    launches = nms_keep.launches
+    # ----------------------------------------------------------------------
+    seconds = time.perf_counter() - t0
+    per = res['per_batch']
+    check(len(per['pearson']) == 32, 'landscape: batches')
+    check(all(math.isfinite(v) for k in ('feat_l1', 'cls_l1', 'bbox_l1')
+              for b in per[k] for v in b) and
+          all(math.isfinite(p) and -1.0 <= p <= 1.0
+              for p in per['pearson']),
+          'landscape: a statistic not finite, or Pearson outside [-1, 1]')
+    check(launches == 0, f'landscape: {launches} nms_keep launches')
+    emit(dict(phase='landscape', nvidia_smi=smi,
+              tool='ld_tpu_torch/tools/analysis_tools/ap_landscape.py',
+              images=32, summary=res['summary'], seconds=seconds,
+              nms_keep_launches=launches))
+    return launches
+
+
+def jpeg_requests(np, count, seed=0):
+    """`count` seeded JPEG images of the e2e phase's request sizes, with
+    coloured rectangles on noise."""
+    from PIL import Image
+    import io
+    rng = np.random.RandomState(seed)
+    sizes = [(480, 640), (640, 480), (800, 1333), (600, 800), (800, 600),
+             (427, 640), (1024, 768), (375, 500)]
+    out = []
+    for i in range(count):
+        hw = sizes[i % len(sizes)]
+        img = rng.randint(0, 96, hw + (3, )).astype(np.uint8)
+        for _ in range(4):
+            y, x = rng.randint(0, hw[0] // 2), rng.randint(0, hw[1] // 2)
+            img[y:y + hw[0] // 3, x:x + hw[1] // 3] = rng.randint(96, 256, 3)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format='JPEG', quality=90)
+        out.append((hw, buf.getvalue()))
+    return out
+
+
+def gfl_r50_checkpoint(torch, work):
+    """The e2e phase's GFL-R50 (float32, seed 0, gfl_cls bias 0) written to
+    a `.pth` under `work`; returns its path."""
+    from ld_tpu_torch.apis import init_detector
+    model = init_detector(float32_cfg(CONFIG), device='cpu', seed=0)
+    with torch.no_grad():
+        model.bbox_head.gfl_cls.bias.zero_()
+    path = os.path.join(work, 'gfl_r50_seed0.pth')
+    torch.save(dict(state_dict=model.state_dict()), path)
+    return path
+
+
+def phase_serve_http(torch, np, smi, work):
+    """serve.py's server on GFL-R50 at 800x1344 on the card (max batch 4,
+    the default 4 ms window) answering SERVE_REQUESTS concurrent seeded
+    JPEGs: every reply 200; every batch formed (its members from the
+    replies' `X-Batch` headers) run again through the same preprocessing
+    and `infer` gives each member's reply (`same_detections`); each
+    image's head outputs at batch 1 within 1e-4 of its slot in that batch
+    (`scaled_diff`); one launch a batch formed. Whether each reply also
+    equals the image's batch-1 detections is counted, not required: on the
+    card batch 4 and batch 1 differ by float32 noise, and among random
+    weights' near-equal scores that reorders NMS candidates. Returns the
+    launches and the checkpoint."""
+    import threading
+    import urllib.request
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    from ld_tpu_torch.tools.deployment import serve
+
+    ckpt = gfl_r50_checkpoint(torch, work)
+    t0 = time.perf_counter()
+    server = serve.make_server(float32_cfg(CONFIG), ckpt, FULL_HW,
+                               max_batch=SERVE_MAX_BATCH, port=0,
+                               device='cuda')
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    requests = jpeg_requests(np, SERVE_REQUESTS)
+    replies = [None] * len(requests)
+    latency = [None] * len(requests)
+    start = threading.Barrier(len(requests))
+
+    def client(i):
+        req = urllib.request.Request(f'http://127.0.0.1:{port}/predict',
+                                     data=requests[i][1], method='POST')
+        start.wait()
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            replies[i] = (resp.status, json.loads(resp.read()),
+                          tuple(map(int, resp.headers['X-Batch'].split())))
+        latency[i] = (time.perf_counter() - t) * 1e3
+    try:
+        # ---- the main path: counts from 0, read right after --------------
+        nms_keep.launches = 0
+        t_all = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i, ))
+                   for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        t_all = time.perf_counter() - t_all
+        launches = nms_keep.launches
+        # ------------------------------------------------------------------
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    formed = list(server.batcher.formed)
+    check(all(r is not None and r[0] == 200 for r in replies),
+          f'serve_http: replies {[r and r[0] for r in replies]}')
+    check(sum(formed) == len(requests) and launches == len(formed),
+          f'serve_http: {launches} nms_keep launches for the batches '
+          f'{formed}')
+    # the host pipeline alone, then each batch formed run again
+    pre_ms, inputs = [], []
+    for _, data in requests:
+        t = time.perf_counter()
+        inputs.append(serve.preprocess(data, FULL_HW))
+        pre_ms.append((time.perf_counter() - t) * 1e3)
+    worst_net, same_as_batch1, n_dets = 0.0, 0, []
+    for index, count in enumerate(formed):
+        members = sorted((r[2][1], i) for i, r in enumerate(replies)
+                         if r[2][0] == index)
+        size = replies[members[0][1]][2][2]
+        check([slot for slot, _ in members] == list(range(count)) and
+              size >= count, f'serve_http: batch {index}: {members}')
+        images = np.zeros((size, *FULL_HW, 3), np.float32)
+        hws = np.ones((size, 2), np.float32)
+        for slot, i in members:
+            images[slot], hws[slot] = inputs[i][0], inputs[i][1]
+        dets, labels, _ = server.infer(images, hws)
+        with torch.inference_mode():
+            batch_outs = server.model(torch.from_numpy(images).cuda()
+                                      .permute(0, 3, 1, 2).contiguous())
+        for slot, i in members:
+            scale = inputs[i][2]
+            got = replies[i][1]['detections']
+            check(same_detections(np, got, serve.detections(
+                dets[slot], labels[slot], scale, 0.3)),
+                  f'serve_http: request {i} differs from its batch run again')
+            single = images[slot:slot + 1]
+            with torch.inference_mode():
+                outs = server.model(torch.from_numpy(single).cuda()
+                                    .permute(0, 3, 1, 2).contiguous())
+            for part, batch_part in zip(outs, batch_outs):
+                for lvl, batch_lvl in zip(part, batch_part):
+                    worst_net = max(worst_net, scaled_diff(
+                        np, lvl[0].cpu().numpy(),
+                        batch_lvl[slot].cpu().numpy()))
+            d1, l1, _ = server.infer(single, hws[slot:slot + 1])
+            same_as_batch1 += same_detections(np, got, serve.detections(
+                d1[0], l1[0], scale, 0.3))
+            n_dets.append(len(got))
+    check(worst_net <= 1e-4, f'serve_http: head outputs at batch 1 differ '
+          f'from the batch by {worst_net}')
+    check(min(n_dets) > 0, 'serve_http: a reply without detections')
+    lat = sorted(latency)
+    row = dict(phase='serve_http', nvidia_smi=smi, config=CONFIG,
+               tool='ld_tpu_torch/tools/deployment/serve.py',
+               requests=len(requests), request_sizes=[r[0] for r in requests],
+               max_batch=SERVE_MAX_BATCH, window_ms=4.0,
+               batches_formed=formed, batch_infer_ms=server.batcher.infer_ms,
+               warm_seconds=warm_s,
+               latency_ms=latency,
+               latency_ms_p50=float(np.percentile(lat, 50)),
+               latency_ms_p90=float(np.percentile(lat, 90)),
+               wall_s=t_all, img_per_s=len(requests) / t_all,
+               preprocess_ms=pre_ms,
+               preprocess_ms_mean=sum(pre_ms) / len(pre_ms),
+               host_pipeline_share=sum(pre_ms) / sum(latency),
+               detections=n_dets, head_outputs_vs_batch1=worst_net,
+               replies_equal_to_batch1=same_as_batch1,
+               nms_keep_launches=launches)
+    emit(row)
+    return launches, ckpt
+
+
+def phase_export(torch, np, smi, work, ckpt):
+    """export.py's export of GFL-R50 at 1x3x800x1344 on the card (the NMS
+    one `ld_tpu_torch::nms_keep` node), the exported program's forward_test
+    ms against eager, run_export.py in a fresh interpreter (its detections
+    eager forward_test's by `same_detections`, 1 launch a call counted
+    there, no module of jax, flax or ld_tpu and of ld_tpu_torch only the
+    operator's), and one call's keep mask from the kernel identical with
+    nms_keep_ref. Returns the launches (this process's and the child's)."""
+    from ld_tpu_torch.apis import init_detector
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    from ld_tpu_torch.tools.deployment import export
+
+    model = init_detector(float32_cfg(CONFIG), ckpt, device='cuda')
+    t0 = time.perf_counter()
+    exported = export.export_detector(model, FULL_HW)
+    export_s = time.perf_counter() - t0
+    check(len(export.nms_nodes(exported)) == 1,
+          'export: the graph does not hold one ld_tpu_torch::nms_keep node')
+    path = os.path.join(work, 'gfl_r50.pt2')
+    torch.export.save(exported, path)
+    inputs, outputs = export.io_specs(exported)
+    loaded = torch.export.load(path).module()
+    h, w = FULL_HW
+    canvas = np.random.RandomState(0).randn(h, w, 3).astype(np.float32)
+    image = torch.from_numpy(canvas).permute(2, 0, 1)[None].contiguous() \
+        .cuda()
+    img_hw = torch.tensor([[float(h), float(w)]], device='cuda')
+    timed = 10
+    with torch.inference_mode():
+        # ---- the main path: counts from 0, read right after --------------
+        nms_keep.launches = 0
+        ms = {}
+        for name, fn in (('eager', lambda: model.forward_test(
+                dict(image=image, img_hw=img_hw))),
+                         ('exported', lambda: loaded(image, img_hw))):
+            for _ in range(2):
+                out = fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(timed):
+                out = fn()
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t) * 1e3 / timed
+            if name == 'eager':
+                eager = out
+            else:
+                exported_diff = scaled_diff(np, out[0].cpu().numpy(),
+                                            eager[0].cpu().numpy())
+                check(exported_diff <= 1e-4 and
+                      all(torch.equal(a, b) for a, b in zip(out[1:],
+                                                            eager[1:])),
+                      f'export: the exported program differs from eager by '
+                      f'{exported_diff}')
+        launches = nms_keep.launches
+        # ------------------------------------------------------------------
+        check(launches == 2 * (2 + timed),
+              f'export: {launches} nms_keep launches for {2 * (2 + timed)} '
+              'calls')
+        outs = model(image)
+        captured = []
+
+        def capture(boxes, valid, thr):
+            captured.append((boxes, valid, thr))
+            return nms_keep(boxes, valid, thr)
+        model.bbox_head.get_bboxes(outs, img_hw, keep_fn=capture)
+        check(torch.equal(nms_keep(*captured[0]),
+                          nms_keep_ref(*captured[0])),
+              'export: the kernel keep mask differs from the plain one')
+    script = os.path.join(ROOT, 'ld_tpu_torch', 'tools', 'deployment',
+                          'run_export.py')
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-c', RUN_EXPORT_CHILD.format(path=script), path,
+         '--score-thr', '0'], capture_output=True, text=True, timeout=300)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f'run_export.py failed:\n{proc.stderr}')
+    body, info = proc.stdout.rsplit('\n', 2)[:2]
+    info = json.loads(info)
+    got = json.loads(body)['detections']
+    dets, labels, valid = (t[0].cpu().numpy() for t in eager)
+    keep = valid & (dets[:, 4] > 0)
+    want = [dict(bbox=d[:4].tolist(), score=float(d[4]), label=int(lab))
+            for d, lab in zip(dets[keep], labels[keep])]
+    check(len(got) > 0 and same_detections(np, got, want),
+          f'run_export.py: {len(got)} detections differ from eager '
+          f'forward_test\'s {len(want)}')
+    check(info['launches'] == 1 and
+          info['modules'] == ['ld_tpu_torch.ops.nms_cuda'],
+          f'run_export.py: {info}')
+    emit(dict(phase='export', nvidia_smi=smi, config=CONFIG,
+              tool='ld_tpu_torch/tools/deployment/export.py',
+              input=[1, 3, h, w], export_s=export_s,
+              pt2_bytes=os.path.getsize(path), inputs=inputs,
+              outputs=outputs, forward_test_ms_eager=ms['eager'],
+              forward_test_ms_exported=ms['exported'],
+              exported_max_abs_diff_vs_eager=exported_diff,
+              run_export_s=child_s,
+              run_export_detections=len(got),
+              run_export_launches=info['launches'],
+              run_export_modules=info['modules'],
+              nms_keep_launches=launches + info['launches']))
+    return launches + info['launches']
+
+
+def phase_deploy(torch, np, smi):
+    """The serve_http and export phases over one work dir (removed at the
+    end); returns their launches."""
+    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_deploy')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    serve_launches, ckpt = phase_serve_http(torch, np, smi, work)
+    emit(dict(phase='serve_http_done', seconds=time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    export_launches = phase_export(torch, np, smi, work, ckpt)
+    emit(dict(phase='export_done', seconds=time.perf_counter() - t0))
+    shutil.rmtree(work, ignore_errors=True)
+    return serve_launches, export_launches
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1].startswith('--ddp-'):
@@ -2269,6 +2775,16 @@ def main():
     emit(dict(phase='res2net_done', seconds=time.perf_counter() - t0))
     torch.cuda.empty_cache()
     ddp_launches = phase_ddp(torch, np, smi)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    harness_launches, harness_work, _ = phase_harness(torch, smi)
+    emit(dict(phase='harness_done', seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    landscape_launches = phase_landscape(torch, smi, harness_work)
+    emit(dict(phase='landscape_done', seconds=time.perf_counter() - t0))
+    shutil.rmtree(harness_work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    serve_http_launches, export_launches = phase_deploy(torch, np, smi)
 
     print(smi.splitlines()[0], flush=True)
     emit(dict(kernels=[dict(
@@ -2276,16 +2792,23 @@ def main():
         replaces='ld_tpu/ops/pallas_nms.py:23',
         launches=(launches + train_launches + runtime_launches +
                   voc_launches + family_launches + bf16_launches +
-                  dcn_launches + res2net_launches + ddp_launches),
+                  dcn_launches + res2net_launches + ddp_launches +
+                  harness_launches + landscape_launches +
+                  serve_http_launches + export_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
         launches_dcn=dcn_launches, launches_res2net=res2net_launches,
-        launches_ddp=ddp_launches,
+        launches_ddp=ddp_launches, launches_harness=harness_launches,
+        launches_landscape=landscape_launches,
+        launches_serve_http=serve_http_launches,
+        launches_export=export_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,
         device_ms=main_case['device_ms'], host_ms=main_case['host_ms'],
+        host_ms_launch=main_case['host_ms_launch'],
+        dispatch_host_ms=main_case['dispatch_host_ms'],
         **{f'device_ms_{n}': main_case[f'device_ms_{n}']
            for n in NMS_KERNELS},
         ms_k2048=tta_case['ms'], device_ms_k2048=tta_case['device_ms'],

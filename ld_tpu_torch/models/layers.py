@@ -66,7 +66,12 @@ class Conv2d(nn.Conv2d):
 
 class GroupNorm(nn.GroupNorm):
     """`nn.GroupNorm` with statistics in float32 and its output in
-    `compute_dtype` (flax `nn.GroupNorm(dtype)`)."""
+    `compute_dtype` (flax `nn.GroupNorm(dtype)`).
+
+    A group of one value (a 1x1 top FPN level at 32 channels in 32
+    groups), which the functional form refuses, is its bias, exactly, as
+    flax's `(x - mean) * rstd * scale + bias` gives it; any other input
+    goes to `torch.group_norm`, the op `nn.GroupNorm` calls."""
 
     def __init__(self, *args, compute_dtype=None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -74,8 +79,15 @@ class GroupNorm(nn.GroupNorm):
 
     def forward(self, x):
         if self.compute_dtype is None:
-            return super().forward(x)
-        return super().forward(x.float()).to(self.compute_dtype)
+            return self._norm(x)
+        return self._norm(x.float()).to(self.compute_dtype)
+
+    def _norm(self, x):
+        if x.shape[1] // self.num_groups * math.prod(x.shape[2:]) == 1:
+            shape = (1, -1) + (1, ) * (x.dim() - 2)
+            return (x - x) * self.weight.view(shape) + self.bias.view(shape)
+        return torch.group_norm(x, self.num_groups, self.weight, self.bias,
+                                self.eps)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -6,6 +6,13 @@ tensor it launches `csrc/nms_keep.cu` (design notes there) or raises; on a CPU
 tensor it takes `nms_keep_ref`, the PyTorch mirror of the JAX fixpoint
 `ld_tpu/ops/nms.py::_cluster_nms_keep`. Both give the same bits.
 
+Both are the implementations of one registered operator,
+`torch.ops.ld_tpu_torch.nms_keep` (`torch.library.custom_op`), with a fake
+implementation that gives the (B, K) bool shape. `nms_keep` checks its
+arguments and calls it, so `torch.export` keeps the keep mask as one node of
+the exported graph instead of tracing into the ctypes call; a program that
+loads such a graph imports this module to register the operator.
+
 The kernel is built at first use with nvcc for sm_90a into
 `ld_tpu_torch/_build/` (one shared library per source hash) and bound with
 ctypes through a plain C interface.
@@ -120,7 +127,7 @@ def nms_keep_ref(boxes: torch.Tensor, valid: torch.Tensor,
                        device=boxes.device)
     tri = torch.ones(k, k, dtype=torch.bool, device=boxes.device).triu(1)
     suppress = ((inter / union > thr) & tri).float()   # i suppresses j (i<j)
-    keep = valid
+    keep = valid.clone()     # an operator's output never aliases its input
     for _ in range(k):
         killed = torch.bmm(keep.float()[:, None, :], suppress)[:, 0] > 0.5
         new_keep = valid & ~killed
@@ -142,15 +149,32 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
     Returns:
         (B, K) bool keep mask.
 
-    A CUDA tensor launches the kernel (counted in `nms_keep.launches`) or
-    raises; a CPU tensor takes `nms_keep_ref`.
+    Calls the registered operator `ld_tpu_torch::nms_keep`: a CUDA tensor
+    launches the kernel (counted in `nms_keep.launches`) or raises; a CPU
+    tensor takes `nms_keep_ref`.
     """
     _check(boxes, valid)
+    return torch.ops.ld_tpu_torch.nms_keep(boxes, valid, float(iou_threshold))
+
+
+nms_keep.launches = 0
+
+
+@torch.library.custom_op('ld_tpu_torch::nms_keep', mutates_args=(),
+                         device_types='cpu')
+def _nms_keep_op(boxes: torch.Tensor, valid: torch.Tensor,
+                 iou_threshold: float) -> torch.Tensor:
+    return nms_keep_ref(boxes, valid, iou_threshold)
+
+
+@_nms_keep_op.register_kernel('cuda')
+def launch(boxes: torch.Tensor, valid: torch.Tensor,
+           iou_threshold: float) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors (the operator's CUDA
+    implementation), counted in `nms_keep.launches`; raises on a failed
+    build or launch."""
+    _check(boxes, valid)
     device = boxes.device
-    if device.type == 'cpu':
-        return nms_keep_ref(boxes, valid, iou_threshold)
-    if device.type != 'cuda':
-        raise ValueError(f'nms_keep runs on cuda or cpu, not {device}')
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError('nms_keep needs contiguous boxes and valid')
     b, k = valid.shape
@@ -177,4 +201,6 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
-nms_keep.launches = 0
+@_nms_keep_op.register_fake
+def _nms_keep_fake(boxes, valid, iou_threshold):
+    return torch.empty(valid.shape, dtype=torch.bool, device=valid.device)

@@ -7,9 +7,10 @@
   * `state_dict_from_jax`: the exact inverse of
     `ld_tpu.utils.checkpoint.convert_torch_state_dict` for the ResNet /
     ResNeXt (with DCN stages) / FPN
-    and the GFL, GFocalV2, ATSS-GFL and Retina-GFL heads (an LD head has its
-    base head's parameters; the JAX FCOS-GFL head is left out, its final
-    convs carry the ATSS head's names). It takes
+    and the GFL, GFocalV2, ATSS-GFL, FCOS-GFL and Retina-GFL heads (an LD
+    head has its base head's parameters; the JAX FCOS-GFL head's final
+    convs carry the ATSS head's names, and the target's keys tell them
+    apart). It takes
     the JAX package's {'params', 'batch_stats'} tree as nested dicts of
     numpy arrays and returns the port's mmdet-named state dict, so both
     packages can run on the same weights. It also maps the deep stem, the
@@ -173,15 +174,18 @@ def _neck_key(path: tuple, num_laterals: int) -> str:
 
 
 # the JAX heads' final convs -> mmdet's names; the JAX FCOS-GFL head's
-# atss_* convs are mmdet's conv_* and cannot be told from the ATSS head's
+# atss_* convs are mmdet's conv_* (`_FCOS_CONVS`), told from the ATSS head's
+# by the target's keys alone
 _HEAD_CONVS = {'gfl_cls': 'gfl_cls', 'gfl_reg': 'gfl_reg',
                'atss_cls': 'atss_cls', 'atss_reg': 'atss_reg',
                'atss_centerness': 'atss_centerness',
                'retina_cls': 'atss_cls', 'retina_reg': 'atss_reg',
                'reg_conf_1': 'reg_conf.0', 'reg_conf_2': 'reg_conf.2'}
+_FCOS_CONVS = dict(_HEAD_CONVS, atss_cls='conv_cls', atss_reg='conv_reg',
+                   atss_centerness='conv_centerness')
 
 
-def _head_key(path: tuple) -> str:
+def _head_key(path: tuple, convs: Dict[str, str] = _HEAD_CONVS) -> str:
     leaf_name = {'kernel': 'weight', 'bias': 'bias'}
     m = re.fullmatch(r'(cls|reg)_conv(\d+)', path[0])
     if m is not None:
@@ -195,8 +199,8 @@ def _head_key(path: tuple) -> str:
             return f'{kind}_convs.{i}.gn.' + {'scale': 'weight',
                                               'bias': 'bias'}[leaf]
         raise KeyError(path)
-    if path[0] in _HEAD_CONVS and len(path) == 2:
-        return f'{_HEAD_CONVS[path[0]]}.{leaf_name[path[1]]}'
+    if path[0] in convs and len(path) == 2:
+        return f'{convs[path[0]]}.{leaf_name[path[1]]}'
     raise KeyError(path)
 
 
@@ -220,14 +224,18 @@ def state_dict_from_jax(variables: Dict,
     mmdet-named state dict, including each BatchNorm's
     `num_batches_tracked` (0), so `load_state_dict(strict=True)` accepts it.
     `keys`, the target model's state-dict keys, tell the shortcut layout
-    (`_avg_down`).
+    (`_avg_down`) and an FCOS-GFL head (`bbox_head.conv_cls.*`, whose JAX
+    convs are `atss_*`); without them the head's convs keep the ATSS names.
 
     Raises KeyError on a leaf outside the ResNet / Res2Net / FPN / GFL-head
     families.
     """
     sd: Dict[str, np.ndarray] = {}
     params = variables['params']
+    keys = None if keys is None else list(keys)
     avg_down = _avg_down(variables, keys)
+    head_convs = _FCOS_CONVS if keys is not None and any(
+        k.startswith('bbox_head.conv_cls.') for k in keys) else _HEAD_CONVS
     num_laterals = sum(1 for k in params.get('neck', {})
                        if k.startswith('lateral_'))
     for coll in ('params', 'batch_stats'):
@@ -250,7 +258,7 @@ def state_dict_from_jax(variables: Dict,
                     sd[f'bbox_head.scales.{lvl}.scale'] = np.float32(s)
                 continue
             elif scope == 'head_net':
-                key = 'bbox_head.' + _head_key(rest)
+                key = 'bbox_head.' + _head_key(rest, head_convs)
             else:
                 raise KeyError(path)
             if key.endswith('.weight') and value.ndim == 4:
