@@ -2,7 +2,8 @@
 paths, the other GFL-family heads, the configs' bf16 dtype, the DCN /
 ResNeXt rows, the Res2Net-101-DCN teacher rows, data-parallel training
 and evaluation, the synthetic train-to-AP harness, the AP landscape, the
-HTTP server and the export on one CUDA card and check them.
+HTTP server, the export, the classic one-stage heads and the two-stage
+stack on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
@@ -159,10 +160,40 @@ Phases, one JSON object per line each:
                interpreter (detections within 1e-4 of eager; 1 launch
                counted there, of the framework only the operator's module
                loaded), one call's keep mask identical with nms_keep_ref.
+ 16. classic_heads — the plain one-stage heads at full width, float32,
+               random weights from seed 0: RetinaNet R50, FCOS R50-caffe
+               (GN head) and ATSS R50 (configs/retinanet/, fcos/, atss/),
+               each `forward_test` at 800x1344 (1 launch a call, the
+               detections bit-identical with the plain keep mask, the first
+               detection's score the largest class probability), 1 + 2
+               training steps at batch 2, 800x1344 (every loss finite, no
+               launch), and at 1x3x128x192 the head outputs and the first
+               step's losses on the card against the CPU (5e-3 / 2e-4;
+               rtol 1e-3 a term). Budget 45 s.
+ 17. two_stage — configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py at full
+               width, float32, seed 0: `inference_detector` on 4 seeded
+               requests and `forward_test` at 800x1344, batch 1 and 2 (2
+               launches a call: the RPN proposals of the batch, K = 4819 an
+               image, and the RoI head's class-aware NMS, K = 1024; both
+               keep masks, the proposals and the detections identical with
+               the plain keep mask); 2 + 5 training steps at batch 2 (the
+               config's samplers, 1 launch a step, every loss finite, peak
+               memory, the device's top ops); at 1x3x128x192 the FPN and
+               RPN outputs, the RPN losses and the RoI losses on the CPU's
+               proposals, card against CPU, with samplers that pick every
+               candidate (5e-3 / 2e-4; rtol 1e-3 a term); then 1 + 2 steps
+               of the KD two-stage detector (R101 teacher from
+               faster_rcnn_r101_fpn_1x_coco.py, seed 1, BNs folded; R50
+               student; loss_rpn_kd and loss_rpn_ld finite; 1 launch a
+               step); then the kernel alone on the RPN's own sorted
+               candidates at K = 4819, B = 1 and 2: bit-identical with
+               nms_keep_ref, event / host / device ms, the plain version's
+               ms and the bound. Budget 90 s.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
 (the main path's case: dense-kept set, K = 1024, B = 1; `device_ms` is the
 profiler's mask + sweep time; the `_k2048` keys the dense-kept set at
-K = 2048, B = 1, the `_tta_merge` keys the first TTA image's own merge;
+K = 2048, B = 1, the `_tta_merge` keys the first TTA image's own merge, the
+`_k4819` keys the RPN's proposals at B = 1 (`_k4819_b2` at B = 2);
 `launches` counts all main paths, `launches_<phase>` each), and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script exits
 non-zero and prints no result; so does a host without CUDA.
@@ -231,6 +262,17 @@ RES2NET_IM = (('configs/imv2/im_r101_gflv2_r2n101_dcn_2x.py', 2, 5, None,
                'bfloat16', False),
               ('configs/imv2/im_gflv2_x101-32x4dr2n101_dcn_2x.py', 1, 2, None,
                False))
+# the classic_heads phase: the configs, and the warm-up and timed training
+# steps of each
+CLASSIC_CONFIGS = ('configs/retinanet/retinanet_r50_fpn_1x_coco.py',
+                   'configs/fcos/fcos_r50_caffe_fpn_gn-head_1x_coco.py',
+                   'configs/atss/atss_r50_fpn_1x_coco.py')
+CLASSIC_STEPS = (1, 2)
+# the two_stage phase: Faster R-CNN, the KD teacher, and the RPN's NMS K at
+# 800x1344 (nms_pre 1000 on four levels, P6's 13 x 21 x 3 anchors)
+FASTER_CONFIG = 'configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py'
+KD_TEACHER_CONFIG = 'configs/faster_rcnn/faster_rcnn_r101_fpn_1x_coco.py'
+RPN_K = 4 * 1000 + 13 * 21 * 3
 # its nms_keep launches, stated before the run: 1 a forward_test call, 5 a
 # gibox step (one GI NMS per FPN level)
 RES2NET_LAUNCHES = sum(RES2NET_SERVE_CALLS) + 5 * sum(
@@ -1385,10 +1427,10 @@ def top_score(torch, head, outs):
     """The largest class probability over every anchor and class of one
     image, computed apart from the decode: the first detection's score,
     since the best candidate always survives the top-k and the NMS."""
-    name = type(head).__name__
-    if name == 'GFocalHead':
+    from ld_tpu_torch.models.heads import ATSSGFLHead
+    if type(head).__name__ == 'GFocalHead':
         probs = outs[0]
-    elif name in ('ATSSGFLHead', 'FCOSGFLHead'):
+    elif isinstance(head, ATSSGFLHead):   # ATSS / FCOS, GFL and plain
         probs = [torch.sigmoid(c) * torch.sigmoid(r)
                  for c, r in zip(outs[0], outs[2])]
     else:
@@ -2719,6 +2761,323 @@ def phase_deploy(torch, np, smi):
     return serve_launches, export_launches
 
 
+def flat_tensors(obj):
+    """Every tensor of a nest of lists and tuples, in order."""
+    if isinstance(obj, (list, tuple)):
+        return [t for x in obj for t in flat_tensors(x)]
+    return [obj]
+
+
+def build_plain(torch, config, seed=0):
+    """A config's detector on the CPU in float32, from `seed`; returns (cfg,
+    model)."""
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.models import build_detector
+    cfg = Config.fromfile(os.path.join(ROOT, config))
+    model = build_detector(cfg.model)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    return cfg, model
+
+
+def detector_steps(torch, smi, cfg, base, warmup, timed, per_step, phase,
+                   batch_size=2, pad=(800, 1344), profile=False):
+    """`warmup` + `timed` training steps of a copy of `base` on the card
+    (the config's SGD and schedule, a seeded batch of `batch_size` at
+    `pad`): every loss finite and `per_step` nms_keep launches a step;
+    with `profile`, the device's time by kernel over 2 more steps. Returns
+    the launch count of the steps and the emitted row."""
+    import copy
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    from ld_tpu_torch.testing import detection_batch
+    model = copy.deepcopy(base).to('cuda')
+    step, optimizer = make_step(cfg, model)
+    batch = detection_batch(batch_size, *pad, num_classes=80, seed=0,
+                            device='cuda')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    config = os.path.relpath(cfg.filename, ROOT)
+
+    # ---- the main path: counts from 0, read right after ------------------
+    nms_keep.launches = 0
+    step_ms, history = [], []
+    for i in range(warmup + timed):
+        before = nms_keep.launches
+        t = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        history.append({k: float(v) for k, v in metrics.items()})
+        bad = [k for k, v in history[-1].items() if not math.isfinite(v)]
+        check(not bad, f'{config} step {i}: non-finite {bad}')
+        check(nms_keep.launches - before == per_step,
+              f'{config} step {i}: {nms_keep.launches - before} nms_keep '
+              f'launches, expected {per_step}')
+    launches = nms_keep.launches
+    # ----------------------------------------------------------------------
+    row = dict(phase=phase, config=config, nvidia_smi=smi,
+               detector=type(model).__name__, batch=[batch_size, 3, *pad],
+               params=sum(p.numel() for p in model.parameters()),
+               warmup_steps=warmup, timed_steps=timed, step_ms=step_ms,
+               step_ms_mean=sum(step_ms) / len(step_ms),
+               img_per_s=batch_size * 1e3 * len(step_ms) / sum(step_ms),
+               loss_first=history[0], loss_last=history[-1],
+               nms_keep_launches=launches,
+               nms_keep_launches_per_step=per_step,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    if hasattr(model, 'teacher'):
+        row['params_teacher'] = sum(p.numel()
+                                    for p in model.teacher.parameters())
+    if profile:
+        row.update(step_profile(torch, step, batch, 2, top_n=12))
+    emit(row)
+    del model, step, optimizer, batch
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def outputs_reference(torch, np, base):
+    """`base`'s outputs (a dense head's, or a two-stage detector's FPN and
+    RPN outputs) at 1x3x128x192 on the card against the CPU, within the
+    bounds of phase_reference; returns (max abs, max median relative)."""
+    import copy
+    x = torch.from_numpy(np.random.RandomState(1).randn(1, 3, 128, 192)
+                         .astype(np.float32))
+    cpu = copy.deepcopy(base).eval()
+    card = copy.deepcopy(base).to('cuda').eval()
+    with torch.inference_mode():
+        worst, worst_med = head_output_diff([flat_tensors(cpu(x))],
+                                            [flat_tensors(card(x.cuda()))])
+    check(worst < 5e-3 and worst_med < 2e-4,
+          f'card vs CPU outputs: max {worst}, median rel {worst_med}')
+    del card
+    torch.cuda.empty_cache()
+    return worst, worst_med
+
+
+def phase_classic_heads(torch, np, smi):
+    """RetinaNet, FCOS and ATSS at full width: `forward_test` at 800x1344,
+    training steps at batch 2, and the card against the CPU at a small
+    size; returns the kernel's launch count over their main paths."""
+    t0 = time.perf_counter()
+    launches = 0
+    for config in CLASSIC_CONFIGS:
+        n, _ = family_serve(torch, smi, config, warmup=1, timed=5,
+                            phase='classic_heads_serve')
+        launches += n
+        cfg, base = build_plain(torch, config)
+        n, _ = detector_steps(torch, smi, cfg, base, *CLASSIC_STEPS,
+                              per_step=0, phase='classic_heads_train')
+        launches += n
+        worst, worst_med = outputs_reference(torch, np, base)
+        emit(dict(phase='classic_heads_outputs_reference', config=config,
+                  input='1x3x128x192', max_abs_diff=worst,
+                  max_median_rel_diff=worst_med, tol_abs=5e-3,
+                  tol_median_rel=2e-4))
+        phase_train_reference(torch, cfg, base, gi=False,
+                              phase='classic_heads_reference')
+    emit(dict(phase='classic_heads_done', seconds=time.perf_counter() - t0,
+              budget_s=45, nms_keep_launches=launches))
+    return launches
+
+
+def sample_everything(model):
+    """`model`'s RPN and RoI samplers set to pick every candidate, so that
+    the losses do not depend on the generator's stream."""
+    from ld_tpu_torch.ops.samplers import RandomSampler
+    model.rpn_head.num_samples, model.rpn_head.pos_fraction = 10**9, 1.0
+    model.roi_head.num_samples = 10**9
+    model.roi_head.sampler = RandomSampler(num=10**9, pos_fraction=1.0)
+    return model
+
+
+def two_stage_reference(torch, np, base):
+    """The card against the CPU at 1x3x128x192 on `base`'s weights with
+    samplers that pick every candidate: the FPN and RPN outputs, the RPN
+    losses, and the RoI losses on the CPU's proposals, rtol 1e-3 a term."""
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    worst, worst_med = outputs_reference(torch, np, base)
+    runs, props = {}, None
+    for device in ('cpu', 'cuda'):
+        model = sample_everything(copy.deepcopy(base)).to(device).train()
+        batch = detection_batch(1, 128, 192, seed=0, device=device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        feats, rpn_outs = model(batch['image'])
+        sizes = [tuple(c.shape[-2:]) for c in rpn_outs[0]]
+        losses = model.rpn_head.loss(rpn_outs, batch, sizes, gen)
+        if props is None:
+            props = model._proposals(rpn_outs, batch['img_hw'])
+        losses.update(model.roi_head.forward_train(
+            feats, *(p.to(device) for p in props), batch, gen))
+        runs[device] = {k: float(v.detach()) for k, v in losses.items()}
+        del model, feats, rpn_outs
+    c_loss, g_loss = runs['cpu'], runs['cuda']
+    rel = {k: abs(g_loss[k] - c) / abs(c) for k, c in c_loss.items() if c}
+    emit(dict(phase='two_stage_reference', config=FASTER_CONFIG,
+              input='1x3x128x192', max_abs_diff=worst,
+              max_median_rel_diff=worst_med, tol_abs=5e-3,
+              tol_median_rel=2e-4, proposals=int(props[1].sum()),
+              loss_cpu=c_loss, loss_card=g_loss, rel_diff=rel, rtol=1e-3))
+    for k, c in c_loss.items():
+        check(abs(g_loss[k] - c) <= 1e-3 * abs(c),
+              f'{k}: card {g_loss[k]!r} vs CPU {c!r} beyond rtol 1e-3')
+    torch.cuda.empty_cache()
+
+
+def phase_two_stage(torch, np, smi):
+    """Faster R-CNN R50 at full width through `inference_detector`,
+    `forward_test` at batch 1 and 2 and training steps, the card against
+    the CPU, the KD two-stage detector's steps, and the kernel alone at the
+    RPN's K; returns the launch count over the main paths and the K = 4819
+    rows by B."""
+    from ld_tpu_torch.apis import inference_detector, init_detector
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    t_phase = time.perf_counter()
+    model = init_detector(float32_cfg(FASTER_CONFIG), device='cuda', seed=0)
+    # fc_cls at std 1 (its init's x 100): a softmax over the 81 classes
+    # peaked enough that the RoI head's NMS sees candidates above score_thr
+    with torch.no_grad():
+        model.roi_head.bbox_head.fc_cls.weight.mul_(100.0)
+    rng = np.random.RandomState(0)
+    sizes = [(480, 640), (800, 1333), (640, 480), (427, 640)]
+    images = [rng.randint(0, 256, hw + (3, ), np.uint8) for hw in sizes]
+    gen = torch.Generator('cuda').manual_seed(0)
+    benches = {b: dict(image=torch.randn(b, 3, 800, 1344, device='cuda',
+                                         generator=gen),
+                       img_hw=torch.tensor([[800.0, 1344.0]] * b,
+                                           device='cuda'))
+               for b in (1, 2)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts from 0, read right after ------------------
+    nms_keep.launches = 0
+    calls = 0
+    latencies = []
+    for img in images:
+        t = time.perf_counter()
+        res = inference_detector(model, img)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t) * 1e3)
+        calls += 1
+        check(res['boxes'].shape[1] == 5 and
+              np.isfinite(res['boxes']).all(), 'inference_detector boxes')
+    fwd_ms = {}
+    with torch.inference_mode():
+        for b, bench in benches.items():
+            for _ in range(2):
+                model.forward_test(bench)
+                calls += 1
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                t = time.perf_counter()
+                dets, _, valid = model.forward_test(bench)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                calls += 1
+            fwd_ms[b] = times
+            check(tuple(dets.shape) == (b, 100, 5) and
+                  bool(torch.isfinite(dets).all()) and
+                  bool(valid.any(dim=1).all()), f'forward_test at batch {b}')
+    launches = nms_keep.launches
+    # ----------------------------------------------------------------------
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(launches == 2 * calls, f'nms_keep launched {launches} times for '
+          f'{calls} forward_test calls (2 a call)')
+
+    # both NMS of one batch-2 call again, with the plain keep mask
+    bench = benches[2]
+    captured = []
+
+    def capture(boxes, valid, thr):
+        captured.append((boxes.clone(), valid.clone(), thr))
+        return nms_keep(boxes, valid, thr)
+    with torch.inference_mode():
+        feats, rpn_outs = model(bench['image'])
+        props = model.rpn_head.get_proposals(rpn_outs, bench['img_hw'],
+                                             keep_fn=capture)
+        plain = model.rpn_head.get_proposals(rpn_outs, bench['img_hw'],
+                                             keep_fn=nms_keep_ref)
+        check(all(torch.equal(a, b) for a, b in zip(props, plain)),
+              'RPN proposals with the kernel differ from the plain keep mask')
+        got = model.roi_head.simple_test(feats, *props, bench['img_hw'],
+                                         keep_fn=capture)
+        want = model.roi_head.simple_test(feats, *props, bench['img_hw'],
+                                          keep_fn=nms_keep_ref)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              'detections with the kernel differ from the plain keep mask')
+    rpn_boxes, rpn_valid, rpn_thr = captured[0]
+    check(tuple(rpn_boxes.shape) == (2, RPN_K, 4) and
+          captured[1][0].shape[1] == 1024,
+          f'NMS at K = {rpn_boxes.shape[1]} (RPN), '
+          f'{captured[1][0].shape[1]} (RoI head)')
+    emit(dict(phase='two_stage_serve', config=FASTER_CONFIG, nvidia_smi=smi,
+              params=sum(p.numel() for p in model.parameters()),
+              request_sizes=sizes, latency_ms=latencies,
+              forward_test_ms_b1=fwd_ms[1],
+              forward_test_ms_b1_mean=sum(fwd_ms[1]) / len(fwd_ms[1]),
+              forward_test_ms_b2=fwd_ms[2],
+              forward_test_ms_b2_mean=sum(fwd_ms[2]) / len(fwd_ms[2]),
+              max_memory_allocated_bytes=serve_peak,
+              nms_keep_launches=launches, nms_keep_launches_per_call=2,
+              rpn_nms_k=RPN_K, roi_nms_k=1024,
+              proposals=props[1].sum(dim=1).tolist(),
+              detections=int(got[2].sum()), plain_keep_identical=True))
+    del model, feats, rpn_outs, props, plain, got, want, benches, bench
+    torch.cuda.empty_cache()
+
+    # the kernel alone on the RPN's own candidates: no main path's launch
+    k4819 = {}
+    for b in (1, 2):
+        boxes = rpn_boxes[:b].contiguous()
+        valid = rpn_valid[:b].contiguous()
+        got = nms_keep(boxes, valid, rpn_thr)
+        check(torch.equal(got, nms_keep_ref(boxes, valid, rpn_thr)),
+              f'kernel keep mask differs from plain at K = {RPN_K}, B = {b}')
+        ms, host_ms = cuda_ms(lambda: nms_keep(boxes, valid, rpn_thr),
+                              iters=100)
+        dev = kernel_device_ms(torch, lambda: nms_keep(boxes, valid, rpn_thr),
+                               NMS_KERNELS)
+        plain_ms, _ = cuda_ms(lambda: nms_keep_ref(boxes, valid, rpn_thr),
+                              iters=10)
+        bound, bound_by = nms_bound_ms(b, RPN_K)
+        row = dict(phase='kernel_time', set='rpn_proposals', K=RPN_K, B=b,
+                   kept=int(got.sum()), valid=int(valid.sum()), ms=ms,
+                   host_ms=host_ms, device_ms=dev and sum(dev.values()),
+                   **{f'device_ms_{n}': dev and dev[n] for n in NMS_KERNELS},
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                   bit_identical=True, nvidia_smi=smi)
+        emit(row)
+        k4819[b] = row
+
+    cfg, base = build_plain(torch, FASTER_CONFIG)
+    n, _ = detector_steps(torch, smi, cfg, base, 2, 5, per_step=1,
+                          phase='two_stage_train', profile=True)
+    launches += n
+    two_stage_reference(torch, np, base)
+    del base
+
+    cfg.model.type = 'KnowledgeDistillationTwoStageDetector'
+    cfg.model.teacher_config = KD_TEACHER_CONFIG
+    kd = build_detector(cfg.model)
+    kd.init_weights(torch.Generator().manual_seed(0))
+    kd.init_teacher_weights(torch.Generator().manual_seed(1))
+    check(kd.fold_teacher_bn(), 'the teacher BN fold was refused')
+    n, row = detector_steps(torch, smi, cfg, kd, 1, 2, per_step=1,
+                            phase='two_stage_kd')
+    launches += n
+    check({'loss_rpn_kd', 'loss_rpn_ld'} <= set(row['loss_last']),
+          'the KD two-stage step has no loss_rpn_kd / loss_rpn_ld')
+    del kd
+    torch.cuda.empty_cache()
+    emit(dict(phase='two_stage_done', seconds=time.perf_counter() - t_phase,
+              budget_s=90, nms_keep_launches=launches))
+    return launches, k4819
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1].startswith('--ddp-'):
@@ -2785,6 +3144,10 @@ def main():
     shutil.rmtree(harness_work, ignore_errors=True)
     torch.cuda.empty_cache()
     serve_http_launches, export_launches = phase_deploy(torch, np, smi)
+    torch.cuda.empty_cache()
+    classic_launches = phase_classic_heads(torch, np, smi)
+    torch.cuda.empty_cache()
+    two_stage_launches, k4819 = phase_two_stage(torch, np, smi)
 
     print(smi.splitlines()[0], flush=True)
     emit(dict(kernels=[dict(
@@ -2794,7 +3157,8 @@ def main():
                   voc_launches + family_launches + bf16_launches +
                   dcn_launches + res2net_launches + ddp_launches +
                   harness_launches + landscape_launches +
-                  serve_http_launches + export_launches),
+                  serve_http_launches + export_launches + classic_launches +
+                  two_stage_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -2803,6 +3167,8 @@ def main():
         launches_landscape=landscape_launches,
         launches_serve_http=serve_http_launches,
         launches_export=export_launches,
+        launches_classic_heads=classic_launches,
+        launches_two_stage=two_stage_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,
@@ -2815,7 +3181,11 @@ def main():
         plain_ms_k2048=tta_case['plain_ms'],
         bound_ms_k2048=tta_case['bound_ms'],
         ms_tta_merge=merge['ms'], device_ms_tta_merge=merge['device_ms'],
-        plain_ms_tta_merge=merge['plain_ms'])]))
+        plain_ms_tta_merge=merge['plain_ms'],
+        **{f'{key}_k4819{"" if b == 1 else "_b2"}': k4819[b][key]
+           for b in (1, 2)
+           for key in ('ms', 'host_ms', 'device_ms', 'plain_ms',
+                       'bound_ms')})]))
     emit(dict(ok=True, device=dict(platform='gpu',
                                    kind=torch.cuda.get_device_name(0),
                                    count=torch.cuda.device_count())))

@@ -178,13 +178,11 @@ def train_detector(cfg, work_dir: str, dataset=None,
     has_teacher = hasattr(model, 'teacher')
     # mmdet's NumClassCheckHook: the dataset's classes against the head's
     ds_classes = getattr(dataset, 'CLASSES', None)
-    head = getattr(model, 'bbox_head', None)
-    if ds_classes and head is not None and \
-            getattr(head, 'num_classes', None) not in (None,
-                                                       len(ds_classes)):
+    num_classes = getattr(model, 'num_classes', None)
+    if ds_classes and num_classes not in (None, 1, len(ds_classes)):
         logger.warning(
-            f'dataset has {len(ds_classes)} classes but '
-            f'bbox_head.num_classes={head.num_classes}: check the config')
+            f'dataset has {len(ds_classes)} classes but the detector has '
+            f'{num_classes}: check the config')
     model.init_weights(generator)
     if has_teacher:
         _load_teacher(model, logger)
@@ -208,7 +206,7 @@ def train_detector(cfg, work_dir: str, dataset=None,
         logger.info(f'resumed from step {global_step}')
     step_fn = make_train_step(
         model, optimizer, scheduler,
-        (cfg.get('optimizer_config') or {}).get('grad_clip'))
+        (cfg.get('optimizer_config') or {}).get('grad_clip'), seed=seed)
     batches = DevicePrefetcher(loader, device)
 
     log_interval = log_interval or cfg.get('log_config', {}).get(

@@ -40,14 +40,14 @@ def _resolve_config(path: str) -> str:
     raise FileNotFoundError(f'teacher config {path} not found')
 
 
-@DETECTORS.register_module()
-class KnowledgeDistillationSingleStageDetector(SingleStageDetector):
+class FrozenTeacher:
+    """The frozen-teacher part of a distillation detector (an `nn.Module`
+    mixin): `_build_teacher` makes the teacher from `teacher_config` (a
+    config path, or a dict with a `model`) and hides it; it moves with the
+    student and stays in eval mode."""
 
-    def __init__(self, backbone, neck, bbox_head, teacher_config,
-                 teacher_ckpt=None, eval_teacher=True, output_feature=False,
-                 train_cfg=None, test_cfg=None, pretrained=None):
-        super().__init__(backbone, neck, bbox_head, train_cfg, test_cfg,
-                         pretrained)
+    def _build_teacher(self, teacher_config, teacher_ckpt, eval_teacher,
+                       output_feature):
         # the teacher always runs in eval: with eval_teacher=False the
         # reference lets its BNs follow train mode, a no-op under norm_eval
         self.eval_teacher = eval_teacher
@@ -63,7 +63,7 @@ class KnowledgeDistillationSingleStageDetector(SingleStageDetector):
         self.teacher_ckpt = teacher_ckpt
 
     @property
-    def teacher(self) -> SingleStageDetector:
+    def teacher(self):
         return self._teacher[0]
 
     def init_teacher_weights(self, generator: torch.Generator):
@@ -89,6 +89,19 @@ class KnowledgeDistillationSingleStageDetector(SingleStageDetector):
         super().train(mode)
         self.teacher.eval()
         return self
+
+
+@DETECTORS.register_module()
+class KnowledgeDistillationSingleStageDetector(FrozenTeacher,
+                                               SingleStageDetector):
+
+    def __init__(self, backbone, neck, bbox_head, teacher_config,
+                 teacher_ckpt=None, eval_teacher=True, output_feature=False,
+                 train_cfg=None, test_cfg=None, pretrained=None):
+        super().__init__(backbone, neck, bbox_head, train_cfg, test_cfg,
+                         pretrained)
+        self._build_teacher(teacher_config, teacher_ckpt, eval_teacher,
+                            output_feature)
 
     def forward_train(self, batch: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:

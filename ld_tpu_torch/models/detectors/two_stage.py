@@ -1,0 +1,206 @@
+"""Two-stage detectors (Faster R-CNN family) and the LD through the RPN;
+port of `ld_tpu/models/detectors/two_stage.py`.
+
+`TwoStageDetector`, registered as `FasterRCNN` too: backbone -> neck ->
+`rpn_head` -> proposals -> `roi_head`, one `nn.Module` under mmdet's names.
+`forward_train` returns the RPN's and the RoI head's losses: the RPN loss,
+its proposals (under `no_grad`, from `train_cfg.rpn_proposal`, else the RPN
+test config, as in the JAX package), the RoI head's sampled losses. Both
+samplers draw from the `generator` passed in (`make_train_step` passes one
+seeded from the run's seed and the rank). `forward_test` returns padded
+(dets, labels, valid), as a single-stage detector does.
+
+  * `FastRCNN`: the RoI head on `batch['proposals']` (B, P, 4) (and
+    `proposals_valid`), else on its own RPN, as the JAX class;
+  * `RPN`: the RPN alone; it tests to its proposals as class-agnostic
+    detections scored by rank (1, 1 - 1/P, ...);
+  * `KnowledgeDistillationTwoStageDetector`: a frozen teacher (held as the
+    single-stage one: outside `parameters()` / `state_dict()`, in eval, under
+    `no_grad`) whose RPN outputs feed the student RPN's `loss_with_teacher`
+    (`loss_rpn_kd`, `loss_rpn_ld`); the RoI head trains as usual.
+
+The other two-stage names of the JAX package (Mask R-CNN, Cascade, HTC,
+...) wait for their heads (ROADMAP.md A8, A7).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ld_tpu_torch.utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
+from .kd_one_stage import FrozenTeacher
+
+DETECTORS.not_ported.update({
+    name: 'ROADMAP.md A8' if 'Mask' in name or name in (
+        'HybridTaskCascade', 'SCNet', 'PointRend') else 'ROADMAP.md A7'
+    for name in ('MaskRCNN', 'CascadeRCNN', 'MaskScoringRCNN',
+                 'DynamicRCNN', 'GridRCNN', 'DoubleHeadRCNN',
+                 'HybridTaskCascade', 'SCNet', 'PointRend',
+                 'TridentFasterRCNN')})
+
+
+def _default_generator(device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(0)
+
+
+@DETECTORS.register_module()
+class TwoStageDetector(nn.Module):
+
+    def __init__(self, backbone, neck=None, rpn_head=None, roi_head=None,
+                 train_cfg=None, test_cfg=None, pretrained=None):
+        super().__init__()
+        if isinstance(neck, (list, tuple)):
+            raise NotImplementedError('stacked necks are not ported to '
+                                      'ld_tpu_torch yet (see ROADMAP.md A7)')
+        train_cfg = dict(train_cfg or {})
+        test_cfg = dict(test_cfg or {})
+        self.backbone = BACKBONES.build(dict(backbone))
+        self.neck = NECKS.build(dict(neck)) if neck is not None else None
+        rpn_cfg = dict(rpn_head or dict(type='RPNHead', in_channels=256))
+        rpn_cfg.setdefault('train_cfg', train_cfg.get('rpn'))
+        rpn_cfg.setdefault('test_cfg', test_cfg.get('rpn'))
+        self.rpn_head = HEADS.build(rpn_cfg)
+        if roi_head is not None or not isinstance(self, RPN):
+            roi_cfg = dict(roi_head or dict(type='StandardRoIHead'))
+            roi_cfg.setdefault('train_cfg', train_cfg.get('rcnn'))
+            roi_cfg.setdefault('test_cfg', test_cfg.get('rcnn'))
+            self.roi_head = HEADS.build(roi_cfg)
+            self.num_classes = self.roi_head.num_classes
+        self.train_cfg = train_cfg
+        self.test_cfg = test_cfg
+        # the name of published ImageNet weights; nothing is downloaded
+        self.pretrained = pretrained
+
+    def init_weights(self, generator: torch.Generator):
+        for m in (self.backbone, self.neck, self.rpn_head,
+                  getattr(self, 'roi_head', None)):
+            if m is not None:
+                m.init_weights(generator)
+
+    def extract_feat(self, images: torch.Tensor):
+        x = self.backbone(images)
+        return list(self.neck(x)) if self.neck is not None else list(x)
+
+    def forward(self, images: torch.Tensor):
+        """images (B, 3, H, W) -> (neck features, RPN outputs)."""
+        feats = self.extract_feat(images)
+        return feats, self.rpn_head(feats)
+
+    def _proposals(self, rpn_outs, img_hw, cfg=None):
+        with torch.no_grad():
+            return self.rpn_head.get_proposals(
+                tuple([x.detach() for x in part] for part in rpn_outs),
+                img_hw, cfg=cfg)
+
+    def _rpn_losses(self, rpn_outs, batch, generator):
+        sizes = [tuple(c.shape[-2:]) for c in rpn_outs[0]]
+        return dict(self.rpn_head.loss(rpn_outs, batch, sizes, generator))
+
+    def forward_train(self, batch: Dict[str, torch.Tensor],
+                      generator: torch.Generator = None
+                      ) -> Dict[str, torch.Tensor]:
+        """batch: image, gt_bboxes, gt_labels, gt_valid, img_hw -> the RPN's
+        and the RoI head's losses."""
+        generator = generator or _default_generator(batch['image'].device)
+        feats, rpn_outs = self(batch['image'])
+        losses = self._rpn_losses(rpn_outs, batch, generator)
+        proposals, valid = self._proposals(
+            rpn_outs, batch['img_hw'], self.train_cfg.get('rpn_proposal'))
+        losses.update(self.roi_head.forward_train(feats, proposals, valid,
+                                                  batch, generator))
+        return losses
+
+    def forward_test(self, batch: Dict[str, torch.Tensor], rescale=False):
+        """batch: image, img_hw, optional scale_factor -> (dets (B, 100, 5),
+        labels, valid)."""
+        feats, rpn_outs = self(batch['image'])
+        proposals, valid = self._proposals(rpn_outs, batch['img_hw'])
+        return self.roi_head.simple_test(
+            feats, proposals, valid, batch['img_hw'],
+            batch.get('scale_factor'), rescale=rescale)
+
+
+DETECTORS.register_module(name='FasterRCNN', module=type(
+    'FasterRCNN', (TwoStageDetector, ), {}))
+
+
+@DETECTORS.register_module()
+class FastRCNN(TwoStageDetector):
+
+    def _given(self, batch):
+        props = batch['proposals']
+        return props, batch.get('proposals_valid', torch.ones(
+            props.shape[:2], dtype=torch.bool, device=props.device))
+
+    def forward_train(self, batch, generator=None):
+        if 'proposals' not in batch:
+            return super().forward_train(batch, generator)
+        generator = generator or _default_generator(batch['image'].device)
+        feats = self.extract_feat(batch['image'])
+        return dict(self.roi_head.forward_train(
+            feats, *self._given(batch), batch, generator))
+
+    def forward_test(self, batch, rescale=False):
+        if 'proposals' not in batch:
+            return super().forward_test(batch, rescale)
+        return self.roi_head.simple_test(
+            self.extract_feat(batch['image']), *self._given(batch),
+            batch['img_hw'], batch.get('scale_factor'), rescale=rescale)
+
+
+@DETECTORS.register_module()
+class RPN(TwoStageDetector):
+
+    def __init__(self, backbone, neck=None, rpn_head=None, train_cfg=None,
+                 test_cfg=None, pretrained=None):
+        # the rpn configs put the RPN's cfgs at the top level
+        train_cfg = dict(train_cfg or {})
+        test_cfg = dict(test_cfg or {})
+        if train_cfg and 'rpn' not in train_cfg:
+            train_cfg = dict(rpn=train_cfg)
+        if test_cfg and 'rpn' not in test_cfg:
+            test_cfg = dict(rpn=test_cfg)
+        super().__init__(backbone, neck, rpn_head, None, train_cfg, test_cfg,
+                         pretrained)
+        self.num_classes = 1
+
+    def forward_train(self, batch, generator=None):
+        generator = generator or _default_generator(batch['image'].device)
+        return self._rpn_losses(self(batch['image'])[1], batch, generator)
+
+    def forward_test(self, batch, rescale=False):
+        _, rpn_outs = self(batch['image'])
+        proposals, valid = self._proposals(rpn_outs, batch['img_hw'],
+                                           self.test_cfg.get('rpn'))
+        b, p = proposals.shape[:2]
+        scores = 1.0 - torch.arange(p, device=proposals.device,
+                                    dtype=torch.float32) / p
+        if rescale and batch.get('scale_factor') is not None:
+            proposals = proposals / torch.as_tensor(
+                batch['scale_factor'], dtype=torch.float32,
+                device=proposals.device)[:, None, :]
+        dets = torch.cat([proposals, scores.expand(b, p)[..., None]], -1)
+        return dets, torch.zeros((b, p), dtype=torch.long,
+                                 device=dets.device), valid
+
+
+@DETECTORS.register_module()
+class KnowledgeDistillationTwoStageDetector(FrozenTeacher, TwoStageDetector):
+
+    def __init__(self, backbone, neck, rpn_head, roi_head, teacher_config,
+                 teacher_ckpt=None, eval_teacher=True, output_feature=False,
+                 train_cfg=None, test_cfg=None, pretrained=None):
+        super().__init__(backbone, neck, rpn_head, roi_head, train_cfg,
+                         test_cfg, pretrained)
+        self._build_teacher(teacher_config, teacher_ckpt, eval_teacher,
+                            output_feature)
+
+    def _rpn_losses(self, rpn_outs, batch, generator):
+        with torch.no_grad():
+            _, t_rpn_outs = self.teacher(batch['image'])
+        t_rpn_outs = tuple([x.detach() for x in part] for part in t_rpn_outs)
+        sizes = [tuple(c.shape[-2:]) for c in rpn_outs[0]]
+        return dict(self.rpn_head.loss_with_teacher(
+            rpn_outs, batch, sizes, t_rpn_outs, generator))

@@ -56,13 +56,8 @@ class FCOSGFLHead(ATSSGFLHead):
                  center_sample_radius=1.5, norm_on_bbox=False,
                  centerness_on_reg=True, loss_cls=None, loss_centerness=None,
                  dcn_on_last_conv=False, conv_bias=True, **kwargs):
-        if dcn_on_last_conv:
-            raise NotImplementedError('FCOSGFLHead dcn_on_last_conv is not '
-                                      'ported to ld_tpu_torch yet (see '
-                                      'ROADMAP.md A7)')
-        if norm_on_bbox:
-            raise NotImplementedError('FCOSGFLHead norm_on_bbox=True is '
-                                      'implemented in neither package')
+        # each tower's last conv a DCNv2 (read by `_build_towers`)
+        self.dcn_on_last_conv = dcn_on_last_conv
         # conv_bias: the GN towers have no bias, as in the JAX package
         del conv_bias
         kwargs.setdefault('anchor_generator', dict(
@@ -75,6 +70,9 @@ class FCOSGFLHead(ATSSGFLHead):
         self.center_sampling = center_sampling
         self.center_sample_radius = center_sample_radius
         self.centerness_on_reg = centerness_on_reg
+        # stored and never read, as in the JAX package (ROADMAP.md caveat
+        # 17): the distances are exp(...) x stride in every mode
+        self.norm_on_bbox = norm_on_bbox
 
     def _build_predictors(self, feat_channels):
         self.conv_cls = self._pred_conv(feat_channels, self.num_classes)

@@ -42,6 +42,7 @@ from ld_tpu_torch.models.layers import Conv2d, GroupNorm, lowered_dtype
 from ld_tpu_torch.ops.anchors import AnchorGenerator
 from ld_tpu_torch.ops.boxes import (anchor_center, bbox2distance,
                                     bbox_overlaps, distance2bbox)
+from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
 from ld_tpu_torch.ops.integral import integral
 from ld_tpu_torch.ops.nms import multiclass_nms
 from ld_tpu_torch.parallel.dist import global_sum
@@ -53,12 +54,17 @@ _CLS_BIAS_INIT = float(-math.log((1 - 0.01) / 0.01))  # prior prob 0.01
 
 class ConvGNBlock(nn.Module):
     """3x3 conv (no bias) + GroupNorm(min(32, C), eps 1e-5) + ReLU, in
-    `dtype`."""
+    `dtype`; with `with_dcn` the conv is a DCNv2 (`dcn_on_last_conv`)."""
 
-    def __init__(self, in_channels, out_channels, groups=32, dtype=None):
+    def __init__(self, in_channels, out_channels, groups=32, dtype=None,
+                 with_dcn=False):
         super().__init__()
-        self.conv = Conv2d(in_channels, out_channels, 3, padding=1,
-                           bias=False, compute_dtype=dtype)
+        if with_dcn:
+            self.conv = ModulatedDeformConv2d(in_channels, out_channels, 3,
+                                              compute_dtype=dtype)
+        else:
+            self.conv = Conv2d(in_channels, out_channels, 3, padding=1,
+                               bias=False, compute_dtype=dtype)
         self.gn = GroupNorm(min(groups, out_channels), out_channels,
                             eps=1e-5, compute_dtype=dtype)
 
@@ -161,16 +167,19 @@ class GFLHead(nn.Module):
     # the prediction conv that carries the prior-0.01 bias
     cls_pred_name = 'gfl_cls'
 
+    # a DCNv2 as each tower's last conv (the FCOS heads' option)
+    dcn_on_last_conv = False
+
     def _build_towers(self, in_channels, feat_channels, stacked_convs,
                       groups):
-        self.cls_convs = nn.ModuleList(
-            ConvGNBlock(in_channels if i == 0 else feat_channels,
-                        feat_channels, groups, self.compute_dtype)
-            for i in range(stacked_convs))
-        self.reg_convs = nn.ModuleList(
-            ConvGNBlock(in_channels if i == 0 else feat_channels,
-                        feat_channels, groups, self.compute_dtype)
-            for i in range(stacked_convs))
+        def tower():
+            return nn.ModuleList(
+                ConvGNBlock(in_channels if i == 0 else feat_channels,
+                            feat_channels, groups, self.compute_dtype,
+                            self.dcn_on_last_conv and i == stacked_convs - 1)
+                for i in range(stacked_convs))
+        self.cls_convs = tower()
+        self.reg_convs = tower()
 
     def _pred_conv(self, in_channels, out_channels, kernel_size=3):
         """A biased prediction conv in the head's compute dtype."""
@@ -187,7 +196,8 @@ class GFLHead(nn.Module):
     def init_weights(self, generator: torch.Generator):
         """The JAX package's initializers: normal(0.01) conv kernels, zero
         conv biases but the prior-0.01 one of the cls prediction conv, GN
-        scale 1 / bias 0, scales 1."""
+        scale 1 / bias 0, scales 1; a tower DCN's own (he-normal weight,
+        zero `conv_offset`)."""
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, nn.Conv2d):
@@ -196,6 +206,9 @@ class GFLHead(nn.Module):
                         nn.init.zeros_(m.bias)
                 elif isinstance(m, nn.GroupNorm):
                     m.reset_parameters()
+            for m in self.modules():
+                if isinstance(m, ModulatedDeformConv2d):
+                    m.init_weights(generator)
             nn.init.constant_(getattr(self, self.cls_pred_name).bias,
                               _CLS_BIAS_INIT)
             for s in getattr(self, 'scales', ()):

@@ -1,0 +1,330 @@
+"""The standard two-stage RoI head (bbox branch); port of
+`ld_tpu/models/heads/roi_head.py:30-660`, NCHW.
+
+  * `ConvFCBBoxHead`, under mmdet's `roi_head.bbox_head` names: `num_convs`
+    shared 3x3 convs (`shared_convs.i.conv`, with `.gn` under a GN
+    `norm_cfg`), then `num_fcs` shared Linear + ReLU (`shared_fcs.i`), then
+    `fc_cls` (C + 1 logits, the last background) and `fc_reg` (4 x C deltas,
+    4 class-agnostic). Shared2FCBBoxHead is (0, 2), Shared4Conv1FCBBoxHead
+    (4, 1), the plain `BBoxHead` (0, 0) with `with_avg_pool`. A roi feature
+    flattens CHW, as mmdet's; the JAX net flattens HWC, and
+    `state_dict_from_jax` permutes fc1's rows.
+  * `StandardRoIHead.sample_rois`: the gt boxes joined to each image's
+    proposals (`add_gt_as_proposals`), MaxIoU assignment (0.5 / 0.5 / 0.5,
+    no ignore band), the sampler's positives and negatives, then a fixed
+    `num` rois an image in random order (positives first, then negatives,
+    then the rest as invalid padding), with labels (background C) and
+    `DeltaXYWHBBoxCoder` targets (stds 0.1, 0.1, 0.2, 0.2), or the raw gt
+    boxes with `reg_decoded_bbox`.
+  * `forward_train`: level-routed RoIAlign 7x7 of the sampled rois, the
+    net, softmax CE over the valid rois (averaged over their count) and
+    `loss_bbox` on the class's deltas of the positives (over 4 x their
+    count), or on the decoded boxes against the gt (over the valid count).
+  * `simple_test`: softmax scores of the proposals, the class-specific
+    boxes decoded and clipped, and one class-aware `multiclass_nms` of the
+    (roi, class) pairs: the pairs of the JAX package's one-hot layout, in
+    its order, without that (R*C, C) matrix.
+
+The sampler draws from the `torch.Generator` the caller passes in. The
+shared head of the C4 configs, GRoIE, deformable RoI pooling, the mask
+branch and the hard-mining samplers raise NotImplementedError (ROADMAP.md
+A7, A8).
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, List
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ld_tpu_torch.models.layers import GroupNorm, lecun_normal_
+from ld_tpu_torch.ops.boxes import bbox_overlaps
+from ld_tpu_torch.ops.coder import build_coder
+from ld_tpu_torch.ops.max_iou_assigner import MaxIoUAssigner
+from ld_tpu_torch.ops.nms import multiclass_nms
+from ld_tpu_torch.ops.nms_cuda import nms_keep
+from ld_tpu_torch.ops.roi_align import multi_level_roi_align
+from ld_tpu_torch.ops.samplers import build_sampler, uniform_keys
+from ld_tpu_torch.parallel.dist import global_sum
+from ld_tpu_torch.utils.registry import HEADS, LOSSES
+
+
+def _not_ported(what: str, item: str = 'A7'):
+    raise NotImplementedError(f'{what} is not ported to ld_tpu_torch yet '
+                              f'(see ROADMAP.md {item})')
+
+
+def convfc_shape(bbox_head: dict):
+    """(num_convs, num_fcs) of a bbox_head config's type (or the explicit
+    ConvFCBBoxHead fields), as `ld_tpu/models/heads/roi_head.py:167-184`."""
+    t = bbox_head.get('type', 'Shared2FCBBoxHead')
+    if t == 'BBoxHead':
+        return 0, 0
+    if t == 'ConvFCBBoxHead':
+        return (bbox_head.get('num_shared_convs', 0),
+                bbox_head.get('num_shared_fcs', 2))
+    m = re.match(r'Shared(\d+)Conv(\d+)FCBBoxHead', t)
+    if m:
+        return int(m.group(1)), int(m.group(2))
+    m = re.match(r'Shared(\d+)FCBBoxHead', t)
+    if m:
+        return 0, int(m.group(1))
+    _not_ported(f'bbox_head type {t!r}')
+
+
+class ConvModule(nn.Module):
+    """A 3x3 conv (biased unless normed) + optional GN + ReLU (mmcv
+    ConvModule: `.conv`, `.gn`)."""
+
+    def __init__(self, in_channels, out_channels, norm_cfg=None):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1,
+                              bias=norm_cfg is None)
+        if norm_cfg is not None:
+            self.gn = GroupNorm(norm_cfg.get('num_groups', 32), out_channels,
+                                eps=1e-5)
+
+    def forward(self, x):
+        x = self.conv(x)
+        if hasattr(self, 'gn'):
+            x = self.gn(x)
+        return torch.relu(x)
+
+
+class ConvFCBBoxHead(nn.Module):
+
+    def __init__(self, num_classes, in_channels=256, roi_size=7,
+                 num_convs=0, num_fcs=2, conv_out_channels=256,
+                 fc_out_channels=1024, with_avg_pool=False,
+                 reg_class_agnostic=False, conv_cfg=None, norm_cfg=None):
+        super().__init__()
+        if conv_cfg is not None:
+            _not_ported(f"bbox_head conv_cfg {conv_cfg.get('type')!r}")
+        if norm_cfg is not None and norm_cfg.get('type') != 'GN':
+            _not_ported(f"bbox_head norm_cfg {norm_cfg.get('type')!r}")
+        self.num_classes = num_classes
+        self.with_avg_pool = with_avg_pool
+        c = in_channels
+        self.shared_convs = nn.ModuleList()
+        for _ in range(num_convs):
+            self.shared_convs.append(ConvModule(c, conv_out_channels,
+                                                norm_cfg))
+            c = conv_out_channels
+        flat = c if with_avg_pool else c * roi_size * roi_size
+        self.shared_fcs = nn.ModuleList()
+        for _ in range(num_fcs):
+            self.shared_fcs.append(nn.Linear(flat, fc_out_channels))
+            flat = fc_out_channels
+        self.fc_cls = nn.Linear(flat, num_classes + 1)
+        self.fc_reg = nn.Linear(flat, 4 if reg_class_agnostic
+                                else 4 * num_classes)
+
+    def init_weights(self, generator: torch.Generator):
+        """The JAX net's initializers: lecun-normal convs and shared FCs,
+        normal(0.01) `fc_cls`, normal(0.001) `fc_reg`, zero biases, GN 1 /
+        0."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, (nn.Conv2d, nn.Linear)):
+                    lecun_normal_(m.weight, generator)
+                    if m.bias is not None:
+                        nn.init.zeros_(m.bias)
+                elif isinstance(m, nn.GroupNorm):
+                    m.reset_parameters()
+            nn.init.normal_(self.fc_cls.weight, 0.0, 0.01,
+                            generator=generator)
+            nn.init.normal_(self.fc_reg.weight, 0.0, 0.001,
+                            generator=generator)
+
+    def forward(self, x: torch.Tensor):
+        """x (R, C, S, S) -> cls (R, num_classes + 1), reg (R, 4[*C])."""
+        for conv in self.shared_convs:
+            x = conv(x)
+        x = x.mean(dim=(2, 3)) if self.with_avg_pool else x.flatten(1)
+        for fc in self.shared_fcs:
+            x = torch.relu(fc(x))
+        return self.fc_cls(x).float(), self.fc_reg(x).float()
+
+
+@HEADS.register_module()
+class StandardRoIHead(nn.Module):
+
+    def __init__(self, bbox_roi_extractor=None, bbox_head=None,
+                 mask_roi_extractor=None, mask_head=None, shared_head=None,
+                 train_cfg=None, test_cfg=None, dtype=None, **kwargs):
+        super().__init__()
+        if shared_head is not None:
+            _not_ported('the shared res5 RoI head of the C4 configs')
+        if mask_head is not None or mask_roi_extractor is not None:
+            _not_ported('the mask branch', 'A8')
+        bbox_head = dict(bbox_head or {})
+        ext = dict(bbox_roi_extractor or {})
+        if ext.get('type', 'SingleRoIExtractor') != 'SingleRoIExtractor':
+            _not_ported(f"RoI extractor {ext['type']!r} (GRoIE)")
+        roi_layer = dict(ext.get('roi_layer') or {})
+        if roi_layer.get('type', 'RoIAlign') != 'RoIAlign':
+            _not_ported(f"roi_layer {roi_layer['type']!r} (dpool)")
+        # as the JAX head: only output_size is read (ROADMAP.md caveat 18)
+        self.roi_size = roi_layer.get('output_size', 7)
+        self.featmap_strides = tuple(ext.get('featmap_strides',
+                                             (4, 8, 16, 32)))
+        self.num_classes = bbox_head.get('num_classes', 80)
+        self.reg_class_agnostic = bbox_head.get('reg_class_agnostic', False)
+        self.reg_decoded_bbox = bbox_head.get('reg_decoded_bbox', False)
+        self.coder = build_coder(bbox_head.get('bbox_coder') or dict(
+            type='DeltaXYWHBBoxCoder', target_means=[0., 0., 0., 0.],
+            target_stds=[0.1, 0.1, 0.2, 0.2]))
+        self.loss_cls = LOSSES.build(bbox_head.get('loss_cls') or dict(
+            type='CrossEntropyLoss', use_sigmoid=False, loss_weight=1.0))
+        self.loss_bbox = LOSSES.build(bbox_head.get('loss_bbox') or dict(
+            type='L1Loss', loss_weight=1.0))
+        self.train_cfg = train_cfg or {}
+        self.test_cfg = test_cfg or dict(
+            score_thr=0.05, nms=dict(iou_threshold=0.5), max_per_img=100)
+        a_cfg = dict(self.train_cfg.get('assigner', dict(
+            type='MaxIoUAssigner', pos_iou_thr=0.5, neg_iou_thr=0.5,
+            min_pos_iou=0.5)))
+        a_cfg.pop('type', None)
+        self.assigner = MaxIoUAssigner(**a_cfg)
+        s_cfg = dict(self.train_cfg.get('sampler', dict(
+            num=512, pos_fraction=0.25, add_gt_as_proposals=True)))
+        self.num_samples = s_cfg.get('num', 512)
+        self.add_gt_as_proposals = s_cfg.get('add_gt_as_proposals', True)
+        self.sampler = build_sampler(
+            dict(s_cfg, type=s_cfg.get('type', 'RandomSampler')),
+            num=self.num_samples,
+            pos_fraction=s_cfg.get('pos_fraction', 0.25))
+        num_convs, num_fcs = convfc_shape(bbox_head)
+        self.bbox_head = ConvFCBBoxHead(
+            self.num_classes, bbox_head.get('in_channels', 256),
+            self.roi_size, num_convs, num_fcs,
+            bbox_head.get('conv_out_channels', 256),
+            bbox_head.get('fc_out_channels', 1024),
+            bbox_head.get('with_avg_pool', False), self.reg_class_agnostic,
+            bbox_head.get('conv_cfg'), bbox_head.get('norm_cfg'))
+
+    def init_weights(self, generator: torch.Generator):
+        self.bbox_head.init_weights(generator)
+
+    def _extract(self, feats: List[torch.Tensor], rois, roi_valid):
+        return multi_level_roi_align(feats[:len(self.featmap_strides)], rois,
+                                     roi_valid, self.roi_size,
+                                     self.featmap_strides)
+
+    # ---- training ----------------------------------------------------------
+    def sample_rois(self, proposals, prop_valid, gt_bboxes, gt_labels,
+                    gt_valid, generator: torch.Generator) -> Dict:
+        """Assign and sample a fixed set of `num` rois an image.
+
+        Args:
+            proposals: (B, P, 4); prop_valid: (B, P); the gts (B, G, ...).
+        Returns:
+            dict of rois (B, n, 4), roi_valid, roi_pos (B, n), labels (B, n),
+            targets (B, n, 4) (deltas, or the gt boxes with
+            `reg_decoded_bbox`).
+        """
+        if self.add_gt_as_proposals:
+            proposals = torch.cat([gt_bboxes, proposals], dim=1)
+            prop_valid = torch.cat([gt_valid, prop_valid], dim=1)
+        res = self.assigner.assign(proposals, None, gt_bboxes, gt_labels,
+                                   gt_valid, prop_valid,
+                                   num_classes=self.num_classes)
+        raw_iou = torch.where(gt_valid[:, None, :],
+                              bbox_overlaps(proposals, gt_bboxes),
+                              torch.zeros((), device=proposals.device)
+                              ).amax(dim=-1)
+        pos_sel, neg_sel, neg_w = self.sampler.sample(
+            generator, res.pos_mask & prop_valid,
+            ~res.pos_mask & prop_valid, gt_inds=res.assigned_gt_inds,
+            max_overlaps=raw_iou, boxes=proposals)
+        if neg_w is not None:
+            _not_ported('negative label weights of a hard-mining sampler')
+        sel = pos_sel | neg_sel
+        rank_keys = pos_sel.float() + sel.float() + \
+            uniform_keys(generator, sel) * 0.5
+        n = min(self.num_samples, rank_keys.shape[1])
+        order = torch.topk(rank_keys, n, dim=-1).indices
+
+        def take(x):
+            return torch.gather(x, 1, order)
+        rois = torch.gather(proposals, 1, order[..., None].expand(-1, -1, 4))
+        roi_pos = take(pos_sel)
+        safe = take(res.assigned_gt_inds.clamp(min=0))
+        labels = torch.where(roi_pos, take(res.labels),
+                             torch.full_like(safe, self.num_classes))
+        gts = torch.gather(gt_bboxes, 1, safe[..., None].expand(-1, -1, 4))
+        targets = gts if self.reg_decoded_bbox else \
+            self.coder.encode(rois, gts)
+        return dict(rois=rois, roi_valid=take(sel), roi_pos=roi_pos,
+                    labels=labels, targets=targets)
+
+    def _select_reg(self, reg, labels):
+        if self.reg_class_agnostic:
+            return reg
+        reg = reg.reshape(-1, self.num_classes, 4)
+        safe = labels.clamp(0, self.num_classes - 1)
+        return torch.gather(reg, 1, safe[:, None, None].expand(-1, 1, 4))[:, 0]
+
+    def bbox_losses(self, cls, reg, s) -> Dict[str, torch.Tensor]:
+        """CE over the valid rois and the regression of the positives
+        (`ld_tpu/models/heads/roi_head.py:500-527`)."""
+        labels = s['labels'].reshape(-1)
+        validf = s['roi_valid'].reshape(-1).to(torch.float32)
+        posf = s['roi_pos'].reshape(-1).to(torch.float32)
+        avg = global_sum(validf.sum()).clamp(min=1.0)
+        loss_cls = self.loss_cls(cls, labels, weight=validf, avg_factor=avg)
+        reg_sel = self._select_reg(reg, labels)
+        tgt = s['targets'].reshape(-1, 4)
+        if self.reg_decoded_bbox:
+            # negatives and padding parked at their target, as in JAX
+            decoded = self.coder.decode(s['rois'].reshape(-1, 4), reg_sel)
+            decoded = torch.where(posf[:, None] > 0, decoded, tgt)
+            loss_bbox = self.loss_bbox(decoded, tgt, weight=posf,
+                                       avg_factor=avg)
+        else:
+            loss_bbox = self.loss_bbox(
+                reg_sel, tgt, weight=posf[:, None].expand(-1, 4),
+                avg_factor=global_sum(posf.sum()).clamp(min=1.0) * 4.0)
+        return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
+
+    def forward_train(self, feats, proposals, prop_valid, batch,
+                      generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        s = self.sample_rois(proposals, prop_valid, batch['gt_bboxes'],
+                             batch['gt_labels'].long(), batch['gt_valid'],
+                             generator)
+        cls, reg = self.bbox_head(self._extract(feats, s['rois'],
+                                                s['roi_valid']))
+        return self.bbox_losses(cls, reg, s)
+
+    # ---- inference ---------------------------------------------------------
+    def simple_test(self, feats, proposals, prop_valid, img_hw,
+                    scale_factor=None, rescale=False, cfg=None,
+                    keep_fn=nms_keep):
+        """(dets (B, max_per_img, 5), labels, valid) of the proposals."""
+        cfg = cfg or self.test_cfg
+        b, r = proposals.shape[:2]
+        cls, reg = self.bbox_head(self._extract(feats, proposals,
+                                                prop_valid))
+        scores = F.softmax(cls, dim=-1)[:, :self.num_classes].reshape(
+            b, r, -1) * prop_valid[..., None]
+        img_hw = torch.as_tensor(img_hw, dtype=torch.float32,
+                                 device=proposals.device)
+        if self.reg_class_agnostic:
+            boxes = self.coder.decode(proposals, reg.reshape(b, r, 4),
+                                      max_shape=img_hw)
+            boxes = boxes[:, :, None].expand(-1, -1, self.num_classes, 4)
+        else:
+            boxes = self.coder.decode(
+                proposals[:, :, None], reg.reshape(b, r, self.num_classes, 4),
+                max_shape=img_hw)
+        if rescale and scale_factor is not None:
+            boxes = boxes / torch.as_tensor(
+                scale_factor, dtype=torch.float32,
+                device=boxes.device)[:, None, None, :]
+        nms_cfg = dict(cfg.get('nms', {}))
+        return multiclass_nms(boxes, scores, cfg.get('score_thr', 0.05),
+                              nms_cfg.get('iou_threshold', 0.5),
+                              max_per_img=cfg.get('max_per_img', 100),
+                              nms_cfg=nms_cfg, keep_fn=keep_fn)

@@ -1,3 +1,4 @@
+from ld_tpu_torch.utils.registry import LOSSES
 from .utils import reduce_loss, weight_reduce_loss, weighted_loss
 from .cross_entropy_loss import (CrossEntropyLoss, binary_cross_entropy,
                                  cross_entropy)
@@ -5,6 +6,7 @@ from .focal_loss import FocalLoss, sigmoid_focal_loss
 from .gfocal_loss import (DistributionFocalLoss, QualityFocalLoss,
                           distribution_focal_loss, quality_focal_loss)
 from .iou_loss import CIoULoss, DIoULoss, GIoULoss, IoULoss
+from .smooth_l1_loss import L1Loss, SmoothL1Loss, l1_loss, smooth_l1_loss
 from .kd_loss import (IMLoss, KnowledgeDistillationKLDivLoss, im_loss,
                       knowledge_distillation_kl_div_loss)
 
@@ -15,5 +17,12 @@ __all__ = [
     'KnowledgeDistillationKLDivLoss', 'IMLoss',
     'knowledge_distillation_kl_div_loss', 'im_loss', 'FocalLoss',
     'sigmoid_focal_loss', 'CrossEntropyLoss', 'cross_entropy',
-    'binary_cross_entropy'
+    'binary_cross_entropy', 'L1Loss', 'SmoothL1Loss', 'l1_loss',
+    'smooth_l1_loss'
 ]
+
+# the JAX package's other losses, not ported yet
+LOSSES.not_ported.update({name: 'ROADMAP.md A7' for name in (
+    'AssociativeEmbeddingLoss', 'BalancedL1Loss', 'BoundedIoULoss', 'GHMC',
+    'GHMR', 'GaussianFocalLoss', 'MSELoss', 'VarifocalLoss')})
+LOSSES.not_ported['DiceLoss'] = 'ROADMAP.md A8'

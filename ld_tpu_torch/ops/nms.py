@@ -11,8 +11,10 @@ The JAX package's `topk_flat` lane split is a TPU sort device; here
 plain torch (`_nms_keep_classed`). `nms_cfg` type 'voting_cluster_diounms'
 takes `multiclass_nms_voting`, the cluster-DIoU fixpoint with Gaussian score
 voting, in plain torch: its suppression is not the keep kernel's IoU test.
-`approx_topk`, a TPU lowering, and `soft_nms` (not ported yet) raise
-NotImplementedError.
+`nms_cfg` type 'soft_nms' takes `soft_nms_select`, the greedy soft-NMS, in
+plain torch (a loop of `max_per_img` steps). `batched_nms` runs `nms` over a
+batch of box sets with one keep-mask launch (the RPN's proposals).
+`approx_topk`, a TPU lowering, raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -44,18 +46,71 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         idx: (K,) int64 indices into the input (undefined where invalid).
         valid: (K,) bool.
     """
+    idx, valid = batched_nms(boxes[None], scores[None], iou_threshold,
+                             max_out, score_threshold, overlap_mode, keep_fn)
+    return idx[0], valid[0]
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                iou_threshold: float, max_out: int,
+                score_threshold: float = float('-inf'),
+                overlap_mode: str = 'iou',
+                keep_fn=nms_keep) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`nms` of each image's (K, 4) box set, with one `keep_fn` call for the
+    batch: boxes (B, K, 4), scores (B, K) -> idx (B, min(max_out, K)),
+    valid."""
     if overlap_mode != 'iou':
         _not_ported(f'nms overlap_mode={overlap_mode!r}')
-    n = boxes.shape[0]
-    order_scores, order = torch.sort(scores, descending=True, stable=True)
-    sboxes = boxes[order].contiguous()
+    n = boxes.shape[1]
+    order_scores, order = torch.sort(scores, dim=-1, descending=True,
+                                     stable=True)
+    sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
     valid = order_scores > score_threshold
-    keep = keep_fn(sboxes[None], valid[None].contiguous(), iou_threshold)[0]
+    keep = keep_fn(sboxes.contiguous(), valid.contiguous(), iou_threshold)
     kept_scores = torch.where(keep, order_scores,
                               torch.full_like(order_scores, -float('inf')))
-    top_scores, pos = torch.sort(kept_scores, descending=True, stable=True)
+    top_scores, pos = torch.sort(kept_scores, dim=-1, descending=True,
+                                 stable=True)
     k = min(max_out, n)
-    return order[pos[:k]], top_scores[:k] > -float('inf')
+    return (torch.gather(order, 1, pos[:, :k]),
+            top_scores[:, :k] > -float('inf'))
+
+
+def soft_nms_select(boxes: torch.Tensor, scores: torch.Tensor,
+                    valid: torch.Tensor, iou_threshold: float, max_out: int,
+                    method: str = 'linear', sigma: float = 0.5,
+                    min_score: float = 1e-3):
+    """Greedy soft-NMS of each image's candidates (port of
+    `ld_tpu/ops/nms.py:141-181`, mmcv's `soft_nms`): `max_out` steps, each
+    emitting the highest current score (the first on a tie) and decaying the
+    others by their IoU with it, linear (x (1 - IoU) where IoU > threshold)
+    or gaussian (x exp(-IoU² / sigma)).
+
+    Args:
+        boxes: (B, K, 4); scores, valid: (B, K).
+    Returns:
+        idx (B, max_out) in emission order, the decayed scores (0 where at
+        most `min_score`), and their validity.
+    """
+    b = boxes.shape[0]
+    rows = torch.arange(b, device=boxes.device)
+    s = torch.where(valid, scores, torch.full_like(scores, -float('inf')))
+    idx, out = [], []
+    for _ in range(max_out):
+        i = torch.argmax(s, dim=-1)
+        out.append(s[rows, i])
+        idx.append(i)
+        iou = bbox_overlaps(boxes[rows, i][:, None], boxes)[:, 0]
+        if method == 'gaussian':
+            decay = torch.exp(-(iou * iou) / sigma)
+        else:
+            decay = torch.where(iou > iou_threshold, 1.0 - iou,
+                                torch.ones_like(iou))
+        s = torch.where(torch.isfinite(s), s * decay, s)
+        s[rows, i] = -float('inf')
+    idx, out = torch.stack(idx, 1), torch.stack(out, 1)
+    out_valid = out > min_score
+    return idx, torch.where(out_valid, out, torch.zeros_like(out)), out_valid
 
 
 def _topk_pairs(masked: torch.Tensor, k: int, exact_preprune: bool = None):
@@ -103,10 +158,15 @@ def multiclass_nms(mlvl_bboxes: torch.Tensor,
     by score are the candidates (static shape).
 
     Args:
-        mlvl_bboxes: (B, N, 4).
+        mlvl_bboxes: (B, N, 4), or (B, N, C, 4) class-specific boxes (the
+            RoI head's), each pair (n, c) with its own box: the pair order
+            and the candidate cut are those of the JAX package's one-hot
+            (N*C, C) score layout.
         mlvl_scores: (B, N, C) sigmoid class scores WITHOUT background column.
         nms_cfg: `type` 'voting_cluster_diounms' returns
-            `multiclass_nms_voting` (no `keep_fn`, no `iou_dtype`).
+            `multiclass_nms_voting` (no `keep_fn`, no `iou_dtype`); 'soft_nms'
+            takes `soft_nms_select` over the class-offset candidates
+            (`iou_threshold`, `method`, `sigma`, `min_score` from it).
         iou_dtype: a dtype other than float32 (or its name) computes the IoU
             matrix in it, by `_nms_keep_classed`, in place of `keep_fn`.
         keep_fn: the keep-mask function, `nms_keep` (the kernel on the card).
@@ -124,21 +184,26 @@ def multiclass_nms(mlvl_bboxes: torch.Tensor,
         iou_dtype = _as_torch_dtype(iou_dtype)
     if approx_topk:
         _not_ported('approx_topk (a TPU approx_max_k lowering)')
-    if nms_cfg.get('type') == 'voting_cluster_diounms':
+    nms_type = nms_cfg.get('type', 'nms')
+    class_boxes = mlvl_bboxes.dim() == 4
+    if nms_type == 'voting_cluster_diounms' and not class_boxes:
         return multiclass_nms_voting(mlvl_bboxes, mlvl_scores, score_thr,
                                      iou_threshold, max_per_img,
                                      max_candidates, box_coord_bound)
-    if nms_cfg.get('type', 'nms') != 'nms':
-        _not_ported(f"nms type {nms_cfg['type']!r}")
+    if nms_type not in ('nms', 'soft_nms'):
+        _not_ported(f'nms type {nms_type!r}')
     b, num_anchors, num_classes = mlvl_scores.shape
     masked = torch.where(mlvl_scores > score_thr, mlvl_scores,
                          torch.zeros_like(mlvl_scores))
     k = min(max_candidates, num_anchors * num_classes)
     top_scores, top_idx = _topk_pairs(masked, k, exact_preprune)
-    anchor_idx = top_idx // num_classes
     class_idx = top_idx % num_classes
-    cand_boxes = torch.gather(mlvl_bboxes, 1,
-                              anchor_idx[..., None].expand(b, k, 4))
+    if class_boxes:
+        cand_boxes = torch.gather(mlvl_bboxes.reshape(b, -1, 4), 1,
+                                  top_idx[..., None].expand(b, k, 4))
+    else:
+        cand_boxes = torch.gather(mlvl_bboxes, 1, (top_idx // num_classes)[
+            ..., None].expand(b, k, 4))
     cand_valid = top_scores > 0.0
 
     # class-offset trick; the offset must exceed every coordinate (the
@@ -151,6 +216,25 @@ def multiclass_nms(mlvl_bboxes: torch.Tensor,
                         min=box_coord_bound)
     offset_boxes = cand_boxes + (class_idx.to(cand_boxes.dtype) *
                                  bound[:, None])[..., None]
+    if nms_type == 'soft_nms':
+        m = min(max_per_img, k)
+        idx, s, v = soft_nms_select(
+            offset_boxes, top_scores, cand_valid,
+            nms_cfg.get('iou_threshold', 0.3), m,
+            method=nms_cfg.get('method', 'linear'),
+            sigma=nms_cfg.get('sigma', 0.5),
+            min_score=nms_cfg.get('min_score', 1e-3))
+        boxes = torch.gather(cand_boxes, 1, idx[..., None].expand(b, m, 4))
+        boxes = torch.where(v[..., None], boxes, torch.zeros_like(boxes))
+        labels = torch.where(v, torch.gather(class_idx, 1, idx),
+                             torch.full_like(idx, -1))
+        pad = max_per_img - m
+        if pad:
+            s = torch.nn.functional.pad(s, (0, pad))
+            boxes = torch.nn.functional.pad(boxes, (0, 0, 0, pad))
+            labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+            v = torch.nn.functional.pad(v, (0, pad))
+        return torch.cat([boxes, s[..., None]], -1), labels, v
     if iou_dtype not in (None, torch.float32):
         keep = _nms_keep_classed(cand_boxes, class_idx, iou_threshold,
                                  cand_valid, iou_dtype)

@@ -21,6 +21,7 @@ package are not ported.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, Optional
 
 import torch
@@ -37,14 +38,15 @@ class _ForwardTrain(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, batch):
-        return self.model.forward_train(batch)
+    def forward(self, batch, **kwargs):
+        return self.model.forward_train(batch, **kwargs)
 
 
 def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
                     scheduler: torch.optim.lr_scheduler.LRScheduler,
-                    grad_clip: Optional[Dict] = None
+                    grad_clip: Optional[Dict] = None,
+                    seed: int = 0
                     ) -> Callable[[Dict[str, torch.Tensor]],
                                   Dict[str, torch.Tensor]]:
     """The step function: batch -> the detached loss dict plus 'loss', the
@@ -59,20 +61,32 @@ def make_train_step(model: torch.nn.Module,
     norm_type=2), clipping the global norm of the trainable gradients, as
     the reference does (the JAX package's norm also counts the gradients of
     the frozen stages, which it computes and then zeroes).
+
+    seed: a detector whose `forward_train` takes a `generator` (the
+    two-stage samplers) gets one on its device, seeded at every step from
+    (seed, rank, the scheduler's step), where the JAX package folds the
+    step into its key: a resumed run draws what the run it continues
+    would have drawn.
     """
     model.train()
     params = [p for g in optimizer.param_groups for p in g['params']]
-    _, world = get_dist_info()
+    rank, world = get_dist_info()
+    device = next(model.parameters()).device
     forward = model.forward_train
+    kwargs = {}
+    if 'generator' in inspect.signature(model.forward_train).parameters:
+        kwargs['generator'] = torch.Generator(device=device)
     if world > 1:
-        device = next(model.parameters()).device
         forward = nn.parallel.DistributedDataParallel(
             _ForwardTrain(model),
             device_ids=[device.index] if device.type == 'cuda' else None,
             broadcast_buffers=False)
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        losses = forward(batch)
+        if kwargs:
+            kwargs['generator'].manual_seed(
+                hash((seed, rank, scheduler.last_epoch)) & (2**63 - 1))
+        losses = forward(batch, **kwargs)
         total = sum(v for k, v in losses.items() if 'loss' in k)
         optimizer.zero_grad(set_to_none=True)
         (total * world).backward()

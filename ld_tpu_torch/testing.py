@@ -40,11 +40,14 @@ NMS_SETS = ('identical', 'disjoint', 'invalid', 'chain_invalid',
             'boundary_chain', 'sparse_kept', 'dense_kept')
 # (K, B) checked on the card: each side of the 64-box blocks, K = 512 (the GI
 # path) and 1024 (multiclass_nms), runs longer than the sweep's staging
-# window (K > 2048), and K = 16800, the anchor count of stride 8 at 800x1344
-# (exact GI mode, gi_candidates >= the level's anchors)
+# window (K > 2048), K = 4819 and 8819, the RPN proposals' candidates at
+# 800x1344 (nms_pre 1000 and 2000 on four levels, and P6's 819 anchors), and
+# K = 16800, the anchor count of stride 8 at 800x1344 (exact GI mode,
+# gi_candidates >= the level's anchors)
 NMS_CHECK_KB = (*[(k, b) for k in (1, 8, 63, 64, 65, 127, 128, 512, 1000,
                                    1024, 2048, 4100, 8192)
-                  for b in (1, 3, 8)], (16800, 1))
+                  for b in (1, 3, 8)], (4819, 1), (4819, 2), (8819, 1),
+                (16800, 1))
 
 
 def nms_set(name, k, seed=0):

@@ -10,7 +10,9 @@
     and the GFL, GFocalV2, ATSS-GFL, FCOS-GFL and Retina-GFL heads (an LD
     head has its base head's parameters; the JAX FCOS-GFL head's final
     convs carry the ATSS head's names, and the target's keys tell them
-    apart). It takes
+    apart). It also maps what that converter does not carry: the plain
+    Retina / FCOS / ATSS heads (with `dcn_on_last_conv` towers), the RPN
+    head and the RoI head's ConvFC net. It takes
     the JAX package's {'params', 'batch_stats'} tree as nested dicts of
     numpy arrays and returns the port's mmdet-named state dict, so both
     packages can run on the same weights. It also maps the deep stem, the
@@ -180,9 +182,14 @@ _HEAD_CONVS = {'gfl_cls': 'gfl_cls', 'gfl_reg': 'gfl_reg',
                'atss_cls': 'atss_cls', 'atss_reg': 'atss_reg',
                'atss_centerness': 'atss_centerness',
                'retina_cls': 'atss_cls', 'retina_reg': 'atss_reg',
+               'conv_cls': 'conv_cls', 'conv_reg': 'conv_reg',
+               'conv_centerness': 'conv_centerness',
                'reg_conf_1': 'reg_conf.0', 'reg_conf_2': 'reg_conf.2'}
 _FCOS_CONVS = dict(_HEAD_CONVS, atss_cls='conv_cls', atss_reg='conv_reg',
                    atss_centerness='conv_centerness')
+# the plain RetinaHead keeps mmdet's retina_* names
+_RETINA_CONVS = dict(_HEAD_CONVS, retina_cls='retina_cls',
+                     retina_reg='retina_reg')
 
 
 def _head_key(path: tuple, convs: Dict[str, str] = _HEAD_CONVS) -> str:
@@ -192,9 +199,13 @@ def _head_key(path: tuple, convs: Dict[str, str] = _HEAD_CONVS) -> str:
         kind, i = m.groups()
         if len(path) == 2:        # the Retina towers' bare biased convs
             return f'{kind}_convs.{i}.conv.{leaf_name[path[1]]}'
-        sub, leaf = path[1:]
+        sub, leaf = path[1], path[-1]
         if sub == 'Conv_0' and leaf == 'kernel':
             return f'{kind}_convs.{i}.conv.weight'
+        if sub == 'ModulatedDeformConv_0':   # dcn_on_last_conv
+            return f'{kind}_convs.{i}.conv.' + (
+                f'conv_offset.{leaf_name[leaf]}' if 'conv_offset' in path
+                else 'weight')
         if sub == 'GroupNorm_0':
             return f'{kind}_convs.{i}.gn.' + {'scale': 'weight',
                                               'bias': 'bias'}[leaf]
@@ -202,6 +213,62 @@ def _head_key(path: tuple, convs: Dict[str, str] = _HEAD_CONVS) -> str:
     if path[0] in convs and len(path) == 2:
         return f'{convs[path[0]]}.{leaf_name[path[1]]}'
     raise KeyError(path)
+
+
+def _sepbn_norm_key(path: tuple) -> str:
+    """('cls_norm_l{L}_d{I}', 'bn', leaf) -> `cls_convs.L.I.bn.<leaf>`."""
+    m = re.fullmatch(r'(cls|reg)_norm_l(\d+)_d(\d+)', path[0])
+    kind, lvl, i = m.groups()
+    return f'{kind}_convs.{lvl}.{i}.bn.{_BN_LEAVES[path[-1]]}'
+
+
+def _rpn_key(path: tuple) -> str:
+    """('rpn_conv' | 'rpn_cls' | 'rpn_reg', leaf) -> mmdet's RPNHead name."""
+    mod, leaf = path
+    if mod not in ('rpn_conv', 'rpn_cls', 'rpn_reg'):
+        raise KeyError(path)
+    return f'{mod}.' + {'kernel': 'weight', 'bias': 'bias'}[leaf]
+
+
+def _roi_key(path: tuple) -> str:
+    """('bbox', 'fcI' | 'fc_cls' | 'fc_reg' | 'convI' | 'convI_norm', leaf)
+    -> mmdet's ConvFCBBoxHead name (`shared_fcs.{I-1}`, `shared_convs.{I-1}
+    .conv` and `.gn`)."""
+    if path[0] != 'bbox':
+        raise KeyError(path)
+    mod, leaf = path[1], path[-1]
+    name = {'kernel': 'weight', 'bias': 'bias', 'scale': 'weight'}[leaf]
+    if mod in ('fc_cls', 'fc_reg'):
+        return f'{mod}.{name}'
+    m = re.fullmatch(r'(fc|conv)(\d+)(_norm)?', mod)
+    if m is None:
+        raise KeyError(path)
+    kind, i, norm = m.groups()
+    if kind == 'fc':
+        return f'shared_fcs.{int(i) - 1}.{name}'
+    return f'shared_convs.{int(i) - 1}.' + ('gn' if norm else 'conv') + \
+        f'.{name}'
+
+
+def _dense_weight(path: tuple, kernel: np.ndarray, params: Dict
+                  ) -> np.ndarray:
+    """A JAX Dense kernel (in, out) -> a Linear weight (out, in). fc1 of the
+    RoI net reads its (S, S, C) roi feature flattened HWC, mmdet's
+    `shared_fcs.0` flattens CHW: its rows are permuted. C is the last shared
+    conv's width, else the RPN conv's input width (the FPN's)."""
+    weight = kernel.T
+    if path[1] != 'fc1':
+        return weight
+    bbox = params['roi_head']['bbox']
+    convs = sorted((k for k in bbox if re.fullmatch(r'conv\d+', k)),
+                   key=lambda k: int(k[4:]))
+    c = np.shape(bbox[convs[-1]]['kernel'])[-1] if convs else \
+        np.shape(params['rpn_net']['rpn_conv']['kernel'])[2]
+    s = int(round((kernel.shape[0] // c) ** 0.5))
+    if s * s * c != kernel.shape[0]:
+        raise ValueError(f'fc1 rows {kernel.shape[0]} are not S x S x {c}')
+    return weight.reshape(-1, s, s, c).transpose(0, 3, 1, 2).reshape(
+        weight.shape[0], -1)
 
 
 def _avg_down(variables: Dict, keys: Optional[Iterable[str]]) -> bool:
@@ -227,17 +294,32 @@ def state_dict_from_jax(variables: Dict,
     (`_avg_down`) and an FCOS-GFL head (`bbox_head.conv_cls.*`, whose JAX
     convs are `atss_*`); without them the head's convs keep the ATSS names.
 
-    Raises KeyError on a leaf outside the ResNet / Res2Net / FPN / GFL-head
-    families.
+    The two-stage trees map too: `rpn_net` to `rpn_head.*` and
+    `roi_head/bbox` to `roi_head.bbox_head.*` (Dense kernels transposed,
+    fc1's rows from the JAX HWC flatten to mmdet's CHW); with
+    `bbox_head.retina_cls.*` in `keys` the plain Retina head keeps its
+    `retina_*` names.
+
+    Raises KeyError on a leaf outside the ResNet / Res2Net / FPN, the
+    dense-head (GFL family, Retina, FCOS, ATSS), RPN and RoI-head families.
     """
     sd: Dict[str, np.ndarray] = {}
     params = variables['params']
     keys = None if keys is None else list(keys)
     avg_down = _avg_down(variables, keys)
-    head_convs = _FCOS_CONVS if keys is not None and any(
-        k.startswith('bbox_head.conv_cls.') for k in keys) else _HEAD_CONVS
+    head_convs = _HEAD_CONVS
+    if keys is not None and any(k.startswith('bbox_head.conv_cls.')
+                                for k in keys):
+        head_convs = _FCOS_CONVS
+    elif keys is not None and any(k.startswith('bbox_head.retina_cls.')
+                                  for k in keys):
+        head_convs = _RETINA_CONVS
     num_laterals = sum(1 for k in params.get('neck', {})
                        if k.startswith('lateral_'))
+    # a RetinaSepBNHead's levels, from the target's keys
+    sepbn_levels = len({k.split('.')[2] for k in keys or ()
+                        if re.fullmatch(r'bbox_head\.cls_convs\.\d+\.0\.'
+                                        r'conv\.weight', k)})
     for coll in ('params', 'batch_stats'):
         for path, value in _leaves(variables.get(coll, {})):
             scope, rest = path[0], path[1:]
@@ -257,8 +339,33 @@ def state_dict_from_jax(variables: Dict,
                 for lvl, s in enumerate(value):
                     sd[f'bbox_head.scales.{lvl}.scale'] = np.float32(s)
                 continue
+            elif scope == 'head_net' and re.fullmatch(
+                    r'(cls|reg)_norm_l\d+_d\d+', rest[0]):
+                key = 'bbox_head.' + _sepbn_norm_key(rest)
+                if rest[-1] == 'scale':
+                    sd[key[:-len('weight')] + 'num_batches_tracked'] = \
+                        np.zeros((), np.int64)
+            elif scope == 'head_net' and sepbn_levels and len(rest) == 2 \
+                    and re.fullmatch(r'(cls|reg)_conv\d+', rest[0]):
+                # a shared tower conv: one tensor under every level's name
+                kind, i = rest[0].split('_conv')
+                for lvl in range(sepbn_levels):
+                    sd[f'bbox_head.{kind}_convs.{lvl}.{i}.conv.weight'] = \
+                        _conv_weight(value)
+                continue
             elif scope == 'head_net':
                 key = 'bbox_head.' + _head_key(rest, head_convs)
+                dcn = _dcn_value(params['head_net'], rest, value)
+                if dcn is not None:
+                    sd[key] = dcn
+                    continue
+            elif scope == 'rpn_net':
+                key = 'rpn_head.' + _rpn_key(rest)
+            elif scope == 'roi_head':
+                key = 'roi_head.bbox_head.' + _roi_key(rest)
+                if rest[-1] == 'kernel' and value.ndim == 2:
+                    sd[key] = _dense_weight(rest, value, params)
+                    continue
             else:
                 raise KeyError(path)
             if key.endswith('.weight') and value.ndim == 4:

@@ -57,15 +57,23 @@ def _conv_of(parent: nn.Module, bn_name: str):
 @torch.no_grad()
 def fuse_conv_bn(model: nn.Module) -> int:
     """Fold every conv -> BatchNorm pair of `model` in place; returns the
-    number of pairs folded. BNs that follow no conv are left as they are."""
-    folded = 0
+    number of pairs folded. BNs that follow no conv are left as they are,
+    and so are the BNs of a conv that several BNs follow (the shared tower
+    convs of `RetinaSepBNHead`, one BN a level)."""
+    pairs = []
     for parent in model.modules():
         for name, bn in parent.named_children():
             if not isinstance(bn, nn.BatchNorm2d):
                 continue
             conv = _conv_of(parent, name)
-            if conv is None or conv.out_channels != bn.num_features:
-                continue
+            if conv is not None and conv.out_channels == bn.num_features:
+                pairs.append((conv, bn))
+    uses = {}
+    for conv, _ in pairs:
+        uses[id(conv)] = uses.get(id(conv), 0) + 1
+    folded = 0
+    for conv, bn in pairs:
+        if uses[id(conv)] == 1:
             f = bn.weight / torch.sqrt(bn.running_var + bn.eps)
             conv.weight.mul_(f[:, None, None, None])
             bn.bias.copy_(bn.bias - bn.running_mean * f)

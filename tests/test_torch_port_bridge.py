@@ -8,7 +8,10 @@ goes through `ld_tpu.utils.checkpoint.convert_torch_state_dict`, checked
 leaf by leaf against the JAX module's own parameter tree. A head runs at
 width 64 (GN 32, so 2 channels a group) with 2 stacked convs and 4
 classes, on random 64-channel FPN features of a 2-image 64x96 batch: JAX
-compiles per shape.
+compiles per shape. For the heads the JAX converter has no names for (the
+plain Retina / FCOS / ATSS heads, the RPN and RoI heads), `fill_tree`
+fills a JAX tree from a numpy seed and `state_dict_from_jax` carries it
+JAX -> port.
 """
 import numpy as np
 import jax
@@ -173,3 +176,24 @@ def assert_dets_close(got, want, tol=1e-4):
     np.testing.assert_array_equal(valid, w_valid)
     np.testing.assert_array_equal(labels, w_labels)
     np.testing.assert_allclose(dets, w_dets, rtol=0, atol=tol)
+
+
+def fill_tree(tree, seed):
+    """A parameter tree of numpy leaves of the shapes of `tree`, random:
+    kernels N(0, 1/fan_in); biases, norm affine and statistics and level
+    scales near their init."""
+    rs = np.random.RandomState(seed)
+
+    def leaf(path, x):
+        name = jax.tree_util.keystr(path)
+        shape = x.shape
+        if name.endswith("['kernel']"):
+            fan_in = int(np.prod(shape[:-1]))
+            return (rs.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)
+        if name.endswith("['scale']") or name.endswith("['scales']") or \
+                name.endswith("['var']"):
+            return rs.uniform(0.8, 1.2, shape).astype(np.float32)
+        if "conv_offset" in name:
+            return rs.uniform(-0.5, 0.5, shape).astype(np.float32)
+        return rs.uniform(-0.1, 0.1, shape).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(leaf, tree)

@@ -44,7 +44,8 @@ def _need_card():
 @pytest.mark.cuda
 def test_cuda_kernel_equals_plain_version():
     _need_card()
-    for b, k in ((1, 8), (1, 1000), (8, 1024), (2, 2048), (3, 4100)):
+    for b, k in ((1, 8), (1, 1000), (8, 1024), (2, 2048), (3, 4100),
+                 (1, 4819), (2, 4819), (1, 8819)):
         boxes, valid = _candidates(b, k, seed=b * k)
         launches = nms_keep.launches
         got = nms_keep(boxes.cuda(), valid.cuda(), 0.6)
@@ -367,3 +368,64 @@ def test_imv2_res2net_gi_masks_on_the_card_equal_the_cpu(no_tf32):
     assert all(torch.equal(g, c) for g, c in zip(masks['cuda'],
                                                  masks['cpu']))
     assert all(0 < int(g.sum()) for g in masks['cuda'])
+
+
+@pytest.mark.cuda
+def test_two_stage_forward_on_the_card_equals_the_cpu(no_tf32):
+    """Faster R-CNN (R18, width 64) at 1x3x128x192: the FPN and RPN outputs
+    on the card within 5e-3 / 2e-4 of the CPU's, the proposals of the RPN
+    with the kernel the same as the plain keep mask's, and the RoI head's
+    detections on the CPU's proposals the same set, boxes within 1e-3."""
+    _need_card()
+    import copy
+    from ld_tpu_torch.models import build_detector
+    model = build_detector(dict(
+        type='FasterRCNN',
+        backbone=dict(type='ResNet', depth=18, frozen_stages=1),
+        neck=dict(type='FPN', in_channels=[64, 128, 256, 512],
+                  out_channels=64, num_outs=5),
+        rpn_head=dict(type='RPNHead', in_channels=64, feat_channels=64),
+        roi_head=dict(type='StandardRoIHead', bbox_head=dict(
+            num_classes=4, in_channels=64, fc_out_channels=64))))
+    model.init_weights(torch.Generator().manual_seed(0))
+    # fc_cls at 10x its init: peaked enough for detections above
+    # score_thr, short of the saturated softmax whose equal scores would
+    # leave the final order to each device
+    with torch.no_grad():
+        model.roi_head.bbox_head.fc_cls.weight.mul_(10.0)
+    cpu, card = model.eval(), copy.deepcopy(model).cuda().eval()
+    x = torch.randn(1, 3, 128, 192, generator=torch.Generator().manual_seed(1))
+    hw = torch.tensor([[128.0, 192.0]])
+    with torch.inference_mode():
+        c_feats, c_rpn = cpu(x)
+        g_feats, g_rpn = card(x.cuda())
+        for c, g in zip(c_feats + c_rpn[0] + c_rpn[1],
+                        g_feats + g_rpn[0] + g_rpn[1]):
+            diff = (g.cpu() - c).abs()
+            assert float(diff.max()) < 5e-3
+            assert float((diff / (c.abs() + 1e-2)).median()) < 2e-4
+        launches = nms_keep.launches
+        props = card.rpn_head.get_proposals(g_rpn, hw.cuda())
+        assert nms_keep.launches == launches + 1
+        plain = card.rpn_head.get_proposals(g_rpn, hw.cuda(),
+                                            keep_fn=nms_keep_ref)
+        assert all(torch.equal(a, b) for a, b in zip(props, plain))
+        c_props = cpu.rpn_head.get_proposals(c_rpn, hw)
+        got = card.roi_head.simple_test(g_feats, c_props[0].cuda(),
+                                        c_props[1].cuda(), hw.cuda())
+        want = cpu.roi_head.simple_test(c_feats, *c_props, hw)
+    assert int(want[2].sum()) > 0
+    assert torch.equal(got[2].cpu(), want[2])
+    # as sets of (score, label, box): equal scores may come in either order
+    for i in range(want[2].shape[0]):
+        rows = []
+        for dets, labels in ((got[0][i].cpu(), got[1][i].cpu()),
+                             (want[0][i], want[1][i])):
+            ok = want[2][i]
+            dets, labels = dets[ok].double(), labels[ok]
+            key = sorted(range(len(labels)), key=lambda j: (
+                -round(float(dets[j, 4]), 5), int(labels[j]),
+                round(float(dets[j, 0]), 2)))
+            rows.append((dets[key], labels[key]))
+        assert torch.equal(rows[0][1], rows[1][1])
+        assert float((rows[0][0] - rows[1][0]).abs().max()) < 1e-3

@@ -173,9 +173,21 @@ def test_nms_matches_jax():
 ])
 def test_unported_nms_keys_raise(kw):
     """The keys not ported raise; the voting type, ported, routes to
-    `multiclass_nms_voting` and returns `max_per_img` rows an image."""
+    `multiclass_nms_voting` and returns `max_per_img` rows an image; the
+    soft-NMS type, ported in PR 12 (held against JAX in
+    tests/test_torch_port_two_stage.py), returns `max_per_img` rows an
+    image in emission order."""
     boxes, scores = _mc_inputs(np.random.RandomState(0), 1, 20, 3)
     args = (torch.from_numpy(boxes), torch.from_numpy(scores), 0.05, 0.6)
+    if kw.get('nms_cfg', {}).get('type') == 'soft_nms':
+        dets, labels, valid = port_nms.multiclass_nms(*args, max_per_img=30,
+                                                      **kw)
+        assert dets.shape == (1, 30, 5) and labels.shape == valid.shape == \
+            (1, 30)
+        assert 0 < int(valid.sum()) <= 30
+        n = int(valid.sum())
+        assert valid[0, :n].all() and (dets[0, :n, 4].diff() <= 0).all()
+        return
     if kw.get('nms_cfg', {}).get('type') == 'voting_cluster_diounms':
         dets, labels, valid = port_nms.multiclass_nms(*args, max_per_img=30,
                                                       **kw)
