@@ -88,13 +88,13 @@ Phases, one JSON object per line each:
                build_detector / make_train_step / forward_test: the LDv2
                config configs/ldv2/ld_r50_gflv2_r101_fpn_1x.py (R50
                GFocalV2 student from seed 0, R101 GFocalV2 teacher from
-               seed 1 with its BNs folded, gibox imitation) for 2 + 5 steps
+               seed 1 with its BNs folded, gibox imitation) for 1 + 3 steps
                at batch 2, 800x1344, 5 kernel launches a step, its GI masks
                and loss_im identical with the plain keep mask; the IMv2
                config for one step (loss_dfl 0, 5 launches); LD on ATSS-,
                FCOS- (caffe-style R101 teacher) and Retina-GFL
                (configs/ld/ld_r50_{atss,fcos}_r101_1x.py, ld_retina_r50_1x.py)
-               for 2 + 3 steps each, no launch; every loss finite; the
+               for 1 + 2 steps each, no launch; every loss finite; the
                first step of each (but IMv2) at 1x3x128x192 on the card
                against the CPU, rtol 1e-3 a term (and identical GI masks);
                step, teacher and profile figures. Then forward_test at
@@ -114,7 +114,7 @@ Phases, one JSON object per line each:
                the CPU, the self student in its bf16 dtype); the phase's
                launch count must equal RES2NET_LAUNCHES.
  11. ddp     — data parallelism over 2 ranks sharing the card (gloo; NCCL
-               where there is a card a rank): (a) 4 steps of the GI config
+               where there is a card a rank): (a) 3 steps of the GI config
                at full width, float32, batch 2 a rank at 800x1344 in 2
                spawned ranks against one process at batch 4 over the same
                images and weights (loss terms rtol 1e-3, GI masks
@@ -122,19 +122,20 @@ Phases, one JSON object per line each:
                largest value, 5 launches a step a rank); (b) this script
                in its worker mode under `python -m torch.distributed.run
                --nproc_per_node 2` on tools/train.py --launcher pytorch
-               with the runtime phase's config, through, and preempted by
-               a SIGTERM to rank 0 after step 3 and resumed (the same
-               img_ids a rank, the same LR a step; rank 0 alone writes;
-               5 launches a step a rank + 1 an eval batch); (c) the same
-               on tools/test.py --launcher pytorch --eval bbox (every test
-               image once, in dataset order, the detections those of a
-               one-process forward_test of the same per-rank batches); (d)
+               with the runtime phase's config, through (one launch), and
+               preempted by a SIGTERM to rank 0 after step 3 and resumed
+               (the same img_ids a rank, the same LR a step; rank 0 alone
+               writes; 5 launches a step a rank + 1 an eval batch); (c) in
+               the second launch, after the resumed run, tools/test.py
+               --launcher pytorch --eval bbox (every test image once, in
+               dataset order, the detections those of a one-process
+               forward_test of the same per-rank batches); (d)
                step ms against one process, the gradient all-reduce's ms,
                peak memory a rank, the phase's seconds: the collective
                path's cost on a shared card, not a scaling figure.
  12. harness — ld_tpu_torch/tools/analysis_tools/ld_gain_experiment.py on
                its own 96 + 32 drawable synthetic images at 160x224
-               (teacher 4 epochs, students 2), cuDNN deterministic: every
+               (teacher 2 epochs, students 1), cuDNN deterministic: every
                loss finite, no launch a step, 1 an eval batch; then the LD
                student with its LD, VLR and KD weights 0 against the
                baseline, losses within rtol 1e-5 a step; the three mAPs and
@@ -231,11 +232,11 @@ VOC_SPLITS = {'VOC2007': {'trainval': 6, 'test': 8},
 TTA_SCALES = (1000, 600, 1333, 800)
 # the gfl_family phase's LD configs (each with its R101 teacher): (config,
 # nms_keep launches a step, warm-up steps, timed steps, card-vs-CPU check)
-FAMILY_LD = (('configs/ldv2/ld_r50_gflv2_r101_fpn_1x.py', 5, 2, 5, True),
+FAMILY_LD = (('configs/ldv2/ld_r50_gflv2_r101_fpn_1x.py', 5, 1, 3, True),
              ('configs/imv2/im_r50_gflv2_r101_1x.py', 5, 0, 1, False),
-             ('configs/ld/ld_r50_atss_r101_1x.py', 0, 2, 3, True),
-             ('configs/ld/ld_r50_fcos_r101_1x.py', 0, 2, 3, True),
-             ('configs/ld/ld_retina_r50_1x.py', 0, 2, 3, True))
+             ('configs/ld/ld_r50_atss_r101_1x.py', 0, 1, 2, True),
+             ('configs/ld/ld_r50_fcos_r101_1x.py', 0, 1, 2, True),
+             ('configs/ld/ld_retina_r50_1x.py', 0, 1, 2, True))
 # its serving configs: (config, backbone depth in place of the config's)
 FAMILY_SERVE = (('configs/gfl/gflv2_r50_fpn_1x_coco.py', None),
                 ('configs/gfl/atss_gfl_r50_1x.py', None),
@@ -248,19 +249,19 @@ DCN_SERVE = ('configs/gfl/gfl_r101_dcn_fpn_mstrain_2x_coco.py',
              'configs/gfl/gfl_x101_32x4d_fpn_dconv_c4-c5_mstrain_2x_coco.py')
 DCN_LAYERS = (('r101_stage2', 128, (100, 168), 1),
               ('x101_stage3', 512, (50, 84), 32))
-DCN_LD = (('configs/ld/ld_r101_gflv1_r101dcn_fpn_coco_2x.py', 2, 5),
-          ('configs/ld/ld_x101_32x4d_dcn_self_2x_coco.py', 2, 3))
+DCN_LD = (('configs/ld/ld_r101_gflv1_r101dcn_fpn_coco_2x.py', 1, 3),
+          ('configs/ld/ld_x101_32x4d_dcn_self_2x_coco.py', 1, 2))
 # the res2net phase: the GFLv2-Res2Net-101-DCN teacher served (warm-up and
 # timed forward_test calls), its DCN layer count, and the IMv2 configs that
 # distil it (config, warm-up steps, timed steps, student dtype, card vs CPU)
 RES2NET_TEACHER = 'configs/imv2/gflv2_r2n101_dcn_fpn_2x.py'
-RES2NET_SERVE_CALLS = (2, 10)
+RES2NET_SERVE_CALLS = (1, 4)
 RES2NET_DCN_LAYERS = 90
-RES2NET_IM = (('configs/imv2/im_r101_gflv2_r2n101_dcn_2x.py', 2, 5, None,
+RES2NET_IM = (('configs/imv2/im_r101_gflv2_r2n101_dcn_2x.py', 1, 3, None,
                True),
-              ('configs/imv2/im_gflv2_r2n101_dcn_self-2x.py', 1, 3,
+              ('configs/imv2/im_gflv2_r2n101_dcn_self-2x.py', 1, 2,
                'bfloat16', False),
-              ('configs/imv2/im_gflv2_x101-32x4dr2n101_dcn_2x.py', 1, 2, None,
+              ('configs/imv2/im_gflv2_x101-32x4dr2n101_dcn_2x.py', 1, 1, None,
                False))
 # the classic_heads phase: the configs, and the warm-up and timed training
 # steps of each
@@ -273,6 +274,13 @@ CLASSIC_STEPS = (1, 2)
 FASTER_CONFIG = 'configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py'
 KD_TEACHER_CONFIG = 'configs/faster_rcnn/faster_rcnn_r101_fpn_1x_coco.py'
 RPN_K = 4 * 1000 + 13 * 21 * 3
+# the mask_rcnn phase: Mask R-CNN R50, the X101-32x8d config with its own
+# mask-loading pipeline, the instance data config whose train pipeline the
+# R50 steps take, and the polygon set evaluated (images, sizes (h, w))
+MASK_CONFIG = 'configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py'
+MASK_X101_CONFIG = 'configs/mask_rcnn/mask_rcnn_x101_32x8d_fpn_1x_coco.py'
+MASK_DATA_CONFIG = 'configs/_base_/datasets/coco_instance.py'
+MASK_EVAL_SET = (8, ((480, 640), (640, 480)))
 # its nms_keep launches, stated before the run: 1 a forward_test call, 5 a
 # gibox step (one GI NMS per FPN level)
 RES2NET_LAUNCHES = sum(RES2NET_SERVE_CALLS) + 5 * sum(
@@ -1529,8 +1537,8 @@ def family_serve(torch, smi, config, depth=None, warmup=2, timed=10,
 
 
 def phase_gfl_family(torch, smi):
-    """The other GFL-family heads at full width: LDv2 (2 + 5 steps), IMv2
-    (1 step), LD on ATSS-, FCOS- and Retina-GFL (2 + 3 steps each), then
+    """The other GFL-family heads at full width: LDv2 (1 + 3 steps), IMv2
+    (1 step), LD on ATSS-, FCOS- and Retina-GFL (1 + 2 steps each), then
     `forward_test` of a GFocalV2, ATSS-, FCOS- and Retina-GFL R50; returns
     the kernel's launch count over their main paths."""
     launches = 0
@@ -1891,7 +1899,7 @@ def phase_dcn(torch, smi):
     identical dets, the DCN layers' share of device time; the R101-DCN
     model with the voting NMS; each model then as its LD config's teacher
     runs it); one DCN layer of each stage shape on the card against the
-    CPU; 2 + 5 steps of the R101-DCN -> R101 LD config and 2 + 3 of the
+    CPU; 1 + 3 steps of the R101-DCN -> R101 LD config and 1 + 2 of the
     X101-DCN self-LD one (no launch, card vs CPU at 1x3x128x192); one bf16
     step of each. Returns the kernel's launch count over the main paths."""
     launches = 0
@@ -1957,9 +1965,9 @@ def phase_res2net(torch, np, smi):
     identical dets, the DCN layers' and their conv_offset convs' device
     time), the same model as a teacher at batch 2 (BNs folded) and its
     head outputs on the card against the CPU; then the IMv2 configs that
-    distil it, 5 launches a gibox step: the R101 student (2 + 5 steps,
+    distil it, 5 launches a gibox step: the R101 student (1 + 3 steps,
     float32, card vs CPU at 1x3x128x192), the R2N101-DCN self student in
-    its config's bf16 (1 + 3) and the X101-32x4d student (1 + 2). A
+    its config's bf16 (1 + 2) and the X101-32x4d student (1 + 1). A
     student's DCN offsets start at the init's zero, as from ImageNet
     weights: the self student with seeded offsets (taps ~50 px off on its
     layer-3 activations) diverges by its third SGD step in float32 and
@@ -2012,7 +2020,7 @@ def rel_max_diff(np, got, want):
     return diff / max(float(np.abs(want[k]).max()) for k in want)
 
 
-def ddp_step(torch, np, warmup=1, timed=3):
+def ddp_step(torch, np, warmup=1, timed=2):
     """(a) The GI config's step at full width, float32, over 2 spawned
     ranks x 2 images of testing.detection_batch at 800x1344, against one
     process at 4 images over the same images and weights: each loss term
@@ -2095,12 +2103,16 @@ def torchrun(args, timeout=600):
 
 
 def ddp_worker(argv):
-    """torchrun's target in the ddp phase, one rank:
-    `--ddp-train-worker OUT PREEMPT -- ARGS` runs tools/train.py's main on
-    ARGS, recording this rank's img_ids, losses and launches a step (the
-    `make_train_step` of train_detector wrapped; rank 0 raises SIGTERM
-    after its step PREEMPT unless it is 0); `--ddp-test-worker OUT 0 --
-    ARGS` runs tools/test.py's main. Writes OUT.rank<r>.pt."""
+    """torchrun's target in the ddp phase, one rank: jobs separated by
+    `--ddp-job`, each `MODE OUT PREEMPT -- ARGS`, run in turn in this
+    process (a torchrun launch and its ranks' start-up take ~30 s, so one
+    launch runs a preempted run, its resumption and the test CLI).
+    `--ddp-train-worker` runs tools/train.py's main on ARGS, recording this
+    rank's img_ids, losses and launches a step (the `make_train_step` of
+    train_detector wrapped; rank 0 raises SIGTERM after its step PREEMPT
+    unless it is 0) and the checkpoints its work dir holds at the end;
+    `--ddp-test-worker` runs tools/test.py's main. Each job writes
+    OUT.rank<r>.pt."""
     import torch
     sys.path.insert(0, ROOT)
     import ld_tpu_torch.apis.train as train_api
@@ -2108,21 +2120,42 @@ def ddp_worker(argv):
     # as the phases of this process: float32 convs and matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    mode, out, preempt = argv[0], argv[1], int(argv[2])
+    import torch.distributed as dist
+    from ld_tpu_torch.parallel.dist import init_dist
     rank = int(os.environ['RANK'])
-    nms_keep.launches = 0
-    record = []
-    if mode == '--ddp-train-worker':
-        instrument_steps(train_api, record,
-                         preempt_after=preempt if rank == 0 and preempt
-                         else None)
-        ret = load_tool('train').main(argv[4:])
-        res = dict(preempted=ret['preempted'], step=ret['step'])
-    else:
-        res = dict(results=load_tool('test').main(argv[4:])['results'])
-    torch.save(dict(res, record=record, launches=nms_keep.launches,
-                    peak_bytes=torch.cuda.max_memory_allocated()),
-               f'{out}.rank{rank}.pt')
+    jobs = [[]]
+    for a in argv:
+        if a == '--ddp-job':
+            jobs.append([])
+        else:
+            jobs[-1].append(a)
+    # the process group, joined once for every job (the tools keep a group
+    # that is up; a second join in one process can hang the rendezvous)
+    first = jobs[0][4:]
+    init_dist('pytorch', next(a.split('=', 1)[1] for a in first
+                              if a.startswith('dist_params.backend=')),
+              device=first[first.index('--device') + 1]
+              if '--device' in first else None)
+    for mode, out, preempt, _, *args in jobs:
+        preempt = int(preempt)
+        nms_keep.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        record = []
+        if mode == '--ddp-train-worker':
+            instrument_steps(train_api, record,
+                             preempt_after=preempt if rank == 0 and preempt
+                             else None)
+            ret = load_tool('train').main(args)
+            work_dir = args[args.index('--work-dir') + 1]
+            res = dict(preempted=ret['preempted'], step=ret['step'],
+                       checkpoints=sorted(os.listdir(os.path.join(
+                           work_dir, 'checkpoints'))))
+        else:
+            res = dict(results=load_tool('test').main(args)['results'])
+        torch.save(dict(res, record=record, launches=nms_keep.launches,
+                        peak_bytes=torch.cuda.max_memory_allocated()),
+                   f'{out}.rank{rank}.pt')
+    dist.destroy_process_group()
     return 0
 
 
@@ -2160,23 +2193,33 @@ def ddp_cli(torch, np, work, steps_per_epoch=3, epochs=2):
     cfg.dump(cfg_path)
     opts = ['--cfg-options', f'dist_params.backend={ddp_backend(torch)}']
     steps = steps_per_epoch * epochs
-    runs, seconds = {}, {}
-    for name, preempt in (('through', 0), ('preempted', 3),
-                          ('resumed', 0)):
-        wd = os.path.join(work, 'through' if name == 'through' else 'cut')
-        args = ['--ddp-train-worker', os.path.join(work, name), preempt,
+    ckpt = os.path.join(work, 'through', 'checkpoints', f'{steps}.pth')
+
+    def train_job(name, preempt, wd, *extra):
+        return ['--ddp-train-worker', os.path.join(work, name), preempt,
                 '--', cfg_path, '--work-dir', wd, '--launcher', 'pytorch',
-                *opts]
-        if name == 'resumed':
-            args += ['--resume-from', wd]
+                *opts, *extra]
+    # two launches: the run through; then, in one launch, the run
+    # preempted, its resumption and (c) the test CLI on the first's
+    # checkpoint
+    launches_args = {
+        'through': train_job('through', 0, os.path.join(work, 'through')),
+        'cut': [*train_job('preempted', 3, os.path.join(work, 'cut')),
+                '--ddp-job',
+                *train_job('resumed', 0, os.path.join(work, 'cut'),
+                           '--resume-from', os.path.join(work, 'cut')),
+                '--ddp-job', '--ddp-test-worker', os.path.join(work, 'test'),
+                0, '--', cfg_path, ckpt, '--eval', 'bbox', '--launcher',
+                'pytorch', *opts]}
+    runs, seconds = {}, {}
+    for name, args in launches_args.items():
         t0 = time.perf_counter()
         torchrun(args)
         seconds[name] = time.perf_counter() - t0
+    for name in ('through', 'preempted', 'resumed'):
         runs[name] = ddp_read(torch, os.path.join(work, name))
-        if name == 'preempted':
-            ckpts_at_preemption = sorted(os.listdir(os.path.join(
-                wd, 'checkpoints')))
     through, cut = runs['through'], runs['preempted']
+    ckpts_at_preemption = cut[0]['checkpoints']
     for r in range(DDP_RANKS):
         rec = through[r]['record']
         check(len(rec) == steps and all(x['launches'] == 5 for x in rec),
@@ -2209,7 +2252,6 @@ def ddp_cli(torch, np, work, steps_per_epoch=3, epochs=2):
               'ddp cli: more than one rank wrote train.log')
     check(len([x for x in logs['through'] if x['mode'] == 'val']) == epochs,
           'ddp cli: val lines')
-    ckpt = os.path.join(work, 'through', 'checkpoints', f'{steps}.pth')
     check(sorted(os.listdir(os.path.join(work, 'through', 'checkpoints')))
           == [f'{steps}.pth'] and os.path.exists(os.path.join(
               work, 'through', 'best_bbox_mAP.pth')),
@@ -2218,12 +2260,7 @@ def ddp_cli(torch, np, work, steps_per_epoch=3, epochs=2):
     load_checkpoint(model, ckpt)
 
     # (c) the test CLI on the checkpoint
-    out = os.path.join(work, 'test')
-    t0 = time.perf_counter()
-    torchrun(['--ddp-test-worker', out, 0, '--', cfg_path, ckpt, '--eval',
-              'bbox', '--launcher', 'pytorch', *opts])
-    seconds['test'] = time.perf_counter() - t0
-    tests = ddp_read(torch, out)
+    tests = ddp_read(torch, os.path.join(work, 'test'))
     val = build_dataset(cfg.data['val'])
     results = tests[0]['results']
     check(len(results) == len(val) and all(len(x['labels']) for x in
@@ -2293,7 +2330,7 @@ def phase_ddp(torch, np, smi):
 
 # the harness phase: ld_gain_experiment's schedule cut to (teacher epochs,
 # student epochs) over its own 96 + 32 images
-HARNESS_EPOCHS = (4, 2)
+HARNESS_EPOCHS = (2, 1)
 # the serve_http phase: concurrent requests, the server's largest batch
 SERVE_REQUESTS = 12
 SERVE_MAX_BATCH = 4
@@ -2780,19 +2817,22 @@ def build_plain(torch, config, seed=0):
 
 
 def detector_steps(torch, smi, cfg, base, warmup, timed, per_step, phase,
-                   batch_size=2, pad=(800, 1344), profile=False):
+                   batch_size=2, pad=(800, 1344), profile=False, batch=None):
     """`warmup` + `timed` training steps of a copy of `base` on the card
-    (the config's SGD and schedule, a seeded batch of `batch_size` at
-    `pad`): every loss finite and `per_step` nms_keep launches a step;
-    with `profile`, the device's time by kernel over 2 more steps. Returns
-    the launch count of the steps and the emitted row."""
+    (the config's SGD and schedule, `batch` on the card or a seeded batch
+    of `batch_size` at `pad`): every loss finite and `per_step` nms_keep
+    launches a step; with `profile`, the device's time by kernel over 2
+    more steps. Returns the launch count of the steps and the emitted
+    row."""
     import copy
     from ld_tpu_torch.ops.nms_cuda import nms_keep
     from ld_tpu_torch.testing import detection_batch
     model = copy.deepcopy(base).to('cuda')
     step, optimizer = make_step(cfg, model)
-    batch = detection_batch(batch_size, *pad, num_classes=80, seed=0,
-                            device='cuda')
+    if batch is None:
+        batch = detection_batch(batch_size, *pad, num_classes=80, seed=0,
+                                device='cuda')
+    batch_size, pad = batch['image'].shape[0], batch['image'].shape[-2:]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     config = os.path.relpath(cfg.filename, ROOT)
@@ -2816,7 +2856,8 @@ def detector_steps(torch, smi, cfg, base, warmup, timed, per_step, phase,
     launches = nms_keep.launches
     # ----------------------------------------------------------------------
     row = dict(phase=phase, config=config, nvidia_smi=smi,
-               detector=type(model).__name__, batch=[batch_size, 3, *pad],
+               detector=type(model).__name__,
+               batch=[batch_size, 3, *map(int, pad)],
                params=sum(p.numel() for p in model.parameters()),
                warmup_steps=warmup, timed_steps=timed, step_ms=step_ms,
                step_ms_mean=sum(step_ms) / len(step_ms),
@@ -3078,6 +3119,278 @@ def phase_two_stage(torch, np, smi):
     return launches, k4819
 
 
+def mask_batch(torch, dataset, data_cfg):
+    """The first batch of `dataset` (2 images) through the data layer to
+    the card: the config's pad buckets and gt slots, gt_masks as uint8."""
+    from ld_tpu_torch.data import DevicePrefetcher, build_dataloader
+    loader = build_dataloader(dataset, 2, 1, data_cfg.pad_to,
+                              data_cfg.max_gts_per_image, shuffle=False)
+    check(loader.with_masks, 'the loader carries no gt_masks')
+    batch = next(iter(DevicePrefetcher(loader, 'cuda')))
+    check(batch['gt_masks'].dtype == torch.uint8 and
+          tuple(batch['gt_masks'].shape[2:]) == tuple(
+              s // 4 for s in batch['image'].shape[-2:]) and
+          int(batch['gt_masks'].sum()) > 0, 'gt_masks of the batch')
+    return batch
+
+
+def all_rois_mask_loss(roi_head, feats, s, gt_masks):
+    """`StandardRoIHead.mask_loss` with the tower on every sampled roi, as
+    the JAX head runs it: the design the positive slice is measured
+    against. Bound to a RoI head as a method, so that a deep copy of the
+    model rebinds it to the copy's head."""
+    return roi_head.mask_head.loss(
+        roi_head._mask_feats(feats, s['rois'], s['roi_pos']), s['rois'],
+        s['roi_pos'], s['labels'], s['gt_inds'], gt_masks)
+
+
+def mask_rcnn_reference(torch, np, base):
+    """The card against the CPU at 1x3x128x192 on `base`'s weights with
+    samplers that pick every candidate: the FPN and RPN outputs (5e-3 /
+    2e-4), every loss of the step, loss_mask included, on the CPU's
+    proposals (rtol 1e-3 a term), and the masks (the 4th output) of the
+    CPU's detections (of a copy with fc_cls x 100, so that there are some)
+    within 5e-3."""
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    worst, worst_med = outputs_reference(torch, np, base)
+    cpu_batch = detection_batch(1, 128, 192, seed=0, device='cpu')
+    rs = np.random.RandomState(2)
+    gt_masks = np.zeros((1, 100, 32, 48), np.uint8)
+    for j in np.flatnonzero(cpu_batch['gt_valid'][0].numpy()):
+        x1, y1, x2, y2 = (cpu_batch['gt_bboxes'][0, j].numpy() / 4).astype(
+            int)
+        gt_masks[0, j, y1:y2 + 1, x1:x2 + 1] = rs.rand(
+            y2 + 1 - y1, x2 + 1 - x1) > 0.3
+    cpu_batch['gt_masks'] = torch.from_numpy(gt_masks)
+    peaked = copy.deepcopy(base).eval()
+    with torch.inference_mode():
+        peaked.roi_head.bbox_head.fc_cls.weight.mul_(100.0)
+        dets = peaked.forward_test(cpu_batch)[:3]
+    del peaked
+    runs, masks, props = {}, {}, None
+    for device in ('cpu', 'cuda'):
+        model = sample_everything(copy.deepcopy(base)).to(device).train()
+        batch = {k: v.to(device) for k, v in cpu_batch.items()}
+        gen = torch.Generator(device=device).manual_seed(0)
+        feats, rpn_outs = model(batch['image'])
+        sizes = [tuple(c.shape[-2:]) for c in rpn_outs[0]]
+        losses = model.rpn_head.loss(rpn_outs, batch, sizes, gen)
+        if props is None:
+            props = model._proposals(rpn_outs, batch['img_hw'])
+        losses.update(model.roi_head.forward_train(
+            feats, *(p.to(device) for p in props), batch, gen))
+        runs[device] = {k: float(v.detach()) for k, v in losses.items()}
+        with torch.inference_mode():
+            masks[device] = model.eval().roi_head.simple_test_mask(
+                [f.detach() for f in feats],
+                *(d.to(device) for d in dets)).cpu()
+        del model, feats, rpn_outs
+    c_loss, g_loss = runs['cpu'], runs['cuda']
+    mask_diff = float((masks['cuda'] - masks['cpu']).abs().max())
+    rel = {k: abs(g_loss[k] - c) / abs(c) for k, c in c_loss.items() if c}
+    emit(dict(phase='mask_rcnn_reference', config=MASK_CONFIG,
+              input='1x3x128x192', max_abs_diff=worst,
+              max_median_rel_diff=worst_med, tol_abs=5e-3,
+              tol_median_rel=2e-4, proposals=int(props[1].sum()),
+              detections=int(dets[2].sum()), mask_max_abs_diff=mask_diff,
+              mask_tol=5e-3, loss_cpu=c_loss, loss_card=g_loss,
+              rel_diff=rel, rtol=1e-3))
+    check('loss_mask' in c_loss and int(dets[2].sum()) > 0,
+          'the reference has no loss_mask or no detection')
+    check(mask_diff <= 5e-3, f'masks: card vs CPU {mask_diff}')
+    for k, c in c_loss.items():
+        check(abs(g_loss[k] - c) <= 1e-3 * abs(c),
+              f'{k}: card {g_loss[k]!r} vs CPU {c!r} beyond rtol 1e-3')
+    torch.cuda.empty_cache()
+
+
+def phase_mask_rcnn(torch, np, smi):
+    """Mask R-CNN R50 at full width: `forward_test` at batch 1 and 2 with
+    its masks, training steps with gt_masks through coco_instance.py's
+    pipeline (the mask tower on the positive slice, and once on every
+    roi), the card against the CPU, the X101-32x8d config's steps through
+    its own mask-loading pipeline, and `eval_detector` ->
+    `evaluate(['bbox', 'segm'])` over a polygon set; returns the kernel's
+    launch count over the main paths."""
+    import copy
+    import shutil
+    import types
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.apis import eval_detector, init_detector
+    from ld_tpu_torch.data import build_dataset
+    from ld_tpu_torch.evaluation.coco_mask import poly_to_mask
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    from ld_tpu_torch.testing import write_coco_instances
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_mask_rcnn')
+    shutil.rmtree(work, ignore_errors=True)
+    data_cfg = Config.fromfile(os.path.join(ROOT, MASK_DATA_CONFIG))
+    model = init_detector(float32_cfg(MASK_CONFIG), device='cuda', seed=0)
+    with torch.no_grad():
+        model.roi_head.bbox_head.fc_cls.weight.mul_(100.0)
+    gen = torch.Generator('cuda').manual_seed(0)
+    benches = {b: dict(image=torch.randn(b, 3, 800, 1344, device='cuda',
+                                         generator=gen),
+                       img_hw=torch.tensor([[800.0, 1344.0]] * b,
+                                           device='cuda'))
+               for b in (1, 2)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path (serving): counts from 0, read right after --------
+    nms_keep.launches = 0
+    calls = 0
+    fwd_ms = {}
+    with torch.inference_mode():
+        for b, bench in benches.items():
+            for _ in range(2):
+                model.forward_test(bench)
+                calls += 1
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                t = time.perf_counter()
+                dets, _, valid, masks = model.forward_test(bench)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                calls += 1
+            fwd_ms[b] = times
+            check(tuple(masks.shape) == (b, 100, 28, 28) and
+                  bool(torch.isfinite(masks).all()) and
+                  0 <= float(masks.min()) and float(masks.max()) <= 1 and
+                  bool(valid.any(dim=1).all()),
+                  f'forward_test masks at batch {b}')
+    serve_launches = nms_keep.launches
+    # ----------------------------------------------------------------------
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(serve_launches == 2 * calls, f'nms_keep launched {serve_launches} '
+          f'times for {calls} forward_test calls (2 a call)')
+    with torch.inference_mode():
+        bench = benches[2]
+        feats, rpn_outs = model(bench['image'])
+        outs = {}
+        for name, keep in (('kernel', nms_keep), ('plain', nms_keep_ref)):
+            props = model.rpn_head.get_proposals(rpn_outs, bench['img_hw'],
+                                                 keep_fn=keep)
+            outs[name] = model.roi_head.simple_test(
+                feats, *props, bench['img_hw'], keep_fn=keep)
+        check(all(torch.equal(a, b) for a, b in zip(outs['kernel'],
+                                                    outs['plain'])),
+              'dets and masks with the kernel differ from the plain keep '
+              'mask')
+    emit(dict(phase='mask_rcnn_serve', config=MASK_CONFIG, nvidia_smi=smi,
+              params=sum(p.numel() for p in model.parameters()),
+              forward_test_ms_b1=fwd_ms[1],
+              forward_test_ms_b1_mean=sum(fwd_ms[1]) / len(fwd_ms[1]),
+              forward_test_ms_b2=fwd_ms[2],
+              forward_test_ms_b2_mean=sum(fwd_ms[2]) / len(fwd_ms[2]),
+              max_memory_allocated_bytes=serve_peak,
+              nms_keep_launches=serve_launches,
+              nms_keep_launches_per_call=2,
+              detections=int(outs['kernel'][2].sum()),
+              plain_keep_identical=True))
+    del feats, rpn_outs, outs, benches, bench
+
+    # training: coco_instance.py's train pipeline after its file loaders,
+    # over synthetic images with box-region masks
+    pipe = [t for t in data_cfg.train_pipeline
+            if t['type'] not in ('LoadImageFromFile', 'LoadAnnotations')]
+    train_set = build_dataset(dict(
+        type='SyntheticDetectionDataset', num_images=2, hw=(800, 1333),
+        num_classes=80, max_boxes=6, pipeline=pipe, seed=0))
+    batch = mask_batch(torch, train_set, data_cfg)
+    cfg, base = build_plain(torch, MASK_CONFIG)
+    train_launches, row = detector_steps(
+        torch, smi, cfg, base, 2, 5, per_step=1, phase='mask_rcnn_train',
+        profile=True, batch=batch)
+    check(row['loss_last'].get('loss_mask', 0) > 0, 'no loss_mask')
+    check(base.roi_head.sampler.max_pos == 128,
+          'the mask tower does not run on a 128-roi slice')
+    all_rois = copy.deepcopy(base)
+    all_rois.roi_head.mask_loss = types.MethodType(all_rois_mask_loss,
+                                                   all_rois.roi_head)
+    n, all_row = detector_steps(torch, smi, cfg, all_rois, 1, 2,
+                                per_step=1, phase='mask_rcnn_train_all_rois',
+                                batch=batch)
+    train_launches += n
+    first, all_first = row['loss_first'], all_row['loss_first']
+    check(abs(all_first['loss_mask'] - first['loss_mask']) <=
+          1e-4 * abs(first['loss_mask']),
+          f"loss_mask on the positive slice {first['loss_mask']!r}, on "
+          f"every roi {all_first['loss_mask']!r}")
+    del all_rois, batch, train_set
+    mask_rcnn_reference(torch, np, base)
+    del base
+
+    # the X101-32x8d config through its own pipeline over a polygon set
+    x_cfg = float32_cfg(MASK_X101_CONFIG)
+    ann, prefix = write_coco_instances(os.path.join(work, 'train'), 2,
+                                       sizes=((800, 1333), ), seed=1)
+    x_set = build_dataset(dict(x_cfg.data['train'], ann_file=ann,
+                               img_prefix=prefix))
+    batch = mask_batch(torch, x_set, data_cfg)
+    _, x_base = build_plain(torch, MASK_X101_CONFIG)
+    n, x_row = detector_steps(torch, smi, x_cfg, x_base, 1, 2, per_step=1,
+                              phase='mask_rcnn_x101_train', batch=batch)
+    train_launches += n
+    check(x_row['loss_last'].get('loss_mask', 0) > 0, 'no X101 loss_mask')
+    del x_base, batch, x_set
+    torch.cuda.empty_cache()
+
+    # evaluation over a polygon set with crowds, batch 2
+    count, sizes = MASK_EVAL_SET
+    ann, prefix = write_coco_instances(os.path.join(work, 'eval'), count,
+                                       sizes=sizes, seed=2)
+    val = build_dataset(dict(type='CocoDataset', ann_file=ann,
+                             img_prefix=prefix, test_mode=True,
+                             pipeline=data_cfg.test_pipeline))
+    # ---- the main path (evaluation): counts from 0, read right after -----
+    nms_keep.launches = 0
+    t = time.perf_counter()
+    results = eval_detector(model, val, samples_per_gpu=2,
+                            pad_hw=data_cfg.pad_to)
+    eval_s = time.perf_counter() - t
+    eval_launches = nms_keep.launches
+    # ----------------------------------------------------------------------
+    batches = sum(-(-int(n) // 2) for n in np.bincount(val.flag))
+    check(eval_launches == 2 * batches,
+          f'eval: {eval_launches} launches for {batches} batches (2 each)')
+    check(all(r['masks'].shape == (len(r['boxes']), 28, 28)
+              for r in results), 'eval results without their masks')
+    t = time.perf_counter()
+    metrics = val.evaluate(results, metric=['bbox', 'segm'])
+    metric_s = time.perf_counter() - t
+    check(len(metrics) == 24 and all(
+        not math.isfinite(v) or 0 <= v <= 1 for v in metrics.values()),
+        f'evaluate: {metrics}')
+    gts = []
+    for i, info in enumerate(val.img_infos):
+        a = val.get_ann_info(i)
+        gts.append(dict(
+            boxes=np.concatenate([a['bboxes'], np.ones((len(a['bboxes']),
+                                                        1))], 1),
+            labels=a['labels'],
+            masks=[poly_to_mask(p, info['height'], info['width'])
+                   .astype(np.float32) for p in a['masks']]))
+    gt_metrics = val.evaluate(gts, metric=['bbox', 'segm'])
+    check(gt_metrics['segm_mAP'] == 1.0 and gt_metrics['bbox_mAP'] == 1.0,
+          f'the gts as detections score {gt_metrics}')
+    emit(dict(phase='mask_rcnn_eval', config=MASK_CONFIG, nvidia_smi=smi,
+              images=count, sizes=sizes, eval_detector_s=eval_s,
+              eval_img_per_s=count / eval_s, evaluate_s=metric_s,
+              metrics=metrics, gt_segm_mAP=gt_metrics['segm_mAP'],
+              gt_bbox_mAP=gt_metrics['bbox_mAP'],
+              nms_keep_launches=eval_launches))
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    launches = serve_launches + train_launches + eval_launches
+    emit(dict(phase='mask_rcnn_done', seconds=time.perf_counter() - t_phase,
+              budget_s=90, nms_keep_launches=launches))
+    return launches
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1].startswith('--ddp-'):
@@ -3148,6 +3461,8 @@ def main():
     classic_launches = phase_classic_heads(torch, np, smi)
     torch.cuda.empty_cache()
     two_stage_launches, k4819 = phase_two_stage(torch, np, smi)
+    torch.cuda.empty_cache()
+    mask_rcnn_launches = phase_mask_rcnn(torch, np, smi)
 
     print(smi.splitlines()[0], flush=True)
     emit(dict(kernels=[dict(
@@ -3158,7 +3473,7 @@ def main():
                   dcn_launches + res2net_launches + ddp_launches +
                   harness_launches + landscape_launches +
                   serve_http_launches + export_launches + classic_launches +
-                  two_stage_launches),
+                  two_stage_launches + mask_rcnn_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -3169,6 +3484,7 @@ def main():
         launches_export=export_launches,
         launches_classic_heads=classic_launches,
         launches_two_stage=two_stage_launches,
+        launches_mask_rcnn=mask_rcnn_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

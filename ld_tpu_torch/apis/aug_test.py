@@ -16,6 +16,7 @@ import torch
 
 from ld_tpu_torch.data.transforms import (FusedPreprocess, RandomFlip,
                                           collate_batch)
+from ld_tpu_torch.models.detectors.two_stage import reject_mask_head
 from ld_tpu_torch.ops.nms import multiclass_nms
 from ld_tpu_torch.ops.nms_cuda import nms_keep
 
@@ -55,6 +56,7 @@ def aug_test(model: torch.nn.Module, views: List[Dict],
         dict(boxes (n, 5) in original-image coordinates, labels (n,)),
         numpy.
     """
+    reject_mask_head(model, 'aug_test')
     if not hasattr(model, 'bbox_head'):
         raise NotImplementedError(
             'test-time augmentation of a two-stage detector is not ported '

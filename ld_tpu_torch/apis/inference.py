@@ -17,6 +17,7 @@ import torch
 
 from ld_tpu_torch.data.transforms import Compose, _cv2, collate_batch
 from ld_tpu_torch.models import build_detector
+from ld_tpu_torch.models.detectors.two_stage import reject_mask_head
 from ld_tpu_torch.utils.checkpoint import load_checkpoint
 from ld_tpu_torch.utils.config import Config
 
@@ -101,8 +102,10 @@ def inference_detector(model: torch.nn.Module, img: Union[str, np.ndarray],
     orientation — the smallest fitting bucket is used).
 
     Returns dict(boxes=(n, 5) xyxy+score in original image coords, labels),
-    numpy arrays.
+    numpy arrays. A detector with a mask head raises NotImplementedError,
+    as the JAX function does (ROADMAP.md caveat 21).
     """
+    reject_mask_head(model, 'inference_detector')
     inputs = prepare_batch(img, next(model.parameters()).device, pad_hw,
                            img_scale)
     with torch.inference_mode():

@@ -18,7 +18,10 @@ def eval_detector(model: torch.nn.Module, dataset, samples_per_gpu: int = 4,
                   max_images: Optional[int] = None) -> List[Dict]:
     """Run `model.forward_test` over `dataset` on the model's device;
     returns per-image dicts (boxes (n, 5) xyxy + score in original image
-    coordinates, labels), numpy, in dataset order.
+    coordinates, labels, and for a model with a mask head masks (n, 28,
+    28) float32 roi-space sigmoid masks, what `SegmEvaluator` pastes),
+    numpy, in dataset order. (The JAX `eval_detector` unpacks three
+    outputs and so cannot run a mask model: ROADMAP.md caveat 21.)
 
     The batches reach the card through a DevicePrefetcher and run under
     `inference_mode`. The pipeline is one deep: batch N+1 is dispatched
@@ -47,11 +50,13 @@ def eval_detector(model: torch.nn.Module, dataset, samples_per_gpu: int = 4,
     def drain(n, img_idx, outs):
         """Device outputs -> per-image host results (waits for the card)."""
         nonlocal seen
-        dets, labels, valid = (o.cpu().numpy() for o in outs)
+        dets, labels, valid, *masks = (o.cpu().numpy() for o in outs)
         for i, idx in enumerate(img_idx):
             m = valid[i]
-            found.append(((n, rank * samples_per_gpu + i), int(idx),
-                          dict(boxes=dets[i][m], labels=labels[i][m])))
+            res = dict(boxes=dets[i][m], labels=labels[i][m])
+            if masks:
+                res['masks'] = masks[0][i][m]
+            found.append(((n, rank * samples_per_gpu + i), int(idx), res))
         if max_images:
             # the images this batch adds, over the ranks
             fresh = set(map(int, img_idx)) - done
@@ -80,8 +85,13 @@ def eval_detector(model: torch.nn.Module, dataset, samples_per_gpu: int = 4,
                              for f in part), key=lambda f: f[0]):
         if results[idx] is None:
             results[idx] = r
+    empty = dict(boxes=np.zeros((0, 5), np.float32),
+                 labels=np.zeros((0, ), np.int64))
+    if getattr(getattr(model, 'roi_head', None), 'mask_head', None) \
+            is not None:
+        size = 2 * model.roi_head.mask_roi_size
+        empty['masks'] = np.zeros((0, size, size), np.float32)
     for i, r in enumerate(results):
         if r is None:
-            results[i] = dict(boxes=np.zeros((0, 5), np.float32),
-                              labels=np.zeros((0, ), np.int64))
+            results[i] = dict(empty)
     return results

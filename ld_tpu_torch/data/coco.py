@@ -1,8 +1,10 @@
-"""COCO-format detection datasets (port of `ld_tpu/data/coco.py:21-284`,
-boxes and labels only): json parsing, the category -> label map, the
-empty / small-image filter, the aspect-ratio group flags, `results2json`
-and `evaluate('bbox')` through the port's own COCO evaluator; and a seeded
-synthetic dataset with the same interface.
+"""COCO-format detection datasets (port of `ld_tpu/data/coco.py:21-284`):
+json parsing (boxes, labels, areas, each gt's polygons as `masks` (None
+for an RLE) and the crowds' segmentations as `masks_ignore`), the
+category -> label map, the empty / small-image filter, the aspect-ratio
+group flags, `results2json` and `evaluate` of 'bbox' and 'segm' through the
+port's own COCO and mask evaluators; and a seeded synthetic dataset with
+the same interface.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from collections import defaultdict
 import numpy as np
 
 from ld_tpu_torch.utils.registry import DATASETS
-from .transforms import Compose
+from .transforms import Compose, collects_masks
 
 COCO_CLASSES = (
     'person', 'bicycle', 'car', 'motorcycle', 'airplane', 'bus', 'train',
@@ -31,14 +33,24 @@ COCO_CLASSES = (
     'scissors', 'teddy bear', 'hair drier', 'toothbrush')
 
 
-def _evaluate_bbox(dataset, det_results, metric, classwise=False):
+def _evaluate(dataset, det_results, metric, classwise=False,
+              supported=('bbox', 'segm')):
+    """The metrics of `metric` (a name or a list), 'bbox' first."""
     metrics = [metric] if isinstance(metric, str) else list(metric)
-    unsupported = [m for m in metrics if m != 'bbox']
+    unsupported = [m for m in metrics if m not in supported]
     if unsupported:
-        raise NotImplementedError(f'metrics {unsupported} are not ported to '
-                                  "ld_tpu_torch yet: only 'bbox'")
-    from ld_tpu_torch.evaluation.coco_eval import CocoEvaluator
-    return CocoEvaluator(dataset).evaluate(det_results, classwise=classwise)
+        raise NotImplementedError(
+            f'metrics {unsupported} are not ported to ld_tpu_torch yet: '
+            f'only {list(supported)}')
+    out = {}
+    if 'bbox' in metrics:
+        from ld_tpu_torch.evaluation.coco_eval import CocoEvaluator
+        out.update(CocoEvaluator(dataset).evaluate(det_results,
+                                                   classwise=classwise))
+    if 'segm' in metrics:
+        from ld_tpu_torch.evaluation.segm_eval import SegmEvaluator
+        out.update(SegmEvaluator(dataset).evaluate(det_results))
+    return out
 
 
 @DATASETS.register_module()
@@ -86,8 +98,8 @@ class CocoDataset:
         for img in coco['images']:
             info = dict(id=img['id'], filename=img['file_name'],
                         width=img['width'], height=img['height'])
-            bboxes, labels, areas = [], [], []
-            ignore, ig_labels, ig_areas = [], [], []
+            bboxes, labels, areas, polys = [], [], [], []
+            ignore, ig_labels, ig_areas, ig_segs = [], [], [], []
             for a in anns_by_img.get(img['id'], []):
                 if a.get('ignore', False):
                     continue
@@ -103,14 +115,19 @@ class CocoDataset:
                 # the json 'area' (segmentation area on real COCO) decides
                 # the small / medium / large gt ranges of the evaluation
                 area = float(a.get('area', w * h))
+                seg = a.get('segmentation')
                 if a.get('iscrowd', False):
                     ignore.append(box)
                     ig_labels.append(label)
                     ig_areas.append(area)
+                    # a crowd's segmentation (an RLE on real COCO): the
+                    # segm evaluator matches crowds by IoF
+                    ig_segs.append(seg)
                 else:
                     bboxes.append(box)
                     labels.append(label)
                     areas.append(area)
+                    polys.append(seg if isinstance(seg, list) else None)
             self.img_infos.append(info)
             self.annotations.append(dict(
                 bboxes=np.asarray(bboxes, np.float32).reshape(-1, 4),
@@ -118,7 +135,8 @@ class CocoDataset:
                 bboxes_ignore=np.asarray(ignore, np.float32).reshape(-1, 4),
                 labels_ignore=np.asarray(ig_labels, np.int64),
                 areas=np.asarray(areas, np.float64),
-                areas_ignore=np.asarray(ig_areas, np.float64)))
+                areas_ignore=np.asarray(ig_areas, np.float64),
+                masks=polys, masks_ignore=ig_segs))
 
     def _filter_imgs(self, min_size):
         keep = [i for i, (info, ann) in enumerate(zip(self.img_infos,
@@ -180,15 +198,21 @@ class CocoDataset:
 
     def evaluate(self, det_results, metric='bbox', classwise=False,
                  **kwargs):
-        return _evaluate_bbox(self, det_results, metric, classwise)
+        """'bbox' and / or 'segm'; 'segm' reads each result's `masks`
+        (n, 28, 28) roi-space sigmoid masks, as `eval_detector` gives them
+        for a model with a mask head."""
+        return _evaluate(self, det_results, metric, classwise)
 
 
 @DATASETS.register_module()
 class SyntheticDetectionDataset:
     """Seeded random uint8 images and boxes behind the COCO dataset's
     interface, for runs without the COCO files. The same seed gives the
-    same images, boxes and labels as the JAX package's dataset of this name
-    (which also builds masks; this one does not)."""
+    same images, boxes, labels and masks as the JAX package's dataset of
+    this name: each gt's mask is its (int-truncated) box region, yielded as
+    `gt_masks` where the pipeline collects them (the JAX dataset builds
+    them for every image and sample; a pipeline that does not collect
+    them gets the same batches without them)."""
 
     CLASSES = COCO_CLASSES
 
@@ -239,6 +263,16 @@ class SyntheticDetectionDataset:
     def get_ann_info(self, idx):
         return self.annotations[idx]
 
+    def _box_masks(self, idx):
+        """The image's gt masks: each box's region, full size, uint8."""
+        out = []
+        for bb in self.annotations[idx]['bboxes']:
+            m = np.zeros(self.hw, np.uint8)
+            x1, y1, x2, y2 = bb.astype(int)
+            m[y1:y2, x1:x2] = 1
+            out.append(m)
+        return out
+
     def __getitem__(self, idx):
         img = self._images[idx]
         ann = self.annotations[idx]
@@ -246,7 +280,9 @@ class SyntheticDetectionDataset:
                        img_prefix='', img=img, img_shape=img.shape,
                        ori_shape=img.shape, gt_bboxes=ann['bboxes'].copy(),
                        gt_labels=ann['labels'].copy())
+        if collects_masks(self.pipeline):
+            results['gt_masks'] = self._box_masks(idx)
         return self.pipeline(results)
 
     def evaluate(self, det_results, metric='bbox', **kwargs):
-        return _evaluate_bbox(self, det_results, metric)
+        return _evaluate(self, det_results, metric, supported=('bbox', ))

@@ -1,19 +1,24 @@
 """Host-side pipeline: dict-in/dict-out transforms (port of
-`ld_tpu/data/transforms.py:30-348,532-694,770-935`, boxes and labels
-only).
+`ld_tpu/data/transforms.py:30-348,532-694,770-935`).
 
   * LoadImageFromFile / LoadAnnotations: decode an image file (cv2, imported
-    at first use) and take the boxes and labels of its annotation.
+    at first use) and take the boxes and labels of its annotation; with
+    `with_mask`, each gt's polygons as a full-size uint8 bitmap, drawn by
+    `cv2.fillPoly` on the points truncated to int32 (a gt without a
+    polygon falls back to its box), as the JAX package does (ROADMAP.md
+    caveat 23: the segm evaluator rasterises gts otherwise).
   * Resize: keep-ratio factor = min(long/max(h,w), short/min(h,w)),
     new = int(dim * factor + 0.5), bilinear; the `range` / `value` multiscale
     modes, `ratio_range`, a `scale` in the results, `override` and
     `keep_ratio=False`, as the JAX package has them; gt boxes scaled and
-    clipped. The JAX package resizes with cv2 INTER_LINEAR; here
+    clipped, gt masks resized nearest (`resize_nearest`: cv2 INTER_NEAREST's
+    sampling, bit for bit). The JAX package resizes with cv2 INTER_LINEAR; here
     `F.interpolate(mode='bilinear', align_corners=False, antialias=False)`
     samples the same points, and a uint8 image is rounded back to uint8.
     cv2 rounds its fixed-point weights on uint8, so the two differ by at most
     one grey level.
-  * RandomFlip: draws from the global `np.random` as the JAX package does.
+  * RandomFlip: draws from the global `np.random` as the JAX package does;
+    flips the gt masks with the image.
   * Normalize: BGR->RGB, then the two roundings of the JAX package's cv2
     calls: f32(f64(img) - mean), then f32(f64(.) * (1/std)).
   * Pad: zero-pad bottom/right to a fixed size or to size_divisor.
@@ -23,13 +28,15 @@ only).
   * DefaultFormatBundle (float32 image, typed boxes and labels) and the
     layout steps ImageToTensor / ToTensor / ToDataContainer /
     WrapFieldsToLists, no-ops since `collate_batch` makes the NCHW batch;
-    Transpose; FilterAnnotations (drops small gts, and the sample when none
-    is left).
+    Transpose; FilterAnnotations (drops small gts and their masks, and the
+    sample when none is left).
   * MultiScaleFlipAug: the test-time (scale, flip) views of one image.
   * collate_batch: stack into one static-shape NCHW batch, padded to the
     smallest fitting pad bucket, with `max_gts` gt slots and a validity
-    mask, optionally into caller-owned (pinned) buffers.
-Masks are not ported yet.
+    mask, optionally into caller-owned (pinned) buffers; gt masks, where
+    the samples carry them, as `gt_masks` (B, G, H/4, W/4) uint8: each
+    placed in the padded frame and taken nearest at `MASK_STRIDE`, the
+    JAX package's bits (it carries them as float32).
 """
 from __future__ import annotations
 
@@ -72,6 +79,26 @@ def resize_bilinear(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
     if img.dtype == np.uint8:
         out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
     return out.astype(img.dtype, copy=False)
+
+
+def _nearest_index(new: int, old: int) -> np.ndarray:
+    """cv2.resize INTER_NEAREST's source index of each of `new` outputs
+    along an axis of `old`: min(floor(i * (1 / (new / old))), old - 1)."""
+    return np.minimum(np.floor(np.arange(new) * (1.0 / (new / old)))
+                      .astype(np.int64), old - 1)
+
+
+def resize_nearest(m: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
+    """Nearest resize of an (H, W) mask, cv2 INTER_NEAREST's bits."""
+    h, w = m.shape[:2]
+    return m[_nearest_index(new_h, h)[:, None],
+             _nearest_index(new_w, w)[None, :]]
+
+
+def _resize_masks(results: Dict, new_w: int, new_h: int) -> None:
+    if 'gt_masks' in results:
+        results['gt_masks'] = [resize_nearest(m, new_w, new_h)
+                               for m in results['gt_masks']]
 
 
 @PIPELINES.register_module()
@@ -117,12 +144,9 @@ class LoadImageFromFile:
 class LoadAnnotations:
     def __init__(self, with_bbox=True, with_label=True, with_mask=False,
                  **kwargs):
-        if with_mask:
-            raise NotImplementedError('LoadAnnotations(with_mask=True): '
-                                      'masks are not ported to ld_tpu_torch '
-                                      'yet (see ROADMAP.md)')
         self.with_bbox = with_bbox
         self.with_label = with_label
+        self.with_mask = with_mask
 
     def __call__(self, results: Dict) -> Dict:
         ann = results['ann_info']
@@ -130,7 +154,30 @@ class LoadAnnotations:
             results['gt_bboxes'] = ann['bboxes'].astype(np.float32)
         if self.with_label:
             results['gt_labels'] = ann['labels'].astype(np.int64)
+        if self.with_mask and 'masks' in ann:
+            h = results['img_info'].get(
+                'height', results.get('img_shape', (0, 0))[0])
+            w = results['img_info'].get(
+                'width', results.get('img_shape', (0, 0))[1])
+            results['gt_masks'] = [_polygon_bitmap(polys, box, h, w)
+                                   for polys, box in zip(ann['masks'],
+                                                         ann['bboxes'])]
         return results
+
+
+def _polygon_bitmap(polys, box, h: int, w: int) -> np.ndarray:
+    """A gt's polygons filled by cv2.fillPoly on their int32-truncated
+    points, or its box region where it has none."""
+    m = np.zeros((h, w), np.uint8)
+    if polys:
+        pts = [np.asarray(p, np.float32).reshape(-1, 2).astype(np.int32)
+               for p in polys if len(p) >= 6]
+        if pts:
+            _cv2().fillPoly(m, pts, 1)
+    else:
+        x1, y1, x2, y2 = box.astype(int)
+        m[y1:y2, x1:x2] = 1
+    return m
 
 
 @PIPELINES.register_module()
@@ -209,6 +256,7 @@ class Resize:
             results['gt_bboxes'] = _scale_boxes(
                 results['gt_bboxes'], results['scale_factor'], new_w, new_h,
                 self.bbox_clip_border)
+        _resize_masks(results, new_w, new_h)
         return results
 
 
@@ -248,6 +296,9 @@ class RandomFlip:
                 bb[:, 1] = h - src[:, 3]
                 bb[:, 3] = h - src[:, 1]
             results['gt_bboxes'] = bb
+        if 'gt_masks' in results:
+            results['gt_masks'] = [np.ascontiguousarray(m[sl])
+                                   for m in results['gt_masks']]
         return results
 
 
@@ -386,6 +437,9 @@ class FilterAnnotations:
         for key in ('gt_bboxes', 'gt_labels'):
             if key in results:
                 results[key] = results[key][keep]
+        if 'gt_masks' in results:
+            results['gt_masks'] = [m for m, k in
+                                   zip(results['gt_masks'], keep) if k]
         return results
 
 
@@ -486,6 +540,7 @@ class FusedPreprocess:
         if 'gt_bboxes' in results:
             results['gt_bboxes'] = _scale_boxes(
                 results['gt_bboxes'], results['scale_factor'], new_w, new_h)
+        _resize_masks(results, new_w, new_h)
         return results
 
 
@@ -500,6 +555,12 @@ class Compose:
             if results is None:     # a transform dropped the sample
                 return None
         return results
+
+
+def collects_masks(pipeline) -> bool:
+    """Whether a Compose ends in a Collect that takes 'gt_masks'."""
+    return any(isinstance(t, Collect) and 'gt_masks' in t.keys
+               for t in getattr(pipeline, 'transforms', []))
 
 
 def select_pad_bucket(pad_hw, batch_max_hw: Tuple[int, int]):
@@ -519,9 +580,11 @@ def select_pad_bucket(pad_hw, batch_max_hw: Tuple[int, int]):
 # the collated batch: key -> (dtype, shape without the batch dimension);
 # the layout of `ld_tpu_torch.testing.detection_batch`, plus scale_factor,
 # img_ids (the dataset's integer image ids, as COCO's; -1 where an id is not
-# an integer, as VOC's '2008_000001') and img_idx (each image's index in the
-# dataset, set by the loader; -1 outside it). 'H', 'W' and 'G' stand for the
-# pad bucket and max_gts.
+# an integer, as VOC's '2008_000001'), img_idx (each image's index in the
+# dataset, set by the loader; -1 outside it) and gt_masks, present only
+# where the samples carry masks (a Collect of 'gt_masks'). 'H', 'W' and 'G'
+# stand for the pad bucket and max_gts, 'Hm' and 'Wm' for the bucket over
+# MASK_STRIDE.
 BATCH_LAYOUT = {
     'image': (np.float32, (3, 'H', 'W')),
     'gt_bboxes': (np.float32, ('G', 4)),
@@ -531,13 +594,28 @@ BATCH_LAYOUT = {
     'scale_factor': (np.float32, (4, )),
     'img_ids': (np.int64, ()),
     'img_idx': (np.int64, ()),
+    'gt_masks': (np.uint8, ('G', 'Hm', 'Wm')),
 }
+MASK_STRIDE = 4
 
 
 def batch_shape(key: str, b: int, hw: Tuple[int, int], max_gts: int):
     """The shape of `key` in a batch of b images padded to `hw`."""
-    dims = {'H': hw[0], 'W': hw[1], 'G': max_gts}
+    dims = {'H': hw[0], 'W': hw[1], 'G': max_gts,
+            'Hm': hw[0] // MASK_STRIDE, 'Wm': hw[1] // MASK_STRIDE}
     return (b, ) + tuple(dims.get(d, d) for d in BATCH_LAYOUT[key][1])
+
+
+def _place_masks(dst: np.ndarray, masks, th: int, tw: int) -> None:
+    """Each (h, w) mask placed at the top left of a zero (th, tw) frame,
+    then taken nearest to dst's (mh, mw): the JAX package's canvas and
+    cv2 INTER_NEAREST resize, without the canvas."""
+    mh, mw = dst.shape[-2:]
+    sy, sx = _nearest_index(mh, th), _nearest_index(mw, tw)
+    for g, m in enumerate(masks):
+        # the indices grow, so those inside the mask are a prefix
+        ys, xs = sy[sy < m.shape[0]], sx[sx < m.shape[1]]
+        dst[g, :len(ys), :len(xs)] = m[ys[:, None], xs[None, :]]
 
 
 def collate_batch(samples: List[Dict], pad_hw, max_gts: int = 100,
@@ -550,10 +628,11 @@ def collate_batch(samples: List[Dict], pad_hw, max_gts: int = 100,
     the smallest fitting one is used). `img_hw` carries the true (resized,
     un-padded) image shape used for anchor valid flags and box clipping;
     gt boxes and labels fill `max_gts` slots, with `gt_valid` marking the
-    real ones. `out`, where given, holds one flat buffer per key of
-    BATCH_LAYOUT, large enough for the largest bucket: the batch is written
-    into the leading elements of each (e.g. pinned memory owned by a
-    DevicePrefetcher), and the returned arrays are views of them.
+    real ones; `gt_masks` where any sample carries masks. `out`, where
+    given, holds one flat buffer per key of BATCH_LAYOUT (gt_masks only
+    where masks come), large enough for the largest bucket: the batch is
+    written into the leading elements of each (e.g. pinned memory owned by
+    a DevicePrefetcher), and the returned arrays are views of them.
     `min_hw`: a shape the bucket must fit besides the images (a data-
     parallel rank pads to its global batch's bucket).
     """
@@ -562,8 +641,15 @@ def collate_batch(samples: List[Dict], pad_hw, max_gts: int = 100,
     th, tw = select_pad_bucket(
         pad_hw, (max(lo_h, *(s['img'].shape[0] for s in samples)),
                  max(lo_w, *(s['img'].shape[1] for s in samples))))
+    with_masks = any('gt_masks' in s for s in samples)
+    if with_masks and out is not None and 'gt_masks' not in out:
+        raise ValueError('the samples carry gt_masks, and the buffers hold '
+                         'none: the loader was built for a pipeline that '
+                         'does not collect them')
     batch = {}
     for key, (dtype, _) in BATCH_LAYOUT.items():
+        if key == 'gt_masks' and not with_masks:
+            continue
         shape = batch_shape(key, b, (th, tw), max_gts)
         if out is None:
             batch[key] = np.zeros(shape, dtype)
@@ -593,4 +679,7 @@ def collate_batch(samples: List[Dict], pad_hw, max_gts: int = 100,
             batch['gt_bboxes'][i, :n] = s['gt_bboxes'][:n]
             batch['gt_labels'][i, :n] = s['gt_labels'][:n]
             batch['gt_valid'][i, :n] = True
+        if with_masks:
+            _place_masks(batch['gt_masks'][i], s.get('gt_masks', [])[:max_gts],
+                         th, tw)
     return batch

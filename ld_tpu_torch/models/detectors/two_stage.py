@@ -1,14 +1,17 @@
 """Two-stage detectors (Faster R-CNN family) and the LD through the RPN;
 port of `ld_tpu/models/detectors/two_stage.py`.
 
-`TwoStageDetector`, registered as `FasterRCNN` too: backbone -> neck ->
-`rpn_head` -> proposals -> `roi_head`, one `nn.Module` under mmdet's names.
-`forward_train` returns the RPN's and the RoI head's losses: the RPN loss,
-its proposals (under `no_grad`, from `train_cfg.rpn_proposal`, else the RPN
-test config, as in the JAX package), the RoI head's sampled losses. Both
-samplers draw from the `generator` passed in (`make_train_step` passes one
-seeded from the run's seed and the rank). `forward_test` returns padded
-(dets, labels, valid), as a single-stage detector does.
+`TwoStageDetector`, registered as `FasterRCNN` and `MaskRCNN` too (Mask
+R-CNN is the same detector with a `mask_head` in its RoI head): backbone
+-> neck -> `rpn_head` -> proposals -> `roi_head`, one `nn.Module` under
+mmdet's names. `forward_train` returns the RPN's and the RoI head's
+losses: the RPN loss, its proposals (under `no_grad`, from
+`train_cfg.rpn_proposal`, else the RPN test config, as in the JAX
+package), the RoI head's sampled losses. Both samplers draw from the
+`generator` passed in (`make_train_step` passes one seeded from the run's
+seed and the rank). `forward_test` returns padded (dets, labels, valid),
+as a single-stage detector does, and with a mask head a 4th output, the
+detections' (B, 100, 28, 28) masks.
 
   * `FastRCNN`: the RoI head on `batch['proposals']` (B, P, 4) (and
     `proposals_valid`), else on its own RPN, as the JAX class;
@@ -19,8 +22,8 @@ seeded from the run's seed and the rank). `forward_test` returns padded
     `no_grad`) whose RPN outputs feed the student RPN's `loss_with_teacher`
     (`loss_rpn_kd`, `loss_rpn_ld`); the RoI head trains as usual.
 
-The other two-stage names of the JAX package (Mask R-CNN, Cascade, HTC,
-...) wait for their heads (ROADMAP.md A8, A7).
+The other two-stage names of the JAX package (Cascade, HTC, ...) wait for
+their heads (ROADMAP.md A7).
 """
 from __future__ import annotations
 
@@ -33,12 +36,22 @@ from ld_tpu_torch.utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
 from .kd_one_stage import FrozenTeacher
 
 DETECTORS.not_ported.update({
-    name: 'ROADMAP.md A8' if 'Mask' in name or name in (
-        'HybridTaskCascade', 'SCNet', 'PointRend') else 'ROADMAP.md A7'
-    for name in ('MaskRCNN', 'CascadeRCNN', 'MaskScoringRCNN',
-                 'DynamicRCNN', 'GridRCNN', 'DoubleHeadRCNN',
-                 'HybridTaskCascade', 'SCNet', 'PointRend',
-                 'TridentFasterRCNN')})
+    name: 'ROADMAP.md A7'
+    for name in ('CascadeRCNN', 'MaskScoringRCNN', 'DynamicRCNN',
+                 'GridRCNN', 'DoubleHeadRCNN', 'HybridTaskCascade', 'SCNet',
+                 'PointRend', 'TridentFasterRCNN')})
+
+
+def reject_mask_head(model, what: str) -> None:
+    """Raise for a detector with a mask head where `what` takes the three
+    outputs (dets, labels, valid) of `forward_test` only: the JAX
+    counterpart cannot run such a model either (ROADMAP.md caveat 21)."""
+    roi_head = getattr(model, 'roi_head', None)
+    if getattr(roi_head, 'mask_head', None) is not None:
+        raise NotImplementedError(
+            f'{what} does not take the masks of a detector with a mask head '
+            '(Mask R-CNN), as in the JAX package (ROADMAP.md caveat 21): '
+            'use eval_detector or forward_test')
 
 
 def _default_generator(device) -> torch.Generator:
@@ -114,7 +127,7 @@ class TwoStageDetector(nn.Module):
 
     def forward_test(self, batch: Dict[str, torch.Tensor], rescale=False):
         """batch: image, img_hw, optional scale_factor -> (dets (B, 100, 5),
-        labels, valid)."""
+        labels, valid) and, with a mask head, masks (B, 100, 28, 28)."""
         feats, rpn_outs = self(batch['image'])
         proposals, valid = self._proposals(rpn_outs, batch['img_hw'])
         return self.roi_head.simple_test(
@@ -122,8 +135,9 @@ class TwoStageDetector(nn.Module):
             batch.get('scale_factor'), rescale=rescale)
 
 
-DETECTORS.register_module(name='FasterRCNN', module=type(
-    'FasterRCNN', (TwoStageDetector, ), {}))
+for _name in ('FasterRCNN', 'MaskRCNN'):
+    DETECTORS.register_module(name=_name, module=type(
+        _name, (TwoStageDetector, ), {}))
 
 
 @DETECTORS.register_module()

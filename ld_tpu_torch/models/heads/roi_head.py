@@ -24,11 +24,22 @@
     boxes decoded and clipped, and one class-aware `multiclass_nms` of the
     (roi, class) pairs: the pairs of the JAX package's one-hot layout, in
     its order, without that (R*C, C) matrix.
+  * The mask branch (Mask R-CNN, `mask_head`): RoIAlign at the mask
+    extractor's `output_size` (14) on the bbox extractor's strides, then
+    `FCNMaskHead` (`mask_head.py`). In training, `loss_mask` where the
+    batch has `gt_masks`, on the positive rois, each against its assigned
+    gt's mask. The JAX head runs the tower on every sampled roi and
+    weights the others by 0; here it runs on the first `max_pos` rois of
+    each image, the sampler's cap on positives (128 of 512), where
+    `sample_rois` has put them all: the same sum over the same rois, at a
+    quarter of the work and with no host sync. A sampler without a cap
+    (`PseudoSampler`) runs it on every roi. At test time a 4th output,
+    (B, max_per_img, 28, 28) sigmoid masks of the detections in roi space,
+    pooled on their boxes in the network input's coordinates.
 
 The sampler draws from the `torch.Generator` the caller passes in. The
-shared head of the C4 configs, GRoIE, deformable RoI pooling, the mask
-branch and the hard-mining samplers raise NotImplementedError (ROADMAP.md
-A7, A8).
+shared head of the C4 configs, GRoIE, deformable RoI pooling and the
+hard-mining samplers raise NotImplementedError (ROADMAP.md A7).
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ from ld_tpu_torch.ops.roi_align import multi_level_roi_align
 from ld_tpu_torch.ops.samplers import build_sampler, uniform_keys
 from ld_tpu_torch.parallel.dist import global_sum
 from ld_tpu_torch.utils.registry import HEADS, LOSSES
+from .mask_head import FCNMaskHead
 
 
 def _not_ported(what: str, item: str = 'A7'):
@@ -157,8 +169,6 @@ class StandardRoIHead(nn.Module):
         super().__init__()
         if shared_head is not None:
             _not_ported('the shared res5 RoI head of the C4 configs')
-        if mask_head is not None or mask_roi_extractor is not None:
-            _not_ported('the mask branch', 'A8')
         bbox_head = dict(bbox_head or {})
         ext = dict(bbox_roi_extractor or {})
         if ext.get('type', 'SingleRoIExtractor') != 'SingleRoIExtractor':
@@ -204,9 +214,29 @@ class StandardRoIHead(nn.Module):
             bbox_head.get('fc_out_channels', 1024),
             bbox_head.get('with_avg_pool', False), self.reg_class_agnostic,
             bbox_head.get('conv_cfg'), bbox_head.get('norm_cfg'))
+        self.mask_head = None
+        if mask_head is not None:
+            self.mask_head = self._build_mask_head(
+                dict(mask_head), dict(mask_roi_extractor or {}), dtype)
+
+    def _build_mask_head(self, mh: dict, mext: dict, dtype) -> FCNMaskHead:
+        """`ld_tpu/models/heads/roi_head.py:330-348`, without the C4 case
+        (a shared head raises above)."""
+        kind = mh.pop('type', 'FCNMaskHead')
+        if kind != 'FCNMaskHead':
+            _not_ported(f'mask head {kind!r}')
+        if mext.get('type', 'SingleRoIExtractor') != 'SingleRoIExtractor':
+            _not_ported(f"mask RoI extractor {mext['type']!r} (GRoIE)")
+        self.mask_roi_size = (mext.get('roi_layer') or {}).get(
+            'output_size', 14)
+        mh.setdefault('num_classes', self.num_classes)
+        mh.setdefault('roi_size', self.mask_roi_size)
+        return FCNMaskHead(dtype=dtype, **mh)
 
     def init_weights(self, generator: torch.Generator):
         self.bbox_head.init_weights(generator)
+        if self.mask_head is not None:
+            self.mask_head.init_weights(generator)
 
     def _extract(self, feats: List[torch.Tensor], rois, roi_valid):
         return multi_level_roi_align(feats[:len(self.featmap_strides)], rois,
@@ -223,7 +253,8 @@ class StandardRoIHead(nn.Module):
         Returns:
             dict of rois (B, n, 4), roi_valid, roi_pos (B, n), labels (B, n),
             targets (B, n, 4) (deltas, or the gt boxes with
-            `reg_decoded_bbox`).
+            `reg_decoded_bbox`), gt_inds (B, n) (each roi's assigned gt, 0
+            where none). The positives come first in each image.
         """
         if self.add_gt_as_proposals:
             proposals = torch.cat([gt_bboxes, proposals], dim=1)
@@ -258,7 +289,7 @@ class StandardRoIHead(nn.Module):
         targets = gts if self.reg_decoded_bbox else \
             self.coder.encode(rois, gts)
         return dict(rois=rois, roi_valid=take(sel), roi_pos=roi_pos,
-                    labels=labels, targets=targets)
+                    labels=labels, targets=targets, gt_inds=safe)
 
     def _select_reg(self, reg, labels):
         if self.reg_class_agnostic:
@@ -296,13 +327,34 @@ class StandardRoIHead(nn.Module):
                              generator)
         cls, reg = self.bbox_head(self._extract(feats, s['rois'],
                                                 s['roi_valid']))
-        return self.bbox_losses(cls, reg, s)
+        losses = self.bbox_losses(cls, reg, s)
+        if self.mask_head is not None and 'gt_masks' in batch:
+            losses['loss_mask'] = self.mask_loss(feats, s, batch['gt_masks'])
+        return losses
+
+    def _mask_feats(self, feats, rois, valid):
+        return multi_level_roi_align(feats[:len(self.featmap_strides)], rois,
+                                     valid, self.mask_roi_size,
+                                     self.featmap_strides)
+
+    def mask_loss(self, feats, s: Dict, gt_masks) -> torch.Tensor:
+        """`loss_mask` of the sampled rois `s` (`sample_rois`) against the
+        batch's gt masks (B, G, H/4, W/4), on the first `max_pos` rois of
+        each image (all where the sampler sets no cap)."""
+        cap = getattr(self.sampler, 'max_pos', None)
+        n = s['rois'].shape[1] if cap is None else \
+            min(cap, s['rois'].shape[1])
+        rois, pos = s['rois'][:, :n], s['roi_pos'][:, :n]
+        return self.mask_head.loss(self._mask_feats(feats, rois, pos), rois,
+                                   pos, s['labels'][:, :n],
+                                   s['gt_inds'][:, :n], gt_masks)
 
     # ---- inference ---------------------------------------------------------
     def simple_test(self, feats, proposals, prop_valid, img_hw,
                     scale_factor=None, rescale=False, cfg=None,
                     keep_fn=nms_keep):
-        """(dets (B, max_per_img, 5), labels, valid) of the proposals."""
+        """(dets (B, max_per_img, 5), labels, valid) of the proposals, and
+        with a mask head their masks (B, max_per_img, 28, 28)."""
         cfg = cfg or self.test_cfg
         b, r = proposals.shape[:2]
         cls, reg = self.bbox_head(self._extract(feats, proposals,
@@ -324,7 +376,27 @@ class StandardRoIHead(nn.Module):
                 scale_factor, dtype=torch.float32,
                 device=boxes.device)[:, None, None, :]
         nms_cfg = dict(cfg.get('nms', {}))
-        return multiclass_nms(boxes, scores, cfg.get('score_thr', 0.05),
-                              nms_cfg.get('iou_threshold', 0.5),
-                              max_per_img=cfg.get('max_per_img', 100),
-                              nms_cfg=nms_cfg, keep_fn=keep_fn)
+        dets, labels, valid = multiclass_nms(
+            boxes, scores, cfg.get('score_thr', 0.05),
+            nms_cfg.get('iou_threshold', 0.5),
+            max_per_img=cfg.get('max_per_img', 100), nms_cfg=nms_cfg,
+            keep_fn=keep_fn)
+        if self.mask_head is None:
+            return dets, labels, valid
+        return dets, labels, valid, self.simple_test_mask(
+            feats, dets, labels, valid,
+            scale_factor if rescale else None)
+
+    def simple_test_mask(self, feats, dets, labels, valid,
+                         scale_factor=None) -> torch.Tensor:
+        """The detections' sigmoid masks (B, D, 28, 28), pooled on their
+        boxes times `scale_factor` (the network input's coordinates)."""
+        b, d = dets.shape[:2]
+        boxes = dets[..., :4]
+        if scale_factor is not None:
+            boxes = boxes * torch.as_tensor(
+                scale_factor, dtype=torch.float32,
+                device=boxes.device)[:, None, :]
+        masks = self.mask_head.predict(
+            self._mask_feats(feats, boxes, valid), labels)
+        return masks.reshape(b, d, *masks.shape[-2:])

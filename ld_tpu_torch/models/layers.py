@@ -64,6 +64,26 @@ class Conv2d(nn.Conv2d):
             None if self.bias is None else self.bias.to(d))
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """`nn.ConvTranspose2d` computing in `compute_dtype` (flax
+    `nn.ConvTranspose(dtype)`), with `Conv2d`'s rounding points. Its
+    weight is (in, out, kh, kw): a flax kernel (kh, kw, in, out) flipped
+    in space (`utils/checkpoint.py`)."""
+
+    def __init__(self, *args, compute_dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        d = self.compute_dtype
+        if d is None:
+            return super().forward(x)
+        return torch.nn.functional.conv_transpose2d(
+            x.to(d), self.weight.to(d),
+            None if self.bias is None else self.bias.to(d), self.stride,
+            self.padding, self.output_padding, self.groups, self.dilation)
+
+
 class GroupNorm(nn.GroupNorm):
     """`nn.GroupNorm` with statistics in float32 and its output in
     `compute_dtype` (flax `nn.GroupNorm(dtype)`).
@@ -134,11 +154,14 @@ def make_norm(norm_cfg, num_features, dtype=None) -> nn.Module:
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator,
-                  scale: float = 1.0):
+                  scale: float = 1.0, fan_in: int = None):
     """flax's default conv kernel init (variance_scaling(1, 'fan_in',
     'truncated_normal')): a normal truncated to 2 std, rescaled so the
-    truncated distribution has variance scale/fan_in."""
-    fan_in = weight[0].numel()
+    truncated distribution has variance scale/fan_in. `fan_in` defaults to
+    an (out, in, ...) weight's; a transposed conv's (in, out, kh, kw)
+    passes in x kh x kw, flax's."""
+    if fan_in is None:
+        fan_in = weight[0].numel()
     std = math.sqrt(scale / fan_in) / .87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,

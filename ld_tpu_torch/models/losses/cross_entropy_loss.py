@@ -7,7 +7,9 @@
     loss; a weight of the loss's own shape applies before that sum, a
     per-row one after it.
 
-The mask form (`use_mask=True`) belongs to the mask heads, not ported yet.
+The mask form (`use_mask=True`) raises, as it does in the JAX package:
+`FCNMaskHead` reads only its `loss_weight` and computes its own BCE
+(ROADMAP.md caveat 24).
 """
 from __future__ import annotations
 
@@ -52,9 +54,10 @@ class CrossEntropyLoss(nn.Module):
                  class_weight=None, loss_weight=1.0):
         super().__init__()
         if use_mask:
-            raise NotImplementedError('CrossEntropyLoss use_mask=True (the '
-                                      'mask heads) is not ported to '
-                                      'ld_tpu_torch yet (see ROADMAP.md A8)')
+            raise NotImplementedError(
+                'CrossEntropyLoss use_mask=True does not exist in the JAX '
+                'package either: FCNMaskHead reads only loss_mask\'s '
+                'loss_weight (see ROADMAP.md caveat 24)')
         self.use_sigmoid = use_sigmoid
         self.reduction = reduction
         self.class_weight = class_weight

@@ -88,6 +88,8 @@ class RandomSampler:
         self.pos_fraction = pos_fraction
         self.neg_pos_ub = neg_pos_ub
         self.add_gt_as_proposals = add_gt_as_proposals
+        # the most positives a row can hold (the mask branch runs on them)
+        self.max_pos = int(num * pos_fraction)
 
     def sample(self, generator: torch.Generator, pos_mask: torch.Tensor,
                neg_mask: torch.Tensor, **kwargs
@@ -95,8 +97,7 @@ class RandomSampler:
         """(..., N) masks -> (pos_sel, neg_sel, negative label weights or
         None)."""
         pos_sel, n_pos = select_topk_mask(uniform_keys(generator, pos_mask),
-                                          pos_mask,
-                                          int(self.num * self.pos_fraction))
+                                          pos_mask, self.max_pos)
         num_neg = self.num - n_pos
         if self.neg_pos_ub >= 0:
             num_neg = torch.minimum(num_neg, self.neg_pos_ub *
@@ -110,6 +111,7 @@ class RandomSampler:
 @SAMPLERS.register_module()
 class PseudoSampler:
     """No sampling: every assigned candidate is used."""
+    max_pos = None
 
     def __init__(self, **kwargs):
         pass

@@ -19,12 +19,14 @@ bilinear sample.
 
 `write_voc_devkit` writes a seeded synthetic PASCAL VOC devkit (XML
 annotations, JPEGs, split files) that VOC configs read through their
-`data_root`; it needs cv2 to write the JPEGs.
+`data_root`; `write_coco_instances` a seeded COCO-format instance set
+(polygon objects, RLE crowds, PNGs) for the mask path. Both need cv2 to
+write the images.
 
 `spawn` runs a function in R spawned processes joined in a process group
 over a FileStore (no port to clash over), with one intra-op thread each;
 the rank-side checks of data parallelism live here
-(`loader_batches_rank`, `head_losses_rank`, `ld_step_rank`,
+(`loader_batches_rank`, `head_losses_rank`, `ld_step_rank`, `step_rank`,
 `train_eval_rank`), so that a spawned child imports the port alone, never
 a test module.
 """
@@ -263,6 +265,96 @@ def write_voc_devkit(root, splits, seed=0, sizes=((375, 500), (500, 375)),
     return written
 
 
+def _polygon(rs, cx, cy, radius, n):
+    """A star-shaped polygon of n vertices around (cx, cy), flat xy."""
+    ang = np.sort(rs.uniform(0, 2 * np.pi, n))
+    r = radius * rs.uniform(0.45, 1.0, n)
+    return np.stack([cx + r * np.cos(ang), cy + r * np.sin(ang)],
+                    -1).reshape(-1)
+
+
+def _poly_area(flat):
+    x, y = flat[0::2], flat[1::2]
+    return 0.5 * abs(float(np.dot(x, np.roll(y, -1)) -
+                           np.dot(y, np.roll(x, -1))))
+
+
+def write_coco_instances(root, num_images=8, sizes=((480, 640), ),
+                         num_classes=80, seed=0, max_objects=4):
+    """A seeded COCO-format instance set under `root`: PNG images (dim
+    noise, each object painted in a colour of its class) and
+    `instances.json`. Image i has size sizes[i % len(sizes)] (h, w) and 1
+    to `max_objects` objects of the first `num_classes` COCO classes, each
+    a star-shaped polygon (6-10 vertices; the first object of every third
+    image is two polygons), its bbox the polygon's bounds and its area the
+    polygon's; every second image also holds a crowd whose segmentation is
+    an RLE of a box region (compressed on odd images of those, else
+    uncompressed). Returns (ann_file, img_prefix)."""
+    from ld_tpu_torch.data.coco import COCO_CLASSES
+    from ld_tpu_torch.data.transforms import _cv2
+    from ld_tpu_torch.evaluation.segm_eval import rle_encode
+    cv2 = _cv2()
+    rs = np.random.RandomState(seed)
+    img_dir = os.path.join(root, 'images')
+    os.makedirs(img_dir, exist_ok=True)
+    images, anns = [], []
+
+    def add(img_id, label, bbox, area, seg, crowd=0):
+        anns.append(dict(id=len(anns) + 1, image_id=img_id,
+                         category_id=label + 1, bbox=bbox, area=area,
+                         segmentation=seg, iscrowd=crowd))
+    for i in range(num_images):
+        h, w = sizes[i % len(sizes)]
+        img = (rs.randint(0, 256, (h, w, 3)) // 4).astype(np.uint8)
+        for j in range(rs.randint(1, max_objects + 1)):
+            label = int(rs.randint(num_classes))
+            radius = rs.uniform(0.08, 0.3) * min(h, w)
+            cx = rs.uniform(radius, w - radius)
+            cy = rs.uniform(radius, h - radius)
+            polys = [_polygon(rs, cx, cy, radius, rs.randint(6, 11))]
+            if j == 0 and i % 3 == 0:
+                polys.append(_polygon(rs, cx + radius * 0.6, cy,
+                                      radius * 0.5, 6))
+            color = np.random.RandomState(label + 1).randint(100, 256, 3)
+            cv2.fillPoly(img, [np.round(p.reshape(-1, 2)).astype(np.int32)
+                               for p in polys], color.tolist())
+            pts = np.concatenate([p.reshape(-1, 2) for p in polys])
+            x1, y1 = pts.min(0)
+            x2, y2 = pts.max(0)
+            add(i + 1, label, [float(x1), float(y1), float(x2 - x1),
+                               float(y2 - y1)],
+                sum(_poly_area(p) for p in polys),
+                [[float(v) for v in p] for p in polys])
+        if i % 2 == 1:
+            bw, bh = int(w * 0.3), int(h * 0.25)
+            x1, y1 = int(rs.randint(0, w - bw)), int(rs.randint(0, h - bh))
+            region = np.zeros((h, w), np.uint8)
+            region[y1:y1 + bh, x1:x1 + bw] = 1
+            rle = rle_encode(region)
+            if i % 4 == 1:
+                counts = [int(c) for c in np.diff(np.concatenate([
+                    [0], np.flatnonzero(np.diff(region.flatten('F'))) + 1,
+                    [h * w]]))]
+                if region[0, 0]:
+                    counts = [0] + counts
+                rle = dict(size=[h, w], counts=counts)
+            else:
+                rle = dict(rle, counts=rle['counts'].decode())
+            add(i + 1, int(rs.randint(num_classes)),
+                [float(x1), float(y1), float(bw), float(bh)],
+                float(bw * bh), rle, crowd=1)
+        name = f'{i + 1:06d}.png'
+        cv2.imwrite(os.path.join(img_dir, name), img)
+        images.append(dict(id=i + 1, file_name=name, height=h, width=w))
+    ann_file = os.path.join(root, 'instances.json')
+    import json
+    with open(ann_file, 'w') as f:
+        json.dump(dict(images=images, annotations=anns, categories=[
+            dict(id=c + 1, name=COCO_CLASSES[c])
+            for c in range(num_classes)]), f)
+    return ann_file, img_dir + os.sep
+
+
 # ---- data parallelism: spawned ranks ----------------------------------------
 
 SPAWN_TIMEOUT_S = 600.0
@@ -467,6 +559,29 @@ def ld_step_rank(rank, world, device, cfg, batch_np, steps=1,
                 torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         out['allreduce_ms'] = sum(times[1:]) / 3
+    return out
+
+
+def step_rank(rank, world, device, cfg, batch_np):
+    """One `make_train_step` step of the detector of `cfg` (float32, from
+    seed 0) on this rank's images of the global numpy batch `batch_np`.
+    Returns dict(metrics (as logged), and on rank 0 params after the
+    step, numpy)."""
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.parallel import (build_lr_schedule, build_optimizer,
+                                       make_train_step)
+    model = build_detector(cfg.model)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(device)
+    schedule = build_lr_schedule(cfg.optimizer['lr'], cfg.lr_config, 1000,
+                                 cfg.runner['max_epochs'])
+    optimizer, scheduler = build_optimizer(cfg.optimizer, schedule, model)
+    step = make_train_step(model, optimizer, scheduler)
+    metrics = step(rank_slice(batch_np, rank, world, device))
+    out = dict(metrics={k: float(v) for k, v in metrics.items()})
+    if rank == 0:
+        out['params'] = {k: p.detach().cpu().numpy().copy()
+                         for k, p in model.named_parameters()}
     return out
 
 

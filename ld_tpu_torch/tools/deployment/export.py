@@ -24,6 +24,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 import torch  # noqa: E402
 
 from ld_tpu_torch.apis import init_detector  # noqa: E402
+from ld_tpu_torch.models.detectors.two_stage import \
+    reject_mask_head  # noqa: E402
 
 NMS_OP = 'ld_tpu_torch.nms_keep.default'
 
@@ -43,6 +45,7 @@ class ForwardTest(torch.nn.Module):
 def export_detector(model, hw):
     """The exported program of `model.forward_test` at (1, 3, h, w) on the
     model's device."""
+    reject_mask_head(model, 'export.py')
     device = next(model.parameters()).device
     h, w = hw
     with torch.no_grad():

@@ -186,9 +186,11 @@ def make_server(config, checkpoint, input_size=(800, 1344), max_batch=4,
     import PIL  # noqa: F401 — requests are decoded with PIL
 
     from ld_tpu_torch.apis import init_detector
+    from ld_tpu_torch.models.detectors.two_stage import reject_mask_head
 
     h, w = input_size
     model = init_detector(config, checkpoint, device=device)
+    reject_mask_head(model, 'serve.py')
     infer = make_infer(model)
     sizes = [1]
     while sizes[-1] < max_batch:

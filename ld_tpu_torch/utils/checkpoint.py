@@ -250,6 +250,26 @@ def _roi_key(path: tuple) -> str:
         f'.{name}'
 
 
+def _mask_key(path: tuple) -> str:
+    """('mask', 'convI' | 'upsample' | 'conv_logits', leaf) -> mmdet's
+    FCNMaskHead name (`convs.I.conv`, `upsample`, `conv_logits`)."""
+    mod, leaf = path[1], path[-1]
+    name = {'kernel': 'weight', 'bias': 'bias'}[leaf]
+    m = re.fullmatch(r'conv(\d+)', mod)
+    if m is not None:
+        return f'convs.{int(m.group(1))}.conv.{name}'
+    if mod not in ('upsample', 'conv_logits'):
+        raise KeyError(path)
+    return f'{mod}.{name}'
+
+
+def _deconv_weight(kernel: np.ndarray) -> np.ndarray:
+    """A flax ConvTranspose kernel (kh, kw, in, out) -> conv_transpose2d's
+    (in, out, kh, kw): flax correlates where torch convolves, so the
+    kernel flips in space."""
+    return np.ascontiguousarray(kernel[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
 def _dense_weight(path: tuple, kernel: np.ndarray, params: Dict
                   ) -> np.ndarray:
     """A JAX Dense kernel (in, out) -> a Linear weight (out, in). fc1 of the
@@ -294,14 +314,16 @@ def state_dict_from_jax(variables: Dict,
     (`_avg_down`) and an FCOS-GFL head (`bbox_head.conv_cls.*`, whose JAX
     convs are `atss_*`); without them the head's convs keep the ATSS names.
 
-    The two-stage trees map too: `rpn_net` to `rpn_head.*` and
+    The two-stage trees map too: `rpn_net` to `rpn_head.*`,
     `roi_head/bbox` to `roi_head.bbox_head.*` (Dense kernels transposed,
-    fc1's rows from the JAX HWC flatten to mmdet's CHW); with
+    fc1's rows from the JAX HWC flatten to mmdet's CHW) and `roi_head/mask`
+    to `roi_head.mask_head.*` (the upsample's kernel flipped); with
     `bbox_head.retina_cls.*` in `keys` the plain Retina head keeps its
     `retina_*` names.
 
     Raises KeyError on a leaf outside the ResNet / Res2Net / FPN, the
-    dense-head (GFL family, Retina, FCOS, ATSS), RPN and RoI-head families.
+    dense-head (GFL family, Retina, FCOS, ATSS), RPN, RoI-head and mask-head
+    families.
     """
     sd: Dict[str, np.ndarray] = {}
     params = variables['params']
@@ -361,6 +383,11 @@ def state_dict_from_jax(variables: Dict,
                     continue
             elif scope == 'rpn_net':
                 key = 'rpn_head.' + _rpn_key(rest)
+            elif scope == 'roi_head' and rest[0] == 'mask':
+                key = 'roi_head.mask_head.' + _mask_key(rest)
+                if rest[1] == 'upsample' and rest[-1] == 'kernel':
+                    sd[key] = _deconv_weight(value)
+                    continue
             elif scope == 'roi_head':
                 key = 'roi_head.bbox_head.' + _roi_key(rest)
                 if rest[-1] == 'kernel' and value.ndim == 2:

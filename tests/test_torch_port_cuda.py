@@ -12,8 +12,9 @@ The training caller, `LDHead._gi_mask`, is checked at the GI path's shapes,
 the LDv2 head's GI masks at full width, and the loader's `DevicePrefetcher`
 against a plain copy to the card. The ops of the DCN teachers that run in
 plain torch on the card, the DCN layer and the voting NMS, are held against
-the CPU, and so are a Res2Net-50-DCN trunk and the GI masks of an IMv2
-step with the Res2Net-101-DCN teacher.
+the CPU, and so are a Res2Net-50-DCN trunk, the GI masks of an IMv2
+step with the Res2Net-101-DCN teacher, a Faster R-CNN's forward and a
+Mask R-CNN's losses and masks.
 """
 import pytest
 import torch
@@ -429,3 +430,64 @@ def test_two_stage_forward_on_the_card_equals_the_cpu(no_tf32):
             rows.append((dets[key], labels[key]))
         assert torch.equal(rows[0][1], rows[1][1])
         assert float((rows[0][0] - rows[1][0]).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_mask_rcnn_on_the_card_equals_the_cpu(no_tf32):
+    """Mask R-CNN (R18, width 64) at 1x3x128x192 with samplers that pick
+    every candidate and uint8 gt masks: every loss of the card, loss_mask
+    included, on the CPU's proposals within rtol 1e-3 of the CPU's, and the
+    masks of the CPU's detections within 5e-3."""
+    _need_card()
+    import copy
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.testing import detection_batch
+    every = dict(num=10**6, pos_fraction=1.0)
+    model = build_detector(dict(
+        type='MaskRCNN',
+        backbone=dict(type='ResNet', depth=18, frozen_stages=1),
+        neck=dict(type='FPN', in_channels=[64, 128, 256, 512],
+                  out_channels=64, num_outs=5),
+        rpn_head=dict(type='RPNHead', in_channels=64, feat_channels=64),
+        roi_head=dict(type='StandardRoIHead',
+                      bbox_head=dict(num_classes=4, in_channels=64,
+                                     fc_out_channels=64),
+                      mask_head=dict(num_classes=4, in_channels=64,
+                                     conv_out_channels=64)),
+        train_cfg=dict(rpn=dict(sampler=every), rcnn=dict(sampler=every))))
+    model.init_weights(torch.Generator().manual_seed(0))
+    batch = detection_batch(1, 128, 192, num_classes=4, seed=0,
+                            device='cpu')
+    g = torch.Generator().manual_seed(2)
+    masks = torch.zeros(1, 100, 32, 48, dtype=torch.uint8)
+    for j in torch.nonzero(batch['gt_valid'][0]).flatten().tolist():
+        x1, y1, x2, y2 = (batch['gt_bboxes'][0, j] / 4).long().tolist()
+        masks[0, j, y1:y2 + 1, x1:x2 + 1] = (torch.rand(
+            y2 + 1 - y1, x2 + 1 - x1, generator=g) > 0.3).to(torch.uint8)
+    batch['gt_masks'] = masks
+    peaked = copy.deepcopy(model).eval()
+    with torch.inference_mode():
+        peaked.roi_head.bbox_head.fc_cls.weight.mul_(10.0)
+        dets = peaked.forward_test(batch)[:3]
+    assert int(dets[2].sum()) > 0
+    losses, out, props = {}, {}, None
+    for device in ('cpu', 'cuda'):
+        m = copy.deepcopy(model).to(device).train()
+        b = {k: v.to(device) for k, v in batch.items()}
+        gen = torch.Generator(device=device).manual_seed(0)
+        feats, rpn_outs = m(b['image'])
+        sizes = [tuple(c.shape[-2:]) for c in rpn_outs[0]]
+        got = m.rpn_head.loss(rpn_outs, b, sizes, gen)
+        if props is None:
+            props = m._proposals(rpn_outs, b['img_hw'])
+        got.update(m.roi_head.forward_train(
+            feats, *(p.to(device) for p in props), b, gen))
+        losses[device] = {k: float(v.detach()) for k, v in got.items()}
+        with torch.inference_mode():
+            out[device] = m.eval().roi_head.simple_test_mask(
+                [f.detach() for f in feats],
+                *(d.to(device) for d in dets)).cpu()
+    assert losses['cpu']['loss_mask'] > 0
+    for k, c in losses['cpu'].items():
+        assert losses['cuda'][k] == pytest.approx(c, rel=1e-3), k
+    assert float((out['cuda'] - out['cpu']).abs().max()) <= 5e-3

@@ -67,8 +67,15 @@ def test_load_image_from_file_matches_jax(tmp_path, ext, color_type):
         np.testing.assert_array_equal(got[key], want[key])
         assert got[key].dtype == want[key].dtype
     assert got['img_shape'] == want['img_shape'] == got['ori_shape']
-    with pytest.raises(NotImplementedError):
-        tf.LoadAnnotations(with_mask=True)
+    # with_mask: the polygons filled by cv2.fillPoly, as in JAX
+    poly = dict(results, ann_info=dict(
+        ann, masks=[[[2.7, 3.1, 28.9, 4.0, 20.5, 18.8, 3.3, 15.2]]]))
+    want = j_tf.Compose([j_tf.LoadImageFromFile(color_type=color_type),
+                         j_tf.LoadAnnotations(with_mask=True)])(dict(poly))
+    got = tf.Compose([tf.LoadImageFromFile(color_type=color_type),
+                      tf.LoadAnnotations(with_mask=True)])(dict(poly))
+    assert got['gt_masks'][0].sum() > 0
+    np.testing.assert_array_equal(got['gt_masks'], want['gt_masks'])
     with pytest.raises(FileNotFoundError):
         tf.LoadImageFromFile()(dict(img_info=dict(filename='missing.png'),
                                     img_prefix=str(tmp_path)))
@@ -239,7 +246,11 @@ def test_coco_dataset_matches_jax(tmp_path, test_mode):
     assert got.cat_id_to_label == want.cat_id_to_label
     assert got.label_to_cat_id == want.label_to_cat_id
     for g, w in zip(got.annotations, want.annotations):
+        assert sorted(g) == sorted(w)
         for key in g:
+            if isinstance(w[key], list):    # polygons, crowd segmentations
+                assert g[key] == w[key]
+                continue
             np.testing.assert_array_equal(g[key], w[key])
             assert g[key].dtype == w[key].dtype
     assert sum(len(a['bboxes_ignore']) for a in got.annotations) > 0

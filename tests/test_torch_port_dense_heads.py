@@ -229,7 +229,7 @@ def test_cross_entropy_loss_matches_jax(use_sigmoid, target):
 
 
 def test_cross_entropy_mask_form_names_its_item():
-    with pytest.raises(NotImplementedError, match='A8'):
+    with pytest.raises(NotImplementedError, match='caveat 24'):
         LOSSES.build(dict(type='CrossEntropyLoss', use_mask=True))
 
 

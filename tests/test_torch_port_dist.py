@@ -19,6 +19,10 @@ the port alone and run one intra-op thread) carries every rank-side check:
     equals the one-process step at 2 images: losses rtol 1e-5, GI masks
     identical, gradients after the clip within 1e-5 of their largest value,
     parameters after SGD atol 1e-6;
+  * the R18 Mask R-CNN step at 64x64 (samplers that pick every candidate,
+    since each rank draws its own keys) at 2 ranks x 1 image equals the
+    one-process step at 2 images: losses (`loss_mask`, a per-image mean,
+    included) rtol 1e-5, parameters after SGD atol 1e-6;
   * `tools/train.py --launcher pytorch` and `train_detector` at R = 2:
     rank 0 alone writes, its checkpoint loads at R = 1 and through
     `convert_torch_state_dict`, a SIGTERM to rank 0 stops both ranks at one
@@ -46,7 +50,8 @@ from ld_tpu_torch.models import build_detector
 from ld_tpu_torch.parallel import dist as pdist
 from ld_tpu_torch.testing import (detection_batch_np, head_losses_rank,
                                   ld_step_rank, loader_batches_rank,
-                                  rank_calls, spawn, train_eval_rank)
+                                  rank_calls, spawn, step_rank,
+                                  train_eval_rank)
 from ld_tpu_torch.utils.checkpoint import load_checkpoint
 from ld_tpu_torch.utils.registry import HEADS
 from test_torch_port_bridge import (HEAD_KW, HW, NUM_CLASSES, TEST_CFG,
@@ -56,6 +61,7 @@ from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autous
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GI_CFG = os.path.join(ROOT, 'configs/ld/ld_r50_gflv1_r101_fpn_coco_1x_gi.py')
+MASK_CFG = os.path.join(ROOT, 'configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py')
 LD_CFG = os.path.join(ROOT, 'configs/ld/ld_r18_self_2x_3x_voc.py')
 TEACHER_CFG = os.path.join(ROOT, 'configs/gfl/gfl_r18_fpn1x_voc.py')
 NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
@@ -147,6 +153,38 @@ def _step_cfg():
     return cfg
 
 
+def _mask_step_cfg():
+    """Mask R-CNN at R18, width 64, samplers that pick every candidate,
+    100 proposals an image, SGD at lr 0.01 from the first step."""
+    cfg = Config.fromfile(MASK_CFG)
+    m = cfg.model
+    m.backbone.depth = 18
+    m.neck.in_channels = [64, 128, 256, 512]
+    m.neck.out_channels = 64
+    m.rpn_head.in_channels = m.rpn_head.feat_channels = 64
+    m.roi_head.bbox_head.update(in_channels=64, fc_out_channels=64)
+    m.roi_head.mask_head.update(in_channels=64, conv_out_channels=64)
+    every = dict(num=10**6, pos_fraction=1.0)
+    m.train_cfg = dict(rpn=dict(sampler=every), rcnn=dict(sampler=every))
+    # 100 proposals an image: the mask tower runs on every roi here
+    m.test_cfg.rpn = dict(nms_pre=200, max_per_img=100)
+    cfg.lr_config = dict(step=[8, 11], warmup_iters=1, warmup_ratio=1.0)
+    return cfg
+
+
+def _mask_step_batch():
+    """Two 64x64 images with gt masks inside their boxes, holes drawn."""
+    batch = detection_batch_np(2, 64, 64, num_classes=80, seed=3)
+    rs = np.random.RandomState(4)
+    masks = np.zeros(batch['gt_bboxes'].shape[:2] + (16, 16), np.uint8)
+    for i, j in zip(*np.nonzero(batch['gt_valid'])):
+        x1, y1, x2, y2 = (batch['gt_bboxes'][i, j] / 4).astype(int)
+        masks[i, j, y1:y2 + 1, x1:x2 + 1] = rs.rand(
+            y2 + 1 - y1, x2 + 1 - x1) > 0.3
+    batch['gt_masks'] = masks
+    return batch
+
+
 def _train_cfg(tmp):
     """configs/ld/ld_r18_self_2x_3x_voc.py at width 64 on 8 synthetic
     64x96 train images (1 a rank: 4 steps an epoch) and 5 val images, 2
@@ -195,16 +233,20 @@ def ranks(tmp_path_factory):
     train_cfg, cfg_path = _train_cfg(tmp)
     work_dir = os.path.join(tmp, 'work')
     ckpt = os.path.join(work_dir, 'full', 'checkpoints', '8.pth')
+    mask_cfg, mask_batch = _mask_step_cfg(), _mask_step_batch()
     calls = [(loader_batches_rank, AGREED_LOADER),
              (head_losses_rank, ([cases[n] for n in sorted(cases)], )),
              (ld_step_rank, (step_cfg, step_batch)),
-             (train_eval_rank, (cfg_path, work_dir, 3))]
+             (train_eval_rank, (cfg_path, work_dir, 3)),
+             (step_rank, (mask_cfg, mask_batch))]
     out = spawn(rank_calls, WORLD, 'gloo', os.path.join(tmp, 'spawn'),
                 args=(calls, ))
     return dict(cases=cases, step_cfg=step_cfg, step_batch=step_batch,
                 train_cfg=train_cfg, work_dir=work_dir, ckpt=ckpt,
+                mask_cfg=mask_cfg, mask_batch=mask_batch,
                 loader=[o[0] for o in out], heads=[o[1] for o in out],
-                step=[o[2] for o in out], train=[o[3] for o in out])
+                step=[o[2] for o in out], train=[o[3] for o in out],
+                mask_step=[o[4] for o in out])
 
 
 # ---- parallel.dist -----------------------------------------------------------
@@ -388,6 +430,22 @@ def test_two_ranks_step_equals_one_process_step(ranks):
     for k in ref['params']:
         np.testing.assert_allclose(got[0]['params'][k], ref['params'][k],
                                    rtol=0, atol=1e-6, err_msg=k)
+
+
+def test_two_ranks_mask_rcnn_step_equals_one_process_step(ranks):
+    ref = step_rank(0, 1, 'cpu', ranks['mask_cfg'], ranks['mask_batch'])
+    assert ref['metrics']['loss_mask'] > 0
+    for r in ranks['mask_step']:
+        assert sorted(r['metrics']) == sorted(ref['metrics'])
+        for k, v in ref['metrics'].items():
+            assert r['metrics'][k] == pytest.approx(v, rel=1e-5, abs=1e-8), k
+    got = ranks['mask_step'][0]['params']
+    assert sorted(got) == sorted(ref['params'])
+    moved = 0
+    for k, v in ref['params'].items():
+        np.testing.assert_allclose(got[k], v, rtol=0, atol=1e-6, err_msg=k)
+        moved += k.startswith('roi_head.mask_head.')
+    assert moved == 12
 
 
 # ---- train_detector and eval_detector ----------------------------------------

@@ -150,5 +150,6 @@ def test_results2json_matches_jax(datasets, tmp_path):
     per_class = [[d['boxes'][d['labels'] == c] for c in range(3)]
                  for d in dets]
     assert ds.results2json(per_class) == j_ds.results2json(per_class)
+    # 'segm' is ported (tests/test_torch_port_mask_rcnn.py); the rest raise
     with pytest.raises(NotImplementedError):
-        ds.evaluate(dets, metric='segm')
+        ds.evaluate(dets, metric='proposal')
