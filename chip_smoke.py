@@ -2,8 +2,9 @@
 paths, the other GFL-family heads, the configs' bf16 dtype, the DCN /
 ResNeXt rows, the Res2Net-101-DCN teacher rows, data-parallel training
 and evaluation, the synthetic train-to-AP harness, the AP landscape, the
-HTTP server, the export, the classic one-stage heads and the two-stage
-stack on one CUDA card and check them.
+HTTP server, the export, the classic one-stage heads, the two-stage
+stack, Mask R-CNN and the cascades (Cascade R-CNN, Cascade Mask R-CNN,
+HTC) on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
@@ -190,11 +191,42 @@ Phases, one JSON object per line each:
                candidates at K = 4819, B = 1 and 2: bit-identical with
                nms_keep_ref, event / host / device ms, the plain version's
                ms and the bound. Budget 90 s.
+ 18. mask_rcnn — configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py at full
+               width, float32, seed 0: `forward_test` at batch 1 and 2 with
+               its masks (2 launches a call, outputs identical with the
+               plain keep mask); 2 + 5 steps with gt_masks through
+               _base_/datasets/coco_instance.py's train pipeline (the mask
+               tower on the 128-roi positive slice), 1 + 2 with it on every
+               roi (the same first loss_mask within 1e-4); the card against
+               the CPU at 1x3x128x192 (masks within 5e-3); 1 + 2 steps of
+               the X101-32x8d config through its own mask-loading pipeline;
+               `eval_detector` -> `evaluate(['bbox', 'segm'])` over 8
+               polygon images (2 launches a batch; the gts as detections
+               score segm and bbox AP 1.0). Budget 90 s.
+ 19. cascade — configs/cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py,
+               cascade_mask_rcnn_r50_fpn_1x_coco.py and
+               configs/htc/htc_r50_fpn_1x_coco.py at full width, float32,
+               seed 0 (each stage's fc_cls x 100 when served):
+               `forward_test` at batch 1 and 2 (HTC: 1), 2 + 5 calls each (2
+               launches a call: the RPN's and the last stage's NMS; outputs
+               identical with the plain keep mask; Cascade Mask R-CNN's
+               masks the stages' average); 1 + 3 steps each at batch 2 with
+               gt_masks through coco_instance.py's train pipeline (1 launch
+               a step; every stage's losses, HTC's loss_semantic_seg); for
+               Cascade Mask R-CNN and HTC the card against the CPU at
+               1x3x128x192 on the top 200 proposals (rtol 1e-3 a loss,
+               masks within 5e-3), and Cascade Mask R-CNN's evaluation over
+               the polygon set (AP 1.0 for the gts); then the kernel alone
+               on a batch-2 call's RPN (K = 4819) and last-stage (K = 1024)
+               NMS inputs. Launches must equal CASCADE_LAUNCHES (90).
+               Budget 75 s.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
 (the main path's case: dense-kept set, K = 1024, B = 1; `device_ms` is the
 profiler's mask + sweep time; the `_k2048` keys the dense-kept set at
 K = 2048, B = 1, the `_tta_merge` keys the first TTA image's own merge, the
-`_k4819` keys the RPN's proposals at B = 1 (`_k4819_b2` at B = 2);
+`_k4819` keys the RPN's proposals at B = 1 (`_k4819_b2` at B = 2), the
+`_cascade_rpn_b2` / `_cascade_roi_b2` keys a batch-2 Cascade R-CNN call's
+two NMS;
 `launches` counts all main paths, `launches_<phase>` each), and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script exits
 non-zero and prints no result; so does a host without CUDA.
@@ -281,6 +313,18 @@ MASK_CONFIG = 'configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py'
 MASK_X101_CONFIG = 'configs/mask_rcnn/mask_rcnn_x101_32x8d_fpn_1x_coco.py'
 MASK_DATA_CONFIG = 'configs/_base_/datasets/coco_instance.py'
 MASK_EVAL_SET = (8, ((480, 640), (640, 480)))
+# the cascade phase: (config, forward_test batch sizes, warm-up and timed
+# training steps, card vs CPU) and its nms_keep launches, stated before the
+# run: 2 a forward_test call (2 + 5 at each batch size), 1 a step, 2 an
+# eval batch (Cascade Mask R-CNN's 8 images: 4 batches of 2)
+CASCADE_CONFIGS = (
+    ('configs/cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py', (1, 2), (1, 3),
+     False),
+    ('configs/cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_coco.py', (1, 2),
+     (1, 3), True),
+    ('configs/htc/htc_r50_fpn_1x_coco.py', (1, ), (1, 3), True))
+CASCADE_LAUNCHES = sum(2 * 7 * len(b) + sum(s)
+                       for _, b, s, _ in CASCADE_CONFIGS) + 2 * 4
 # its nms_keep launches, stated before the run: 1 a forward_test call, 5 a
 # gibox step (one GI NMS per FPN level)
 RES2NET_LAUNCHES = sum(RES2NET_SERVE_CALLS) + 5 * sum(
@@ -3071,28 +3115,10 @@ def phase_two_stage(torch, np, smi):
     torch.cuda.empty_cache()
 
     # the kernel alone on the RPN's own candidates: no main path's launch
-    k4819 = {}
-    for b in (1, 2):
-        boxes = rpn_boxes[:b].contiguous()
-        valid = rpn_valid[:b].contiguous()
-        got = nms_keep(boxes, valid, rpn_thr)
-        check(torch.equal(got, nms_keep_ref(boxes, valid, rpn_thr)),
-              f'kernel keep mask differs from plain at K = {RPN_K}, B = {b}')
-        ms, host_ms = cuda_ms(lambda: nms_keep(boxes, valid, rpn_thr),
-                              iters=100)
-        dev = kernel_device_ms(torch, lambda: nms_keep(boxes, valid, rpn_thr),
-                               NMS_KERNELS)
-        plain_ms, _ = cuda_ms(lambda: nms_keep_ref(boxes, valid, rpn_thr),
-                              iters=10)
-        bound, bound_by = nms_bound_ms(b, RPN_K)
-        row = dict(phase='kernel_time', set='rpn_proposals', K=RPN_K, B=b,
-                   kept=int(got.sum()), valid=int(valid.sum()), ms=ms,
-                   host_ms=host_ms, device_ms=dev and sum(dev.values()),
-                   **{f'device_ms_{n}': dev and dev[n] for n in NMS_KERNELS},
-                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                   bit_identical=True, nvidia_smi=smi)
-        emit(row)
-        k4819[b] = row
+    rows = kernel_rows(torch, smi, [
+        (rpn_boxes[:b].contiguous(), rpn_valid[:b].contiguous(), rpn_thr)
+        for b in (1, 2)], ('rpn_proposals', 'rpn_proposals'))
+    k4819 = {row['B']: row for row in rows}
 
     cfg, base = build_plain(torch, FASTER_CONFIG)
     n, _ = detector_steps(torch, smi, cfg, base, 2, 5, per_step=1,
@@ -3134,6 +3160,19 @@ def mask_batch(torch, dataset, data_cfg):
     return batch
 
 
+def instance_train_batch(torch, data_cfg):
+    """Two synthetic 800x1333 images of 80 classes with box-region masks
+    through coco_instance.py's train pipeline after its file loaders, to
+    the card."""
+    from ld_tpu_torch.data import build_dataset
+    pipe = [t for t in data_cfg.train_pipeline
+            if t['type'] not in ('LoadImageFromFile', 'LoadAnnotations')]
+    train_set = build_dataset(dict(
+        type='SyntheticDetectionDataset', num_images=2, hw=(800, 1333),
+        num_classes=80, max_boxes=6, pipeline=pipe, seed=0))
+    return mask_batch(torch, train_set, data_cfg)
+
+
 def all_rois_mask_loss(roi_head, feats, s, gt_masks):
     """`StandardRoIHead.mask_loss` with the tower on every sampled roi, as
     the JAX head runs it: the design the positive slice is measured
@@ -3144,97 +3183,51 @@ def all_rois_mask_loss(roi_head, feats, s, gt_masks):
         s['roi_pos'], s['labels'], s['gt_inds'], gt_masks)
 
 
-def mask_rcnn_reference(torch, np, base):
-    """The card against the CPU at 1x3x128x192 on `base`'s weights with
-    samplers that pick every candidate: the FPN and RPN outputs (5e-3 /
-    2e-4), every loss of the step, loss_mask included, on the CPU's
-    proposals (rtol 1e-3 a term), and the masks (the 4th output) of the
-    CPU's detections (of a copy with fc_cls x 100, so that there are some)
-    within 5e-3."""
-    import copy
-    from ld_tpu_torch.testing import detection_batch
-    worst, worst_med = outputs_reference(torch, np, base)
-    cpu_batch = detection_batch(1, 128, 192, seed=0, device='cpu')
-    rs = np.random.RandomState(2)
-    gt_masks = np.zeros((1, 100, 32, 48), np.uint8)
-    for j in np.flatnonzero(cpu_batch['gt_valid'][0].numpy()):
-        x1, y1, x2, y2 = (cpu_batch['gt_bboxes'][0, j].numpy() / 4).astype(
-            int)
-        gt_masks[0, j, y1:y2 + 1, x1:x2 + 1] = rs.rand(
-            y2 + 1 - y1, x2 + 1 - x1) > 0.3
-    cpu_batch['gt_masks'] = torch.from_numpy(gt_masks)
-    peaked = copy.deepcopy(base).eval()
-    with torch.inference_mode():
-        peaked.roi_head.bbox_head.fc_cls.weight.mul_(100.0)
-        dets = peaked.forward_test(cpu_batch)[:3]
-    del peaked
-    runs, masks, props = {}, {}, None
-    for device in ('cpu', 'cuda'):
-        model = sample_everything(copy.deepcopy(base)).to(device).train()
-        batch = {k: v.to(device) for k, v in cpu_batch.items()}
-        gen = torch.Generator(device=device).manual_seed(0)
-        feats, rpn_outs = model(batch['image'])
-        sizes = [tuple(c.shape[-2:]) for c in rpn_outs[0]]
-        losses = model.rpn_head.loss(rpn_outs, batch, sizes, gen)
-        if props is None:
-            props = model._proposals(rpn_outs, batch['img_hw'])
-        losses.update(model.roi_head.forward_train(
-            feats, *(p.to(device) for p in props), batch, gen))
-        runs[device] = {k: float(v.detach()) for k, v in losses.items()}
-        with torch.inference_mode():
-            masks[device] = model.eval().roi_head.simple_test_mask(
-                [f.detach() for f in feats],
-                *(d.to(device) for d in dets)).cpu()
-        del model, feats, rpn_outs
-    c_loss, g_loss = runs['cpu'], runs['cuda']
-    mask_diff = float((masks['cuda'] - masks['cpu']).abs().max())
-    rel = {k: abs(g_loss[k] - c) / abs(c) for k, c in c_loss.items() if c}
-    emit(dict(phase='mask_rcnn_reference', config=MASK_CONFIG,
-              input='1x3x128x192', max_abs_diff=worst,
-              max_median_rel_diff=worst_med, tol_abs=5e-3,
-              tol_median_rel=2e-4, proposals=int(props[1].sum()),
-              detections=int(dets[2].sum()), mask_max_abs_diff=mask_diff,
-              mask_tol=5e-3, loss_cpu=c_loss, loss_card=g_loss,
-              rel_diff=rel, rtol=1e-3))
-    check('loss_mask' in c_loss and int(dets[2].sum()) > 0,
-          'the reference has no loss_mask or no detection')
-    check(mask_diff <= 5e-3, f'masks: card vs CPU {mask_diff}')
-    for k, c in c_loss.items():
-        check(abs(g_loss[k] - c) <= 1e-3 * abs(c),
-              f'{k}: card {g_loss[k]!r} vs CPU {c!r} beyond rtol 1e-3')
-    torch.cuda.empty_cache()
-
-
-def phase_mask_rcnn(torch, np, smi):
-    """Mask R-CNN R50 at full width: `forward_test` at batch 1 and 2 with
-    its masks, training steps with gt_masks through coco_instance.py's
-    pipeline (the mask tower on the positive slice, and once on every
-    roi), the card against the CPU, the X101-32x8d config's steps through
-    its own mask-loading pipeline, and `eval_detector` ->
-    `evaluate(['bbox', 'segm'])` over a polygon set; returns the kernel's
-    launch count over the main paths."""
-    import copy
-    import shutil
-    import types
-    from ld_tpu_torch import Config
-    from ld_tpu_torch.apis import eval_detector, init_detector
-    from ld_tpu_torch.data import build_dataset
-    from ld_tpu_torch.evaluation.coco_mask import poly_to_mask
-    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
-    from ld_tpu_torch.testing import write_coco_instances
-    t_phase = time.perf_counter()
-    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_mask_rcnn')
-    shutil.rmtree(work, ignore_errors=True)
-    data_cfg = Config.fromfile(os.path.join(ROOT, MASK_DATA_CONFIG))
-    model = init_detector(float32_cfg(MASK_CONFIG), device='cuda', seed=0)
+def peak_scores(torch, model):
+    """`model` with its RoI head's fc_cls (each cascade stage's) at std 1,
+    its init's x 100: a softmax over the 81 classes peaked enough that the
+    RoI head's NMS sees candidates above score_thr."""
+    heads = model.roi_head.bbox_head
     with torch.no_grad():
-        model.roi_head.bbox_head.fc_cls.weight.mul_(100.0)
+        for head in heads if isinstance(heads, torch.nn.ModuleList) \
+                else [heads]:
+            head.fc_cls.weight.mul_(100.0)
+    return model
+
+
+def box_masks(torch, np, batch, seed=2):
+    """(B, 100, H/4, W/4) uint8 gt masks of `batch`: random pixels of each
+    valid gt's box."""
+    rs = np.random.RandomState(seed)
+    b, g = batch['gt_bboxes'].shape[:2]
+    h, w = (s // 4 for s in batch['image'].shape[-2:])
+    masks = np.zeros((b, g, h, w), np.uint8)
+    for i in range(b):
+        for j in np.flatnonzero(batch['gt_valid'][i].numpy()):
+            x1, y1, x2, y2 = (batch['gt_bboxes'][i, j].numpy() / 4).astype(
+                int)
+            masks[i, j, y1:y2 + 1, x1:x2 + 1] = rs.rand(
+                y2 + 1 - y1, x2 + 1 - x1) > 0.3
+    return torch.from_numpy(masks)
+
+
+def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
+              timed=5):
+    """`forward_test` of a two-stage `model` on the card at 800x1344:
+    `warmup` + `timed` calls at each batch size, 2 launches a call (the
+    RPN's NMS of the batch and the RoI head's), the outputs checked (with
+    test masks the 4th, (B, 100, 28, 28) in [0, 1]); at the largest batch
+    both NMS again with the plain keep mask, identical outputs; the device's
+    busy share at the smallest. Emits the row; returns (launches, row, the
+    captured NMS inputs (boxes, valid, thr) of the largest batch's call)."""
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
     gen = torch.Generator('cuda').manual_seed(0)
     benches = {b: dict(image=torch.randn(b, 3, 800, 1344, device='cuda',
                                          generator=gen),
                        img_hw=torch.tensor([[800.0, 1344.0]] * b,
                                            device='cuda'))
-               for b in (1, 2)}
+               for b in batches}
+    with_masks = model.roi_head.with_test_masks
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -3244,101 +3237,145 @@ def phase_mask_rcnn(torch, np, smi):
     fwd_ms = {}
     with torch.inference_mode():
         for b, bench in benches.items():
-            for _ in range(2):
+            for _ in range(warmup):
                 model.forward_test(bench)
                 calls += 1
             torch.cuda.synchronize()
             times = []
-            for _ in range(5):
+            for _ in range(timed):
                 t = time.perf_counter()
-                dets, _, valid, masks = model.forward_test(bench)
+                outs = model.forward_test(bench)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t) * 1e3)
                 calls += 1
             fwd_ms[b] = times
-            check(tuple(masks.shape) == (b, 100, 28, 28) and
-                  bool(torch.isfinite(masks).all()) and
-                  0 <= float(masks.min()) and float(masks.max()) <= 1 and
+            dets, _, valid = outs[:3]
+            check(len(outs) == 3 + with_masks and
+                  tuple(dets.shape) == (b, 100, 5) and
+                  bool(torch.isfinite(dets).all()) and
                   bool(valid.any(dim=1).all()),
-                  f'forward_test masks at batch {b}')
-    serve_launches = nms_keep.launches
+                  f'{config} forward_test at batch {b}')
+            if with_masks:
+                masks = outs[3]
+                check(tuple(masks.shape) == (b, 100, 28, 28) and
+                      bool(torch.isfinite(masks).all()) and
+                      0 <= float(masks.min()) and float(masks.max()) <= 1,
+                      f'{config} forward_test masks at batch {b}')
+    launches = nms_keep.launches
     # ----------------------------------------------------------------------
-    serve_peak = torch.cuda.max_memory_allocated()
-    check(serve_launches == 2 * calls, f'nms_keep launched {serve_launches} '
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == 2 * calls, f'{config}: nms_keep launched {launches} '
           f'times for {calls} forward_test calls (2 a call)')
+    bench = benches[max(batches)]
+    captured = []
+
+    def capture(boxes, valid, thr):
+        captured.append((boxes.clone(), valid.clone(), thr))
+        return nms_keep(boxes, valid, thr)
     with torch.inference_mode():
-        bench = benches[2]
         feats, rpn_outs = model(bench['image'])
         outs = {}
-        for name, keep in (('kernel', nms_keep), ('plain', nms_keep_ref)):
+        for name, keep in (('kernel', capture), ('plain', nms_keep_ref)):
             props = model.rpn_head.get_proposals(rpn_outs, bench['img_hw'],
                                                  keep_fn=keep)
             outs[name] = model.roi_head.simple_test(
                 feats, *props, bench['img_hw'], keep_fn=keep)
         check(all(torch.equal(a, b) for a, b in zip(outs['kernel'],
                                                     outs['plain'])),
-              'dets and masks with the kernel differ from the plain keep '
-              'mask')
-    emit(dict(phase='mask_rcnn_serve', config=MASK_CONFIG, nvidia_smi=smi,
-              params=sum(p.numel() for p in model.parameters()),
-              forward_test_ms_b1=fwd_ms[1],
-              forward_test_ms_b1_mean=sum(fwd_ms[1]) / len(fwd_ms[1]),
-              forward_test_ms_b2=fwd_ms[2],
-              forward_test_ms_b2_mean=sum(fwd_ms[2]) / len(fwd_ms[2]),
-              max_memory_allocated_bytes=serve_peak,
-              nms_keep_launches=serve_launches,
-              nms_keep_launches_per_call=2,
-              detections=int(outs['kernel'][2].sum()),
-              plain_keep_identical=True))
+              f'{config}: outputs with the kernel differ from the plain '
+              'keep mask')
+    prof = phase_profile(torch, model, benches[min(batches)],
+                         phase=f'{phase}_profile')
+    row = dict(phase=phase, config=config, nvidia_smi=smi,
+               detector=type(model).__name__,
+               params=sum(p.numel() for p in model.parameters()),
+               max_memory_allocated_bytes=peak,
+               nms_keep_launches=launches, nms_keep_launches_per_call=2,
+               nms_k=[c[0].shape[1] for c in captured],
+               detections=int(outs['kernel'][2].sum()),
+               plain_keep_identical=True,
+               device_busy_share=prof.get('device_busy_share'),
+               device_ms_b1=prof.get('device_ms_per_iter'))
+    for b, times in fwd_ms.items():
+        row[f'forward_test_ms_b{b}'] = times
+        row[f'forward_test_ms_b{b}_mean'] = sum(times) / len(times)
+    emit(row)
     del feats, rpn_outs, outs, benches, bench
-
-    # training: coco_instance.py's train pipeline after its file loaders,
-    # over synthetic images with box-region masks
-    pipe = [t for t in data_cfg.train_pipeline
-            if t['type'] not in ('LoadImageFromFile', 'LoadAnnotations')]
-    train_set = build_dataset(dict(
-        type='SyntheticDetectionDataset', num_images=2, hw=(800, 1333),
-        num_classes=80, max_boxes=6, pipeline=pipe, seed=0))
-    batch = mask_batch(torch, train_set, data_cfg)
-    cfg, base = build_plain(torch, MASK_CONFIG)
-    train_launches, row = detector_steps(
-        torch, smi, cfg, base, 2, 5, per_step=1, phase='mask_rcnn_train',
-        profile=True, batch=batch)
-    check(row['loss_last'].get('loss_mask', 0) > 0, 'no loss_mask')
-    check(base.roi_head.sampler.max_pos == 128,
-          'the mask tower does not run on a 128-roi slice')
-    all_rois = copy.deepcopy(base)
-    all_rois.roi_head.mask_loss = types.MethodType(all_rois_mask_loss,
-                                                   all_rois.roi_head)
-    n, all_row = detector_steps(torch, smi, cfg, all_rois, 1, 2,
-                                per_step=1, phase='mask_rcnn_train_all_rois',
-                                batch=batch)
-    train_launches += n
-    first, all_first = row['loss_first'], all_row['loss_first']
-    check(abs(all_first['loss_mask'] - first['loss_mask']) <=
-          1e-4 * abs(first['loss_mask']),
-          f"loss_mask on the positive slice {first['loss_mask']!r}, on "
-          f"every roi {all_first['loss_mask']!r}")
-    del all_rois, batch, train_set
-    mask_rcnn_reference(torch, np, base)
-    del base
-
-    # the X101-32x8d config through its own pipeline over a polygon set
-    x_cfg = float32_cfg(MASK_X101_CONFIG)
-    ann, prefix = write_coco_instances(os.path.join(work, 'train'), 2,
-                                       sizes=((800, 1333), ), seed=1)
-    x_set = build_dataset(dict(x_cfg.data['train'], ann_file=ann,
-                               img_prefix=prefix))
-    batch = mask_batch(torch, x_set, data_cfg)
-    _, x_base = build_plain(torch, MASK_X101_CONFIG)
-    n, x_row = detector_steps(torch, smi, x_cfg, x_base, 1, 2, per_step=1,
-                              phase='mask_rcnn_x101_train', batch=batch)
-    train_launches += n
-    check(x_row['loss_last'].get('loss_mask', 0) > 0, 'no X101 loss_mask')
-    del x_base, batch, x_set
     torch.cuda.empty_cache()
+    return launches, row, captured
 
-    # evaluation over a polygon set with crowds, batch 2
+
+def roi_reference(torch, np, base, config, phase, proposals=200):
+    """The card against the CPU at 1x3x128x192 on `base`'s weights with
+    samplers that pick every candidate and box-region gt masks: the FPN and
+    RPN outputs (5e-3 / 2e-4), every loss (the RPN's and the RoI head's,
+    the mask and semantic losses included) on the CPU's top `proposals`
+    proposals (None: all), rtol 1e-3 a term; with test masks, the masks of
+    the CPU's detections (of a copy with peaked scores) within 5e-3."""
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    worst, worst_med = outputs_reference(torch, np, base)
+    cpu_batch = detection_batch(1, 128, 192, seed=0, device='cpu')
+    cpu_batch['gt_masks'] = box_masks(torch, np, cpu_batch)
+    dets = None
+    if base.roi_head.with_test_masks:
+        peaked = peak_scores(torch, copy.deepcopy(base).eval())
+        with torch.inference_mode():
+            dets = peaked.forward_test(cpu_batch)[:3]
+        del peaked
+    runs, masks, props = {}, {}, None
+    for device in ('cpu', 'cuda'):
+        model = sample_everything(copy.deepcopy(base)).to(device).train()
+        batch = {k: v.to(device) for k, v in cpu_batch.items()}
+        gen = torch.Generator(device=device).manual_seed(0)
+        feats, rpn_outs = model(batch['image'])
+        sizes = [tuple(c.shape[-2:]) for c in rpn_outs[0]]
+        losses = model.rpn_head.loss(rpn_outs, batch, sizes, gen)
+        if props is None:
+            props = [p[:, :proposals] for p in model._proposals(
+                rpn_outs, batch['img_hw'])]
+        losses.update(model.roi_head.forward_train(
+            feats, *(p.to(device) for p in props), batch, gen))
+        runs[device] = {k: float(v.detach()) for k, v in losses.items()}
+        if dets is not None:
+            with torch.inference_mode():
+                masks[device] = model.eval().roi_head.simple_test_mask(
+                    [f.detach() for f in feats],
+                    *(d.to(device) for d in dets)).cpu()
+        del model, feats, rpn_outs
+    c_loss, g_loss = runs['cpu'], runs['cuda']
+    rel = {k: abs(g_loss[k] - c) / abs(c) for k, c in c_loss.items() if c}
+    row = dict(phase=phase, config=config, input='1x3x128x192',
+               max_abs_diff=worst, max_median_rel_diff=worst_med,
+               tol_abs=5e-3, tol_median_rel=2e-4,
+               proposals=int(props[1].sum()), loss_cpu=c_loss,
+               loss_card=g_loss, rel_diff=rel, rtol=1e-3)
+    if dets is not None:
+        row.update(detections=int(dets[2].sum()), mask_tol=5e-3,
+                   mask_max_abs_diff=float(
+                       (masks['cuda'] - masks['cpu']).abs().max()))
+        check(row['detections'] > 0, f'{config}: no reference detection')
+        check(row['mask_max_abs_diff'] <= 5e-3,
+              f"{config} masks: card vs CPU {row['mask_max_abs_diff']}")
+    emit(row)
+    for k, c in c_loss.items():
+        check(abs(g_loss[k] - c) <= 1e-3 * abs(c),
+              f'{config} {k}: card {g_loss[k]!r} vs CPU {c!r} beyond rtol '
+              '1e-3')
+    torch.cuda.empty_cache()
+    return row
+
+
+def segm_eval(torch, np, smi, model, work, config, phase, data_cfg):
+    """`eval_detector` -> `evaluate(['bbox', 'segm'])` of a mask `model`
+    over a polygon set with crowds (`MASK_EVAL_SET`, batch 2; 2 launches a
+    batch), and the set's gts as detections scoring segm and bbox AP 1.0;
+    returns the launch count."""
+    from ld_tpu_torch.apis import eval_detector
+    from ld_tpu_torch.data import build_dataset
+    from ld_tpu_torch.evaluation.coco_mask import poly_to_mask
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    from ld_tpu_torch.testing import write_coco_instances
     count, sizes = MASK_EVAL_SET
     ann, prefix = write_coco_instances(os.path.join(work, 'eval'), count,
                                        sizes=sizes, seed=2)
@@ -3351,11 +3388,11 @@ def phase_mask_rcnn(torch, np, smi):
     results = eval_detector(model, val, samples_per_gpu=2,
                             pad_hw=data_cfg.pad_to)
     eval_s = time.perf_counter() - t
-    eval_launches = nms_keep.launches
+    launches = nms_keep.launches
     # ----------------------------------------------------------------------
     batches = sum(-(-int(n) // 2) for n in np.bincount(val.flag))
-    check(eval_launches == 2 * batches,
-          f'eval: {eval_launches} launches for {batches} batches (2 each)')
+    check(launches == 2 * batches,
+          f'eval: {launches} launches for {batches} batches (2 each)')
     check(all(r['masks'].shape == (len(r['boxes']), 28, 28)
               for r in results), 'eval results without their masks')
     t = time.perf_counter()
@@ -3376,12 +3413,81 @@ def phase_mask_rcnn(torch, np, smi):
     gt_metrics = val.evaluate(gts, metric=['bbox', 'segm'])
     check(gt_metrics['segm_mAP'] == 1.0 and gt_metrics['bbox_mAP'] == 1.0,
           f'the gts as detections score {gt_metrics}')
-    emit(dict(phase='mask_rcnn_eval', config=MASK_CONFIG, nvidia_smi=smi,
-              images=count, sizes=sizes, eval_detector_s=eval_s,
+    emit(dict(phase=phase, config=config, nvidia_smi=smi, images=count,
+              sizes=sizes, eval_detector_s=eval_s,
               eval_img_per_s=count / eval_s, evaluate_s=metric_s,
               metrics=metrics, gt_segm_mAP=gt_metrics['segm_mAP'],
               gt_bbox_mAP=gt_metrics['bbox_mAP'],
-              nms_keep_launches=eval_launches))
+              nms_keep_launches=launches))
+    return launches
+
+
+def phase_mask_rcnn(torch, np, smi):
+    """Mask R-CNN R50 at full width: `forward_test` at batch 1 and 2 with
+    its masks, training steps with gt_masks through coco_instance.py's
+    pipeline (the mask tower on the positive slice, and once on every
+    roi), the card against the CPU, the X101-32x8d config's steps through
+    its own mask-loading pipeline, and `eval_detector` ->
+    `evaluate(['bbox', 'segm'])` over a polygon set; returns the kernel's
+    launch count over the main paths."""
+    import copy
+    import types
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.apis import init_detector
+    from ld_tpu_torch.data import build_dataset
+    from ld_tpu_torch.testing import write_coco_instances
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_mask_rcnn')
+    shutil.rmtree(work, ignore_errors=True)
+    data_cfg = Config.fromfile(os.path.join(ROOT, MASK_DATA_CONFIG))
+    model = peak_scores(torch, init_detector(float32_cfg(MASK_CONFIG),
+                                             device='cuda', seed=0))
+    serve_launches, _, _ = roi_serve(torch, smi, model, MASK_CONFIG,
+                                     'mask_rcnn_serve')
+
+    # training: coco_instance.py's train pipeline over synthetic images
+    batch = instance_train_batch(torch, data_cfg)
+    cfg, base = build_plain(torch, MASK_CONFIG)
+    train_launches, row = detector_steps(
+        torch, smi, cfg, base, 2, 5, per_step=1, phase='mask_rcnn_train',
+        profile=True, batch=batch)
+    check(row['loss_last'].get('loss_mask', 0) > 0, 'no loss_mask')
+    check(base.roi_head.sampler.max_pos == 128,
+          'the mask tower does not run on a 128-roi slice')
+    all_rois = copy.deepcopy(base)
+    all_rois.roi_head.mask_loss = types.MethodType(all_rois_mask_loss,
+                                                   all_rois.roi_head)
+    n, all_row = detector_steps(torch, smi, cfg, all_rois, 1, 2,
+                                per_step=1, phase='mask_rcnn_train_all_rois',
+                                batch=batch)
+    train_launches += n
+    first, all_first = row['loss_first'], all_row['loss_first']
+    check(abs(all_first['loss_mask'] - first['loss_mask']) <=
+          1e-4 * abs(first['loss_mask']),
+          f"loss_mask on the positive slice {first['loss_mask']!r}, on "
+          f"every roi {all_first['loss_mask']!r}")
+    del all_rois, batch
+    roi_reference(torch, np, base, MASK_CONFIG, 'mask_rcnn_reference',
+                  proposals=None)
+    del base
+
+    # the X101-32x8d config through its own pipeline over a polygon set
+    x_cfg = float32_cfg(MASK_X101_CONFIG)
+    ann, prefix = write_coco_instances(os.path.join(work, 'train'), 2,
+                                       sizes=((800, 1333), ), seed=1)
+    x_set = build_dataset(dict(x_cfg.data['train'], ann_file=ann,
+                               img_prefix=prefix))
+    batch = mask_batch(torch, x_set, data_cfg)
+    _, x_base = build_plain(torch, MASK_X101_CONFIG)
+    n, x_row = detector_steps(torch, smi, x_cfg, x_base, 1, 2, per_step=1,
+                              phase='mask_rcnn_x101_train', batch=batch)
+    train_launches += n
+    check(x_row['loss_last'].get('loss_mask', 0) > 0, 'no X101 loss_mask')
+    del x_base, batch, x_set
+    torch.cuda.empty_cache()
+
+    eval_launches = segm_eval(torch, np, smi, model, work, MASK_CONFIG,
+                              'mask_rcnn_eval', data_cfg)
     del model
     torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
@@ -3389,6 +3495,88 @@ def phase_mask_rcnn(torch, np, smi):
     emit(dict(phase='mask_rcnn_done', seconds=time.perf_counter() - t_phase,
               budget_s=90, nms_keep_launches=launches))
     return launches
+
+
+def kernel_rows(torch, smi, captured, names):
+    """The kernel alone on NMS inputs captured from a main path's call (no
+    main path's launch): bit-identical with nms_keep_ref; event, host and
+    device ms, the plain version's ms and the bound, one row each."""
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    rows = []
+    for (boxes, valid, thr), name in zip(captured, names):
+        b, k = boxes.shape[:2]
+        got = nms_keep(boxes, valid, thr)
+        check(torch.equal(got, nms_keep_ref(boxes, valid, thr)),
+              f'kernel keep mask differs from plain at {name}, K = {k}')
+        ms, host_ms = cuda_ms(lambda: nms_keep(boxes, valid, thr), iters=100)
+        dev = kernel_device_ms(torch, lambda: nms_keep(boxes, valid, thr),
+                               NMS_KERNELS)
+        plain_ms, _ = cuda_ms(lambda: nms_keep_ref(boxes, valid, thr),
+                              iters=10)
+        bound, bound_by = nms_bound_ms(b, k)
+        row = dict(phase='kernel_time', set=name, K=k, B=b,
+                   kept=int(got.sum()), valid=int(valid.sum()), ms=ms,
+                   host_ms=host_ms, device_ms=dev and sum(dev.values()),
+                   **{f'device_ms_{n}': dev and dev[n] for n in NMS_KERNELS},
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                   bit_identical=True, nvidia_smi=smi)
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def phase_cascade(torch, np, smi):
+    """Cascade R-CNN, Cascade Mask R-CNN and HTC R50 at full width:
+    `forward_test` at 800x1344 (batch 1 and 2; HTC batch 1), training
+    steps at batch 2 with gt_masks through coco_instance.py's train
+    pipeline, the card against the CPU, Cascade Mask R-CNN's evaluation
+    over a polygon set, and the kernel alone on the cascade's own NMS
+    inputs; returns the kernel's launch count over the main paths and the
+    kernel rows."""
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.apis import init_detector
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_cascade')
+    shutil.rmtree(work, ignore_errors=True)
+    data_cfg = Config.fromfile(os.path.join(ROOT, MASK_DATA_CONFIG))
+    batch = instance_train_batch(torch, data_cfg)
+    launches, kernels = 0, None
+    for config, batches, steps, reference in CASCADE_CONFIGS:
+        model = peak_scores(torch, init_detector(float32_cfg(config),
+                                                 device='cuda', seed=0))
+        n, _, captured = roi_serve(torch, smi, model, config,
+                                   'cascade_serve', batches=batches)
+        launches += n
+        if kernels is None:
+            kernels = kernel_rows(torch, smi, captured,
+                                  ('cascade_rpn', 'cascade_roi'))
+        cfg, base = build_plain(torch, config)
+        n, row = detector_steps(torch, smi, cfg, base, *steps, per_step=1,
+                                phase='cascade_train', profile=True,
+                                batch=batch)
+        launches += n
+        losses = row['loss_last']
+        check(all(f'loss_{k}_s{i}' in losses for i in range(3)
+                  for k in ('cls', 'bbox')), f'{config}: stage losses')
+        check(('loss_mask_s2' in losses) ==
+              (base.roi_head.mask_head is not None), f'{config}: loss_mask_s2')
+        check(('loss_semantic_seg' in losses) == ('htc' in config),
+              f'{config}: loss_semantic_seg')
+        if reference:
+            roi_reference(torch, np, base, config, 'cascade_reference')
+        if model.roi_head.with_test_masks:
+            launches += segm_eval(torch, np, smi, model, work, config,
+                                  'cascade_eval', data_cfg)
+        del model, base
+        torch.cuda.empty_cache()
+    del batch
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    check(launches == CASCADE_LAUNCHES, f'cascade phase: {launches} '
+          f'nms_keep launches, expected {CASCADE_LAUNCHES}')
+    emit(dict(phase='cascade_done', seconds=time.perf_counter() - t_phase,
+              budget_s=75, nms_keep_launches=launches))
+    return launches, kernels
 
 
 def main():
@@ -3463,6 +3651,8 @@ def main():
     two_stage_launches, k4819 = phase_two_stage(torch, np, smi)
     torch.cuda.empty_cache()
     mask_rcnn_launches = phase_mask_rcnn(torch, np, smi)
+    torch.cuda.empty_cache()
+    cascade_launches, cascade_k = phase_cascade(torch, np, smi)
 
     print(smi.splitlines()[0], flush=True)
     emit(dict(kernels=[dict(
@@ -3473,7 +3663,8 @@ def main():
                   dcn_launches + res2net_launches + ddp_launches +
                   harness_launches + landscape_launches +
                   serve_http_launches + export_launches + classic_launches +
-                  two_stage_launches + mask_rcnn_launches),
+                  two_stage_launches + mask_rcnn_launches +
+                  cascade_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -3485,6 +3676,7 @@ def main():
         launches_classic_heads=classic_launches,
         launches_two_stage=two_stage_launches,
         launches_mask_rcnn=mask_rcnn_launches,
+        launches_cascade=cascade_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,
@@ -3501,6 +3693,9 @@ def main():
         **{f'{key}_k4819{"" if b == 1 else "_b2"}': k4819[b][key]
            for b in (1, 2)
            for key in ('ms', 'host_ms', 'device_ms', 'plain_ms',
+                       'bound_ms')},
+        **{f'{key}_{row["set"]}_b2': row[key] for row in cascade_k
+           for key in ('K', 'ms', 'host_ms', 'device_ms', 'plain_ms',
                        'bound_ms')})]))
     emit(dict(ok=True, device=dict(platform='gpu',
                                    kind=torch.cuda.get_device_name(0),

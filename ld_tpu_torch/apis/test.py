@@ -87,8 +87,7 @@ def eval_detector(model: torch.nn.Module, dataset, samples_per_gpu: int = 4,
             results[idx] = r
     empty = dict(boxes=np.zeros((0, 5), np.float32),
                  labels=np.zeros((0, ), np.int64))
-    if getattr(getattr(model, 'roi_head', None), 'mask_head', None) \
-            is not None:
+    if getattr(getattr(model, 'roi_head', None), 'with_test_masks', False):
         size = 2 * model.roi_head.mask_roi_size
         empty['masks'] = np.zeros((0, size, size), np.float32)
     for i, r in enumerate(results):

@@ -1,8 +1,9 @@
 """Two-stage detectors (Faster R-CNN family) and the LD through the RPN;
 port of `ld_tpu/models/detectors/two_stage.py`.
 
-`TwoStageDetector`, registered as `FasterRCNN` and `MaskRCNN` too (Mask
-R-CNN is the same detector with a `mask_head` in its RoI head): backbone
+`TwoStageDetector`, registered as `FasterRCNN`, `MaskRCNN`, `CascadeRCNN`
+and `HybridTaskCascade` too (each the same detector with another RoI
+head; Mask R-CNN's has a `mask_head`): backbone
 -> neck -> `rpn_head` -> proposals -> `roi_head`, one `nn.Module` under
 mmdet's names. `forward_train` returns the RPN's and the RoI head's
 losses: the RPN loss, its proposals (under `no_grad`, from
@@ -22,8 +23,11 @@ detections' (B, 100, 28, 28) masks.
     `no_grad`) whose RPN outputs feed the student RPN's `loss_with_teacher`
     (`loss_rpn_kd`, `loss_rpn_ld`); the RoI head trains as usual.
 
-The other two-stage names of the JAX package (Cascade, HTC, ...) wait for
-their heads (ROADMAP.md A7).
+`CascadeRCNN` and `HybridTaskCascade` are the same detector with a
+`CascadeRoIHead` / `HybridTaskCascadeRoIHead`; as in the JAX package, a
+`CascadeRoIHead` whose stages are `SABLHead`s is routed to
+`CascadeSABLRoIHead`, which waits (ROADMAP.md A7). The other two-stage
+names of the JAX package (Grid, SCNet, ...) wait for their heads (A7).
 """
 from __future__ import annotations
 
@@ -37,17 +41,18 @@ from .kd_one_stage import FrozenTeacher
 
 DETECTORS.not_ported.update({
     name: 'ROADMAP.md A7'
-    for name in ('CascadeRCNN', 'MaskScoringRCNN', 'DynamicRCNN',
-                 'GridRCNN', 'DoubleHeadRCNN', 'HybridTaskCascade', 'SCNet',
-                 'PointRend', 'TridentFasterRCNN')})
+    for name in ('MaskScoringRCNN', 'DynamicRCNN', 'GridRCNN',
+                 'DoubleHeadRCNN', 'SCNet', 'PointRend',
+                 'TridentFasterRCNN')})
 
 
 def reject_mask_head(model, what: str) -> None:
-    """Raise for a detector with a mask head where `what` takes the three
-    outputs (dets, labels, valid) of `forward_test` only: the JAX
-    counterpart cannot run such a model either (ROADMAP.md caveat 21)."""
+    """Raise for a detector whose `forward_test` returns masks where `what`
+    takes its three outputs (dets, labels, valid) only: the JAX counterpart
+    cannot run such a model either (ROADMAP.md caveat 21). HTC's RoI head
+    tests without masks, as the JAX one, and passes."""
     roi_head = getattr(model, 'roi_head', None)
-    if getattr(roi_head, 'mask_head', None) is not None:
+    if getattr(roi_head, 'with_test_masks', False):
         raise NotImplementedError(
             f'{what} does not take the masks of a detector with a mask head '
             '(Mask R-CNN), as in the JAX package (ROADMAP.md caveat 21): '
@@ -77,6 +82,11 @@ class TwoStageDetector(nn.Module):
         self.rpn_head = HEADS.build(rpn_cfg)
         if roi_head is not None or not isinstance(self, RPN):
             roi_cfg = dict(roi_head or dict(type='StandardRoIHead'))
+            stages = roi_cfg.get('bbox_head')
+            if roi_cfg.get('type') == 'CascadeRoIHead' and \
+                    isinstance(stages, list) and \
+                    any((h or {}).get('type') == 'SABLHead' for h in stages):
+                roi_cfg['type'] = 'CascadeSABLRoIHead'
             roi_cfg.setdefault('train_cfg', train_cfg.get('rcnn'))
             roi_cfg.setdefault('test_cfg', test_cfg.get('rcnn'))
             self.roi_head = HEADS.build(roi_cfg)
@@ -135,7 +145,8 @@ class TwoStageDetector(nn.Module):
             batch.get('scale_factor'), rescale=rescale)
 
 
-for _name in ('FasterRCNN', 'MaskRCNN'):
+for _name in ('FasterRCNN', 'MaskRCNN', 'CascadeRCNN',
+              'HybridTaskCascade'):
     DETECTORS.register_module(name=_name, module=type(
         _name, (TwoStageDetector, ), {}))
 

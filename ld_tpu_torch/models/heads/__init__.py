@@ -1,8 +1,10 @@
 from .atss_gfl_head import ATSSGFLHead, LDATSSHead
+from .cascade_roi_head import CascadeRoIHead
 from .classic_heads import ATSSHead, FCOSHead
 from .fcos_gfl_head import FCOSGFLHead, LDFCOSCompareHead, LDFCOSHead
 from .gfl_head import GFLHead
 from .gfocal_head import GFocalHead
+from .htc_roi_head import HybridTaskCascadeRoIHead
 from .ld_gflv2 import IMv2Head, LDv2Head
 from .ld_head import IMHead, LDHead
 from .retina_gfl_head import LDRetinaHead, RetinaGFLHead
@@ -14,4 +16,5 @@ __all__ = ['GFLHead', 'IMHead', 'LDHead', 'GFocalHead', 'LDv2Head',
            'IMv2Head', 'ATSSGFLHead', 'LDATSSHead', 'FCOSGFLHead',
            'LDFCOSHead', 'LDFCOSCompareHead', 'RetinaGFLHead',
            'LDRetinaHead', 'RetinaHead', 'RetinaSepBNHead', 'FCOSHead',
-           'ATSSHead', 'RPNHead', 'StandardRoIHead']
+           'ATSSHead', 'RPNHead', 'StandardRoIHead', 'CascadeRoIHead',
+           'HybridTaskCascadeRoIHead']

@@ -109,12 +109,19 @@ class FCNMaskHead(nn.Module):
                 if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                     nn.init.zeros_(m.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(R, C, S, S) roi features -> (R, K, 2S, 2S) float32 logits."""
+    def tower(self, x: torch.Tensor) -> torch.Tensor:
+        """(R, C, S, S) roi features -> the convs' (R, C', S, S) output."""
         for m in self.convs:
             x = torch.relu(m.conv(x))
-        x = torch.relu(self.upsample(x))
-        return self.conv_logits(x).float()
+        return x
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The tower's output -> (R, K, 2S, 2S) float32 logits."""
+        return self.conv_logits(torch.relu(self.upsample(x))).float()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(R, C, S, S) roi features -> (R, K, 2S, 2S) float32 logits."""
+        return self.logits(self.tower(x))
 
     def _select(self, logits, labels):
         if self.class_agnostic:
@@ -133,8 +140,14 @@ class FCNMaskHead(nn.Module):
         Returns:
             the weighted loss, a scalar.
         """
+        return self.logits_loss(self(roi_feats), rois, roi_pos, labels,
+                                gt_inds, gt_masks)
+
+    def logits_loss(self, logits, rois, roi_pos, labels, gt_inds, gt_masks
+                    ) -> torch.Tensor:
+        """`loss` of the rois' (B * n, K, 2S, 2S) logits."""
         b, n = roi_pos.shape
-        sel = self._select(self(roi_feats), labels)
+        sel = self._select(logits, labels)
         targets = mask_targets(gt_masks, rois, gt_inds, sel.shape[-1],
                                self.mask_stride)
         bce = sel.clamp(min=0) - sel * targets + \

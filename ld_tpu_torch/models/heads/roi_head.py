@@ -233,6 +233,12 @@ class StandardRoIHead(nn.Module):
         mh.setdefault('roi_size', self.mask_roi_size)
         return FCNMaskHead(dtype=dtype, **mh)
 
+    @property
+    def with_test_masks(self) -> bool:
+        """Whether `simple_test` returns the detections' masks, a 4th
+        output."""
+        return self.mask_head is not None
+
     def init_weights(self, generator: torch.Generator):
         self.bbox_head.init_weights(generator)
         if self.mask_head is not None:
@@ -245,11 +251,13 @@ class StandardRoIHead(nn.Module):
 
     # ---- training ----------------------------------------------------------
     def sample_rois(self, proposals, prop_valid, gt_bboxes, gt_labels,
-                    gt_valid, generator: torch.Generator) -> Dict:
+                    gt_valid, generator: torch.Generator, assigner=None,
+                    coder=None) -> Dict:
         """Assign and sample a fixed set of `num` rois an image.
 
         Args:
             proposals: (B, P, 4); prop_valid: (B, P); the gts (B, G, ...).
+            assigner, coder: in place of the head's own (a cascade stage's).
         Returns:
             dict of rois (B, n, 4), roi_valid, roi_pos (B, n), labels (B, n),
             targets (B, n, 4) (deltas, or the gt boxes with
@@ -259,9 +267,9 @@ class StandardRoIHead(nn.Module):
         if self.add_gt_as_proposals:
             proposals = torch.cat([gt_bboxes, proposals], dim=1)
             prop_valid = torch.cat([gt_valid, prop_valid], dim=1)
-        res = self.assigner.assign(proposals, None, gt_bboxes, gt_labels,
-                                   gt_valid, prop_valid,
-                                   num_classes=self.num_classes)
+        res = (assigner or self.assigner).assign(
+            proposals, None, gt_bboxes, gt_labels, gt_valid, prop_valid,
+            num_classes=self.num_classes)
         raw_iou = torch.where(gt_valid[:, None, :],
                               bbox_overlaps(proposals, gt_bboxes),
                               torch.zeros((), device=proposals.device)
@@ -287,7 +295,7 @@ class StandardRoIHead(nn.Module):
                              torch.full_like(safe, self.num_classes))
         gts = torch.gather(gt_bboxes, 1, safe[..., None].expand(-1, -1, 4))
         targets = gts if self.reg_decoded_bbox else \
-            self.coder.encode(rois, gts)
+            (coder or self.coder).encode(rois, gts)
         return dict(rois=rois, roi_valid=take(sel), roi_pos=roi_pos,
                     labels=labels, targets=targets, gt_inds=safe)
 
@@ -337,17 +345,24 @@ class StandardRoIHead(nn.Module):
                                      valid, self.mask_roi_size,
                                      self.featmap_strides)
 
-    def mask_loss(self, feats, s: Dict, gt_masks) -> torch.Tensor:
-        """`loss_mask` of the sampled rois `s` (`sample_rois`) against the
-        batch's gt masks (B, G, H/4, W/4), on the first `max_pos` rois of
-        each image (all where the sampler sets no cap)."""
+    def positive_slice(self, s: Dict) -> Dict:
+        """The first `max_pos` rois of each image of the sampled rois `s`,
+        where `sample_rois` has put every positive (all of them where the
+        sampler sets no cap)."""
         cap = getattr(self.sampler, 'max_pos', None)
         n = s['rois'].shape[1] if cap is None else \
             min(cap, s['rois'].shape[1])
-        rois, pos = s['rois'][:, :n], s['roi_pos'][:, :n]
-        return self.mask_head.loss(self._mask_feats(feats, rois, pos), rois,
-                                   pos, s['labels'][:, :n],
-                                   s['gt_inds'][:, :n], gt_masks)
+        return {k: v[:, :n] for k, v in s.items()}
+
+    def mask_loss(self, feats, s: Dict, gt_masks, head=None) -> torch.Tensor:
+        """`loss_mask` of the sampled rois `s` (`sample_rois`) against the
+        batch's gt masks (B, G, H/4, W/4), on their positive slice, by
+        `head` (the head's own mask head by default)."""
+        s = self.positive_slice(s)
+        head = self.mask_head if head is None else head
+        return head.loss(
+            self._mask_feats(feats, s['rois'], s['roi_pos']), s['rois'],
+            s['roi_pos'], s['labels'], s['gt_inds'], gt_masks)
 
     # ---- inference ---------------------------------------------------------
     def simple_test(self, feats, proposals, prop_valid, img_hw,
@@ -381,7 +396,7 @@ class StandardRoIHead(nn.Module):
             nms_cfg.get('iou_threshold', 0.5),
             max_per_img=cfg.get('max_per_img', 100), nms_cfg=nms_cfg,
             keep_fn=keep_fn)
-        if self.mask_head is None:
+        if not self.with_test_masks:
             return dets, labels, valid
         return dets, labels, valid, self.simple_test_mask(
             feats, dets, labels, valid,
@@ -397,6 +412,9 @@ class StandardRoIHead(nn.Module):
             boxes = boxes * torch.as_tensor(
                 scale_factor, dtype=torch.float32,
                 device=boxes.device)[:, None, :]
-        masks = self.mask_head.predict(
-            self._mask_feats(feats, boxes, valid), labels)
+        masks = self.predict_masks(self._mask_feats(feats, boxes, valid),
+                                   labels)
         return masks.reshape(b, d, *masks.shape[-2:])
+
+    def predict_masks(self, roi_feats, labels) -> torch.Tensor:
+        return self.mask_head.predict(roi_feats, labels)

@@ -231,11 +231,17 @@ def _rpn_key(path: tuple) -> str:
 
 
 def _roi_key(path: tuple) -> str:
-    """('bbox', 'fcI' | 'fc_cls' | 'fc_reg' | 'convI' | 'convI_norm', leaf)
-    -> mmdet's ConvFCBBoxHead name (`shared_fcs.{I-1}`, `shared_convs.{I-1}
-    .conv` and `.gn`)."""
-    if path[0] != 'bbox':
+    """('bbox' | 'stageS', 'fcI' | 'fc_cls' | 'fc_reg' | 'convI' |
+    'convI_norm', leaf) -> mmdet's ConvFCBBoxHead name (`shared_fcs.{I-1}`,
+    `shared_convs.{I-1}.conv` and `.gn`), after `S.` for a cascade stage."""
+    m = re.fullmatch(r'bbox|stage(\d+)', path[0])
+    if m is None:
         raise KeyError(path)
+    stage = '' if m.group(1) is None else f'{m.group(1)}.'
+    return stage + _convfc_key(path)
+
+
+def _convfc_key(path: tuple) -> str:
     mod, leaf = path[1], path[-1]
     name = {'kernel': 'weight', 'bias': 'bias', 'scale': 'weight'}[leaf]
     if mod in ('fc_cls', 'fc_reg'):
@@ -250,15 +256,43 @@ def _roi_key(path: tuple) -> str:
         f'.{name}'
 
 
+# HTC's mask net names -> FCNMaskHead's / HTCMaskHead's
+_HTC_MASK = {'deconv': 'upsample', 'logits': 'conv_logits',
+             'info_flow': 'conv_res.conv'}
+
+
 def _mask_key(path: tuple) -> str:
-    """('mask', 'convI' | 'upsample' | 'conv_logits', leaf) -> mmdet's
-    FCNMaskHead name (`convs.I.conv`, `upsample`, `conv_logits`)."""
+    """('mask' | 'maskS', 'convI' | 'upsample' | 'conv_logits' | HTC's
+    'deconv' | 'logits' | 'info_flow', leaf) -> mmdet's FCNMaskHead /
+    HTCMaskHead name (`convs.I.conv`, `upsample`, `conv_logits`,
+    `conv_res.conv`), after `S.` for a cascade stage."""
+    m = re.fullmatch(r'mask(\d*)', path[0])
+    if m is None:
+        raise KeyError(path)
+    stage = f'{m.group(1)}.' if m.group(1) else ''
     mod, leaf = path[1], path[-1]
     name = {'kernel': 'weight', 'bias': 'bias'}[leaf]
     m = re.fullmatch(r'conv(\d+)', mod)
     if m is not None:
-        return f'convs.{int(m.group(1))}.conv.{name}'
-    if mod not in ('upsample', 'conv_logits'):
+        return f'{stage}convs.{int(m.group(1))}.conv.{name}'
+    mod = _HTC_MASK.get(mod, mod)
+    if mod not in ('upsample', 'conv_logits', 'conv_res.conv'):
+        raise KeyError(path)
+    return f'{stage}{mod}.{name}'
+
+
+def _semantic_key(path: tuple) -> str:
+    """('semantic', 'lateralI' | 'convI' | 'seg' | 'feat', leaf) -> mmdet's
+    FusedSemanticHead name (`lateral_convs.I.conv`, `convs.I.conv`,
+    `conv_logits`, `conv_embedding.conv`)."""
+    mod, leaf = path[1], path[-1]
+    name = {'kernel': 'weight', 'bias': 'bias'}[leaf]
+    m = re.fullmatch(r'(lateral|conv)(\d+)', mod)
+    if m is not None:
+        kind = 'lateral_convs' if m.group(1) == 'lateral' else 'convs'
+        return f'{kind}.{m.group(2)}.conv.{name}'
+    mod = {'seg': 'conv_logits', 'feat': 'conv_embedding.conv'}.get(mod)
+    if mod is None:
         raise KeyError(path)
     return f'{mod}.{name}'
 
@@ -279,7 +313,7 @@ def _dense_weight(path: tuple, kernel: np.ndarray, params: Dict
     weight = kernel.T
     if path[1] != 'fc1':
         return weight
-    bbox = params['roi_head']['bbox']
+    bbox = params['roi_head'][path[0]]
     convs = sorted((k for k in bbox if re.fullmatch(r'conv\d+', k)),
                    key=lambda k: int(k[4:]))
     c = np.shape(bbox[convs[-1]]['kernel'])[-1] if convs else \
@@ -317,7 +351,10 @@ def state_dict_from_jax(variables: Dict,
     The two-stage trees map too: `rpn_net` to `rpn_head.*`,
     `roi_head/bbox` to `roi_head.bbox_head.*` (Dense kernels transposed,
     fc1's rows from the JAX HWC flatten to mmdet's CHW) and `roi_head/mask`
-    to `roi_head.mask_head.*` (the upsample's kernel flipped); with
+    to `roi_head.mask_head.*` (the upsample's kernel flipped); a cascade's
+    `roi_head/stageS` and `roi_head/maskS` (HTC's `info_flow` too) to
+    `roi_head.bbox_head.S.*` and `roi_head.mask_head.S.*`, HTC's
+    `roi_head/semantic` to `roi_head.semantic_head.*`; with
     `bbox_head.retina_cls.*` in `keys` the plain Retina head keeps its
     `retina_*` names.
 
@@ -383,9 +420,12 @@ def state_dict_from_jax(variables: Dict,
                     continue
             elif scope == 'rpn_net':
                 key = 'rpn_head.' + _rpn_key(rest)
-            elif scope == 'roi_head' and rest[0] == 'mask':
+            elif scope == 'roi_head' and rest[0] == 'semantic':
+                key = 'roi_head.semantic_head.' + _semantic_key(rest)
+            elif scope == 'roi_head' and rest[0].startswith('mask'):
                 key = 'roi_head.mask_head.' + _mask_key(rest)
-                if rest[1] == 'upsample' and rest[-1] == 'kernel':
+                if rest[1] in ('upsample', 'deconv') and \
+                        rest[-1] == 'kernel':
                     sd[key] = _deconv_weight(value)
                     continue
             elif scope == 'roi_head':

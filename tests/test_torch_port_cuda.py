@@ -491,3 +491,87 @@ def test_mask_rcnn_on_the_card_equals_the_cpu(no_tf32):
     for k, c in losses['cpu'].items():
         assert losses['cuda'][k] == pytest.approx(c, rel=1e-3), k
     assert float((out['cuda'] - out['cpu']).abs().max()) <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['CascadeRoIHead', 'HybridTaskCascadeRoIHead'])
+def test_cascade_head_on_the_card_equals_the_cpu(no_tf32, kind):
+    """The cascade heads (Cascade Mask R-CNN's, HTC's with its semantic
+    head; R18, width 64, 4 classes) at 1x3x128x192 with samplers that pick
+    every candidate and uint8 gt masks: every stage's losses (the mask and
+    semantic losses included) on the CPU's proposals within rtol 1e-3 of
+    the CPU's, and the detections of the card's `simple_test` on those
+    proposals the CPU's (the last stage's NMS through the kernel): the same
+    valid mask and labels, boxes within 1e-3 as sets; Cascade Mask R-CNN's
+    averaged masks of the CPU's detections within 5e-3."""
+    _need_card()
+    import copy
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.testing import detection_batch
+    every = dict(num=10**6, pos_fraction=1.0)
+    roi = dict(type=kind, num_stages=3, stage_loss_weights=[1, 0.5, 0.25],
+               bbox_head=dict(num_classes=4, in_channels=64,
+                              fc_out_channels=64),
+               mask_head=dict(num_classes=4, in_channels=64,
+                              conv_out_channels=64))
+    if kind == 'HybridTaskCascadeRoIHead':
+        roi['semantic_head'] = dict(num_classes=7, in_channels=64,
+                                    conv_out_channels=64)
+    model = build_detector(dict(
+        type='CascadeRCNN',
+        backbone=dict(type='ResNet', depth=18, frozen_stages=1),
+        neck=dict(type='FPN', in_channels=[64, 128, 256, 512],
+                  out_channels=64, num_outs=5),
+        rpn_head=dict(type='RPNHead', in_channels=64, feat_channels=64),
+        roi_head=roi,
+        train_cfg=dict(rpn=dict(sampler=every), rcnn=dict(sampler=every))))
+    model.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for head in model.roi_head.bbox_head:
+            head.fc_cls.weight.mul_(10.0)
+    batch = detection_batch(1, 128, 192, num_classes=4, seed=0,
+                            device='cpu')
+    g = torch.Generator().manual_seed(2)
+    masks = torch.zeros(1, 100, 32, 48, dtype=torch.uint8)
+    for j in torch.nonzero(batch['gt_valid'][0]).flatten().tolist():
+        x1, y1, x2, y2 = (batch['gt_bboxes'][0, j] / 4).long().tolist()
+        masks[0, j, y1:y2 + 1, x1:x2 + 1] = (torch.rand(
+            y2 + 1 - y1, x2 + 1 - x1, generator=g) > 0.3).to(torch.uint8)
+    batch['gt_masks'] = masks
+    losses, outs, masks, props = {}, {}, {}, None
+    for device in ('cpu', 'cuda'):
+        m = copy.deepcopy(model).to(device).train()
+        b = {k: v.to(device) for k, v in batch.items()}
+        feats, rpn_outs = m(b['image'])
+        if props is None:
+            props = [p[:, :200] for p in m._proposals(rpn_outs,
+                                                       b['img_hw'])]
+        p = [x.to(device) for x in props]
+        got = m.roi_head.forward_train(
+            feats, *p, b, torch.Generator(device=device).manual_seed(0))
+        losses[device] = {k: float(v.detach()) for k, v in got.items()}
+        feats = [f.detach() for f in feats]
+        with torch.inference_mode():
+            outs[device] = [o.cpu() for o in m.eval().roi_head.simple_test(
+                feats, *p, b['img_hw'])]
+            if m.roi_head.with_test_masks:
+                masks[device] = m.roi_head.simple_test_mask(
+                    feats, *(o.to(device) for o in outs['cpu'][:3])).cpu()
+    assert {'loss_mask_s2', 'loss_bbox_s2'} <= set(losses['cpu'])
+    for k, c in losses['cpu'].items():
+        assert losses['cuda'][k] == pytest.approx(c, rel=1e-3), k
+    got, want = outs['cuda'], outs['cpu']
+    assert len(got) == (4 if kind == 'CascadeRoIHead' else 3)
+    assert int(want[2].sum()) > 0 and torch.equal(got[2], want[2])
+    ok = want[2][0]
+    key = lambda d, lab: sorted(range(len(lab)), key=lambda j: (  # noqa
+        -round(float(d[j, 4]), 5), int(lab[j]), round(float(d[j, 0]), 2)))
+    rows = []
+    for dets, labels in ((got[0][0][ok], got[1][0][ok]),
+                         (want[0][0][ok], want[1][0][ok])):
+        order = key(dets, labels)
+        rows.append((dets[order].double(), labels[order]))
+    assert torch.equal(rows[0][1], rows[1][1])
+    assert float((rows[0][0] - rows[1][0]).abs().max()) < 1e-3
+    if masks:
+        assert float((masks['cuda'] - masks['cpu']).abs().max()) <= 5e-3

@@ -15,12 +15,15 @@ import subprocess
 import sys
 
 import cv2
+import jax
 import numpy as np
 import pytest
 import torch
 
 from ld_tpu.apis import inference as jax_inference
 from ld_tpu.data import transforms as jax_transforms
+from ld_tpu.models import build_detector as jax_build_detector
+from ld_tpu.utils.checkpoint import save_variables
 from ld_tpu.utils.config import Config as JaxConfig
 from ld_tpu_torch.apis import inference_detector, init_detector
 from ld_tpu_torch.data import transforms
@@ -43,11 +46,19 @@ def _match_sets(got, want, tol):
     assert d[np.arange(len(d)), nearest].max() < tol
 
 
-def test_inference_detector_matches_jax():
+def test_inference_detector_matches_jax(tmp_path):
+    """The JAX `init_detector` loads the weights from a `.npz` (its own
+    random init, op by op, costs ~20 s)."""
     cfg = model_cfg(18)
     cfg['test_cfg'] = dict(cfg['test_cfg'], max_per_img=1000)
-    det, _ = jax_inference.init_detector(JaxConfig(dict(model=cfg)))
-    variables = jax_variables(det, seed=7, cls_bias_zero=True)
+    variables = jax_variables(jax_build_detector(cfg), seed=7,
+                              cls_bias_zero=True)
+    path = str(tmp_path / 'gfl.npz')
+    save_variables(path, variables)
+    det, loaded = jax_inference.init_detector(JaxConfig(dict(model=cfg)),
+                                              checkpoint=path)
+    assert jax.tree_util.tree_all(jax.tree_util.tree_map(
+        np.array_equal, loaded, variables))
     model = init_detector(Config(dict(model=cfg)), device='cpu')
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     img = np.random.RandomState(8).randint(0, 256, (64, 96, 3), np.uint8)

@@ -45,6 +45,7 @@ from ld_tpu_torch.ops.atss_assigner import ATSSAssigner
 from ld_tpu_torch.parallel.optim import build_lr_schedule
 from ld_tpu_torch.testing import detection_batch_np
 from ld_tpu_torch.utils.checkpoint import load_from_jax
+from test_torch_port_bridge import fill_tree
 from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -195,8 +196,10 @@ def test_weight_reduce_loss_avg_factor_rules():
 def test_gfl_head_loss_matches_jax():
     path = os.path.join(ROOT, 'configs/gfl/gfl_r18_fpn_1x_coco.py')
     det = jax_build_detector(JConfig.fromfile(path).model)
-    variables = jax.tree_util.tree_map(np.asarray, det.init_variables(
-        jax.random.PRNGKey(2), (1, 64, 96, 3)))
+    # the init's shapes, drawn from a numpy seed (running the init costs
+    # 8-20 s here)
+    variables = fill_tree(jax.eval_shape(lambda: det.init_variables(
+        jax.random.PRNGKey(2), (1, 64, 96, 3))), 2)
     model = load_from_jax(build_detector(Config.fromfile(path).model),
                           variables).train()
     batch = detection_batch_np(2, 64, 96, num_classes=80, seed=3)

@@ -1,7 +1,8 @@
 """The ld_tpu_torch GFL detector against the JAX package on the same weights.
 
-JAX init -> `state_dict_from_jax` -> the port, then the same numpy image
-through both:
+JAX variables (the init's shapes, drawn from a numpy seed) ->
+`state_dict_from_jax` -> the port, then the same numpy image through both
+(the JAX side jitted: op by op it costs ~5x the time):
   * per-level cls/reg outputs within 5e-3 max abs and 2e-4 median relative
     (the bounds of tests/test_torch_parity.py: fp32 reassociation over ~30
     conv layers between XLA and oneDNN);
@@ -23,6 +24,7 @@ from ld_tpu.models import build_detector as jax_build_detector
 from ld_tpu.utils.checkpoint import convert_torch_state_dict
 from ld_tpu_torch.models import build_detector
 from ld_tpu_torch.utils.checkpoint import state_dict_from_jax
+from test_torch_port_bridge import fill_tree
 from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 TEST_CFG = dict(nms_pre=50, score_thr=0.05,
@@ -53,28 +55,13 @@ def model_cfg(depth=18, base=16, num_classes=4):
 
 
 def jax_variables(det, seed, cls_bias_zero=False):
-    """JAX init as numpy, with random BN statistics / affine, GN affine and
-    level scales so that every mapped tensor matters."""
-    v = jax.tree_util.tree_map(
-        np.array, det.init_variables(jax.random.PRNGKey(seed), (1, 64, 96, 3)))
-    rng = np.random.RandomState(seed)
-
-    def visit(tree, path=()):
-        for key, leaf in tree.items():
-            if isinstance(leaf, dict):
-                visit(leaf, path + (key, ))
-                continue
-            if key == 'mean':
-                tree[key] = rng.uniform(-0.2, 0.2, leaf.shape)
-            elif key == 'var':
-                tree[key] = rng.uniform(0.8, 1.2, leaf.shape)
-            elif key in ('scale', 'bias') and path[-1] in ('bn',
-                                                           'GroupNorm_0'):
-                lo, hi = (0.8, 1.2) if key == 'scale' else (-0.1, 0.1)
-                tree[key] = rng.uniform(lo, hi, leaf.shape)
-            tree[key] = np.asarray(tree[key], np.float32)
-
-    visit(v)
+    """JAX variables as numpy in the shapes of the init (`jax.eval_shape`:
+    running the init, op by op or compiled, costs 8-20 s here), drawn from
+    a numpy seed (`fill_tree`: kernels at the init's lecun-normal scale,
+    BN statistics and affine, GN affine and biases random), and set level
+    scales, so that every mapped tensor matters."""
+    v = fill_tree(jax.eval_shape(lambda: det.init_variables(
+        jax.random.PRNGKey(seed), (1, 64, 96, 3))), seed)
     v['params']['head_net']['scales'] = np.float32([1.0, 1.1, 0.9, 1.2, 0.8])
     if cls_bias_zero:
         v['params']['head_net']['gfl_cls']['bias'][:] = 0
@@ -99,7 +86,8 @@ def test_detector_outputs_match_jax(depth, hw):
     variables = jax_variables(det, seed=depth)
     model = port_model(cfg, variables)
     x = _image(1, *hw)
-    j_cls, j_reg = det.apply(variables, jnp.asarray(x.transpose(0, 2, 3, 1)))
+    j_cls, j_reg = jax.jit(det.apply)(variables,
+                                      jnp.asarray(x.transpose(0, 2, 3, 1)))
     with torch.no_grad():
         t_cls, t_reg = model(torch.from_numpy(x))
     assert len(t_cls) == len(t_reg) == 5
@@ -143,11 +131,13 @@ def test_get_bboxes_matches_jax_on_identical_head_outputs():
     det = jax_build_detector(cfg)
     variables = jax_variables(det, seed=3, cls_bias_zero=True)
     x = np.concatenate([_image(4, 64, 96), _image(5, 64, 96)])
-    j_cls, j_reg = det.apply(variables, jnp.asarray(x.transpose(0, 2, 3, 1)))
+    j_cls, j_reg = jax.jit(det.apply)(variables,
+                                      jnp.asarray(x.transpose(0, 2, 3, 1)))
     img_hw = np.array([[60, 90], [64, 70]], np.float32)
     sf = np.array([[1.5, 1.25, 1.5, 1.25], [0.5, 0.5, 0.5, 0.5]], np.float32)
-    want = det.bbox_head.get_bboxes((j_cls, j_reg), jnp.asarray(img_hw),
-                                    jnp.asarray(sf), rescale=True)
+    want = jax.jit(lambda c, r, hw, f: det.bbox_head.get_bboxes(
+        (c, r), hw, f, rescale=True))(j_cls, j_reg, jnp.asarray(img_hw),
+                                      jnp.asarray(sf))
     head = build_detector(cfg).bbox_head.eval()
 
     def nchw(xs):

@@ -1,7 +1,8 @@
 """The port's LD training step against the JAX package, on the same weights.
 
-JAX init (student and teacher) -> `load_from_jax` -> the port, then the same
-numpy batch through both, on the CPU in float32:
+JAX variables (student and teacher: the inits' shapes, drawn from a numpy
+seed) -> `load_from_jax` -> the port, then the same numpy batch through
+both, on the CPU in float32:
   * the full LD loss dict on configs/ld/ld_r18_self_2x_3x_voc.py, term by
     term to rtol 2e-4 (the tolerance of `__graft_entry__.dryrun_multichip`);
   * the student gradients of one LD step: max abs difference at most 1e-4 of
@@ -42,6 +43,7 @@ from ld_tpu_torch.parallel import (build_lr_schedule, build_optimizer,
 from ld_tpu_torch.testing import detection_batch_np
 from ld_tpu_torch.utils.checkpoint import load_from_jax, state_dict_from_jax
 from ld_tpu_torch.utils.fuse_conv_bn import fuse_conv_bn_cfg_ok
+from test_torch_port_bridge import fill_tree
 from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -93,10 +95,12 @@ def ld():
     largest."""
     jcfg, cfg = _ld_configs()
     det = jax_build_detector(jcfg.model)
-    variables = _np_tree(jax.jit(det.init_variables, static_argnums=1)(
-        jax.random.PRNGKey(0), INPUT))
-    teacher = _np_tree(jax.jit(det.init_teacher_variables, static_argnums=1)(
-        jax.random.PRNGKey(1), INPUT))
+    # the inits' shapes, drawn from a numpy seed (compiling the two inits
+    # costs ~16 s here)
+    variables = fill_tree(jax.eval_shape(lambda: det.init_variables(
+        jax.random.PRNGKey(0), INPUT)), 0)
+    teacher = fill_tree(jax.eval_shape(lambda: det.init_teacher_variables(
+        jax.random.PRNGKey(1), INPUT)), 1)
     model = load_from_jax(build_detector(cfg.model), variables, teacher)
     batch = graft_entry._make_batch(jnp, 2, 64, 96)
     student = jax.jit(lambda v: det.apply(v, batch['image'], train=True,
