@@ -3,8 +3,8 @@ paths, the other GFL-family heads, the configs' bf16 dtype, the DCN /
 ResNeXt rows, the Res2Net-101-DCN teacher rows, data-parallel training
 and evaluation, the synthetic train-to-AP harness, the AP landscape, the
 HTTP server, the export, the classic one-stage heads, the two-stage
-stack, Mask R-CNN and the cascades (Cascade R-CNN, Cascade Mask R-CNN,
-HTC) on one CUDA card and check them.
+stack, Mask R-CNN, the cascades (Cascade R-CNN, Cascade Mask R-CNN, HTC)
+and the HRNet and RegNet detectors on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
@@ -19,7 +19,7 @@ Phases, one JSON object per line each:
                128, 512, 1000, 1024, 2048, 4100, 8192} and B in {1, 3, 8},
                and at K = 16800, B = 1; then, on the dense-kept and
                sparse-kept sets at (K, B) in {(512, 1), (1024, 1), (1024, 8),
-               (2048, 1)}:
+               (2048, 1), (16800, 1)}:
                CUDA-event time per call over back-to-back calls, the host's
                time to issue them (and to launch the kernel without the
                registered operator's dispatch), each kernel's device time from
@@ -220,11 +220,31 @@ Phases, one JSON object per line each:
                on a batch-2 call's RPN (K = 4819) and last-stage (K = 1024)
                NMS inputs. Launches must equal CASCADE_LAUNCHES (90).
                Budget 75 s.
+ 20. hrnet_regnet — full width, float32, seed 0, 800x1344:
+               configs/hrnet/faster_rcnn_hrnetv2p_w40_1x_coco.py (fc_cls x
+               100): `forward_test` at batch 1 and 2, 2 + 5 calls each (2
+               launches a call, outputs identical with the plain keep mask),
+               its HRNet's device ops, device ms and busy share a forward,
+               1 + 3 steps at batch 2 under the profiler (1 launch a step),
+               the card against the CPU at 1x3x128x192 on the top 200
+               proposals (rtol 1e-3 a loss, FPN / RPN outputs 5e-3), then
+               1 + 3 calls in the config's own bf16 dtype; FCOS
+               HRNetV2p-W32 (HRFPN at stride 2): 1 + 5 calls (1 launch a
+               call), 1 + 2 steps (none); Mask R-CNN RegNetX-3.2GF: 1 + 3
+               calls at batch 1 and 2, 1 + 3 steps with gt_masks through
+               coco_instance.py's pipeline, the card against the CPU (masks
+               within 5e-3); its mdconv c3-c5 config 1 + 2 steps with
+               seeded offsets on its 23 grouped DCN conv2 layers, and one
+               such layer (432 channels, 9 groups) against the CPU within
+               1e-4 of its largest output; RetinaNet RegNetX-800MF 1 + 5
+               calls. Launches must equal HRNET_REGNET_LAUNCHES (75).
+               Budget 80 s.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
 (the main path's case: dense-kept set, K = 1024, B = 1; `device_ms` is the
 profiler's mask + sweep time; the `_k2048` keys the dense-kept set at
 K = 2048, B = 1, the `_tta_merge` keys the first TTA image's own merge, the
 `_k4819` keys the RPN's proposals at B = 1 (`_k4819_b2` at B = 2), the
+`_k16800` keys the dense-kept set at K = 16800, B = 1, the
 `_cascade_rpn_b2` / `_cascade_roi_b2` keys a batch-2 Cascade R-CNN call's
 two NMS;
 `launches` counts all main paths, `launches_<phase>` each), and last
@@ -253,8 +273,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the two kernels of csrc/nms_keep.cu, as the profiler names them
 NMS_KERNELS = ('nms_mask_tri_kernel', 'nms_block_sweep_kernel')
 # the timed cases (K, B): K = 1024 is multiclass_nms's candidate count,
-# K = 512 the GI path's, K = 2048 the TTA merge's (one image)
-TIME_CASES = ((512, 1), (1024, 1), (1024, 8), (2048, 1))
+# K = 512 the GI path's, K = 2048 the TTA merge's (one image), K = 16800
+# the exact GI mode's at stride 8 (the longest sweep checked)
+TIME_CASES = ((512, 1), (1024, 1), (1024, 8), (2048, 1), (16800, 1))
 VOC_CONFIG = 'configs/ld/ld_r50_gflv1_r101_fpn_voc_1x.py'
 # the synthetic devkit: 07+12 trainval and 07 test, at VOC's 500x375 and
 # 375x500 in turn
@@ -325,6 +346,30 @@ CASCADE_CONFIGS = (
     ('configs/htc/htc_r50_fpn_1x_coco.py', (1, ), (1, 3), True))
 CASCADE_LAUNCHES = sum(2 * 7 * len(b) + sum(s)
                        for _, b, s, _ in CASCADE_CONFIGS) + 2 * 4
+# the hrnet_regnet phase: Faster R-CNN on the widest HRNet (W40), FCOS on
+# HRNetV2p-W32 (HRFPN at stride 2), Mask R-CNN on RegNetX-3.2GF and its
+# grouped-DCN (mdconv c3-c5) variant, RetinaNet on RegNetX-800MF; the
+# (warm-up, timed) forward_test calls at each batch size and steps of each;
+# one grouped-DCN conv2 of RegNetX-3.2GF's stage 3 (name, width, map at
+# batch 2, conv groups)
+HR_FASTER = 'configs/hrnet/faster_rcnn_hrnetv2p_w40_1x_coco.py'
+HR_FCOS = 'configs/hrnet/fcos_hrnetv2p_w32_gn-head_4x4_1x_coco.py'
+REG_MASK = 'configs/regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_coco.py'
+REG_MDCONV = ('configs/regnet/'
+              'mask_rcnn_regnetx-3.2GF_fpn_mdconv_c3-c5_1x_coco.py')
+REG_RETINA = 'configs/regnet/retinanet_regnetx-800MF_fpn_1x_coco.py'
+HR_SERVE_CALLS, HR_BF16_CALLS, HR_STEPS = (2, 5), (1, 3), (1, 3)
+HR_FCOS_CALLS, HR_FCOS_STEPS = (1, 5), (1, 2)
+REG_SERVE_CALLS, REG_STEPS, REG_MDCONV_STEPS = (1, 3), (1, 3), (1, 2)
+REG_RETINA_CALLS = (1, 5)
+REG_DCN_LAYER = ('regnetx_3.2gf_stage3', 432, (50, 84), 9)
+# its nms_keep launches, stated before the run: 2 a two-stage forward_test
+# call (at batch 1 and 2; bf16 at batch 1), 1 a two-stage step, 1 a
+# single-stage call, 0 a single-stage step
+HRNET_REGNET_LAUNCHES = (
+    2 * 2 * sum(HR_SERVE_CALLS) + 2 * sum(HR_BF16_CALLS) + sum(HR_STEPS) +
+    sum(HR_FCOS_CALLS) + 2 * 2 * sum(REG_SERVE_CALLS) + sum(REG_STEPS) +
+    sum(REG_MDCONV_STEPS) + sum(REG_RETINA_CALLS))
 # its nms_keep launches, stated before the run: 1 a forward_test call, 5 a
 # gibox step (one GI NMS per FPN level)
 RES2NET_LAUNCHES = sum(RES2NET_SERVE_CALLS) + 5 * sum(
@@ -400,7 +445,8 @@ def nms_bound_ms(b, k, n_valid=None):
 def phase_kernel(torch):
     """Checks the kernel on the edge sets, then times it; returns the
     largest |kernel - plain| over the checks and the figures of the main
-    path's case (dense-kept set, K = 1024, B = 1)."""
+    path's case (dense-kept set, K = 1024, B = 1), of K = 2048 and of
+    K = 16800 (B = 1, the same set)."""
     from ld_tpu_torch.ops.nms_cuda import launch, nms_keep, nms_keep_ref
     from ld_tpu_torch.testing import NMS_CHECK_KB, NMS_SETS, nms_batch
     max_err = 0.0
@@ -435,8 +481,10 @@ def phase_kernel(torch):
                                         iters=200)
             dev = kernel_device_ms(torch, lambda: nms_keep(boxes, valid, 0.6),
                                    NMS_KERNELS)
+            # the plain version holds K x K float matrices: fewer calls
             plain, _ = cuda_ms(lambda: nms_keep_ref(boxes, valid, 0.6),
-                               iters=20)
+                               iters=20 if k <= 2048 else 5,
+                               warmup=3 if k <= 2048 else 1)
             bound, bound_by = nms_bound_ms(b, k)
             row.update(ms=ms, host_ms=host_ms, host_ms_launch=host_ms_launch,
                        dispatch_host_ms=host_ms - host_ms_launch,
@@ -449,7 +497,10 @@ def phase_kernel(torch):
                 main_case = row
             if (name, k, b) == ('dense_kept', 2048, 1):
                 tta_case = row
-    return max_err, main_case, tta_case
+            if (name, k, b) == ('dense_kept', 16800, 1):
+                k16800_case = row
+            del boxes, valid
+    return max_err, main_case, tta_case, k16800_case
 
 
 def phase_e2e(torch, np):
@@ -1560,7 +1611,8 @@ def family_serve(torch, smi, config, depth=None, warmup=2, timed=10,
               f'not the largest class probability {best}')
     (_, k, _), n_valid = captured[0]
     row = dict(phase=phase, config=config, nvidia_smi=smi,
-               depth=cfg.model.backbone.depth, head=type(head).__name__,
+               depth=cfg.model.backbone.get('depth'),
+               head=type(head).__name__,
                backbone=type(model.backbone).__name__, dcn_layers=dcn_layers,
                input=[1, 3, *hw], warmup_calls=warmup, timed_calls=timed,
                forward_test_ms=call_ms,
@@ -2921,20 +2973,32 @@ def detector_steps(torch, smi, cfg, base, warmup, timed, per_step, phase,
     return launches, row
 
 
-def outputs_reference(torch, np, base):
+def outputs_reference(torch, np, base, scaled=False):
     """`base`'s outputs (a dense head's, or a two-stage detector's FPN and
     RPN outputs) at 1x3x128x192 on the card against the CPU, within the
-    bounds of phase_reference; returns (max abs, max median relative)."""
+    bounds of phase_reference; returns (max abs, max median relative).
+    With `scaled`, for outputs far from unit scale (an HRNet's FPN levels
+    reach ~3e3 at random weights, an R50's ~10), the max-abs bound is
+    5e-5 of each output's largest |value| in place of 5e-3 absolute, and
+    the largest such ratio is returned as the first figure."""
     import copy
     x = torch.from_numpy(np.random.RandomState(1).randn(1, 3, 128, 192)
                          .astype(np.float32))
     cpu = copy.deepcopy(base).eval()
     card = copy.deepcopy(base).to('cuda').eval()
     with torch.inference_mode():
-        worst, worst_med = head_output_diff([flat_tensors(cpu(x))],
-                                            [flat_tensors(card(x.cuda()))])
-    check(worst < 5e-3 and worst_med < 2e-4,
-          f'card vs CPU outputs: max {worst}, median rel {worst_med}')
+        c_outs, g_outs = flat_tensors(cpu(x)), flat_tensors(card(x.cuda()))
+        worst, worst_med = head_output_diff([c_outs], [g_outs])
+        ratio = max(float((g.cpu() - c).abs().max() / c.abs().max())
+                    for c, g in zip(c_outs, g_outs))
+    if scaled:
+        check(ratio < 5e-5 and worst_med < 2e-4,
+              f'card vs CPU outputs: max {worst} ({ratio} of the largest '
+              f'value), median rel {worst_med}')
+        worst = ratio
+    else:
+        check(worst < 5e-3 and worst_med < 2e-4,
+              f'card vs CPU outputs: max {worst}, median rel {worst_med}')
     del card
     torch.cuda.empty_cache()
     return worst, worst_med
@@ -3305,16 +3369,18 @@ def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
     return launches, row, captured
 
 
-def roi_reference(torch, np, base, config, phase, proposals=200):
+def roi_reference(torch, np, base, config, phase, proposals=200,
+                  scaled=False):
     """The card against the CPU at 1x3x128x192 on `base`'s weights with
     samplers that pick every candidate and box-region gt masks: the FPN and
-    RPN outputs (5e-3 / 2e-4), every loss (the RPN's and the RoI head's,
+    RPN outputs (5e-3 / 2e-4; with `scaled`, 5e-5 of each output's largest
+    value, `outputs_reference`), every loss (the RPN's and the RoI head's,
     the mask and semantic losses included) on the CPU's top `proposals`
     proposals (None: all), rtol 1e-3 a term; with test masks, the masks of
     the CPU's detections (of a copy with peaked scores) within 5e-3."""
     import copy
     from ld_tpu_torch.testing import detection_batch
-    worst, worst_med = outputs_reference(torch, np, base)
+    worst, worst_med = outputs_reference(torch, np, base, scaled)
     cpu_batch = detection_batch(1, 128, 192, seed=0, device='cpu')
     cpu_batch['gt_masks'] = box_masks(torch, np, cpu_batch)
     dets = None
@@ -3346,8 +3412,9 @@ def roi_reference(torch, np, base, config, phase, proposals=200):
     c_loss, g_loss = runs['cpu'], runs['cuda']
     rel = {k: abs(g_loss[k] - c) / abs(c) for k, c in c_loss.items() if c}
     row = dict(phase=phase, config=config, input='1x3x128x192',
-               max_abs_diff=worst, max_median_rel_diff=worst_med,
-               tol_abs=5e-3, tol_median_rel=2e-4,
+               **({'max_diff_of_largest': worst, 'tol_of_largest': 5e-5}
+                  if scaled else {'max_abs_diff': worst, 'tol_abs': 5e-3}),
+               max_median_rel_diff=worst_med, tol_median_rel=2e-4,
                proposals=int(props[1].sum()), loss_cpu=c_loss,
                loss_card=g_loss, rel_diff=rel, rtol=1e-3)
     if dets is not None:
@@ -3579,6 +3646,170 @@ def phase_cascade(torch, np, smi):
     return launches, kernels
 
 
+def backbone_profile(torch, model, image, iters=3):
+    """`iters` forwards of `model.backbone` on `image` under torch.profiler:
+    device ops (kernel launches and copies) a forward, device ms, wall ms
+    and the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        model.backbone(image)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                model.backbone(image)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    if total_us <= 0:
+        return dict(backbone_device_time='not measured')
+    return dict(backbone=type(model.backbone).__name__,
+                backbone_input=list(image.shape),
+                backbone_device_ops_per_forward=sum(
+                    e.count for e in kernels) / iters,
+                backbone_device_ms=total_us / iters / 1e3,
+                backbone_wall_ms=wall_us / iters / 1e3,
+                backbone_busy_share=total_us / wall_us)
+
+
+def phase_hrnet_regnet(torch, np, smi):
+    """The HRNet and RegNet detectors at full width, float32, seed 0:
+    Faster R-CNN HRNetV2p-W40 (`forward_test` at batch 1 and 2, its
+    backbone's launches, steps under the profiler, the card against the
+    CPU, a bf16 `forward_test` in the config's own dtype), FCOS
+    HRNetV2p-W32 (calls and steps), Mask R-CNN RegNetX-3.2GF (calls at
+    batch 1 and 2, steps on the masked batch, the card against the CPU),
+    its grouped-DCN variant (steps and one DCN layer against the CPU) and
+    RetinaNet RegNetX-800MF (calls). A two-stage model is initialised
+    once: `init_detector` serves it from a `.pth` of the trained copy's
+    weights, the mdconv model takes the RegNet's weights and seeded DCN
+    offsets. Returns the kernel's launch count over the main paths.
+    Budget 80 s."""
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.apis import init_detector
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.testing import randomize_dcn_offsets
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_hrnet_regnet')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data_cfg = Config.fromfile(os.path.join(ROOT, MASK_DATA_CONFIG))
+    image = torch.randn(1, 3, 800, 1344, device='cuda',
+                        generator=torch.Generator('cuda').manual_seed(0))
+    launches, seconds = 0, {}
+
+    def checkpoint(model, name):
+        path = os.path.join(work, name)
+        torch.save(model.state_dict(), path)
+        return path
+
+    # Faster R-CNN on the widest HRNet
+    t = time.perf_counter()
+    cfg, base = build_plain(torch, HR_FASTER)
+    ckpt = checkpoint(base, 'hrnet_w40.pth')
+    model = peak_scores(torch, init_detector(float32_cfg(HR_FASTER), ckpt,
+                                             device='cuda'))
+    n, _, _ = roi_serve(torch, smi, model, HR_FASTER, 'hrnet_regnet_serve',
+                        (1, 2), *HR_SERVE_CALLS)
+    launches += n
+    emit(dict(phase='hrnet_regnet_backbone', config=HR_FASTER,
+              nvidia_smi=smi, **backbone_profile(torch, model, image)))
+    del model
+    torch.cuda.empty_cache()
+    n, _ = detector_steps(torch, smi, cfg, base, *HR_STEPS, per_step=1,
+                          phase='hrnet_regnet_train', profile=True)
+    launches += n
+    roi_reference(torch, np, base, HR_FASTER, 'hrnet_regnet_reference',
+                  scaled=True)
+    del base
+    own = Config.fromfile(os.path.join(ROOT, HR_FASTER))
+    check(own.dtype == 'bfloat16', f'{HR_FASTER} dtype {own.dtype}')
+    model = peak_scores(torch, init_detector(own, ckpt, device='cuda'))
+    check(model.backbone.conv1.compute_dtype == torch.bfloat16 and
+          model.neck.reduction_conv.conv.compute_dtype == torch.bfloat16,
+          'the bf16 config does not lower HRNet and HRFPN')
+    n, _, _ = roi_serve(torch, smi, model, HR_FASTER,
+                        'hrnet_regnet_serve_bf16', (1, ), *HR_BF16_CALLS)
+    launches += n
+    del model
+    torch.cuda.empty_cache()
+    seconds['faster_rcnn_hrnetv2p_w40'] = time.perf_counter() - t
+
+    # FCOS on HRNetV2p-W32, its HRFPN at stride 2
+    t = time.perf_counter()
+    n, _ = family_serve(
+        torch, smi, HR_FCOS, warmup=HR_FCOS_CALLS[0],
+        timed=HR_FCOS_CALLS[1], phase='hrnet_regnet_serve',
+        extra=lambda m, bench: backbone_profile(torch, m, bench['image']))
+    launches += n
+    cfg, base = build_plain(torch, HR_FCOS)
+    check(base.neck.fpn_convs[0].conv.stride == (2, 2),
+          'the FCOS HRFPN convs are not at stride 2')
+    n, _ = detector_steps(torch, smi, cfg, base, *HR_FCOS_STEPS, per_step=0,
+                          phase='hrnet_regnet_train')
+    launches += n
+    del base
+    seconds['fcos_hrnetv2p_w32'] = time.perf_counter() - t
+
+    # Mask R-CNN on RegNetX-3.2GF, and its grouped-DCN variant on the same
+    # weights with seeded offsets
+    t = time.perf_counter()
+    cfg, base = build_plain(torch, REG_MASK)
+    model = peak_scores(torch, init_detector(
+        float32_cfg(REG_MASK), checkpoint(base, 'regnetx_3.2gf.pth'),
+        device='cuda'))
+    n, _, _ = roi_serve(torch, smi, model, REG_MASK, 'hrnet_regnet_serve',
+                        (1, 2), *REG_SERVE_CALLS)
+    launches += n
+    emit(dict(phase='hrnet_regnet_backbone', config=REG_MASK,
+              nvidia_smi=smi, **backbone_profile(torch, model, image)))
+    del model
+    torch.cuda.empty_cache()
+    batch = instance_train_batch(torch, data_cfg)
+    n, row = detector_steps(torch, smi, cfg, base, *REG_STEPS, per_step=1,
+                            phase='hrnet_regnet_train', batch=batch)
+    check(row['loss_last'].get('loss_mask', 0) > 0, 'no RegNet loss_mask')
+    launches += n
+    roi_reference(torch, np, base, REG_MASK, 'hrnet_regnet_reference')
+    seconds['mask_rcnn_regnetx-3.2gf'] = time.perf_counter() - t
+    t = time.perf_counter()
+    cfg = Config.fromfile(os.path.join(ROOT, REG_MDCONV))
+    dcn = build_detector(cfg.model)
+    missing, unexpected = dcn.load_state_dict(base.state_dict(), strict=False)
+    check(not unexpected and missing and
+          all('.conv_offset.' in k for k in missing),
+          f'mdconv RegNet on the RegNet weights: {missing}, {unexpected}')
+    check(randomize_dcn_offsets(dcn, seed=0) == 6 + 15 + 2,
+          'the mdconv RegNet has not 23 DCN conv2 layers')
+    del base
+    n, _ = detector_steps(torch, smi, cfg, dcn, *REG_MDCONV_STEPS,
+                          per_step=1, phase='hrnet_regnet_train', batch=batch)
+    launches += n
+    del dcn, batch
+    emit(dict(phase='hrnet_regnet_dcn_layer', config=REG_MDCONV,
+              nvidia_smi=smi, **dcn_layer_check(torch, *REG_DCN_LAYER)))
+    seconds['mask_rcnn_regnetx-3.2gf_mdconv'] = time.perf_counter() - t
+
+    # RetinaNet on RegNetX-800MF
+    t = time.perf_counter()
+    n, _ = family_serve(torch, smi, REG_RETINA, warmup=REG_RETINA_CALLS[0],
+                        timed=REG_RETINA_CALLS[1],
+                        phase='hrnet_regnet_serve')
+    launches += n
+    seconds['retinanet_regnetx-800mf'] = time.perf_counter() - t
+    del image
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    check(launches == HRNET_REGNET_LAUNCHES, f'hrnet_regnet phase: '
+          f'{launches} nms_keep launches, expected {HRNET_REGNET_LAUNCHES}')
+    emit(dict(phase='hrnet_regnet_done', seconds=time.perf_counter() - t_phase,
+              seconds_by_model=seconds, budget_s=80,
+              nms_keep_launches=launches))
+    return launches
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1].startswith('--ddp-'):
@@ -3591,6 +3822,7 @@ def main():
     sys.path.insert(0, ROOT)
     from ld_tpu_torch.ops import nms_cuda
 
+    t_script = time.perf_counter()
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -3615,7 +3847,7 @@ def main():
     emit(dict(phase='build', library=os.path.relpath(lib),
               seconds=time.perf_counter() - t0))
 
-    max_err, main_case, tta_case = phase_kernel(torch)
+    max_err, main_case, tta_case, k16800 = phase_kernel(torch)
     model, launches, bench = phase_e2e(torch, np)
     phase_profile(torch, model, bench)
     phase_reference(torch, np, model)
@@ -3653,6 +3885,9 @@ def main():
     mask_rcnn_launches = phase_mask_rcnn(torch, np, smi)
     torch.cuda.empty_cache()
     cascade_launches, cascade_k = phase_cascade(torch, np, smi)
+    torch.cuda.empty_cache()
+    hrnet_regnet_launches = phase_hrnet_regnet(torch, np, smi)
+    emit(dict(phase='script_done', seconds=time.perf_counter() - t_script))
 
     print(smi.splitlines()[0], flush=True)
     emit(dict(kernels=[dict(
@@ -3664,7 +3899,7 @@ def main():
                   harness_launches + landscape_launches +
                   serve_http_launches + export_launches + classic_launches +
                   two_stage_launches + mask_rcnn_launches +
-                  cascade_launches),
+                  cascade_launches + hrnet_regnet_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -3677,6 +3912,7 @@ def main():
         launches_two_stage=two_stage_launches,
         launches_mask_rcnn=mask_rcnn_launches,
         launches_cascade=cascade_launches,
+        launches_hrnet_regnet=hrnet_regnet_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,
@@ -3688,6 +3924,9 @@ def main():
         ms_k2048=tta_case['ms'], device_ms_k2048=tta_case['device_ms'],
         plain_ms_k2048=tta_case['plain_ms'],
         bound_ms_k2048=tta_case['bound_ms'],
+        **{f'{key}_k16800': k16800[key]
+           for key in ('ms', 'host_ms', 'device_ms', 'plain_ms', 'bound_ms',
+                       *(f'device_ms_{n}' for n in NMS_KERNELS))},
         ms_tta_merge=merge['ms'], device_ms_tta_merge=merge['device_ms'],
         plain_ms_tta_merge=merge['plain_ms'],
         **{f'{key}_k4819{"" if b == 1 else "_b2"}': k4819[b][key]

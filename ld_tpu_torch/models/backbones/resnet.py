@@ -82,11 +82,15 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes, planes, stride=1, dilation=1,
                  downsample=None, conv_cfg=None, norm_cfg=None,
                  style='pytorch', dtype=None, groups=1, base_width=64,
-                 dcn=None):
+                 dcn=None, base_channels=64, expansion=None):
         super().__init__()
+        if expansion is not None:
+            # RegNet's blocks: expansion 1, output width `planes`
+            self.expansion = expansion
         s1, s2 = (stride, 1) if style == 'caffe' else (1, stride)
-        # ResNeXt widens the bottleneck by groups * base_width / 64
-        width = int(planes * (base_width / 64.0)) * groups \
+        # ResNeXt widens the bottleneck by groups * base_width /
+        # base_channels (64; RegNet passes its stage width)
+        width = int(planes * (base_width / base_channels)) * groups \
             if groups > 1 else planes
         self.conv1 = make_conv(conv_cfg, inplanes, width, 1, s1, dtype=dtype)
         self.bn1 = make_norm(norm_cfg, width, dtype)

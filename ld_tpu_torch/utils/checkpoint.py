@@ -77,13 +77,27 @@ def _module_name(name: str, avg_down: bool) -> str:
     stem's `stem_convI` / `stem_normI` -> `stem.{3(I-1)}` / `stem.{3I-2}`,
     Res2Net's `convsI` / `bnsI` -> `convs.I` / `bns.I`, and the shortcut's
     `downsample_conv` / `downsample_norm` -> `downsample.{0,1}`, or, behind
-    an avg-down pool, `downsample.{1,2}`."""
+    an avg-down pool, `downsample.{1,2}`; RegNet's flat `layerS_B_<name>`
+    -> `layerS.B.<name>`; HRNet's `transitionS_I[_downJ]_conv|norm` ->
+    `transitionS.I[.J].{0,1}` and `fuseI_J[_downK]_conv|norm` ->
+    `fuse_layers.I.J[.K].{0,1}`."""
     m = re.fullmatch(r'stem_(conv|norm)(\d)', name)
     if m is not None:
         return f'stem.{3 * (int(m.group(2)) - 1) + (m.group(1) == "norm")}'
     m = re.fullmatch(r'(convs|bns)(\d+)', name)
     if m is not None:
         return f'{m.group(1)}.{m.group(2)}'
+    m = re.fullmatch(r'(layer\d)_(\d+)_(.+)', name)
+    if m is not None:
+        return f'{m.group(1)}.{m.group(2)}.' + _module_name(m.group(3),
+                                                           avg_down)
+    m = re.fullmatch(r'(transition\d|fuse\d+)_(\d+)(?:_down(\d+))?_'
+                     r'(conv|norm)', name)
+    if m is not None:
+        kind, i, j, layer = m.groups()
+        kind = f'fuse_layers.{kind[4:]}' if kind.startswith('fuse') else kind
+        return '.'.join([kind, i] + ([j] if j is not None else []) +
+                        [str(int(layer == 'norm'))])
     shortcut = {'downsample_conv': 0, 'downsample_norm': 1}.get(name)
     if shortcut is not None:
         return f'downsample.{shortcut + avg_down}'
@@ -95,7 +109,8 @@ def _module_name(name: str, avg_down: bool) -> str:
 def _backbone_key(path: tuple, avg_down: bool = False) -> str:
     """('conv1', 'kernel') / ('layer1_0', 'norm2', 'bn', 'scale') /
     ('layer3_0', 'conv2', 'conv_offset', 'bias') / ... -> the mmdet
-    ResNet / Res2Net name after 'backbone.' (`_module_name`)."""
+    ResNet / Res2Net / HRNet / RegNet name after 'backbone.'
+    (`_block_prefix`, `_module_name`)."""
     *mods, leaf = path
     if mods[-1] == 'bn':          # BatchNorm: .../normX/bn/<leaf>
         return '.'.join(_block_prefix(mods[:-2]) + [
@@ -111,12 +126,24 @@ def _backbone_key(path: tuple, avg_down: bool = False) -> str:
 
 
 def _block_prefix(owner) -> list:
+    """A JAX block's scope -> mmdet's prefix: `layerS_B` -> `layerS.B`,
+    HRNet's `stageS_moduleM` -> `stageS.M` and its `branchI_blockB` ->
+    `branches.I.B`."""
     if not owner:
         return []
     m = re.fullmatch(r'layer(\d)_(\d+)', owner[0])
-    if m is None or len(owner) != 1:
+    if m is not None and len(owner) == 1:
+        return [f'layer{m.group(1)}', m.group(2)]
+    m = re.fullmatch(r'stage(\d)_module(\d+)', owner[0])
+    if m is None or len(owner) > 2:
         raise KeyError(owner)
-    return [f'layer{m.group(1)}', m.group(2)]
+    prefix = [f'stage{m.group(1)}', m.group(2)]
+    if len(owner) == 1:
+        return prefix
+    m = re.fullmatch(r'branch(\d+)_block(\d+)', owner[1])
+    if m is None:
+        raise KeyError(owner)
+    return prefix + ['branches', m.group(1), m.group(2)]
 
 
 def _dcn_offset_perm(out_ch: int, k: int) -> np.ndarray:
@@ -162,8 +189,17 @@ def _dcn_value(params: Dict, rest: tuple, value: np.ndarray):
 
 
 def _neck_key(path: tuple, num_laterals: int) -> str:
+    """An FPN's `lateral_I` / `fpn_conv_I` / `fpn_extra_I`, an HRFPN's
+    `reduction` / `fpn_convI` -> mmdet's `lateral_convs.I.conv`,
+    `fpn_convs.I.conv` (the extra convs after the laterals'),
+    `reduction_conv.conv`."""
     mod, leaf = path
     name = 'weight' if leaf == 'kernel' else 'bias'
+    if mod == 'reduction':
+        return f'reduction_conv.conv.{name}'
+    m = re.fullmatch(r'fpn_conv(\d+)', mod)
+    if m is not None:
+        return f'fpn_convs.{m.group(1)}.conv.{name}'
     m = re.fullmatch(r'(lateral|fpn_conv|fpn_extra)_(\d+)', mod)
     if m is None:
         raise KeyError(path)

@@ -575,3 +575,60 @@ def test_cascade_head_on_the_card_equals_the_cpu(no_tf32, kind):
     assert float((rows[0][0] - rows[1][0]).abs().max()) < 1e-3
     if masks:
         assert float((masks['cuda'] - masks['cpu']).abs().max()) <= 5e-3
+
+
+@pytest.mark.cuda
+def test_hrnet_hrfpn_on_the_card_equal_the_cpu(no_tf32):
+    """A small HRNet (two modules in stage 3) and its HRFPN (plain torch:
+    convs, nearest and bilinear resizes, the fuse adds, the pools) on the
+    card against the same weights and input on the CPU at 1x3x128x192,
+    each level to 1e-4 of its largest output."""
+    _need_card()
+    from ld_tpu_torch.models.backbones import HRNet
+    from ld_tpu_torch.models.necks import HRFPN
+    chans = (8, 16, 32, 64)
+    extra = dict(stage1=dict(num_modules=1, num_branches=1,
+                             block='BOTTLENECK', num_blocks=(1, ),
+                             num_channels=(16, )))
+    for s in (2, 3, 4):
+        extra[f'stage{s}'] = dict(num_modules=2 if s == 3 else 1,
+                                  num_branches=s, block='BASIC',
+                                  num_blocks=(1, ) * s,
+                                  num_channels=chans[:s])
+    model = torch.nn.Sequential(HRNet(extra=extra),
+                                HRFPN(list(chans), 64, stride=2))
+    for m in model:
+        m.init_weights(torch.Generator().manual_seed(0))
+    x = torch.randn(1, 3, 128, 192, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = model.eval()(x)
+        got = model.cuda()(x.cuda())
+    assert len(got) == 5
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())
+
+
+@pytest.mark.cuda
+def test_regnet_dcn_block_on_the_card_equals_the_cpu(no_tf32):
+    """A RegNetX-3.2GF stage-3 block with its grouped DCN conv2 (9 groups of
+    48 channels, stride 2, a shortcut) on the card against the same weights
+    and input on the CPU, with seeded non-zero offsets, within 1e-4 of its
+    largest output."""
+    _need_card()
+    from ld_tpu_torch.models.backbones import RegNet
+    from ld_tpu_torch.testing import randomize_dcn_offsets
+    model = RegNet(arch='regnetx_3.2gf', dcn=dict(type='DCNv2',
+                                                  deform_groups=1),
+                   stage_with_dcn=(False, True, True, True))
+    model.init_weights(torch.Generator().manual_seed(0))
+    block = model.layer3[0].eval()
+    assert randomize_dcn_offsets(block, seed=0) == 1
+    assert block.conv2.groups == 9 and block.downsample is not None
+    x = torch.randn(2, 192, 50, 84, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = block(x)
+        got = block.cuda()(x.cuda()).cpu()
+    assert got.shape == want.shape == (2, 432, 25, 42)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
