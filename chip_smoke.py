@@ -3,10 +3,12 @@ paths, the other GFL-family heads, the configs' bf16 dtype, the DCN /
 ResNeXt rows, the Res2Net-101-DCN teacher rows, data-parallel training
 and evaluation, the synthetic train-to-AP harness, the AP landscape, the
 HTTP server, the export, the classic one-stage heads, the two-stage
-stack, Mask R-CNN, the cascades (Cascade R-CNN, Cascade Mask R-CNN, HTC)
-and the HRNet and RegNet detectors on one CUDA card and check them.
+stack, Mask R-CNN, the cascades (Cascade R-CNN, Cascade Mask R-CNN, HTC),
+the HRNet and RegNet detectors and the ResNet's plugin, 'DCN' and GN + WS
+variants on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
+    python3 chip_smoke.py --phases resnet_variants dcn   # those phases alone
 
 Phases, one JSON object per line each:
   1. device  — the card, torch/CUDA versions, TF32 switched off and printed,
@@ -239,6 +241,26 @@ Phases, one JSON object per line each:
                1e-4 of its largest output; RetinaNet RegNetX-800MF 1 + 5
                calls. Launches must equal HRNET_REGNET_LAUNCHES (75).
                Budget 80 s.
+ 21. resnet_variants — full width, float32, seed 0, 800x1344, every
+               plugin's zero-init gate and every DCN offset conv seeded:
+               configs/gcnet/mask_rcnn_r50_fpn_r4_gcb_c3-c5_1x_coco.py and
+               configs/gn+ws/mask_rcnn_r50_fpn_gn_ws-all_2x_coco.py
+               (`forward_test` at batch 1 and 2, 1 + 3 calls each, 2
+               launches a call; 1 + 3 steps with gt_masks through
+               coco_instance.py's pipeline under the profiler, 1 launch a
+               step; the card against the CPU at 1x3x128x192 on the top
+               200 proposals: losses rtol 1e-3, outputs 5e-3, masks 5e-3),
+               configs/empirical_attention/faster_rcnn_r50_fpn_attention_
+               1111_1x_coco.py (the same, unmasked, with the attention
+               blocks' share of a step's device time, and one c4 attention
+               block, 2x256x50x84, against the CPU within 1e-4 of its
+               largest output and residual), configs/dcn/faster_rcnn_r50_
+               fpn_dconv_c3-c5_1x_coco.py (1 + 5 calls) and the X101-32x4d
+               DCN + GCNet Cascade Mask R-CNN of configs/gcnet/ (1 + 2
+               calls). Launches must equal RESNET_VARIANTS_LAUNCHES (78).
+               Budget 80 s.
+Every phase row carries `t`, the script's seconds so far; `--phases NAME
+...` runs the named phases alone.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
 (the main path's case: dense-kept set, K = 1024, B = 1; `device_ms` is the
 profiler's mask + sweep time; the `_k2048` keys the dense-kept set at
@@ -251,6 +273,7 @@ two NMS;
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script exits
 non-zero and prints no result; so does a host without CUDA.
 """
+import contextlib
 import json
 import math
 import os
@@ -374,9 +397,38 @@ HRNET_REGNET_LAUNCHES = (
 # gibox step (one GI NMS per FPN level)
 RES2NET_LAUNCHES = sum(RES2NET_SERVE_CALLS) + 5 * sum(
     w + t for _, w, t, _, _ in RES2NET_IM)
+# the resnet_variants phase: Mask R-CNN R50 with GCNet blocks (r4, c3-c5),
+# Faster R-CNN R50 with empirical attention '1111' (c4-c5), Faster R-CNN
+# R50 with the 'DCN' type on c3-c5, Mask R-CNN R50 GN + WS, Cascade Mask
+# R-CNN X101-32x4d with DCN and GCNet; (warm-up, timed) forward_test calls
+# at batch 1 and 2 and steps at batch 2 of the first, second and fourth,
+# calls at batch 1 of the DCN and cascade models; one c4 attention block
+# (width, heads, kv stride, map, batch)
+RV_GCB = 'configs/gcnet/mask_rcnn_r50_fpn_r4_gcb_c3-c5_1x_coco.py'
+RV_ATTENTION = ('configs/empirical_attention/'
+                'faster_rcnn_r50_fpn_attention_1111_1x_coco.py')
+RV_DCN = 'configs/dcn/faster_rcnn_r50_fpn_dconv_c3-c5_1x_coco.py'
+RV_GN_WS = 'configs/gn+ws/mask_rcnn_r50_fpn_gn_ws-all_2x_coco.py'
+RV_CASCADE = ('configs/gcnet/cascade_mask_rcnn_x101_32x4d_fpn_syncbn-'
+              'backbone_dconv_c3-c5_r4_gcb_c3-c5_1x_coco.py')
+RV_CALLS, RV_STEPS = (1, 3), (1, 3)
+RV_DCN_CALLS, RV_CASCADE_CALLS = (1, 5), (1, 2)
+RV_ATTENTION_LAYER = (256, 8, 2, (50, 84), 2)
+# its nms_keep launches, stated before the run: 2 a two-stage (and cascade)
+# forward_test call, 1 a two-stage step
+RESNET_VARIANTS_LAUNCHES = (3 * 2 * 2 * sum(RV_CALLS) + 3 * sum(RV_STEPS) +
+                            2 * sum(RV_DCN_CALLS) +
+                            2 * sum(RV_CASCADE_CALLS))
+
+
+T_START = time.perf_counter()
 
 
 def emit(obj):
+    """One JSON line; a phase's row carries `t`, the script's seconds so
+    far."""
+    if 'phase' in obj:
+        obj = dict(obj, t=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -966,10 +1018,37 @@ def count_dcn(module):
     return sum(isinstance(m, ModulatedDeformConv2d) for m in module.modules())
 
 
-def step_profile(torch, step, batch, prof_steps=2, top_n=10):
+@contextlib.contextmanager
+def module_ranges(model, cls, name):
+    """A torch.profiler `record_function` range named `name` around the
+    forward of every `cls` module of `model` while in the block; yields
+    the number of such modules."""
+    from torch.profiler import record_function
+    opened = []
+
+    def enter(module, args):
+        opened.append(record_function(name))
+        opened[-1].__enter__()
+
+    def leave(module, args, out):
+        opened.pop().__exit__(None, None, None)
+    modules = [m for m in model.modules() if isinstance(m, cls)]
+    hooks = [h for m in modules for h in (m.register_forward_pre_hook(enter),
+                                          m.register_forward_hook(leave))]
+    try:
+        yield len(modules)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def step_profile(torch, step, batch, prof_steps=2, top_n=10, ranges=None):
     """Device time of `prof_steps` steps by kernel, from torch.profiler:
     device ms a step against its wall ms (the busy share), device ops a
-    step, the GI NMS kernels' ms a step and the top kernels."""
+    step, the GI NMS kernels' ms a step and the top kernels; with `ranges`
+    (the name of `module_ranges` set around the steps), the device ms a
+    step of the kernels those ranges launch (the forward's) and their
+    share."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -978,15 +1057,24 @@ def step_profile(torch, step, batch, prof_steps=2, top_n=10):
             step(batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == cuda and e.key != ranges]
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us <= 0:
         return dict(device_time='not measured')
     nms_us = sum(e.self_device_time_total for e in kernels
                  if any(n in e.key for n in NMS_KERNELS))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
-    return dict(
+    extra = {}
+    if ranges is not None:
+        range_us = sum(e.device_time_total for e in events
+                       if e.key == ranges and e.device_type != cuda)
+        extra = {f'{ranges}_device_ms_per_step': range_us / prof_steps / 1e3
+                 if range_us > 0 else 'not measured',
+                 f'{ranges}_device_share': range_us / total_us
+                 if range_us > 0 else 'not measured'}
+    return dict(**extra,
         device_ms_per_step=total_us / prof_steps / 1e3,
         wall_ms_per_step=wall_us / prof_steps / 1e3,
         device_busy_share=total_us / wall_us,
@@ -2002,10 +2090,10 @@ def phase_dcn(torch, smi):
     for config in DCN_SERVE:
         def extra(model, bench, voting='r101' in config):
             out = dcn_device_share(
-                torch, model, lambda: model.forward_test(bench))
+                torch, model, lambda: model.forward_test(bench), iters=1)
             if voting:
                 out.update(voting_serve(torch, model, bench))
-            out.update(teacher_forward(torch, model))
+            out.update(teacher_forward(torch, model, iters=1))
             return out
         n, row = family_serve(torch, smi, config, warmup=2, timed=5,
                               phase='dcn_serve', extra=extra)
@@ -2016,7 +2104,7 @@ def phase_dcn(torch, smi):
     emit(dict(phase='dcn_layers', nvidia_smi=smi, layers=layers))
     for config, warmup, timed in DCN_LD:
         n, row = ld_steps(torch, smi, config, 0, warmup, timed,
-                          phase='dcn_train')
+                          phase='dcn_train', prof_steps=1)
         check(row['dcn_layers_teacher'] > 0, f'{config}: no DCN teacher')
         launches += n
     for config, _, _ in DCN_LD:
@@ -2062,8 +2150,9 @@ def phase_res2net(torch, np, smi):
     time), the same model as a teacher at batch 2 (BNs folded) and its
     head outputs on the card against the CPU; then the IMv2 configs that
     distil it, 5 launches a gibox step: the R101 student (1 + 3 steps,
-    float32, card vs CPU at 1x3x128x192), the R2N101-DCN self student in
-    its config's bf16 (1 + 2) and the X101-32x4d student (1 + 1). A
+    float32, its profile and the card vs the CPU at 1x3x128x192), the
+    R2N101-DCN self student in its config's bf16 (1 + 2) and the
+    X101-32x4d student (1 + 1). A
     student's DCN offsets start at the init's zero, as from ImageNet
     weights: the self student with seeded offsets (taps ~50 px off on its
     layer-3 activations) diverges by its third SGD step in float32 and
@@ -2086,10 +2175,12 @@ def phase_res2net(torch, np, smi):
           'DCN layers')
     teacher_reference(torch, np, RES2NET_TEACHER)
     for config, warmup, timed, dtype, cpu_check in RES2NET_IM:
+        # the teacher's ms and a step's profile with the card-vs-CPU
+        # check only: the profiler's post-processing of a Res2Net-DCN
+        # student's step (~40k device ops) takes tens of seconds
         n, row = ld_steps(torch, smi, config, 5, warmup, timed,
-                          phase='res2net_train', dtype=dtype,
-                          cpu_check=cpu_check, student_offsets=False,
-                          prof_steps=1)
+                          reference=cpu_check, phase='res2net_train',
+                          dtype=dtype, student_offsets=False, prof_steps=1)
         check(row['dcn_layers_teacher'] == RES2NET_DCN_LAYERS and
               row['loss_first']['loss_dfl'] == 0.0,
               f'{config}: {row["dcn_layers_teacher"]} teacher DCN layers, '
@@ -2202,7 +2293,7 @@ def ddp_worker(argv):
     """torchrun's target in the ddp phase, one rank: jobs separated by
     `--ddp-job`, each `MODE OUT PREEMPT -- ARGS`, run in turn in this
     process (a torchrun launch and its ranks' start-up take ~30 s, so one
-    launch runs a preempted run, its resumption and the test CLI).
+    launch runs every job).
     `--ddp-train-worker` runs tools/train.py's main on ARGS, recording this
     rank's img_ids, losses and launches a step (the `make_train_step` of
     train_detector wrapped; rank 0 raises SIGTERM after its step PREEMPT
@@ -2295,23 +2386,22 @@ def ddp_cli(torch, np, work, steps_per_epoch=3, epochs=2):
         return ['--ddp-train-worker', os.path.join(work, name), preempt,
                 '--', cfg_path, '--work-dir', wd, '--launcher', 'pytorch',
                 *opts, *extra]
-    # two launches: the run through; then, in one launch, the run
-    # preempted, its resumption and (c) the test CLI on the first's
-    # checkpoint
-    launches_args = {
-        'through': train_job('through', 0, os.path.join(work, 'through')),
-        'cut': [*train_job('preempted', 3, os.path.join(work, 'cut')),
-                '--ddp-job',
-                *train_job('resumed', 0, os.path.join(work, 'cut'),
-                           '--resume-from', os.path.join(work, 'cut')),
-                '--ddp-job', '--ddp-test-worker', os.path.join(work, 'test'),
-                0, '--', cfg_path, ckpt, '--eval', 'bbox', '--launcher',
-                'pytorch', *opts]}
-    runs, seconds = {}, {}
-    for name, args in launches_args.items():
-        t0 = time.perf_counter()
-        torchrun(args)
-        seconds[name] = time.perf_counter() - t0
+    # one launch (its ranks' start-up costs tens of seconds): the run
+    # through, the run preempted, its resumption, and (c) the test CLI on
+    # the first run's checkpoint, in turn in each rank's process
+    args = [*train_job('through', 0, os.path.join(work, 'through')),
+            '--ddp-job',
+            *train_job('preempted', 3, os.path.join(work, 'cut')),
+            '--ddp-job',
+            *train_job('resumed', 0, os.path.join(work, 'cut'),
+                       '--resume-from', os.path.join(work, 'cut')),
+            '--ddp-job', '--ddp-test-worker', os.path.join(work, 'test'),
+            0, '--', cfg_path, ckpt, '--eval', 'bbox', '--launcher',
+            'pytorch', *opts]
+    runs = {}
+    t0 = time.perf_counter()
+    torchrun(args)
+    seconds = dict(launch=time.perf_counter() - t0)
     for name in ('through', 'preempted', 'resumed'):
         runs[name] = ddp_read(torch, os.path.join(work, name))
     through, cut = runs['through'], runs['preempted']
@@ -2913,13 +3003,16 @@ def build_plain(torch, config, seed=0):
 
 
 def detector_steps(torch, smi, cfg, base, warmup, timed, per_step, phase,
-                   batch_size=2, pad=(800, 1344), profile=False, batch=None):
+                   batch_size=2, pad=(800, 1344), profile=False, batch=None,
+                   range_of=None, prof_steps=2):
     """`warmup` + `timed` training steps of a copy of `base` on the card
     (the config's SGD and schedule, `batch` on the card or a seeded batch
     of `batch_size` at `pad`): every loss finite and `per_step` nms_keep
-    launches a step; with `profile`, the device's time by kernel over 2
-    more steps. Returns the launch count of the steps and the emitted
-    row."""
+    launches a step; with `profile`, the device's time by kernel over
+    `prof_steps` more steps, and with `range_of` (a module class) the share
+    of it that
+    the forwards of those modules launch. Returns the launch count of the
+    steps and the emitted row."""
     import copy
     from ld_tpu_torch.ops.nms_cuda import nms_keep
     from ld_tpu_torch.testing import detection_batch
@@ -2965,8 +3058,14 @@ def detector_steps(torch, smi, cfg, base, warmup, timed, per_step, phase,
     if hasattr(model, 'teacher'):
         row['params_teacher'] = sum(p.numel()
                                     for p in model.teacher.parameters())
-    if profile:
-        row.update(step_profile(torch, step, batch, 2, top_n=12))
+    if profile and range_of is None:
+        row.update(step_profile(torch, step, batch, prof_steps, top_n=12))
+    elif profile:
+        with module_ranges(model, range_of, 'module_range') as n:
+            row.update(step_profile(torch, step, batch, prof_steps, top_n=12,
+                                    ranges='module_range'),
+                       module_range_of=range_of.__name__,
+                       module_range_modules=n)
     emit(row)
     del model, step, optimizer, batch
     torch.cuda.empty_cache()
@@ -3276,14 +3375,15 @@ def box_masks(torch, np, batch, seed=2):
 
 
 def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
-              timed=5):
+              timed=5, prof_iters=3):
     """`forward_test` of a two-stage `model` on the card at 800x1344:
     `warmup` + `timed` calls at each batch size, 2 launches a call (the
     RPN's NMS of the batch and the RoI head's), the outputs checked (with
     test masks the 4th, (B, 100, 28, 28) in [0, 1]); at the largest batch
     both NMS again with the plain keep mask, identical outputs; the device's
-    busy share at the smallest. Emits the row; returns (launches, row, the
-    captured NMS inputs (boxes, valid, thr) of the largest batch's call)."""
+    busy share at the smallest over `prof_iters` profiled calls. Emits the
+    row; returns (launches, row, the captured NMS inputs (boxes, valid,
+    thr) of the largest batch's call)."""
     from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
     gen = torch.Generator('cuda').manual_seed(0)
     benches = {b: dict(image=torch.randn(b, 3, 800, 1344, device='cuda',
@@ -3349,7 +3449,7 @@ def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
               f'{config}: outputs with the kernel differ from the plain '
               'keep mask')
     prof = phase_profile(torch, model, benches[min(batches)],
-                         phase=f'{phase}_profile')
+                         iters=prof_iters, phase=f'{phase}_profile')
     row = dict(phase=phase, config=config, nvidia_smi=smi,
                detector=type(model).__name__,
                params=sum(p.numel() for p in model.parameters()),
@@ -3810,10 +3910,207 @@ def phase_hrnet_regnet(torch, np, smi):
               nms_keep_launches=launches))
     return launches
 
+
+def attention_layer_check(torch, c, heads, kv_stride, hw, batch):
+    """One GeneralizedAttention block ('1111') at a full-width c4 shape,
+    seeded (gamma 1, so that the attention weighs as much as the input):
+    on the card against the CPU on the same weights and input, its output
+    and its residual (output minus input) within 1e-4 of their largest
+    |value|; its ms, peak memory, and the bytes of one energy tensor."""
+    from ld_tpu_torch.models.backbones.plugins import GeneralizedAttention
+    layer = GeneralizedAttention(c, num_heads=heads, kv_stride=kv_stride,
+                                 attention_type='1111')
+    layer.init_weights(torch.Generator().manual_seed(0))
+    x = torch.randn(batch, c, *hw, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        layer.gamma.fill_(1.0)
+        want = layer(x)
+        layer = layer.cuda()
+        xc = x.cuda()
+        got = layer(xc).cpu()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        res_err = float(((got - x) - (want - x)).abs().max())
+        res_scale = float((want - x).abs().max())
+        check(err <= 1e-4 * scale and res_err <= 1e-4 * res_scale,
+              f'attention block: card vs CPU max abs {err} (of {scale}), '
+              f'residual {res_err} (of {res_scale})')
+        ms, host_ms = cuda_ms(lambda: layer(xc), iters=10, warmup=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        layer(xc)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    q = hw[0] * hw[1]
+    k = (hw[0] // kv_stride) * (hw[1] // kv_stride)
+    row = dict(layer='c4_gen_attention_1111', input=[batch, c, *hw],
+               heads=heads, kv_stride=kv_stride, max_abs_err=err,
+               max_abs_out=scale, residual_max_abs_err=res_err,
+               residual_max_abs=res_scale, ms=ms, host_ms=host_ms,
+               peak_bytes_over_input=peak,
+               energy_bytes=4 * batch * heads * q * k)
+    del layer, x, xc
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_resnet_variants(torch, np, smi):
+    """The ResNet's plugins, 'DCN' type and GN + WS at full width, float32,
+    seed 0 (each plugin's zero-init gate and each DCN offset conv seeded,
+    so that they change the outputs): Mask R-CNN R50 + GCNet (calls at
+    batch 1 and 2, masked steps under the profiler, the card against the
+    CPU), Faster R-CNN R50 + attention '1111' (calls, steps with the
+    attention's share of device time, the card against the CPU, one c4
+    attention block against the CPU), Faster R-CNN R50 'DCN' c3-c5
+    (calls), Mask R-CNN R50 GN + WS (calls, masked steps under the
+    profiler, the card against the CPU), Cascade Mask R-CNN X101-32x4d DCN
+    + GCNet (calls). Each model is initialised once, on the CPU, and
+    served from a `.pth` of those weights through `init_detector`; the two
+    served only, straight from `init_detector`. Returns the kernel's
+    launch count over the main paths. Budget 80 s."""
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.apis import init_detector
+    from ld_tpu_torch.models.backbones.plugins import (ContextBlock,
+                                                       GeneralizedAttention)
+    from ld_tpu_torch.models.layers import ConvWS2d
+    from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
+    from ld_tpu_torch.testing import (randomize_dcn_offsets,
+                                      randomize_plugin_gates)
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_resnet_variants')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data_cfg = Config.fromfile(os.path.join(ROOT, MASK_DATA_CONFIG))
+    masked = instance_train_batch(torch, data_cfg)
+    launches, seconds = 0, {}
+
+    def layer_counts(model):
+        """The backbone's ContextBlock, attention, DCN and ConvWS2d
+        modules."""
+        return tuple(sum(isinstance(m, cls) for m in model.backbone.modules())
+                     for cls in (ContextBlock, GeneralizedAttention,
+                                 ModulatedDeformConv2d, ConvWS2d))
+
+    def served(config, layers):
+        """The config's float32 model from seed 0 on the CPU, its plugin
+        gates and DCN offsets seeded, (cfg, base), and the same weights
+        served on the card through `init_detector`; `layers` is the
+        number of (ContextBlock, GeneralizedAttention, DCN, ConvWS2d)
+        modules its backbone must have."""
+        cfg, base = build_plain(torch, config)
+        randomize_dcn_offsets(base, seed=0)
+        randomize_plugin_gates(base, seed=0)
+        check(layer_counts(base) == layers, f'{config}: (ContextBlock, '
+              f'attention, DCN, ConvWS) layers {layer_counts(base)}, '
+              f'expected {layers}')
+        path = os.path.join(work, os.path.basename(config)[:-3] + '.pth')
+        torch.save(base.state_dict(), path)
+        model = peak_scores(torch, init_detector(float32_cfg(config), path,
+                                                 device='cuda'))
+        return cfg, base, model
+
+    def serve_and_steps(config, layers, batch, range_of=None):
+        nonlocal launches
+        t = time.perf_counter()
+        cfg, base, model = served(config, layers)
+        n, _, _ = roi_serve(torch, smi, model, config,
+                            'resnet_variants_serve', (1, 2), *RV_CALLS,
+                            prof_iters=1)
+        launches += n
+        del model
+        torch.cuda.empty_cache()
+        n, row = detector_steps(torch, smi, cfg, base, *RV_STEPS, per_step=1,
+                                phase='resnet_variants_train', profile=True,
+                                batch=batch, range_of=range_of, prof_steps=1)
+        launches += n
+        check(batch is None or row['loss_last'].get('loss_mask', 0) > 0,
+              f'{config}: no loss_mask')
+        roi_reference(torch, np, base, config, 'resnet_variants_reference')
+        seconds[os.path.basename(config)[:-3]] = time.perf_counter() - t
+        return row
+
+    # R50: 16 blocks, c3-c5 13, c4-c5 9; the GN + WS trunk's convs (the
+    # 7x7 stem, 3 a block, 4 shortcuts)
+    serve_and_steps(RV_GCB, (13, 0, 0, 0), masked)
+    row = serve_and_steps(RV_ATTENTION, (0, 9, 0, 0), None,
+                          range_of=GeneralizedAttention)
+    check(row.get('module_range_modules') == 9,
+          'the attention blocks were not all ranged')
+    emit(dict(phase='resnet_variants_attention_layer', nvidia_smi=smi,
+              **attention_layer_check(torch, *RV_ATTENTION_LAYER)))
+    serve_and_steps(RV_GN_WS, (0, 0, 0, 1 + 3 * 16 + 4), masked)
+
+    # served only: drawn by init_detector, their gates and offsets seeded
+    # on the card
+    for config, layers, calls in ((RV_DCN, (0, 0, 13, 0), RV_DCN_CALLS),
+                                  (RV_CASCADE, (30, 0, 30, 0),
+                                   RV_CASCADE_CALLS)):
+        t = time.perf_counter()
+        model = init_detector(float32_cfg(config), device='cuda', seed=0)
+        randomize_dcn_offsets(model, seed=0)
+        randomize_plugin_gates(model, seed=0)
+        check(layer_counts(model) == layers,
+              f'{config}: layers {layer_counts(model)}, expected {layers}')
+        n, _, _ = roi_serve(torch, smi, peak_scores(torch, model), config,
+                            'resnet_variants_serve', (1, ), *calls,
+                            prof_iters=1)
+        launches += n
+        del model
+        torch.cuda.empty_cache()
+        seconds[os.path.basename(config)[:-3]] = time.perf_counter() - t
+    del masked
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    check(launches == RESNET_VARIANTS_LAUNCHES, f'resnet_variants phase: '
+          f'{launches} nms_keep launches, expected '
+          f'{RESNET_VARIANTS_LAUNCHES}')
+    emit(dict(phase='resnet_variants_done',
+              seconds=time.perf_counter() - t_phase,
+              seconds_by_model=seconds, budget_s=80,
+              nms_keep_launches=launches))
+    return launches
+
+
+def run_phases(names):
+    """`--phases NAME ...`: only the named phases (dcn, res2net, ddp,
+    hrnet_regnet, resnet_variants), each with its seconds and launches, on
+    the card with TF32 off and the kernel built; no result line."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    from ld_tpu_torch.ops import nms_cuda
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is false',
+              file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, check=True).stdout.strip()
+    nms_cuda.build()
+    phases = dict(dcn=lambda: phase_dcn(torch, smi),
+                  res2net=lambda: phase_res2net(torch, np, smi),
+                  ddp=lambda: phase_ddp(torch, np, smi),
+                  hrnet_regnet=lambda: phase_hrnet_regnet(torch, np, smi),
+                  resnet_variants=lambda: phase_resnet_variants(torch, np,
+                                                                smi))
+    for name in names:
+        t = time.perf_counter()
+        launches = phases[name]()
+        torch.cuda.empty_cache()
+        emit(dict(phase=f'{name}_alone', nvidia_smi=smi, launches=launches,
+                  seconds=time.perf_counter() - t))
+    return 0
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1].startswith('--ddp-'):
         return ddp_worker(sys.argv[1:])
+    if len(sys.argv) > 1 and sys.argv[1] == '--phases':
+        return run_phases(sys.argv[2:])
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false',
               file=sys.stderr)
@@ -3887,6 +4184,8 @@ def main():
     cascade_launches, cascade_k = phase_cascade(torch, np, smi)
     torch.cuda.empty_cache()
     hrnet_regnet_launches = phase_hrnet_regnet(torch, np, smi)
+    torch.cuda.empty_cache()
+    resnet_variants_launches = phase_resnet_variants(torch, np, smi)
     emit(dict(phase='script_done', seconds=time.perf_counter() - t_script))
 
     print(smi.splitlines()[0], flush=True)
@@ -3899,7 +4198,8 @@ def main():
                   harness_launches + landscape_launches +
                   serve_http_launches + export_launches + classic_launches +
                   two_stage_launches + mask_rcnn_launches +
-                  cascade_launches + hrnet_regnet_launches),
+                  cascade_launches + hrnet_regnet_launches +
+                  resnet_variants_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -3913,6 +4213,7 @@ def main():
         launches_mask_rcnn=mask_rcnn_launches,
         launches_cascade=cascade_launches,
         launches_hrnet_regnet=hrnet_regnet_launches,
+        launches_resnet_variants=resnet_variants_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

@@ -12,10 +12,14 @@ on its 1x1 conv1. The detection semantics of the JAX package:
     backbone gets a gradient.
   * `groups` / `base_width` (ResNeXt): a bottleneck of width
     int(planes * base_width / 64) * groups with a grouped conv2.
-  * `dcn=dict(type='DCNv2', deform_groups=g)` with `stage_with_dcn`: the
-    conv2 of every bottleneck of those stages is a `ModulatedDeformConv2d`
-    (`ops/deform_conv.py`), grouped like the plain one. `fallback_on_stride`
-    is accepted and, as in the JAX package, changes nothing.
+  * `dcn=dict(type='DCNv2' | 'DCN', deform_groups=g)` with
+    `stage_with_dcn`: the conv2 of every bottleneck of those stages is a
+    `ModulatedDeformConv2d` (`ops/deform_conv.py`), grouped like the plain
+    one. The JAX ResNet builds that DCNv2 layer for any `dcn` dict, mmcv's
+    DCNv1 type 'DCN' too, and so does the port (ROADMAP.md Queue C, caveat
+    36: an mmcv DCNv1 checkpoint's `conv_offset` of 2 x k^2 x g rows then
+    does not load, and the load says so). `fallback_on_stride` is accepted
+    and, as in the JAX package, changes nothing.
   * `deep_stem` (ResNet-V1d): three 3x3 convs (base/2, base/2, base;
     strides 2, 1, 1), each with its BN and ReLU, as the `stem` Sequential.
   * `avg_down` (ResNet-V1d): a downsampling shortcut average-pools by its
@@ -23,6 +27,25 @@ on its 1x1 conv1. The detection semantics of the JAX package:
     agrees on every even map, ROADMAP.md Queue C caveat 15), then runs its
     1x1 conv at stride 1: `downsample = Sequential(pool, conv, BN)`, the
     pool an identity at stride 1.
+  * `norm_cfg=dict(type='GN', num_groups=32)`: every norm of the trunk a
+    GroupNorm of min(32, C) groups (`models/layers.py`), under mmdet's
+    names by type (`gn1`, `layer1.0.gn3`, `downsample.1`); `norm_eval`
+    then freezes nothing, `frozen_stages` still freezes the affine
+    parameters of the stem and the frozen stages.
+  * `conv_cfg=dict(type='ConvWS')`: every conv of the trunk weight-
+    standardized (`ConvWS2d`), the 7x7 stem too; a DCN conv2 stays a DCN.
+  * `plugins` (GCNet's `ContextBlock`, `GeneralizedAttention`;
+    `plugins.py`): each plugin dict's `cfg` builds a block after a
+    bottleneck's conv1, conv2 or conv3 (`position`; after the norm and
+    ReLU, before the residual add), in config order, in the stages its
+    `stages` flags select, under mmcv's names
+    (`layer3.0.context_block`, `layer3.0.gen_attention_block`; a second
+    plugin of one type in a block gets `_<i>`, its index among the
+    stage's plugins). A BasicBlock takes none: ResNet-18/34 drop them with
+    a warning, as the JAX package drops them silently (ROADMAP.md Queue C,
+    caveat 39).
+  * `zero_init_residual`: `init_weights` zeroes the scale of each block's
+    last norm (the JAX `zero_init_final`).
 
 Module names are mmdet's (`conv1`, `bn1`, `layer1.0.conv1`,
 `layer1.0.downsample.{0,1}`, with `deep_stem` `stem.{0,3,6}` and
@@ -46,10 +69,15 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from ld_tpu_torch.models.layers import (Conv2d, lecun_normal_,
-                                        lowered_dtype, make_conv, make_norm)
+from ld_tpu_torch.models.layers import (lecun_normal_, lowered_dtype,
+                                        make_conv, make_norm, norm_name)
 from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
 from ld_tpu_torch.utils.registry import BACKBONES
+from .plugins import (PLUGIN_POSITIONS, PLUGINS, build_plugin,
+                      stage_plugins, warn_basic_block_plugins)
+
+# the `dcn` types that build the JAX package's DCNv2 layer (caveat 36)
+DCN_TYPES = ('DCNv2', 'DCN')
 
 
 class BasicBlock(nn.Module):
@@ -61,18 +89,32 @@ class BasicBlock(nn.Module):
         super().__init__()
         # one stride placement: `style` changes nothing here, as in mmdet
         del style
+        self.norm1_name, self.norm2_name = (norm_name(norm_cfg, i)
+                                            for i in (1, 2))
         self.conv1 = make_conv(conv_cfg, inplanes, planes, 3, stride,
                                dtype=dtype)
-        self.bn1 = make_norm(norm_cfg, planes, dtype)
+        self.add_module(self.norm1_name, make_norm(norm_cfg, planes, dtype))
         self.conv2 = make_conv(conv_cfg, planes, planes, 3, 1, dtype=dtype)
-        self.bn2 = make_norm(norm_cfg, planes, dtype)
+        self.add_module(self.norm2_name, make_norm(norm_cfg, planes, dtype))
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
+    @property
+    def norm1(self):
+        return getattr(self, self.norm1_name)
+
+    @property
+    def norm2(self):
+        return getattr(self, self.norm2_name)
+
+    @property
+    def last_norm(self):
+        return self.norm2
+
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        out = self.relu(self.norm1(self.conv1(x)))
+        out = self.norm2(self.conv2(out))
         return self.relu(out + identity)
 
 
@@ -82,7 +124,7 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes, planes, stride=1, dilation=1,
                  downsample=None, conv_cfg=None, norm_cfg=None,
                  style='pytorch', dtype=None, groups=1, base_width=64,
-                 dcn=None, base_channels=64, expansion=None):
+                 dcn=None, base_channels=64, expansion=None, plugins=None):
         super().__init__()
         if expansion is not None:
             # RegNet's blocks: expansion 1, output width `planes`
@@ -92,8 +134,10 @@ class Bottleneck(nn.Module):
         # base_channels (64; RegNet passes its stage width)
         width = int(planes * (base_width / base_channels)) * groups \
             if groups > 1 else planes
+        self.norm1_name, self.norm2_name, self.norm3_name = (
+            norm_name(norm_cfg, i) for i in (1, 2, 3))
         self.conv1 = make_conv(conv_cfg, inplanes, width, 1, s1, dtype=dtype)
-        self.bn1 = make_norm(norm_cfg, width, dtype)
+        self.add_module(self.norm1_name, make_norm(norm_cfg, width, dtype))
         if dcn is not None:
             # the DCN conv2 of a ResNeXt stays grouped
             self.conv2 = ModulatedDeformConv2d(
@@ -104,18 +148,53 @@ class Bottleneck(nn.Module):
             self.conv2 = make_conv(conv_cfg, width, width, 3, s2,
                                    padding=dilation, dilation=dilation,
                                    groups=groups, dtype=dtype)
-        self.bn2 = make_norm(norm_cfg, width, dtype)
+        self.add_module(self.norm2_name, make_norm(norm_cfg, width, dtype))
         self.conv3 = make_conv(conv_cfg, width, planes * self.expansion, 1, 1,
                                dtype=dtype)
-        self.bn3 = make_norm(norm_cfg, planes * self.expansion, dtype)
+        self.add_module(self.norm3_name,
+                        make_norm(norm_cfg, planes * self.expansion, dtype))
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
+        # plugin module names by position, each list in config order
+        self.plugin_names = {pos: [] for pos in PLUGIN_POSITIONS}
+        for i, p in enumerate(plugins or ()):
+            plugin = build_plugin(p['cfg'], planes * self.expansion
+                                  if p['position'] == 'after_conv3'
+                                  else width)
+            name = plugin.abbr if not hasattr(self, plugin.abbr) else \
+                f'{plugin.abbr}_{i}'
+            self.add_module(name, plugin)
+            self.plugin_names[p['position']].append(name)
+
+    @property
+    def norm1(self):
+        return getattr(self, self.norm1_name)
+
+    @property
+    def norm2(self):
+        return getattr(self, self.norm2_name)
+
+    @property
+    def norm3(self):
+        return getattr(self, self.norm3_name)
+
+    @property
+    def last_norm(self):
+        return self.norm3
+
+    def _plugins(self, x, position):
+        for name in self.plugin_names[position]:
+            x = getattr(self, name)(x)
+        return x
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = self.relu(self.norm1(self.conv1(x)))
+        out = self._plugins(out, 'after_conv1')
+        out = self.relu(self.norm2(self.conv2(out)))
+        out = self._plugins(out, 'after_conv2')
+        out = self.norm3(self.conv3(out))
+        out = self._plugins(out, 'after_conv3')
         return self.relu(out + identity)
 
 
@@ -129,7 +208,7 @@ ARCH_SETTINGS = {
 
 # config keys of the JAX ResNet that select variants not ported yet, with the
 # value that means "off" (ROADMAP.md A7)
-_UNPORTED_KEYS = dict(sac=None, plugins=None, zero_init_residual=False)
+_UNPORTED_KEYS = dict(sac=None)
 
 
 def make_deep_stem(in_channels, channels, dtype=None, conv_cfg=None,
@@ -164,16 +243,22 @@ def make_shortcut(inplanes, out_channels, stride, avg_down, dtype=None,
 
 def init_trunk_weights(module: nn.Module, generator: torch.Generator):
     """The JAX package's initializers over a backbone: lecun-normal conv
-    kernels, BN scale 1 / bias 0 / running mean 0 / running var 1; a DCN
-    conv he-normal, its `conv_offset` zero."""
-    offset_convs = {id(m.conv_offset) for m in module.modules()
-                    if isinstance(m, ModulatedDeformConv2d)}
+    kernels, BN scale 1 / bias 0 / running mean 0 / running var 1, GN
+    scale 1 / bias 0; a DCN conv he-normal, its `conv_offset` zero; a
+    plugin its own (`plugins.py`)."""
+    kinds = tuple(PLUGINS.values())
+    skip = {id(m.conv_offset) for m in module.modules()
+            if isinstance(m, ModulatedDeformConv2d)}
+    skip |= {id(sub) for m in module.modules() if isinstance(m, kinds)
+             for sub in m.modules()}
     for m in module.modules():
-        if isinstance(m, ModulatedDeformConv2d):
+        if isinstance(m, (ModulatedDeformConv2d, *kinds)):
             m.init_weights(generator)
-        elif isinstance(m, nn.Conv2d) and id(m) not in offset_convs:
+        elif id(m) in skip:
+            continue
+        elif isinstance(m, nn.Conv2d):
             lecun_normal_(m.weight, generator)
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
             m.reset_parameters()
 
 
@@ -201,6 +286,8 @@ class ResNet(nn.Module):
                                                    False),
                  deep_stem: bool = False,
                  avg_down: bool = False,
+                 plugins: Sequence[dict] = None,
+                 zero_init_residual: bool = False,
                  dtype=None,
                  **kwargs):
         super().__init__()
@@ -216,34 +303,34 @@ class ResNet(nn.Module):
             # stage_with_sac only matters with sac set
             if key not in _UNPORTED_KEYS and key != 'stage_with_sac':
                 raise TypeError(f'unexpected ResNet argument {key!r}')
-        if (norm_cfg or {}).get('type', 'BN') not in ('BN', 'SyncBN'):
-            raise NotImplementedError('ResNet norm_cfg other than BN is not '
-                                      'ported to ld_tpu_torch yet')
         block, stage_blocks = ARCH_SETTINGS[depth]
-        if dcn is not None and dcn.get('type', 'DCNv2') != 'DCNv2':
-            # the JAX layer is DCNv2 whatever the type; mmcv's DCNv1 ('DCN')
-            # has no mask and another conv_offset width
-            raise NotImplementedError(
-                f"ResNet dcn type {dcn['type']!r} is not ported to "
-                'ld_tpu_torch yet (see ROADMAP.md A7)')
+        if dcn is not None and dcn.get('type', 'DCNv2') not in DCN_TYPES:
+            raise ValueError(f"ResNet dcn type {dcn['type']!r}: one of "
+                             f'{DCN_TYPES}')
         if block is BasicBlock and (groups != 1 or (
                 dcn is not None and any(stage_with_dcn))):
             # mmdet asserts the same: BasicBlock takes no groups or DCN
             raise ValueError(f'ResNet-{depth} (BasicBlock) takes no groups '
                              'or dcn')
+        if block is BasicBlock and plugins:
+            warn_basic_block_plugins(depth)
+            plugins = None
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
         self.norm_eval = norm_eval
+        self.zero_init_residual = zero_init_residual
 
         self.deep_stem = deep_stem
         if deep_stem:
             self.stem = make_deep_stem(in_channels, base_channels, dtype,
                                        conv_cfg, norm_cfg)
         else:
-            self.conv1 = Conv2d(in_channels, base_channels, 7, 2, 3,
-                                bias=False,
-                                compute_dtype=lowered_dtype(dtype))
-            self.bn1 = make_norm(norm_cfg, base_channels, dtype)
+            # a 7x7/2 conv; weight-standardized under a ConvWS conv_cfg
+            self.conv1 = make_conv(conv_cfg, in_channels, base_channels, 7, 2,
+                                   dtype=dtype)
+            self.norm1_name = norm_name(norm_cfg, 1)
+            self.add_module(self.norm1_name,
+                            make_norm(norm_cfg, base_channels, dtype))
             self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
 
@@ -263,7 +350,7 @@ class ResNet(nn.Module):
                 extra = {} if block is BasicBlock else dict(
                     groups=groups, base_width=base_width,
                     dcn=dcn if dcn is not None and stage_with_dcn[i]
-                    else None)
+                    else None, plugins=stage_plugins(plugins, i))
                 layers.append(block(inplanes, planes, s, dilation,
                                     downsample, conv_cfg, norm_cfg, style,
                                     dtype, **extra))
@@ -277,8 +364,12 @@ class ResNet(nn.Module):
                 if isinstance(m, nn.BatchNorm2d):
                     m.requires_grad_(False)
 
+    @property
+    def norm1(self):
+        return getattr(self, self.norm1_name)
+
     def _stem_modules(self):
-        return [self.stem] if self.deep_stem else [self.conv1, self.bn1]
+        return [self.stem] if self.deep_stem else [self.conv1, self.norm1]
 
     def _freeze_stages(self):
         if self.frozen_stages >= 0:
@@ -291,6 +382,10 @@ class ResNet(nn.Module):
 
     def init_weights(self, generator: torch.Generator):
         init_trunk_weights(self, generator)
+        if self.zero_init_residual:
+            for name in self.res_layers:
+                for block in getattr(self, name):
+                    nn.init.zeros_(block.last_norm.weight)
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -308,7 +403,7 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = self.stem(x) if self.deep_stem else \
-            self.relu(self.bn1(self.conv1(x)))
+            self.relu(self.norm1(self.conv1(x)))
         x = self.maxpool(x)
         outs = []
         for i, name in enumerate(self.res_layers):

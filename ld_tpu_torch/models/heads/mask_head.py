@@ -21,8 +21,16 @@
     the sum over its images divided by the global image count
     (`parallel/train_step.py`).
   * `predict`: the sigmoid of the detection's class channel.
+
+A `conv_cfg` / `norm_cfg` (the gn, gn+ws and gn-all configs) is accepted
+and not read, as the JAX head takes them into `**kwargs` and drops them
+(`ld_tpu/models/heads/mask_head.py:75-87`): the convs stay plain, with a
+bias, and a warning names ROADMAP.md Queue C caveat 37. A published
+gn-all checkpoint's `convs.i.gn.*` keys then have no place to load.
 """
 from __future__ import annotations
+
+import warnings
 
 import torch
 from torch import nn
@@ -69,11 +77,13 @@ class FCNMaskHead(nn.Module):
                  loss_mask=None, class_agnostic=False, dtype=None,
                  conv_cfg=None, norm_cfg=None, upsample_cfg=None, **kwargs):
         super().__init__()
-        for key, value in (('conv_cfg', conv_cfg), ('norm_cfg', norm_cfg)):
-            if value is not None:
-                raise NotImplementedError(
-                    f'a mask head {key} is not ported to ld_tpu_torch yet '
-                    '(see ROADMAP.md A7)')
+        dropped = [k for k, v in (('conv_cfg', conv_cfg),
+                                  ('norm_cfg', norm_cfg)) if v is not None]
+        if dropped:
+            warnings.warn(
+                f'FCNMaskHead {" and ".join(dropped)} not read: its convs '
+                'stay plain with a bias, as in the JAX head (ROADMAP.md '
+                'Queue C, caveat 37)', stacklevel=2)
         if upsample_cfg is not None and \
                 upsample_cfg.get('type', 'deconv') != 'deconv':
             raise NotImplementedError(

@@ -2,8 +2,9 @@
 `ld_tpu/models/heads/roi_head.py:30-660`, NCHW.
 
   * `ConvFCBBoxHead`, under mmdet's `roi_head.bbox_head` names: `num_convs`
-    shared 3x3 convs (`shared_convs.i.conv`, with `.gn` under a GN
-    `norm_cfg`), then `num_fcs` shared Linear + ReLU (`shared_fcs.i`), then
+    shared 3x3 convs (`shared_convs.i.conv`, with `.gn` and no bias under a
+    GN `norm_cfg`, weight-standardized under a ConvWS `conv_cfg`), then
+    `num_fcs` shared Linear + ReLU (`shared_fcs.i`), then
     `fc_cls` (C + 1 logits, the last background) and `fc_reg` (4 x C deltas,
     4 class-agnostic). Shared2FCBBoxHead is (0, 2), Shared4Conv1FCBBoxHead
     (4, 1), the plain `BBoxHead` (0, 0) with `with_avg_pool`. A roi feature
@@ -50,7 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ld_tpu_torch.models.layers import GroupNorm, lecun_normal_
+from ld_tpu_torch.models.layers import (lecun_normal_, make_conv, make_norm,
+                                        norm_name)
 from ld_tpu_torch.ops.boxes import bbox_overlaps
 from ld_tpu_torch.ops.coder import build_coder
 from ld_tpu_torch.ops.max_iou_assigner import MaxIoUAssigner
@@ -87,21 +89,22 @@ def convfc_shape(bbox_head: dict):
 
 
 class ConvModule(nn.Module):
-    """A 3x3 conv (biased unless normed) + optional GN + ReLU (mmcv
-    ConvModule: `.conv`, `.gn`)."""
+    """A 3x3 conv (biased unless normed, weight-standardized under a ConvWS
+    `conv_cfg`) + optional norm + ReLU (mmcv ConvModule: `.conv`, `.gn`)."""
 
-    def __init__(self, in_channels, out_channels, norm_cfg=None):
+    def __init__(self, in_channels, out_channels, conv_cfg=None,
+                 norm_cfg=None):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1,
+        self.conv = make_conv(conv_cfg, in_channels, out_channels, 3,
                               bias=norm_cfg is None)
+        self.norm_name = None if norm_cfg is None else norm_name(norm_cfg)
         if norm_cfg is not None:
-            self.gn = GroupNorm(norm_cfg.get('num_groups', 32), out_channels,
-                                eps=1e-5)
+            self.add_module(self.norm_name, make_norm(norm_cfg, out_channels))
 
     def forward(self, x):
         x = self.conv(x)
-        if hasattr(self, 'gn'):
-            x = self.gn(x)
+        if self.norm_name is not None:
+            x = getattr(self, self.norm_name)(x)
         return torch.relu(x)
 
 
@@ -112,8 +115,8 @@ class ConvFCBBoxHead(nn.Module):
                  fc_out_channels=1024, with_avg_pool=False,
                  reg_class_agnostic=False, conv_cfg=None, norm_cfg=None):
         super().__init__()
-        if conv_cfg is not None:
-            _not_ported(f"bbox_head conv_cfg {conv_cfg.get('type')!r}")
+        # the JAX net's BN reads its running statistics in training too:
+        # only GN is ported
         if norm_cfg is not None and norm_cfg.get('type') != 'GN':
             _not_ported(f"bbox_head norm_cfg {norm_cfg.get('type')!r}")
         self.num_classes = num_classes
@@ -122,7 +125,7 @@ class ConvFCBBoxHead(nn.Module):
         self.shared_convs = nn.ModuleList()
         for _ in range(num_convs):
             self.shared_convs.append(ConvModule(c, conv_out_channels,
-                                                norm_cfg))
+                                                conv_cfg, norm_cfg))
             c = conv_out_channels
         flat = c if with_avg_pool else c * roi_size * roi_size
         self.shared_fcs = nn.ModuleList()

@@ -2,7 +2,10 @@
 
 The same `conv_cfg` / `norm_cfg` dicts as the JAX package select NCHW PyTorch
 modules:
-  * conv: `Conv2d` (weight-standardized `ConvWS` is not ported yet);
+  * conv: `Conv2d`; `ConvWS` / `ConvAWS`: `ConvWS2d`, the JAX `ConvWS`
+    (the JAX package takes `ConvAWS` for `ConvWS` too, and so does the
+    port: an mmcv ConvAWS checkpoint's `weight_gamma` / `weight_beta` have
+    no place here);
   * BN / SyncBN: `BatchNorm2d` with eps 1e-5, frozen to its running
     statistics while the owning backbone has `norm_eval` set;
   * GN: `GroupNorm` with min(num_groups, C) groups and eps 1e-5.
@@ -62,6 +65,31 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(
             x.to(d), self.weight.to(d),
             None if self.bias is None else self.bias.to(d))
+
+
+class ConvWS2d(Conv2d):
+    """A weight-standardized `Conv2d` (mmcv's `ConvWS2d`, the JAX `ConvWS`,
+    `ld_tpu/models/layers.py:27-66`): in every forward, each output
+    channel's kernel over its (in_channels / groups) x kh x kw values has
+    its mean taken off and is divided by its unbiased std (ddof 1) plus
+    `eps`, in float32; then the conv, with `Conv2d`'s compute dtype."""
+
+    def __init__(self, *args, eps: float = 1e-5, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.eps = eps
+
+    def standardized_weight(self) -> torch.Tensor:
+        flat = self.weight.flatten(1)
+        shape = (-1, 1, 1, 1)
+        return (self.weight - flat.mean(dim=1).view(shape)) / (
+            flat.std(dim=1).view(shape) + self.eps)
+
+    def forward(self, x):
+        w, bias, d = self.standardized_weight(), self.bias, self.compute_dtype
+        if d is not None:
+            x, w = x.to(d), w.to(d)
+            bias = None if bias is None else bias.to(d)
+        return self._conv_forward(x, w, bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -127,16 +155,29 @@ class BatchNorm2d(nn.BatchNorm2d):
 def make_conv(conv_cfg, in_channels, out_channels, kernel_size, stride=1, *,
               padding=None, dilation=1, groups=1, bias=False,
               dtype=None) -> Conv2d:
-    """build_conv_layer equivalent, computing in `dtype`."""
+    """build_conv_layer equivalent, computing in `dtype`: a `Conv2d`, or
+    for `conv_cfg=dict(type='ConvWS' | 'ConvAWS')` a `ConvWS2d`."""
     ctype = (conv_cfg or {}).get('type', 'Conv')
-    if ctype not in ('Conv', 'Conv2d'):
+    if ctype in ('ConvWS', 'ConvAWS'):
+        cls = ConvWS2d
+    elif ctype in ('Conv', 'Conv2d'):
+        cls = Conv2d
+    else:
         raise NotImplementedError(f'conv_cfg type {ctype!r} is not ported to '
                                   'ld_tpu_torch yet (see ROADMAP.md)')
     if padding is None:
         padding = kernel_size // 2
-    return Conv2d(in_channels, out_channels, kernel_size, stride, padding,
-                  dilation=dilation, groups=groups, bias=bias,
-                  compute_dtype=lowered_dtype(dtype))
+    return cls(in_channels, out_channels, kernel_size, stride, padding,
+               dilation=dilation, groups=groups, bias=bias,
+               compute_dtype=lowered_dtype(dtype))
+
+
+def norm_name(norm_cfg, postfix='') -> str:
+    """mmcv's `build_norm_layer` name of a norm: 'gn' for GN, 'bn' for BN /
+    SyncBN, then `postfix` (a block's `bn1`, `gn2`, a ConvModule's
+    `gn`)."""
+    t = (norm_cfg or {}).get('type', 'BN')
+    return ('gn' if t == 'GN' else 'bn') + str(postfix)
 
 
 def make_norm(norm_cfg, num_features, dtype=None) -> nn.Module:

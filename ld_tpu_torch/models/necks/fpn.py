@@ -5,9 +5,14 @@ Lateral 1x1 convs + top-down nearest-neighbour upsampling (size-matched, so
 odd feature sizes work) + 3x3 output convs; extra levels by stride-2 3x3 convs
 on input/lateral/output (`add_extra_convs`), or by max-pool without extra
 convs. Module names are mmdet's (`lateral_convs.i.conv`, `fpn_convs.i.conv`,
-the extra convs continuing the `fpn_convs` indices). With a compute `dtype`
-every conv, and the top-down adds between them, compute in it (JAX
-`fpn.py:49-66`); the parameters stay float32.
+the extra convs continuing the `fpn_convs` indices). With a `norm_cfg`
+(GN in the gn / gn+ws configs) each conv is followed by its norm
+(`lateral_convs.i.gn`) and has no bias, as the JAX `_cn` (mmcv's
+ConvModule with bias 'auto'); `no_norm_on_lateral` leaves the lateral
+convs biased and unnormed. A `conv_cfg` of type 'ConvWS' makes every conv
+weight-standardized. With a compute `dtype` every conv, and the top-down
+adds between them, compute in it (JAX `fpn.py:49-66`); the parameters stay
+float32.
 """
 from __future__ import annotations
 
@@ -17,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ld_tpu_torch.models.layers import lecun_normal_, make_conv
+from ld_tpu_torch.models.layers import (lecun_normal_, make_conv, make_norm,
+                                        norm_name)
 from ld_tpu_torch.utils.registry import NECKS
 
 
@@ -38,14 +44,21 @@ def upsample_nearest_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 
 class ConvModule(nn.Module):
-    """mmcv ConvModule without norm/activation: keeps the `.conv` name."""
+    """mmcv ConvModule without activation: the `.conv`, then with a
+    `norm_cfg` its norm under mmcv's name by type (`.gn`, `.bn`)."""
 
-    def __init__(self, conv: nn.Module):
+    def __init__(self, conv: nn.Module, norm_cfg: dict = None, dtype=None):
         super().__init__()
         self.conv = conv
+        self.norm_name = None if norm_cfg is None else norm_name(norm_cfg)
+        if norm_cfg is not None:
+            self.add_module(self.norm_name, make_norm(
+                norm_cfg, conv.out_channels, dtype))
 
     def forward(self, x):
-        return self.conv(x)
+        x = self.conv(x)
+        return x if self.norm_name is None else \
+            getattr(self, self.norm_name)(x)
 
 
 @NECKS.register_module()
@@ -65,9 +78,6 @@ class FPN(nn.Module):
                  norm_cfg: dict = None,
                  dtype=None):
         super().__init__()
-        if norm_cfg is not None:
-            raise NotImplementedError('FPN norm_cfg is not ported to '
-                                      'ld_tpu_torch yet (see ROADMAP.md)')
         self.in_channels = list(in_channels)
         self.num_outs = num_outs
         end = len(self.in_channels) if end_level in (-1, None) else end_level
@@ -78,29 +88,35 @@ class FPN(nn.Module):
                 else 'on_output'
         self.extra_mode = add_extra_convs or None
 
+        def conv_module(cin, k, stride=1, with_norm=True):
+            norm = norm_cfg if with_norm else None
+            return ConvModule(make_conv(conv_cfg, cin, out_channels, k,
+                                        stride, bias=norm is None,
+                                        dtype=dtype), norm, dtype)
+
         self.lateral_convs = nn.ModuleList(
-            ConvModule(make_conv(conv_cfg, self.in_channels[lvl],
-                                 out_channels, 1, bias=True, dtype=dtype))
+            conv_module(self.in_channels[lvl], 1,
+                        with_norm=not no_norm_on_lateral)
             for lvl in self.used)
-        self.fpn_convs = nn.ModuleList(
-            ConvModule(make_conv(conv_cfg, out_channels, out_channels, 3,
-                                 bias=True, dtype=dtype))
-            for _ in self.used)
+        self.fpn_convs = nn.ModuleList(conv_module(out_channels, 3)
+                                       for _ in self.used)
         if self.extra_mode:
             for j in range(num_outs - len(self.used)):
                 cin = self.in_channels[self.used[-1]] \
                     if j == 0 and self.extra_mode == 'on_input' \
                     else out_channels
-                self.fpn_convs.append(ConvModule(make_conv(
-                    conv_cfg, cin, out_channels, 3, 2, bias=True,
-                    dtype=dtype)))
+                self.fpn_convs.append(conv_module(cin, 3, 2))
 
     def init_weights(self, generator: torch.Generator):
-        """The JAX package's initializers: lecun-normal kernels, zero bias."""
+        """The JAX package's initializers: lecun-normal kernels, zero bias,
+        norms 1 / 0."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 lecun_normal_(m.weight, generator)
-                nn.init.zeros_(m.bias)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, (nn.GroupNorm, nn.BatchNorm2d)):
+                m.reset_parameters()
 
     def forward(self, inputs):
         if len(inputs) != len(self.in_channels):

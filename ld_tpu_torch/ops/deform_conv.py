@@ -151,6 +151,19 @@ class ModulatedDeformConv2d(nn.Module):
         he_normal_(self.weight, generator)
         self.init_offset()
 
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # an mmcv DCNv1 layer (a config's dcn type 'DCN') has a conv_offset
+        # of 2 x k^2 x g offsets and no mask: say so, not a bare size error
+        w = state_dict.get(prefix + 'conv_offset.weight')
+        kk, g = self.kernel_size ** 2, self.deform_groups
+        if w is not None and w.shape[0] == 2 * kk * g:
+            raise RuntimeError(
+                f'{prefix}conv_offset.weight has {w.shape[0]} = 2 x {kk} x '
+                f'{g} rows, an mmcv DCNv1 (type \'DCN\') layer\'s: this '
+                'layer is DCNv2, as the JAX ResNet builds for any dcn type, '
+                f'with {3 * kk * g} (ROADMAP.md Queue C, caveat 36)')
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, k, g = x.shape[0], self.kernel_size, self.deform_groups
         kk = k * k

@@ -192,6 +192,31 @@ def randomize_dcn_offsets(model, seed=0, shift=2.0):
     return len(layers)
 
 
+def randomize_plugin_gates(model, seed=0, scale=1.0):
+    """Seeded values for the parts of `model`'s backbone plugins that start
+    at zero (the JAX initializers make each block the identity), in place:
+    each `ContextBlock` fusion's last conv weights of std scale /
+    sqrt(fan_in), and each `GeneralizedAttention`'s `gamma` at `scale`, so
+    that the plugins change a random model's outputs. Returns the number
+    of plugins."""
+    from ld_tpu_torch.models.backbones.plugins import (ContextBlock,
+                                                       GeneralizedAttention)
+    rs = np.random.RandomState(seed)
+    blocks = [m for m in model.modules()
+              if isinstance(m, (ContextBlock, GeneralizedAttention))]
+    with torch.no_grad():
+        for m in blocks:
+            if isinstance(m, GeneralizedAttention):
+                m.gamma.fill_(scale)
+                continue
+            for fusion in m.fusion_types:
+                w = getattr(m, f'{fusion}_conv')[3].weight
+                w.copy_(torch.from_numpy((rs.randn(*w.shape) * scale /
+                                          np.sqrt(w[0].numel()))
+                                         .astype(np.float32)))
+    return len(blocks)
+
+
 def _voc_xml(img_id, folder, w, h, objects):
     lines = ['<annotation>', f'  <folder>{folder}</folder>',
              f'  <filename>{img_id}.jpg</filename>',

@@ -18,7 +18,11 @@
     packages can run on the same weights. It also maps the deep stem, the
     avg-down shortcut and Res2Net (DCN splits too), which that converter
     leaves unmapped or mis-maps (ROADMAP.md Queue C, caveat 16): for those
-    it is the only way weights cross between the packages.
+    it is the only way weights cross between the packages. So it is for the
+    ResNet's GCNet / attention plugins and its GroupNorms (`gnX`), the
+    FPN's norms (`lateral_convs.I.gn`), which that converter has no rule
+    for either; a weight-standardized conv's kernel goes across as a plain
+    conv's.
   * `load_from_jax`: loads such trees strictly into a model and, for a
     distillation detector, the JAX package's separate teacher tree into
     `model.teacher`.
@@ -72,8 +76,9 @@ _BN_LEAVES = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
               'var': 'running_var'}
 
 
-def _module_name(name: str, avg_down: bool) -> str:
-    """A JAX backbone module's name -> mmdet's: `normX` -> `bnX`, the deep
+def _module_name(name: str, avg_down: bool, norm: str = 'bn') -> str:
+    """A JAX backbone module's name -> mmdet's: `normX` -> `bnX` (`gnX`
+    for a GroupNorm, `norm` 'gn'), the deep
     stem's `stem_convI` / `stem_normI` -> `stem.{3(I-1)}` / `stem.{3I-2}`,
     Res2Net's `convsI` / `bnsI` -> `convs.I` / `bns.I`, and the shortcut's
     `downsample_conv` / `downsample_norm` -> `downsample.{0,1}`, or, behind
@@ -90,7 +95,7 @@ def _module_name(name: str, avg_down: bool) -> str:
     m = re.fullmatch(r'(layer\d)_(\d+)_(.+)', name)
     if m is not None:
         return f'{m.group(1)}.{m.group(2)}.' + _module_name(m.group(3),
-                                                           avg_down)
+                                                           avg_down, norm)
     m = re.fullmatch(r'(transition\d|fuse\d+)_(\d+)(?:_down(\d+))?_'
                      r'(conv|norm)', name)
     if m is not None:
@@ -103,7 +108,10 @@ def _module_name(name: str, avg_down: bool) -> str:
         return f'downsample.{shortcut + avg_down}'
     if re.fullmatch(r'conv\d', name):
         return name
-    return {'norm1': 'bn1', 'norm2': 'bn2', 'norm3': 'bn3'}[name]
+    m = re.fullmatch(r'norm([123])', name)
+    if m is None:
+        raise KeyError(name)
+    return norm + m.group(1)
 
 
 def _backbone_key(path: tuple, avg_down: bool = False) -> str:
@@ -112,9 +120,9 @@ def _backbone_key(path: tuple, avg_down: bool = False) -> str:
     ResNet / Res2Net / HRNet / RegNet name after 'backbone.'
     (`_block_prefix`, `_module_name`)."""
     *mods, leaf = path
-    if mods[-1] == 'bn':          # BatchNorm: .../normX/bn/<leaf>
+    if mods[-1] in ('bn', 'gn'):   # BatchNorm / GroupNorm: .../normX/bn/<leaf>
         return '.'.join(_block_prefix(mods[:-2]) + [
-            _module_name(mods[-2], avg_down), _BN_LEAVES[leaf]])
+            _module_name(mods[-2], avg_down, mods[-1]), _BN_LEAVES[leaf]])
     if mods[-1] == 'conv_offset':  # a DCN conv's offset / mask conv
         return '.'.join(_block_prefix(mods[:-2]) + [
             _module_name(mods[-2], avg_down), 'conv_offset',
@@ -123,6 +131,50 @@ def _backbone_key(path: tuple, avg_down: bool = False) -> str:
         raise KeyError(path)
     return '.'.join(_block_prefix(mods[:-1]) + [
         _module_name(mods[-1], avg_down), 'weight'])
+
+
+# the JAX plugins' scopes -> mmcv's module names
+_PLUGIN_ABBR = {'context_block': 'context_block',
+                'generalized_attention': 'gen_attention_block'}
+
+
+def _plugin_value(rest: tuple, value: np.ndarray,
+                  keys: Optional[List[str]]) -> Tuple[str, np.ndarray]:
+    """A JAX ResNet block's plugin leaf, (`layerS_B`, `context_block[_I]` |
+    `generalized_attention[_I]`, module..., leaf), -> its name after
+    'backbone.' and its value in the port (`models/backbones/plugins.py`):
+    a ContextBlock's `conv_mask`, `<fusion>_conv0` / `_ln` / `_conv1` to
+    `conv_mask`, `<fusion>_conv.{0,1,3}` (the LayerNorm's (P,) to (P, 1,
+    1)); a GeneralizedAttention's convs by name, its Dense kernels
+    transposed, `appr_bias` / `geom_bias` (heads, d) flattened. The JAX
+    scope `<type>_I` (I > 0, its index among the block's plugins) is the
+    port's `<abbr>_I` where `keys` hold that name, else `<abbr>`."""
+    block = '.'.join(_block_prefix(rest[:1]))
+    m = re.fullmatch(r'(context_block|generalized_attention)(?:_(\d+))?',
+                     rest[1])
+    if m is None:
+        raise KeyError(rest)
+    name = _PLUGIN_ABBR[m.group(1)]
+    if m.group(2) is not None and keys is not None and any(
+            k.startswith(f'backbone.{block}.{name}_{m.group(2)}.')
+            for k in keys):
+        name = f'{name}_{m.group(2)}'
+    mod, leaf = rest[2:-1], rest[-1]
+    prefix = f'{block}.{name}.'
+    if not mod:                                 # gamma, appr / geom bias
+        return prefix + leaf, value.reshape(-1)
+    f = re.fullmatch(r'(channel_add|channel_mul)_(conv0|ln|conv1)', mod[0])
+    if f is not None:
+        sub = {'conv0': 0, 'ln': 1, 'conv1': 3}[f.group(2)]
+        key = f'{prefix}{f.group(1)}_conv.{sub}.' + (
+            'bias' if leaf == 'bias' else 'weight')
+        if f.group(2) == 'ln':
+            return key, value.reshape(-1, 1, 1)
+        return key, _conv_weight(value) if leaf == 'kernel' else value
+    key = prefix + mod[0] + ('.bias' if leaf == 'bias' else '.weight')
+    if mod[0].startswith('appr_geom_fc'):
+        return key, value.T
+    return key, _conv_weight(value) if leaf == 'kernel' else value
 
 
 def _block_prefix(owner) -> list:
@@ -192,8 +244,13 @@ def _neck_key(path: tuple, num_laterals: int) -> str:
     """An FPN's `lateral_I` / `fpn_conv_I` / `fpn_extra_I`, an HRFPN's
     `reduction` / `fpn_convI` -> mmdet's `lateral_convs.I.conv`,
     `fpn_convs.I.conv` (the extra convs after the laterals'),
-    `reduction_conv.conv`."""
-    mod, leaf = path
+    `reduction_conv.conv`; an FPN conv's norm, `<conv>_norm/gn|bn/<leaf>`,
+    -> `<conv module>.gn|bn.<leaf>`."""
+    mod, leaf = path[0], path[-1]
+    m = re.fullmatch(r'(.+)_norm', mod)
+    if m is not None:
+        module = _neck_key((m.group(1), 'kernel'), num_laterals)
+        return module[:-len('conv.weight')] + f'{path[1]}.{_BN_LEAVES[leaf]}'
     name = 'weight' if leaf == 'kernel' else 'bias'
     if mod == 'reduction':
         return f'reduction_conv.conv.{name}'
@@ -410,7 +467,7 @@ def state_dict_from_jax(variables: Dict,
                                   for k in keys):
         head_convs = _RETINA_CONVS
     num_laterals = sum(1 for k in params.get('neck', {})
-                       if k.startswith('lateral_'))
+                       if re.fullmatch(r'lateral_\d+', k))
     # a RetinaSepBNHead's levels, from the target's keys
     sepbn_levels = len({k.split('.')[2] for k in keys or ()
                         if re.fullmatch(r'bbox_head\.cls_convs\.\d+\.0\.'
@@ -418,6 +475,11 @@ def state_dict_from_jax(variables: Dict,
     for coll in ('params', 'batch_stats'):
         for path, value in _leaves(variables.get(coll, {})):
             scope, rest = path[0], path[1:]
+            if scope == 'backbone' and len(rest) > 2 and rest[1].startswith(
+                    ('context_block', 'generalized_attention')):
+                key, value = _plugin_value(rest, value, keys)
+                sd['backbone.' + key] = value
+                continue
             if scope == 'backbone':
                 key = 'backbone.' + _backbone_key(rest, avg_down)
                 if rest[-2:] == ('bn', 'scale'):
@@ -430,6 +492,9 @@ def state_dict_from_jax(variables: Dict,
                     continue
             elif scope == 'neck':
                 key = 'neck.' + _neck_key(rest, num_laterals)
+                if rest[-2:] == ('bn', 'scale'):
+                    sd[key[:-len('weight')] + 'num_batches_tracked'] = \
+                        np.zeros((), np.int64)
             elif scope == 'head_net' and rest == ('scales', ):
                 for lvl, s in enumerate(value):
                     sd[f'bbox_head.scales.{lvl}.scale'] = np.float32(s)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ld_tpu_torch.models.layers import ConvWS2d
 from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
 
 
@@ -50,6 +51,8 @@ def _conv_of(parent: nn.Module, bn_name: str):
         conv = parent[int(bn_name) - 1]
     else:
         conv = None
+    if isinstance(conv, ConvWS2d):
+        return None     # it would standardize the folded weight away
     return conv if isinstance(conv, (nn.Conv2d, ModulatedDeformConv2d)) \
         else None
 

@@ -20,8 +20,8 @@ from JAX once and feed every RoI-head comparison. In float32 on the CPU:
   * `forward_test` of the whole detector: the same kept set, boxes within
     5e-3 px (the backbone's fp32 rounding reaches them through exp(dw)),
     Cascade Mask R-CNN's masks within 1e-4; HTC's three outputs;
-  * every config of configs/cascade_rcnn/ and configs/htc/ builds on the
-    meta device, and the cascade configs elsewhere that wait raise
+  * every config of configs/cascade_rcnn/, configs/htc/ and the cascades
+    of configs/dcn/ builds on the meta device, and the SABL cascades raise
     NotImplementedError naming ROADMAP.md A7; the R50 configs'
     `state_dict_from_jax` gives the port's keys and shapes exactly, and a
     JAX `.npz` loads through `load_checkpoint`;
@@ -63,6 +63,8 @@ from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autous
 from test_torch_port_two_stage import TEST_CFG, assert_dets_match
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the JAX programs compile at LLVM -O0, as the HRNet file's do
+O0 = dict(xla_backend_optimization_level=0)
 STRIDES = [4, 8, 16, 32]
 ALL = dict(num=10**6, pos_fraction=1.0)
 # the proposals (of the RPN's 150, the top) the heads take with samplers
@@ -168,8 +170,9 @@ def ref():
     def extract(v, x, hw):
         feats, rpn_outs, _ = base.extract(v, x)
         return feats, base.rpn_head.get_proposals(rpn_outs, hw)
-    feats, (props, valid) = jax.jit(extract)(
-        variables['htc'], j_batch['image'], j_batch['img_hw'])
+    args = (variables['htc'], j_batch['image'], j_batch['img_hw'])
+    feats, (props, valid) = jax.jit(extract).lower(*args).compile(
+        compiler_options=O0)(*args)
     return dict(dets=dets, variables=variables, models=models,
                 j_batch=j_batch, t_batch=t_batch, feats=feats, props=props,
                 valid=valid, t_feats=nchw(feats),
@@ -312,11 +315,12 @@ def padded_samples(samples, stages=None):
 
 @pytest.fixture(scope='module')
 def programs(ref):
-    """Every JAX program of the file, traced one after another and then
-    compiled in threads (the traces hold the interpreter lock, XLA's
-    compiles do not): the RoI heads' `forward_train` (samplers picking
-    every candidate), Cascade Mask R-CNN's `simple_test` and the mask-loss
-    programs of `mask_loss_programs`."""
+    """Every JAX program of the file, traced one after another, each
+    compiled in a thread as soon as it is traced (the traces hold the
+    interpreter lock, XLA's compiles do not), at LLVM -O0: the RoI heads'
+    `forward_train` (samplers picking every candidate), Cascade Mask
+    R-CNN's `simple_test` and the mask-loss programs of
+    `mask_loss_programs`."""
     f = ref
     b = f['j_batch']['image'].shape[0]
     roi = [jax.ShapeDtypeStruct(shape, dtype) for shape, dtype in (
@@ -342,9 +346,10 @@ def programs(ref):
     jobs['mask_cascade_mask'] = (cascade, [dict(params=params['mask0']),
                                            gm] + roi)
     jobs['mask_htc'] = (htc, [roi_vars(f, 'htc')['params'], gm] + stack)
-    lowered = {k: fn.lower(*args) for k, (fn, args) in jobs.items()}
-    with ThreadPoolExecutor(len(lowered)) as pool:
-        done = {k: pool.submit(low.compile) for k, low in lowered.items()}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        # each compiles while the next is traced
+        done = {k: pool.submit(fn.lower(*args).compile, compiler_options=O0)
+                for k, (fn, args) in jobs.items()}
     return {k: d.result() for k, d in done.items()}
 
 
@@ -492,8 +497,8 @@ CONFIGS = sorted(os.path.relpath(p, ROOT) for pattern in (
 @pytest.mark.parametrize('path', CONFIGS)
 def test_cascade_config_builds_or_names_its_item(path):
     cfg = Config.fromfile(os.path.join(ROOT, path))
-    if path.startswith(('configs/dcn/', 'configs/sabl/')):
-        # a DCNv1 backbone, SABL heads (ROADMAP.md A7)
+    if path.startswith('configs/sabl/'):
+        # SABL heads (ROADMAP.md A7)
         with pytest.raises(NotImplementedError, match='A7'):
             with torch.device('meta'):
                 build_detector(cfg.model, dtype=cfg.get('dtype'))
@@ -501,6 +506,11 @@ def test_cascade_config_builds_or_names_its_item(path):
     with torch.device('meta'):
         model = build_detector(cfg.model, dtype=cfg.get('dtype'))
     roi_head = model.roi_head
+    if path.startswith('configs/dcn/'):
+        # the 'DCN' type builds the DCNv2 layer in c3-c5 (caveat 36)
+        assert sum(type(m).__name__ == 'ModulatedDeformConv2d'
+                   for m in model.backbone.modules()) == \
+            (4 + 23 + 3 if '101' in path else 4 + 6 + 3)
     assert len(roi_head.bbox_head) == 3 and roi_head.num_classes == 80
     assert roi_head.bbox_head[2].fc_reg.out_features == 4
     if 'htc' in path:

@@ -14,7 +14,9 @@ against a plain copy to the card. The ops of the DCN teachers that run in
 plain torch on the card, the DCN layer and the voting NMS, are held against
 the CPU, and so are a Res2Net-50-DCN trunk, the GI masks of an IMv2
 step with the Res2Net-101-DCN teacher, a Faster R-CNN's forward and a
-Mask R-CNN's losses and masks.
+Mask R-CNN's losses and masks, the ResNet variants' blocks
+(weight-standardized conv, GCNet's ContextBlock, GeneralizedAttention) and
+a GN + WS Mask R-CNN's `forward_test`.
 """
 import pytest
 import torch
@@ -632,3 +634,105 @@ def test_regnet_dcn_block_on_the_card_equals_the_cpu(no_tf32):
         got = block.cuda()(x.cuda()).cpu()
     assert got.shape == want.shape == (2, 432, 25, 42)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _plugin_layer(kind):
+    """One block of the ResNet variants at its c4 shape (2 x C x 50 x 84),
+    seeded, with its zero-init parts drawn so that it changes its input:
+    a weight-standardized 3x3 conv (256 channels), GCNet's ContextBlock
+    after conv3 (1024), an attention block '1111' after conv2 (256, 8
+    heads, K / V pooled by 2)."""
+    from ld_tpu_torch.models.backbones.plugins import (ContextBlock,
+                                                       GeneralizedAttention)
+    from ld_tpu_torch.models.layers import ConvWS2d, lecun_normal_
+    from ld_tpu_torch.testing import randomize_plugin_gates
+    gen = torch.Generator().manual_seed(0)
+    if kind == 'conv_ws':
+        layer = ConvWS2d(256, 256, 3, 1, 1, bias=False)
+        lecun_normal_(layer.weight, gen)
+        return layer, 256
+    if kind == 'context_block':
+        layer = ContextBlock(1024, ratio=1. / 4)
+        c = 1024
+    else:
+        layer = GeneralizedAttention(256, num_heads=8, kv_stride=2,
+                                     attention_type='1111')
+        c = 256
+    layer.init_weights(gen)
+    assert randomize_plugin_gates(layer, seed=0) == 1
+    return layer, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['conv_ws', 'context_block',
+                                  'gen_attention'])
+def test_resnet_variant_block_on_the_card_equals_the_cpu(no_tf32, kind):
+    """`ConvWS2d`, `ContextBlock` and `GeneralizedAttention` (plain torch) on
+    the card against the same weights and input on the CPU at their c4
+    shape, the output (and a plugin's residual, output minus input) within
+    1e-4 of its largest |value|."""
+    _need_card()
+    layer, c = _plugin_layer(kind)
+    x = torch.randn(2, c, 50, 84, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = layer(x)
+        got = layer.cuda()(x.cuda()).cpu()
+    assert got.shape == want.shape
+    outs = [(got, want)] if kind == 'conv_ws' else [(got, want),
+                                                    (got - x, want - x)]
+    for g, w in outs:
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_gn_ws_mask_rcnn_forward_test_on_the_card_equals_the_cpu(no_tf32):
+    """A Mask R-CNN with GN + ConvWS in the trunk (R18), the FPN and the
+    Shared4Conv1FC bbox head, and its mask head's conv_cfg / norm_cfg (not
+    read, caveat 37), width 64, 4 classes: `forward_test` at 1x3x128x192 on
+    the card against the CPU, the same kept set, each detection paired with
+    the CPU's of its label nearest in box and score (equal scores may come
+    in either order), boxes within 5e-3 px, masks within 5e-3."""
+    _need_card()
+    import copy
+    import warnings
+    from scipy.optimize import linear_sum_assignment
+    from ld_tpu_torch.models import build_detector
+    from ld_tpu_torch.testing import detection_batch
+    ws, gn = dict(type='ConvWS'), dict(type='GN', num_groups=32)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')      # the mask head's caveat 37
+        model = build_detector(dict(
+            type='MaskRCNN',
+            backbone=dict(type='ResNet', depth=18, frozen_stages=1,
+                          conv_cfg=ws, norm_cfg=gn),
+            neck=dict(type='FPN', in_channels=[64, 128, 256, 512],
+                      out_channels=64, num_outs=5, conv_cfg=ws,
+                      norm_cfg=gn),
+            rpn_head=dict(type='RPNHead', in_channels=64, feat_channels=64),
+            roi_head=dict(type='StandardRoIHead', bbox_head=dict(
+                type='Shared4Conv1FCBBoxHead', num_classes=4,
+                in_channels=64, conv_out_channels=64, fc_out_channels=64,
+                conv_cfg=ws, norm_cfg=gn),
+                mask_head=dict(num_classes=4, in_channels=64,
+                               conv_out_channels=64, conv_cfg=ws,
+                               norm_cfg=gn))))
+    model.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.roi_head.bbox_head.fc_cls.weight.mul_(10.0)
+    batch = detection_batch(1, 128, 192, num_classes=4, seed=0,
+                            device='cpu')
+    with torch.inference_mode():
+        want = [t.numpy() for t in model.eval().forward_test(batch)]
+        card = copy.deepcopy(model).cuda()
+        got = [t.cpu().numpy() for t in card.forward_test(
+            {k: v.cuda() for k, v in batch.items()})]
+    ok = want[2][0]
+    assert ok.sum() > 0 and (got[2][0] == ok).all()
+    g_dets, w_dets = got[0][0][ok], want[0][0][ok]
+    g_labels, w_labels = got[1][0][ok], want[1][0][ok]
+    cost = abs(g_dets[:, None] - w_dets[None]).sum(-1) + 1e6 * (
+        g_labels[:, None] != w_labels[None])
+    gi, wi = linear_sum_assignment(cost)
+    assert (g_labels[gi] == w_labels[wi]).all()
+    assert abs(g_dets[gi] - w_dets[wi]).max() <= 5e-3
+    assert abs(got[3][0][ok][gi] - want[3][0][ok][wi]).max() <= 5e-3

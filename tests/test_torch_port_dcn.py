@@ -274,8 +274,13 @@ def test_dcn_configs_lower_with_the_trunk():
     assert (dcns[0].in_channels, dcns[0].groups) == (512, 32)
     with pytest.raises(ValueError, match='BasicBlock'):
         ResNet(depth=18, dcn=DCN, stage_with_dcn=(False, True, True, True))
-    with pytest.raises(NotImplementedError, match='DCN'):
-        ResNet(depth=50, dcn=dict(type='DCN'),
+    # mmcv's DCNv1 type builds the DCNv2 layer, as in JAX (caveat 36)
+    with torch.device('meta'):
+        v1 = ResNet(depth=50, dcn=dict(type='DCN'),
+                    stage_with_dcn=(False, True, True, True))
+    assert isinstance(v1.layer2[0].conv2, ModulatedDeformConv2d)
+    with pytest.raises(ValueError, match='DCN'):
+        ResNet(depth=50, dcn=dict(type='DCNv3'),
                stage_with_dcn=(False, True, True, True))
 
 

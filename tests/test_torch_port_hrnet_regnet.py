@@ -32,8 +32,8 @@ numpy seeds. In float32 on the CPU, unless a case says otherwise:
     and the RegNetX-3.2GF mdconv Mask R-CNN from their `jax.eval_shape`
     trees onto the port's keys and shapes, strictly.
 
-The `ref` fixture traces every JAX program once and compiles them side by
-side, at LLVM -O0 (the programs run once).
+The `ref` fixture traces every JAX program once and compiles each in a
+thread as soon as it is traced, at LLVM -O0 (the programs run once).
 """
 import copy
 import glob
@@ -202,15 +202,16 @@ def ref():
         return outs, fcos.bbox_head.loss(outs, b, sizes)
     jobs['fcos'] = (fcos_train, (cv, j_batch))
 
-    lowered = {k: jax.jit(fn).lower(*args) for k, (fn, args) in jobs.items()}
     # LLVM at -O0 compiles in two thirds of the CPU time; the programs run
     # once
-    options = {k: dict(xla_backend_optimization_level=0) for k in lowered}
+    options = {k: dict(xla_backend_optimization_level=0) for k in jobs}
     options['bf16']['xla_allow_excess_precision'] = False
-    with ThreadPoolExecutor(len(lowered)) as pool:
-        compiled = dict(zip(lowered, pool.map(
-            lambda k: lowered[k].compile(compiler_options=options[k]),
-            lowered)))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        # each compiles while the next is traced
+        futures = {k: pool.submit(jax.jit(fn).lower(*args).compile,
+                                  compiler_options=options[k])
+                   for k, (fn, args) in jobs.items()}
+    compiled = {k: f.result() for k, f in futures.items()}
     for k, (_, args) in jobs.items():
         if k != 'hrfpn':
             out[f'{k}_out'] = compiled[k](*args)
