@@ -4,11 +4,12 @@ ResNeXt rows, the Res2Net-101-DCN teacher rows, data-parallel training
 and evaluation, the synthetic train-to-AP harness, the AP landscape, the
 HTTP server, the export, the classic one-stage heads, the two-stage
 stack, Mask R-CNN, the cascades (Cascade R-CNN, Cascade Mask R-CNN, HTC),
-the HRNet and RegNet detectors and the ResNet's plugin, 'DCN' and GN + WS
-variants on one CUDA card and check them.
+the HRNet and RegNet detectors, the ResNet's plugin, 'DCN' and GN + WS
+variants, the LVIS / crop / augmentation / robustness data paths and
+VarifocalNet on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
-    python3 chip_smoke.py --phases resnet_variants dcn   # those phases alone
+    python3 chip_smoke.py --phases data_host vfnet   # those phases alone
 
 Phases, one JSON object per line each:
   1. device  — the card, torch/CUDA versions, TF32 switched off and printed,
@@ -259,6 +260,39 @@ Phases, one JSON object per line each:
                DCN + GCNet Cascade Mask R-CNN of configs/gcnet/ (1 + 2
                calls). Launches must equal RESNET_VARIANTS_LAUNCHES (78).
                Budget 80 s.
+ 22. data_host — the host side of the data layer on the card's machine:
+               a seeded LVIS-v1 set (1203 categories, 8 JPEGs at COCO sizes
+               named by `coco_url` only, polygons) under configs/lvis/
+               mask_rcnn_r50_fpn_sample1e-3_mstrain_1x_lvis_v1.py
+               (ClassBalancedDataset over LVISV1Dataset): 1 + 3 steps at
+               batch 2 through the loader at the config's multi-scale size
+               (1 launch a step, loss_mask finite), `forward_test` at batch
+               1 under its test config (2 launches a call, 300 detections,
+               the RoI NMS's K), `eval_detector` -> `evaluate(['bbox',
+               'segm'])` of the 8 images (2 launches a batch; the gts as
+               detections score AP 1.0); 2 steps at batch 2 of configs/fpg/
+               faster_rcnn_r50_fpn_crop640_50e_coco.py through its own
+               RandomCrop pipeline (640x640 batches, 1 launch a step); the
+               host ms an 800x1333 image of PhotoMetricDistortion, Expand +
+               MinIoURandomCrop, CutOut, AutoAugment and each corruption at
+               severity 3; ld_tpu_torch/tools/analysis_tools/
+               test_robustness.py on GFL-R50 over 8 synthetic COCO images,
+               two corruptions at severity 3 and the clean run (1 launch an
+               eval batch). Launches must equal DATA_HOST_LAUNCHES.
+               Budget 60 s.
+ 23. vfnet   — configs/vfnet/vfnet_r50_fpn_1x_coco.py at full width,
+               float32, seed 0 (vfnet_cls bias 0): `forward_test` at
+               800x1344, 1 + 5 calls at batch 1 and 1 + 3 at batch 2 (1
+               launch a call, the detections identical with the plain keep
+               mask), one profiled call with the star DeformConv's share of
+               device time (10 calls a forward: 5 levels x reg and cls),
+               1 + 3 training steps at batch 2 (no launch), the head
+               outputs (5e-3 / 2e-4), the first step's losses (rtol 1e-3)
+               and the decode of the same outputs (labels and kept set
+               equal, boxes and scores within 1e-4) at 1x3x128x192 on the
+               card against the CPU; the widest config, vfnet_x101_64x4d_
+               fpn_mdconv_c3-c5_mstrain_2x_coco.py, 1 + 3 calls at batch 1.
+               Launches must equal VFNET_LAUNCHES. Budget 60 s.
 Every phase row carries `t`, the script's seconds so far; `--phases NAME
 ...` runs the named phases alone.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
@@ -419,6 +453,36 @@ RV_ATTENTION_LAYER = (256, 8, 2, (50, 84), 2)
 RESNET_VARIANTS_LAUNCHES = (3 * 2 * 2 * sum(RV_CALLS) + 3 * sum(RV_STEPS) +
                             2 * sum(RV_DCN_CALLS) +
                             2 * sum(RV_CASCADE_CALLS))
+
+# the data_host phase: the LVIS config over a seeded LVIS-v1 set of
+# (images, sizes), (warm-up, timed) steps at batch 2 and forward_test calls
+# at batch 1; the crop640 config's steps over a COCO set of its own; the
+# host-cost image; the robustness tool's corruptions at one severity over a
+# synthetic COCO set
+LVIS_CONFIG = ('configs/lvis/'
+               'mask_rcnn_r50_fpn_sample1e-3_mstrain_1x_lvis_v1.py')
+LVIS_SET = (8, ((480, 640), (427, 640), (640, 480), (640, 427)))
+LVIS_STEPS, LVIS_CALLS = (1, 3), (1, 3)
+CROP_CONFIG = 'configs/fpg/faster_rcnn_r50_fpn_crop640_50e_coco.py'
+CROP_SET, CROP_STEPS = (4, ((800, 1000), (720, 960))), (1, 1)
+HOST_COST_HW, HOST_COST_CALLS = (800, 1333), 5
+ROBUST_CORRUPTIONS, ROBUST_SEVERITY = ('gaussian_noise', 'motion_blur'), 3
+ROBUST_SET = (8, ((480, 640), (640, 480)))
+# its nms_keep launches, stated before the run: 1 a two-stage step, 2 a
+# two-stage call and eval batch (batch 2: LVIS_SET has 4 images of each
+# orientation), 1 a single-stage eval batch (batch 4) in each of the
+# robustness tool's runs
+DATA_HOST_LAUNCHES = (sum(LVIS_STEPS) + 2 * sum(LVIS_CALLS) + 2 * 4 +
+                      sum(CROP_STEPS) + (len(ROBUST_CORRUPTIONS) + 1) * 2)
+# the vfnet phase: (warm-up, timed) forward_test calls at batch 1 and 2 and
+# steps at batch 2 of the R50 config, calls at batch 1 of the widest
+VFNET_CONFIG = 'configs/vfnet/vfnet_r50_fpn_1x_coco.py'
+VFNET_WIDE = 'configs/vfnet/vfnet_x101_64x4d_fpn_mdconv_c3-c5_mstrain_2x_coco.py'
+VFNET_CALLS, VFNET_CALLS_B2, VFNET_STEPS = (1, 5), (1, 3), (1, 3)
+VFNET_WIDE_CALLS = (1, 3)
+# 1 launch a forward_test call, none a step
+VFNET_LAUNCHES = (sum(VFNET_CALLS) + sum(VFNET_CALLS_B2) +
+                  sum(VFNET_WIDE_CALLS))
 
 
 T_START = time.perf_counter()
@@ -1345,7 +1409,8 @@ def load_tool(name):
     as a module, so that its `main(argv)` runs in this process."""
     import importlib.util
     path = os.path.join(ROOT, 'ld_tpu_torch', 'tools', f'{name}.py')
-    spec = importlib.util.spec_from_file_location(f'tool_{name}', path)
+    spec = importlib.util.spec_from_file_location(
+        'tool_' + name.replace('/', '_'), path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -3375,7 +3440,7 @@ def box_masks(torch, np, batch, seed=2):
 
 
 def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
-              timed=5, prof_iters=3):
+              timed=5, prof_iters=3, max_dets=100):
     """`forward_test` of a two-stage `model` on the card at 800x1344:
     `warmup` + `timed` calls at each batch size, 2 launches a call (the
     RPN's NMS of the batch and the RoI head's), the outputs checked (with
@@ -3383,7 +3448,8 @@ def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
     both NMS again with the plain keep mask, identical outputs; the device's
     busy share at the smallest over `prof_iters` profiled calls. Emits the
     row; returns (launches, row, the captured NMS inputs (boxes, valid,
-    thr) of the largest batch's call)."""
+    thr) of the largest batch's call). `max_dets`: the test config's
+    max_per_img."""
     from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
     gen = torch.Generator('cuda').manual_seed(0)
     benches = {b: dict(image=torch.randn(b, 3, 800, 1344, device='cuda',
@@ -3415,13 +3481,13 @@ def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
             fwd_ms[b] = times
             dets, _, valid = outs[:3]
             check(len(outs) == 3 + with_masks and
-                  tuple(dets.shape) == (b, 100, 5) and
+                  tuple(dets.shape) == (b, max_dets, 5) and
                   bool(torch.isfinite(dets).all()) and
                   bool(valid.any(dim=1).all()),
                   f'{config} forward_test at batch {b}')
             if with_masks:
                 masks = outs[3]
-                check(tuple(masks.shape) == (b, 100, 28, 28) and
+                check(tuple(masks.shape) == (b, max_dets, 28, 28) and
                       bool(torch.isfinite(masks).all()) and
                       0 <= float(masks.min()) and float(masks.max()) <= 1,
                       f'{config} forward_test masks at batch {b}')
@@ -4072,9 +4138,476 @@ def phase_resnet_variants(torch, np, smi):
     return launches
 
 
+def loader_steps(torch, smi, cfg, base, loader, warmup, timed, per_step,
+                 phase):
+    """`warmup` + `timed` training steps of a copy of `base` on the card
+    over `loader`'s batches through a DevicePrefetcher (epoch after epoch),
+    the config's SGD and schedule: every loss finite and `per_step`
+    nms_keep launches a step; a step's ms (the wait for its batch included)
+    and the wait alone. Returns the launch count and the emitted row."""
+    import copy
+    from ld_tpu_torch.data import DevicePrefetcher
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    model = copy.deepcopy(base).to('cuda')
+    step, _ = make_step(cfg, model)
+    prefetcher = DevicePrefetcher(loader, 'cuda')
+
+    def batches():
+        epoch = 0
+        while True:
+            prefetcher.set_epoch(epoch)
+            yield from prefetcher
+            epoch += 1
+    stream = batches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    config = os.path.relpath(cfg.filename, ROOT)
+
+    # ---- the main path: counts from 0, read right after ------------------
+    nms_keep.launches = 0
+    step_ms, wait_ms, history, shapes = [], [], [], []
+    for i in range(warmup + timed):
+        before = nms_keep.launches
+        t = time.perf_counter()
+        batch = next(stream)
+        t_batch = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            wait_ms.append((t_batch - t) * 1e3)
+        shapes.append(list(batch['image'].shape))
+        history.append({k: float(v) for k, v in metrics.items()})
+        bad = [k for k, v in history[-1].items() if not math.isfinite(v)]
+        check(not bad, f'{config} step {i}: non-finite {bad}')
+        check(nms_keep.launches - before == per_step,
+              f'{config} step {i}: {nms_keep.launches - before} nms_keep '
+              f'launches, expected {per_step}')
+    launches = nms_keep.launches
+    # ----------------------------------------------------------------------
+    stream.close()
+    row = dict(phase=phase, config=config, nvidia_smi=smi,
+               detector=type(model).__name__, batch_shapes=shapes,
+               warmup_steps=warmup, timed_steps=timed, step_ms=step_ms,
+               step_ms_mean=sum(step_ms) / len(step_ms),
+               batch_wait_ms=wait_ms, loss_first=history[0],
+               loss_last=history[-1], nms_keep_launches=launches,
+               nms_keep_launches_per_step=per_step,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    emit(row)
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def pointed(split, ann_file, img_prefix):
+    """A dataset config (through its wrappers) reading `ann_file`."""
+    import copy
+    split = copy.deepcopy(dict(split))
+    node = split
+    while 'dataset' in node:
+        node = node['dataset']
+    node.update(ann_file=ann_file, img_prefix=img_prefix)
+    return split
+
+
+def lvis_eval(torch, np, smi, model, cfg, ann, prefix):
+    """`eval_detector` -> `evaluate(['bbox', 'segm'])` of the LVIS model
+    over the LVIS set's images under the config's test pipeline (batch 2,
+    2 launches a batch), and the gts as detections scoring AP 1.0 over the
+    1203 classes; returns the launch count."""
+    from ld_tpu_torch.apis import eval_detector
+    from ld_tpu_torch.data import build_dataset
+    from ld_tpu_torch.evaluation.coco_mask import poly_to_mask
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    val = build_dataset(pointed(cfg.data['test'], ann, prefix))
+    # ---- the main path (evaluation): counts from 0, read right after -----
+    nms_keep.launches = 0
+    t = time.perf_counter()
+    results = eval_detector(model, val, samples_per_gpu=2, pad_hw=cfg.pad_to)
+    eval_s = time.perf_counter() - t
+    launches = nms_keep.launches
+    # ----------------------------------------------------------------------
+    batches = sum(-(-int(n) // 2) for n in np.bincount(val.flag))
+    check(launches == 2 * batches,
+          f'LVIS eval: {launches} launches for {batches} batches (2 each)')
+    check(all(r['masks'].shape == (len(r['boxes']), 28, 28) and
+              0 < len(r['boxes']) <= 300 for r in results),
+          'LVIS eval results: up to 300 detections an image, with masks')
+    t = time.perf_counter()
+    metrics = val.evaluate(results, metric=['bbox', 'segm'])
+    metric_s = time.perf_counter() - t
+    check(all(not math.isfinite(v) or 0 <= v <= 1 for v in metrics.values()),
+          f'LVIS evaluate: {metrics}')
+    gts = []
+    for i, info in enumerate(val.img_infos):
+        a = val.get_ann_info(i)
+        gts.append(dict(
+            boxes=np.concatenate([a['bboxes'], np.ones((len(a['bboxes']),
+                                                        1))], 1),
+            labels=a['labels'],
+            masks=[poly_to_mask(p, info['height'], info['width'])
+                   .astype(np.float32) for p in a['masks']]))
+    gt_metrics = val.evaluate(gts, metric=['bbox', 'segm'])
+    check(gt_metrics['segm_mAP'] == 1.0 and gt_metrics['bbox_mAP'] == 1.0,
+          f'LVIS: the gts as detections score {gt_metrics}')
+    emit(dict(phase='data_host_lvis_eval', config=LVIS_CONFIG,
+              nvidia_smi=smi, images=len(val), classes=len(val.CLASSES),
+              eval_detector_s=eval_s, eval_img_per_s=len(val) / eval_s,
+              evaluate_s=metric_s, metrics=metrics,
+              gt_segm_mAP=gt_metrics['segm_mAP'],
+              gt_bbox_mAP=gt_metrics['bbox_mAP'], nms_keep_launches=launches))
+    return launches
+
+
+def host_costs(np, smi):
+    """Host ms an 800x1333 uint8 image of the train-time augmentations and
+    of each corruption at severity 3 (HOST_COST_CALLS calls each, from one
+    seed), on this machine's CPU."""
+    import copy
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.data import CORRUPTIONS, Compose
+    rs = np.random.RandomState(0)
+    h, w = HOST_COST_HW
+    img = rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+    xy = rs.uniform(0, [w * 0.7, h * 0.7], (8, 2))
+    boxes = np.concatenate([xy, xy + rs.uniform(20, 300, (8, 2))], -1)
+    results = dict(img=img, img_shape=img.shape, ori_shape=img.shape,
+                   gt_bboxes=boxes.clip(0, [w, h, w, h]).astype(np.float32),
+                   gt_labels=rs.randint(0, 80, 8))
+    detr = Config.fromfile(os.path.join(ROOT,
+                                        'configs/detr/detr_r50_8x2_150e_coco.py'))
+    detr_aa = [t for t in detr.data['train']['pipeline']
+               if t['type'] == 'AutoAugment']
+    mean = [123.675, 116.28, 103.53]
+    pipelines = {
+        'PhotoMetricDistortion': [dict(type='PhotoMetricDistortion')],
+        'Expand+MinIoURandomCrop': [
+            dict(type='Expand', mean=mean, to_rgb=True, ratio_range=(1, 4)),
+            dict(type='MinIoURandomCrop')],
+        'CutOut': [dict(type='CutOut', n_holes=(1, 5),
+                        cutout_ratio=(0.1, 0.2))],
+        'AutoAugment_detr': detr_aa,
+        'AutoAugment_geometric': [dict(type='AutoAugment', policies=[
+            [dict(type='Shear', level=6, prob=1.0),
+             dict(type='ColorTransform', kind='color', level=6, prob=1.0)],
+            [dict(type='Rotate', level=6, prob=1.0),
+             dict(type='ColorTransform', kind='equalize', prob=1.0)],
+            [dict(type='Translate', level=6, prob=1.0)]])],
+    }
+    pipelines.update({f'Corrupt_{name}': [dict(
+        type='Corrupt', corruption=name, severity=3)] for name in CORRUPTIONS})
+    check(len(detr_aa) == 1, 'the DETR config has no AutoAugment')
+    np.random.seed(0)
+    ms = {}
+    for name, cfg in pipelines.items():
+        pipe = Compose(copy.deepcopy(cfg))
+        times = []
+        for _ in range(HOST_COST_CALLS):
+            r = copy.deepcopy(results)
+            t = time.perf_counter()
+            out = pipe(r)
+            times.append((time.perf_counter() - t) * 1e3)
+            check(out is None or out['img'].ndim == 3, f'{name} output')
+        ms[name] = times
+    emit(dict(phase='data_host_host_cost', nvidia_smi=smi,
+              image=[h, w, 3], calls=HOST_COST_CALLS,
+              cpu_count=os.cpu_count(), host_ms=ms,
+              host_ms_mean={k: sum(v) / len(v) for k, v in ms.items()}))
+
+
+def phase_data_host(torch, np, smi):
+    """The data layer's host side on the card's machine: LVIS training,
+    serving and evaluation through LVISV1Dataset and ClassBalancedDataset,
+    the crop640 config's RandomCrop pipeline, the augmentations' and
+    corruptions' host cost, and the robustness tool on GFL-R50. Returns the
+    kernel's launch count over the main paths. Budget 60 s."""
+    from ld_tpu_torch.data import build_dataloader, build_dataset
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    from ld_tpu_torch.testing import write_coco_instances, write_lvis_instances
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_data_host')
+    shutil.rmtree(work, ignore_errors=True)
+    launches, seconds = 0, {}
+
+    # LVIS v1: the config's ClassBalancedDataset over LVISV1Dataset
+    t = time.perf_counter()
+    count, sizes = LVIS_SET
+    ann, prefix = write_lvis_instances(os.path.join(work, 'lvis'), count,
+                                       sizes=sizes, seed=0)
+    cfg, base = build_plain(torch, LVIS_CONFIG)
+    train = build_dataset(pointed(cfg.data['train'], ann, prefix))
+    check(type(train).__name__ == 'ClassBalancedDataset' and
+          len(train.dataset.CLASSES) == 1203 and len(train) == count,
+          f'the LVIS train set: {type(train).__name__}, {len(train)} images')
+    loader = build_dataloader(train, 2, 1, cfg.pad_to,
+                              cfg.max_gts_per_image, seed=0)
+    n, row = loader_steps(torch, smi, cfg, base, loader, *LVIS_STEPS,
+                          per_step=1, phase='data_host_lvis_train')
+    check(row['loss_last'].get('loss_mask', 0) > 0, 'LVIS: no loss_mask')
+    launches += n
+    model = base.to('cuda').eval()
+    n, serve_row, _ = roi_serve(torch, smi, model, LVIS_CONFIG,
+                                'data_host_lvis_serve', (1, ), *LVIS_CALLS,
+                                prof_iters=1, max_dets=300)
+    launches += n
+    check(serve_row['nms_k'][1] == 1024,
+          f"LVIS: the RoI NMS saw K = {serve_row['nms_k'][1]}, not the "
+          'max_candidates cap 1024')
+    launches += lvis_eval(torch, np, smi, model, cfg, ann, prefix)
+    del model, base, loader, train
+    torch.cuda.empty_cache()
+    seconds['lvis'] = time.perf_counter() - t
+
+    # the crop640 config through its own RandomCrop pipeline
+    t = time.perf_counter()
+    count, sizes = CROP_SET
+    ann, prefix = write_coco_instances(os.path.join(work, 'crop'), count,
+                                       sizes=sizes, seed=1)
+    cfg, base = build_plain(torch, CROP_CONFIG)
+    train = build_dataset(pointed(cfg.data['train'], ann, prefix))
+    check([t['type'] for t in cfg.data['train']['pipeline']][2:5] ==
+          ['RandomCrop', 'RandomFlip', 'FusedPreprocess'],
+          'the crop640 train pipeline')
+    loader = build_dataloader(train, 2, 1, cfg.pad_to,
+                              cfg.max_gts_per_image, seed=0)
+    n, row = loader_steps(torch, smi, cfg, base, loader, *CROP_STEPS,
+                          per_step=1, phase='data_host_crop640_train')
+    check(all(s == [2, 3, 640, 640] for s in row['batch_shapes']),
+          f"crop640 batches {row['batch_shapes']}")
+    launches += n
+    del base, loader, train
+    torch.cuda.empty_cache()
+    seconds['crop640'] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    host_costs(np, smi)
+    seconds['host_cost'] = time.perf_counter() - t
+
+    # the robustness tool on GFL-R50 (random weights, seed 0)
+    t = time.perf_counter()
+    count, sizes = ROBUST_SET
+    ann, prefix = write_coco_instances(os.path.join(work, 'robust'), count,
+                                       sizes=sizes, seed=2)
+    tool = load_tool('analysis_tools/test_robustness')
+    out = os.path.join(work, 'robustness.json')
+    # ---- the main path (the tool's evaluations): counts from 0 -----------
+    nms_keep.launches = 0
+    res = tool.main([os.path.join(ROOT, CONFIG), '--corruptions',
+                     *ROBUST_CORRUPTIONS, '--severities',
+                     str(ROBUST_SEVERITY), '--out', out, '--cfg-options',
+                     'dtype=float32', f'data.test.ann_file={ann}',
+                     f'data.test.img_prefix={prefix}'])
+    n = nms_keep.launches
+    # ----------------------------------------------------------------------
+    runs = len(ROBUST_CORRUPTIONS) + 1
+    check(n == runs * 2, f'robustness tool: {n} launches for {runs} runs '
+          'of 2 eval batches')
+    with open(out) as f:
+        summary = load_tool('analysis_tools/robustness_eval').summarize(
+            json.load(f))
+    check(sorted(res['results']) == sorted(ROBUST_CORRUPTIONS) and
+          all(math.isfinite(v) for v in res['summary'].values()),
+          f"robustness results {res['summary']}")
+    launches += n
+    seconds['robustness'] = time.perf_counter() - t
+    emit(dict(phase='data_host_robustness', config=CONFIG, nvidia_smi=smi,
+              images=count, corruptions=list(ROBUST_CORRUPTIONS),
+              severity=ROBUST_SEVERITY, summary=res['summary'],
+              metrics=summary[0], P=summary[1].tolist(),
+              mPC=summary[2].tolist(), nms_keep_launches=n,
+              seconds=seconds['robustness']))
+    shutil.rmtree(work, ignore_errors=True)
+    check(launches == DATA_HOST_LAUNCHES, f'data_host phase: {launches} '
+          f'nms_keep launches, expected {DATA_HOST_LAUNCHES}')
+    emit(dict(phase='data_host_done', seconds=time.perf_counter() - t_phase,
+              seconds_by_part=seconds, budget_s=60,
+              nms_keep_launches=launches))
+    return launches
+
+
+def star_dcn_share(torch, model, bench):
+    """One profiled `forward_test` call: its device time, busy share and
+    device ops, and the share of the device time that the head's star
+    DeformConv calls launch (a `record_function` range around each), with
+    the HBM bound of their gathers (four corner reads and the columns'
+    write, float32)."""
+    from torch.profiler import ProfilerActivity, profile
+    from ld_tpu_torch.ops.deform_conv import DeformConv
+    cols = []
+
+    def count(module, args, out):
+        b, _, oh, ow = out.shape
+        cols.append(b * oh * ow * 9 * module.in_channels)
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, DeformConv)]
+    try:
+        with module_ranges(model, DeformConv, 'star_dcn') as n_modules:
+            model.forward_test(bench)
+            torch.cuda.synchronize()
+            cols.clear()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                model.forward_test(bench)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t) * 1e6
+    finally:
+        for h in hooks:
+            h.remove()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == cuda and
+               e.key != 'star_dcn']
+    total_us = sum(e.self_device_time_total for e in kernels)
+    star = [e for e in events if e.key == 'star_dcn' and
+            e.device_type != cuda]
+    star_us = sum(e.device_time_total for e in star)
+    out = dict(star_dcn_modules=n_modules,
+               star_dcn_calls_per_forward=sum(e.count for e in star),
+               star_dcn_gather_bound_ms=sum(5 * 4 * n for n in cols) /
+               PEAK_HBM_BYTES * 1e3)
+    if total_us <= 0:
+        out['device_time'] = 'not measured'
+        return out
+    out.update(device_ms_per_call=total_us / 1e3,
+               wall_ms_per_call_profiled=wall_us / 1e3,
+               device_busy_share=total_us / wall_us,
+               device_ops_per_call=sum(e.count for e in kernels),
+               star_dcn_device_ms_per_call=star_us / 1e3
+               if star_us > 0 else 'not measured',
+               star_dcn_device_share=star_us / total_us
+               if star_us > 0 else 'not measured')
+    return out
+
+
+def vfnet_serve_b2(torch, smi, base, warmup, timed):
+    """`forward_test` of the VFNet model at batch 2, 800x1344: 1 launch a
+    call; returns the launch count."""
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    bench = dict(image=torch.randn(2, 3, 800, 1344, device='cuda',
+                                   generator=torch.Generator('cuda')
+                                   .manual_seed(1)),
+                 img_hw=torch.tensor([[800.0, 1344.0]] * 2, device='cuda'))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        # ---- the main path: counts from 0, read right after --------------
+        nms_keep.launches = 0
+        for _ in range(warmup):
+            base.forward_test(bench)
+        torch.cuda.synchronize()
+        call_ms = []
+        for _ in range(timed):
+            t = time.perf_counter()
+            dets, _, valid = base.forward_test(bench)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t) * 1e3)
+        launches = nms_keep.launches
+        # ------------------------------------------------------------------
+    check(launches == warmup + timed, f'VFNet batch 2: {launches} launches '
+          f'for {warmup + timed} calls')
+    check(tuple(dets.shape) == (2, 100, 5) and
+          bool(torch.isfinite(dets).all()) and bool(valid.any(1).all()),
+          'VFNet forward_test at batch 2')
+    emit(dict(phase='vfnet_serve_b2', config=VFNET_CONFIG, nvidia_smi=smi,
+              input=[2, 3, 800, 1344], warmup_calls=warmup,
+              timed_calls=timed, forward_test_ms=call_ms,
+              forward_test_ms_mean=sum(call_ms) / len(call_ms),
+              max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+              nms_keep_launches=launches, detections=int(valid.sum())))
+    return launches
+
+
+def vfnet_reference(torch, np, cfg, base):
+    """VFNet at 1x3x128x192 on the card against the CPU: the head's three
+    outputs (5e-3 / 2e-4), the first step's losses (rtol 1e-3 a term), the
+    decode of the CPU's outputs on both (labels, valid and kept set equal,
+    boxes and scores within 1e-4), and the two devices' own detections
+    (reported)."""
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    worst, worst_med = outputs_reference(torch, np, base)
+    phase_train_reference(torch, cfg, base, gi=False,
+                          phase='vfnet_train_reference')
+    batch = detection_batch(1, 128, 192, seed=0, device='cpu')
+    cpu = copy.deepcopy(base).eval()
+    card = copy.deepcopy(base).to('cuda').eval()
+    with torch.inference_mode():
+        outs = cpu(batch['image'])
+        want = cpu.bbox_head.get_bboxes(outs, batch['img_hw'])
+        got = card.bbox_head.get_bboxes(
+            [[x.cuda() for x in part] for part in outs],
+            batch['img_hw'].cuda())
+        got = [x.cpu() for x in got]
+        own = [x.cpu() for x in card.forward_test(
+            {k: v.cuda() for k, v in batch.items()})]
+    valid = want[2]
+    diff = float((got[0] - want[0])[valid].abs().max())
+    check(int(valid.sum()) > 0 and torch.equal(got[2], valid) and
+          torch.equal(got[1], want[1]) and diff <= 1e-4,
+          f'VFNet decode of the same outputs: card vs CPU, {diff}')
+    emit(dict(phase='vfnet_reference', config=VFNET_CONFIG,
+              input='1x3x128x192', max_abs_diff=worst, tol_abs=5e-3,
+              max_median_rel_diff=worst_med, tol_median_rel=2e-4,
+              decode_detections=int(valid.sum()), decode_max_abs_diff=diff,
+              decode_tol=1e-4, detections_cpu=int(valid.sum()),
+              detections_card=int(own[2].sum()),
+              top_score_cpu=float(want[0][0, 0, 4]),
+              top_score_card=float(own[0][0, 0, 4]),
+              card_match_share=match_share(torch, want, own)))
+    del card
+    torch.cuda.empty_cache()
+
+
+def phase_vfnet(torch, np, smi):
+    """VarifocalNet at full width, float32, seed 0: the R50 config served
+    at batch 1 (with the star DCN's device share) and 2, trained at batch
+    2, and held against the CPU; the widest config served at batch 1.
+    Returns the kernel's launch count over the main paths. Budget 60 s."""
+    from ld_tpu_torch.ops.deform_conv import DeformConv
+    t_phase = time.perf_counter()
+    launches = 0
+
+    def extra(model, bench):
+        check(sum(isinstance(m, DeformConv) for m in model.modules()) == 2,
+              'VFNet: two star DeformConv modules')
+        row = star_dcn_share(torch, model, bench)
+        check(row['star_dcn_calls_per_forward'] == 10,
+              f"VFNet: {row['star_dcn_calls_per_forward']} star DCN calls "
+              'a forward, expected 10')
+        return row
+    n, _ = family_serve(torch, smi, VFNET_CONFIG, None, *VFNET_CALLS,
+                        phase='vfnet_serve', extra=extra)
+    launches += n
+    cfg, base = build_plain(torch, VFNET_CONFIG)
+    with torch.no_grad():
+        base.bbox_head.vfnet_cls.bias.zero_()
+    model = base.to('cuda').eval()
+    launches += vfnet_serve_b2(torch, smi, model, *VFNET_CALLS_B2)
+    base = model.cpu()
+    del model
+    torch.cuda.empty_cache()
+    n, _ = detector_steps(torch, smi, cfg, base, *VFNET_STEPS, per_step=0,
+                          phase='vfnet_train', profile=True, prof_steps=1)
+    launches += n
+    vfnet_reference(torch, np, cfg, base)
+    del base
+    n, _ = family_serve(torch, smi, VFNET_WIDE, None, *VFNET_WIDE_CALLS,
+                        phase='vfnet_wide_serve')
+    launches += n
+    torch.cuda.empty_cache()
+    check(launches == VFNET_LAUNCHES, f'vfnet phase: {launches} nms_keep '
+          f'launches, expected {VFNET_LAUNCHES}')
+    emit(dict(phase='vfnet_done', seconds=time.perf_counter() - t_phase,
+              budget_s=60, nms_keep_launches=launches))
+    return launches
+
+
 def run_phases(names):
     """`--phases NAME ...`: only the named phases (dcn, res2net, ddp,
-    hrnet_regnet, resnet_variants), each with its seconds and launches, on
+    hrnet_regnet, resnet_variants, data_host, vfnet), each with its seconds
+    and launches, on
     the card with TF32 off and the kernel built; no result line."""
     import numpy as np
     import torch
@@ -4095,7 +4628,9 @@ def run_phases(names):
                   ddp=lambda: phase_ddp(torch, np, smi),
                   hrnet_regnet=lambda: phase_hrnet_regnet(torch, np, smi),
                   resnet_variants=lambda: phase_resnet_variants(torch, np,
-                                                                smi))
+                                                                smi),
+                  data_host=lambda: phase_data_host(torch, np, smi),
+                  vfnet=lambda: phase_vfnet(torch, np, smi))
     for name in names:
         t = time.perf_counter()
         launches = phases[name]()
@@ -4186,6 +4721,10 @@ def main():
     hrnet_regnet_launches = phase_hrnet_regnet(torch, np, smi)
     torch.cuda.empty_cache()
     resnet_variants_launches = phase_resnet_variants(torch, np, smi)
+    torch.cuda.empty_cache()
+    data_host_launches = phase_data_host(torch, np, smi)
+    torch.cuda.empty_cache()
+    vfnet_launches = phase_vfnet(torch, np, smi)
     emit(dict(phase='script_done', seconds=time.perf_counter() - t_script))
 
     print(smi.splitlines()[0], flush=True)
@@ -4199,7 +4738,8 @@ def main():
                   serve_http_launches + export_launches + classic_launches +
                   two_stage_launches + mask_rcnn_launches +
                   cascade_launches + hrnet_regnet_launches +
-                  resnet_variants_launches),
+                  resnet_variants_launches + data_host_launches +
+                  vfnet_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -4214,6 +4754,8 @@ def main():
         launches_cascade=cascade_launches,
         launches_hrnet_regnet=hrnet_regnet_launches,
         launches_resnet_variants=resnet_variants_launches,
+        launches_data_host=data_host_launches,
+        launches_vfnet=vfnet_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

@@ -1,5 +1,5 @@
 """Host-side pipeline: dict-in/dict-out transforms (port of
-`ld_tpu/data/transforms.py:30-348,532-694,770-935`).
+`ld_tpu/data/transforms.py`).
 
   * LoadImageFromFile / LoadAnnotations: decode an image file (cv2, imported
     at first use) and take the boxes and labels of its annotation; with
@@ -31,6 +31,17 @@
     Transpose; FilterAnnotations (drops small gts and their masks, and the
     sample when none is left).
   * MultiScaleFlipAug: the test-time (scale, flip) views of one image.
+  * The train-time augmentations (`:295-331`, `:351-530`, `:697-867`,
+    `:938-1044`): PhotoMetricDistortion (the HSV round trip through uint8
+    with cv2.cvtColor), RandomCrop, Expand, MinIoURandomCrop, CutOut,
+    SegRescale, LoadProposals and RandomCenterCropPad, each drawing from the
+    global `np.random` in the JAX package's order and only in the branch
+    it takes, so that one seed gives the same images, boxes, labels and
+    masks bit for bit. RandomCenterCropPad's test mode pastes the image
+    top-left with a zero `border`, as the JAX package does on purpose
+    (ROADMAP.md caveat 43). Albu and InstaBoost bridge the optional
+    albumentations / instaboostfast packages and raise ImportError without
+    them.
   * collate_batch: stack into one static-shape NCHW batch, padded to the
     smallest fitting pad bucket, with `max_gts` gt slots and a validity
     mask, optionally into caller-owned (pinned) buffers; gt masks, where
@@ -54,13 +65,14 @@ from ld_tpu_torch.utils.registry import PIPELINES
 
 
 def _cv2():
-    """cv2, imported at first use: only image files (decoding, drawing)
-    need it."""
+    """cv2, imported at first use: only image files (decoding, drawing) and
+    the cv2 colour and warp transforms need it."""
     try:
         import cv2
     except ImportError as e:
-        raise ImportError('reading or writing image files needs cv2 '
-                          '(opencv-python), and cv2 is not installed') from e
+        raise ImportError('reading or writing image files, and the colour '
+                          'and warp transforms, need cv2 (opencv-python), '
+                          'and cv2 is not installed') from e
     return cv2
 
 
@@ -487,23 +499,460 @@ class MultiScaleFlipAug:
         return out
 
 
+# ---- train-time augmentations ------------------------------------------------
+# Each draws from the global `np.random` in the JAX package's order, and only
+# inside the branch it takes: one draw more or fewer would shift every later
+# sample of a seeded run.
+
+@PIPELINES.register_module()
+class PhotoMetricDistortion:
+    """Brightness, contrast, saturation and hue jitter on a float32 copy of
+    the image: brightness (p 0.5), contrast before (mode 1) or after (mode
+    0) the HSV step (p 0.5), then saturation and hue (p 0.5 each) through
+    cv2's uint8 BGR <-> HSV conversion (hue wraps at 180)."""
+
+    def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
+                 saturation_range=(0.5, 1.5), hue_delta=18):
+        self.brightness_delta = brightness_delta
+        self.contrast_range = contrast_range
+        self.saturation_range = saturation_range
+        self.hue_delta = hue_delta
+
+    def __call__(self, results: Dict) -> Dict:
+        cv2 = _cv2()
+        img = results['img'].astype(np.float32)
+        if np.random.randint(2):
+            img += np.random.uniform(-self.brightness_delta,
+                                     self.brightness_delta)
+        mode = np.random.randint(2)
+        if mode == 1 and np.random.randint(2):
+            img *= np.random.uniform(*self.contrast_range)
+        hsv = cv2.cvtColor(img.clip(0, 255).astype(np.uint8),
+                           cv2.COLOR_BGR2HSV).astype(np.float32)
+        if np.random.randint(2):
+            hsv[..., 1] *= np.random.uniform(*self.saturation_range)
+        if np.random.randint(2):
+            hsv[..., 0] = (hsv[..., 0] +
+                           np.random.uniform(-self.hue_delta,
+                                             self.hue_delta)) % 180
+        img = cv2.cvtColor(hsv.clip(0, 255).astype(np.uint8),
+                           cv2.COLOR_HSV2BGR).astype(np.float32)
+        if mode == 0 and np.random.randint(2):
+            img *= np.random.uniform(*self.contrast_range)
+        results['img'] = img
+        return results
+
+
+@PIPELINES.register_module()
+class RandomCrop:
+    """A random (h, w) crop: `crop_size` absolute, an absolute range, or a
+    fraction (range) of the image; boxes shifted and clipped to it, and the
+    gts left with no area dropped with their labels and masks. A crop that
+    keeps no gt drops the sample (None) unless `allow_negative_crop`."""
+
+    CROP_TYPES = ('absolute', 'absolute_range', 'relative', 'relative_range')
+
+    def __init__(self, crop_size, crop_type='absolute',
+                 allow_negative_crop=False):
+        if crop_type not in self.CROP_TYPES:
+            raise ValueError(f'crop_type {crop_type!r}')
+        self.crop_size = crop_size  # (h, w)
+        self.crop_type = crop_type
+        self.allow_negative_crop = allow_negative_crop
+
+    def _sample_crop(self, h, w):
+        a, b = self.crop_size
+        if self.crop_type == 'absolute':
+            return min(int(a), h), min(int(b), w)
+        if self.crop_type == 'absolute_range':
+            if a > b:
+                raise ValueError(f'absolute_range crop {self.crop_size}')
+            return (np.random.randint(min(h, a), min(h, b) + 1),
+                    np.random.randint(min(w, a), min(w, b) + 1))
+        if self.crop_type == 'relative':
+            return int(h * a + 0.5), int(w * b + 0.5)
+        ch = a + np.random.rand() * (1 - a)
+        cw = b + np.random.rand() * (1 - b)
+        return int(h * ch + 0.5), int(w * cw + 0.5)
+
+    def __call__(self, results: Dict):
+        img = results['img']
+        h, w = img.shape[:2]
+        ch, cw = self._sample_crop(h, w)
+        y0 = np.random.randint(0, h - ch + 1)
+        x0 = np.random.randint(0, w - cw + 1)
+        results['img'] = img[y0:y0 + ch, x0:x0 + cw]
+        results['img_shape'] = results['img'].shape
+        keep = None
+        if 'gt_bboxes' in results:
+            bb = results['gt_bboxes'] - np.asarray([x0, y0, x0, y0],
+                                                   np.float32)
+            bb[:, 0::2] = bb[:, 0::2].clip(0, cw)
+            bb[:, 1::2] = bb[:, 1::2].clip(0, ch)
+            keep = (bb[:, 2] > bb[:, 0]) & (bb[:, 3] > bb[:, 1])
+            if not keep.any() and not self.allow_negative_crop:
+                return None
+            results['gt_bboxes'] = bb[keep]
+            if 'gt_labels' in results:
+                results['gt_labels'] = results['gt_labels'][keep]
+        if 'gt_masks' in results:
+            masks = [m[y0:y0 + ch, x0:x0 + cw] for m in results['gt_masks']]
+            if keep is not None:
+                masks = [m for m, k in zip(masks, keep) if k]
+            results['gt_masks'] = masks
+        return results
+
+
+@PIPELINES.register_module()
+class Expand:
+    """With probability `prob` (skipped where rand() > prob), the image on a
+    `mean`-filled canvas `ratio` times its size at a random place, the
+    boxes shifted with it (SSD). `to_rgb` is accepted and not read: the
+    mean fills in the given order, as in the JAX package."""
+
+    def __init__(self, mean=(0, 0, 0), to_rgb=True, ratio_range=(1, 4),
+                 prob=0.5):
+        self.mean = np.asarray(mean)
+        self.ratio_range = ratio_range
+        self.prob = prob
+
+    def __call__(self, results: Dict) -> Dict:
+        if np.random.rand() > self.prob:
+            return results
+        img = results['img']
+        h, w, c = img.shape
+        ratio = np.random.uniform(*self.ratio_range)
+        nh, nw = int(h * ratio), int(w * ratio)
+        fill = self.mean.astype(np.uint8) if img.dtype == np.uint8 \
+            else self.mean
+        canvas = np.full((nh, nw, c), fill, img.dtype)
+        y0 = np.random.randint(0, nh - h + 1)
+        x0 = np.random.randint(0, nw - w + 1)
+        canvas[y0:y0 + h, x0:x0 + w] = img
+        results['img'] = canvas
+        results['img_shape'] = canvas.shape
+        if 'gt_bboxes' in results:
+            results['gt_bboxes'] = results['gt_bboxes'] + np.asarray(
+                [x0, y0, x0, y0], np.float32)
+        return results
+
+
+@PIPELINES.register_module()
+class MinIoURandomCrop:
+    """SSD's crop: draw a mode from (1, *min_ious, 0); mode 1 keeps the
+    image, any other tries up to `max_attempts` crops (sides at least
+    `min_crop_size` of the image's, aspect in [0.5, 2]) whose overlap with
+    every gt, over the gt's area, reaches the mode and that contain a gt
+    centre, and draws a new mode when none does. The gts whose centres fall
+    inside are kept, clipped and shifted."""
+
+    def __init__(self, min_ious=(0.1, 0.3, 0.5, 0.7, 0.9), min_crop_size=0.3,
+                 max_attempts=50):
+        self.sample_modes = (1, *min_ious, 0)
+        self.min_crop_size = min_crop_size
+        self.max_attempts = max_attempts
+
+    def __call__(self, results: Dict) -> Dict:
+        img = results['img']
+        h, w = img.shape[:2]
+        boxes = results.get('gt_bboxes', np.zeros((0, 4), np.float32))
+        while True:
+            mode = self.sample_modes[np.random.randint(
+                len(self.sample_modes))]
+            if mode == 1:
+                return results
+            for _ in range(self.max_attempts):
+                cw = np.random.uniform(self.min_crop_size * w, w)
+                ch = np.random.uniform(self.min_crop_size * h, h)
+                if ch / cw < 0.5 or ch / cw > 2:
+                    continue
+                x0 = np.random.uniform(0, w - cw)
+                y0 = np.random.uniform(0, h - ch)
+                patch = np.asarray([x0, y0, x0 + cw, y0 + ch])
+                if len(boxes):
+                    lt = np.maximum(boxes[:, :2], patch[:2])
+                    rb = np.minimum(boxes[:, 2:], patch[2:])
+                    inter = np.clip(rb - lt, 0, None).prod(1)
+                    area = (boxes[:, 2] - boxes[:, 0]) * \
+                        (boxes[:, 3] - boxes[:, 1])
+                    if (inter / np.maximum(area, 1e-6)).min() < mode:
+                        continue
+                    cx = (boxes[:, 0] + boxes[:, 2]) / 2
+                    cy = (boxes[:, 1] + boxes[:, 3]) / 2
+                    keep = (cx > patch[0]) & (cx < patch[2]) & \
+                        (cy > patch[1]) & (cy < patch[3])
+                    if not keep.any():
+                        continue
+                    bb = boxes[keep].copy()
+                    bb[:, 0::2] = bb[:, 0::2].clip(patch[0], patch[2])
+                    bb[:, 1::2] = bb[:, 1::2].clip(patch[1], patch[3])
+                    bb -= np.asarray([patch[0], patch[1], patch[0],
+                                      patch[1]], np.float32)
+                    results['gt_bboxes'] = bb.astype(np.float32)
+                    if 'gt_labels' in results:
+                        results['gt_labels'] = results['gt_labels'][keep]
+                results['img'] = img[int(patch[1]):int(patch[3]),
+                                     int(patch[0]):int(patch[2])]
+                results['img_shape'] = results['img'].shape
+                return results
+
+
+@PIPELINES.register_module()
+class CutOut:
+    """Fill `n_holes` (a count or a (min, max) range) rectangles of
+    `cutout_shape` (h, w), or of `cutout_ratio` of the image, at random
+    top-left corners with `fill_in`, in place."""
+
+    def __init__(self, n_holes, cutout_shape=None, cutout_ratio=None,
+                 fill_in=(0, 0, 0)):
+        self.n_holes = n_holes if isinstance(n_holes, tuple) else \
+            (n_holes, n_holes)
+        self.cutout_shape = cutout_shape
+        self.cutout_ratio = cutout_ratio
+        self.fill_in = fill_in
+
+    def __call__(self, results: Dict) -> Dict:
+        img = results['img']
+        h, w = img.shape[:2]
+        n = np.random.randint(self.n_holes[0], self.n_holes[1] + 1)
+        for _ in range(n):
+            if self.cutout_ratio is not None:
+                ch = int(h * self.cutout_ratio[0])
+                cw = int(w * self.cutout_ratio[1])
+            else:
+                ch, cw = self.cutout_shape
+            y0 = np.random.randint(0, h)
+            x0 = np.random.randint(0, w)
+            img[y0:y0 + ch, x0:x0 + cw] = self.fill_in
+        results['img'] = img
+        return results
+
+
+@PIPELINES.register_module()
+class SegRescale:
+    """Resize `gt_semantic_seg` nearest by `scale_factor` (HTC's 1/8
+    semantic map), cv2 INTER_NEAREST's bits; no data layer of either
+    package gives the map yet."""
+
+    def __init__(self, scale_factor=1, **kwargs):
+        self.scale_factor = scale_factor
+
+    def __call__(self, results: Dict) -> Dict:
+        if self.scale_factor != 1 and 'gt_semantic_seg' in results:
+            seg = results['gt_semantic_seg']
+            h, w = seg.shape[:2]
+            results['gt_semantic_seg'] = resize_nearest(
+                seg, int(w * self.scale_factor), int(h * self.scale_factor))
+        return results
+
+
+@PIPELINES.register_module()
+class LoadProposals:
+    """Precomputed proposals (n, 4 or 5) from `results['proposals']`, cut
+    to (n, 4) and to `num_max_proposals`; none becomes one zero box.
+    Neither package's datasets put proposals into the results (their
+    CocoDataset takes no `proposal_file`): ROADMAP.md caveat 41."""
+
+    def __init__(self, num_max_proposals=None):
+        self.num_max_proposals = num_max_proposals
+
+    def __call__(self, results: Dict) -> Dict:
+        proposals = np.asarray(results['proposals'], np.float32)
+        if proposals.ndim != 2 or proposals.shape[1] not in (4, 5):
+            raise ValueError(
+                f'proposals should be (n, 4|5) but got {proposals.shape}')
+        proposals = proposals[:, :4]
+        if self.num_max_proposals is not None:
+            proposals = proposals[:self.num_max_proposals]
+        if len(proposals) == 0:
+            proposals = np.array([[0, 0, 0, 0]], np.float32)
+        results['proposals'] = proposals
+        return results
+
+
+@PIPELINES.register_module()
+class RandomCenterCropPad:
+    """CornerNet's crop. Train: up to 200 tries of a ratio from `ratios`
+    (target = ratio x crop_size) and a random centre at least the (shrunk)
+    `border` from the edges; the region around it is pasted, centres
+    aligned, onto a canvas filled with the Normalize mean in the image's BGR
+    order, and a try counts when it keeps a gt centre (the gts whose centres
+    fall in the patch are kept, shifted, clipped); an image no try fits stays
+    as it is. Test: padded to `test_pad_mode` ('logical_or' h | 127, or a
+    size divisor) with the image at the top left and a zero `border`, the
+    JAX package's deliberate change from mmdet's centred paste (ROADMAP.md
+    caveat 43)."""
+
+    def __init__(self, crop_size=None, ratios=(0.9, 1.0, 1.1), border=128,
+                 mean=None, std=None, to_rgb=None, test_mode=False,
+                 test_pad_mode=('logical_or', 127), bbox_clip_border=True):
+        if mean is None or std is None or to_rgb is None:
+            raise ValueError('RandomCenterCropPad needs mean, std and to_rgb')
+        self.crop_size = crop_size
+        self.ratios = ratios
+        self.border = border
+        # the image is BGR at this stage: the (RGB) mean flips
+        self.fill = np.asarray(mean[::-1] if to_rgb else mean, np.float32)
+        self.test_mode = test_mode
+        self.test_pad_mode = test_pad_mode
+        self.bbox_clip_border = bbox_clip_border
+
+    @staticmethod
+    def _rand_border(border, size):
+        """The border shrunk by the smallest power of two that leaves a
+        non-empty centre range on a small side."""
+        k = 2 * border / size
+        i = pow(2, np.ceil(np.log2(np.ceil(k))) + (k == int(k)))
+        return int(border // i)
+
+    def _paste(self, img, cy, cx, th, tw):
+        h, w, c = img.shape
+        x0, x1 = max(0, cx - tw // 2), min(cx + tw // 2, w)
+        y0, y1 = max(0, cy - th // 2), min(cy + th // 2, h)
+        canvas = np.empty((th, tw, c), img.dtype)
+        canvas[:] = self.fill
+        ccy, ccx = th // 2, tw // 2
+        canvas[ccy - (cy - y0):ccy + (y1 - cy),
+               ccx - (cx - x0):ccx + (x1 - cx)] = img[y0:y1, x0:x1]
+        return canvas, (x0, y0, x1, y1)
+
+    def _train(self, results):
+        img = results['img']
+        h, w = img.shape[:2]
+        boxes = results.get('gt_bboxes', np.zeros((0, 4), np.float32))
+        hb = self._rand_border(self.border, h)
+        wb = self._rand_border(self.border, w)
+        for _ in range(200):
+            ratio = self.ratios[np.random.randint(len(self.ratios))]
+            th = int(self.crop_size[0] * ratio)
+            tw = int(self.crop_size[1] * ratio)
+            cx = int(np.random.randint(wb, max(w - wb, wb + 1)))
+            cy = int(np.random.randint(hb, max(h - hb, hb + 1)))
+            canvas, (x0, y0, x1, y1) = self._paste(img, cy, cx, th, tw)
+            centers = (boxes[:, :2] + boxes[:, 2:]) / 2
+            mask = ((centers[:, 0] > x0) & (centers[:, 0] < x1) &
+                    (centers[:, 1] > y0) & (centers[:, 1] < y1))
+            if len(boxes) > 0 and not mask.any():
+                continue
+            results['img'] = canvas
+            results['img_shape'] = canvas.shape
+            results['pad_shape'] = canvas.shape
+            shift_x = tw // 2 - (cx - x0) - x0
+            shift_y = th // 2 - (cy - y0) - y0
+            bb = boxes[mask].copy()
+            bb[:, 0::2] += shift_x
+            bb[:, 1::2] += shift_y
+            if self.bbox_clip_border:
+                bb[:, 0::2] = bb[:, 0::2].clip(0, tw)
+                bb[:, 1::2] = bb[:, 1::2].clip(0, th)
+            keep = (bb[:, 2] > bb[:, 0]) & (bb[:, 3] > bb[:, 1])
+            results['gt_bboxes'] = bb[keep]
+            if 'gt_labels' in results:
+                results['gt_labels'] = results['gt_labels'][mask][keep]
+            return results
+        return results
+
+    def _test(self, results):
+        img = results['img']
+        h, w = img.shape[:2]
+        results['img_shape'] = img.shape
+        if self.test_pad_mode[0] == 'logical_or':
+            th, tw = h | self.test_pad_mode[1], w | self.test_pad_mode[1]
+        else:
+            d = self.test_pad_mode[1]
+            th, tw = int(np.ceil(h / d)) * d, int(np.ceil(w / d)) * d
+        canvas = np.empty((th, tw, img.shape[2]), img.dtype)
+        canvas[:] = self.fill
+        canvas[:h, :w] = img
+        results['img'] = canvas
+        results['pad_shape'] = canvas.shape
+        results['border'] = np.zeros(4, np.float32)
+        return results
+
+    def __call__(self, results: Dict) -> Dict:
+        return self._test(results) if self.test_mode else self._train(results)
+
+
+@PIPELINES.register_module()
+class Albu:
+    """mmdet's albumentations bridge. The package is optional: without it
+    the transform raises ImportError at construction, as the JAX package's
+    does, so that a config that names it fails instead of training without
+    its augmentation."""
+
+    def __init__(self, transforms, bbox_params=None, keymap=None,
+                 update_pad_shape=False, skip_img_without_anno=False):
+        try:
+            import albumentations
+        except ImportError as e:
+            raise ImportError(
+                'Albu requires the optional `albumentations` package; '
+                'install it or drop the Albu transform from the pipeline.'
+            ) from e
+        self.keymap = keymap or dict(img='image', gt_bboxes='bboxes')
+
+        def build(cfg):
+            cfg = dict(cfg)
+            return getattr(albumentations, cfg.pop('type'))(**cfg)
+        self.aug = albumentations.Compose([build(t) for t in transforms],
+                                          bbox_params=bbox_params)
+
+    def __call__(self, results: Dict) -> Dict:
+        mapped = {self.keymap.get(k, k): v for k, v in results.items()
+                  if k in self.keymap}
+        out = self.aug(**mapped)
+        inv = {v: k for k, v in self.keymap.items()}
+        results.update({inv.get(k, k): v for k, v in out.items()})
+        return results
+
+
+@PIPELINES.register_module()
+class InstaBoost:
+    """mmdet's InstaBoost bridge, gated on the optional `instaboostfast`
+    package as Albu is on albumentations."""
+
+    def __init__(self, **kwargs):
+        try:
+            import instaboostfast
+        except ImportError as e:
+            raise ImportError(
+                'InstaBoost requires the optional `instaboostfast` '
+                'package.') from e
+        self._instaboost = instaboostfast
+        self.cfg = instaboostfast.InstaBoostConfig(**kwargs) \
+            if kwargs else None
+
+    def __call__(self, results: Dict) -> Dict:
+        anns, img = self._instaboost.get_new_data(
+            results.get('ann_info'), results['img'], self.cfg,
+            background=None)
+        results['ann_info'] = anns
+        results['img'] = img
+        return results
+
+
 @PIPELINES.register_module()
 class FusedPreprocess:
-    """Resize(keep_ratio) + BGR->RGB + Normalize + Pad(size_divisor) in one
-    native pass over the output (`csrc/host/image_prep.cpp`); takes a uint8
-    image. Scale sampling (single, value, range and ratio_range modes) is
-    Resize's."""
+    """Resize + BGR->RGB + Normalize + Pad(size_divisor) in one native pass
+    over the output (`csrc/host/image_prep.cpp`); takes a uint8 image.
+    Scale sampling (single, value, range and ratio_range modes) is
+    Resize's. `keep_ratio=False` resizes to the scale's (w, h) exactly, as
+    Resize does; the JAX package's FusedPreprocess has no such argument,
+    so the configs that pass it (the crop640 and WIDER-Face pipelines)
+    raise TypeError there (ROADMAP.md caveat 46)."""
 
     def __init__(self, img_scale=(1333, 800), size_divisor=32,
                  mean=(123.675, 116.28, 103.53),
                  std=(58.395, 57.12, 57.375), to_rgb=True,
-                 ratio_range=None, multiscale_mode='range'):
+                 ratio_range=None, multiscale_mode='range', keep_ratio=True):
         self.img_scale = img_scale
+        self.keep_ratio = keep_ratio
         self.size_divisor = size_divisor
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
         self.to_rgb = to_rgb
-        self._scale_sampler = Resize(img_scale=img_scale, keep_ratio=True,
+        self._scale_sampler = Resize(img_scale=img_scale,
+                                     keep_ratio=keep_ratio,
                                      ratio_range=ratio_range,
                                      multiscale_mode=multiscale_mode)
 
@@ -517,9 +966,12 @@ class FusedPreprocess:
                             f'got {img.dtype} {img.shape}')
         lib = native.load('image_prep')
         h, w = img.shape[:2]
-        factor = rescale_size(h, w, results.get('scale')
-                              or self._scale_sampler._sample_scale())
-        new_w, new_h = int(w * factor + 0.5), int(h * factor + 0.5)
+        scale = results.get('scale') or self._scale_sampler._sample_scale()
+        if self.keep_ratio:
+            factor = rescale_size(h, w, scale)
+            new_w, new_h = int(w * factor + 0.5), int(h * factor + 0.5)
+        else:
+            new_w, new_h = int(scale[0]), int(scale[1])
         d = self.size_divisor
         dh = ((new_h + d - 1) // d) * d
         dw = ((new_w + d - 1) // d) * d

@@ -85,8 +85,7 @@ class VOCDataset:
                     bboxes.append(box)
                     labels.append(name_to_label[name])
             self.img_infos.append(dict(
-                id=img_id, filename=os.path.join('JPEGImages',
-                                                 f'{img_id}.jpg'),
+                id=img_id, filename=self._filename(img_id, root),
                 width=w, height=h))
             self.annotations.append(dict(
                 bboxes=np.asarray(bboxes, np.float32).reshape(-1, 4),
@@ -97,6 +96,11 @@ class VOCDataset:
             1 if i['width'] / i['height'] > 1 else 0 for i in self.img_infos
         ], np.uint8)
         self.pipeline = Compose(pipeline)
+
+    def _filename(self, img_id, xml_root):
+        """The image path of `img_id` under its prefix (WIDER-Face reads
+        its folder from the XML)."""
+        return os.path.join('JPEGImages', f'{img_id}.jpg')
 
     def __len__(self):
         return len(self.img_infos)

@@ -68,8 +68,8 @@ class SingleStageDetector(nn.Module):
             outs, batch['img_hw'], batch.get('scale_factor'), rescale=rescale)
 
 
-# named wrappers so the configs' `type=` names of the GFL-family detectors
+# named wrappers so the configs' `type=` names of the single-stage detectors
 # resolve
-for _name in ('GFL', 'ATSS', 'FCOS', 'RetinaNet'):
+for _name in ('GFL', 'ATSS', 'FCOS', 'RetinaNet', 'VFNet'):
     DETECTORS.register_module(name=_name, module=type(
         _name, (SingleStageDetector, ), {}))

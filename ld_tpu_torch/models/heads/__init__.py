@@ -11,10 +11,11 @@ from .retina_gfl_head import LDRetinaHead, RetinaGFLHead
 from .retina_head import RetinaHead, RetinaSepBNHead
 from .roi_head import StandardRoIHead
 from .rpn_head import RPNHead
+from .vfnet_head import VFNetHead
 
 __all__ = ['GFLHead', 'IMHead', 'LDHead', 'GFocalHead', 'LDv2Head',
            'IMv2Head', 'ATSSGFLHead', 'LDATSSHead', 'FCOSGFLHead',
            'LDFCOSHead', 'LDFCOSCompareHead', 'RetinaGFLHead',
            'LDRetinaHead', 'RetinaHead', 'RetinaSepBNHead', 'FCOSHead',
            'ATSSHead', 'RPNHead', 'StandardRoIHead', 'CascadeRoIHead',
-           'HybridTaskCascadeRoIHead']
+           'HybridTaskCascadeRoIHead', 'VFNetHead']

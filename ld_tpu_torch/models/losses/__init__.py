@@ -9,6 +9,7 @@ from .iou_loss import CIoULoss, DIoULoss, GIoULoss, IoULoss
 from .smooth_l1_loss import L1Loss, SmoothL1Loss, l1_loss, smooth_l1_loss
 from .kd_loss import (IMLoss, KnowledgeDistillationKLDivLoss, im_loss,
                       knowledge_distillation_kl_div_loss)
+from .varifocal_loss import VarifocalLoss
 
 __all__ = [
     'reduce_loss', 'weight_reduce_loss', 'weighted_loss', 'QualityFocalLoss',
@@ -18,11 +19,11 @@ __all__ = [
     'knowledge_distillation_kl_div_loss', 'im_loss', 'FocalLoss',
     'sigmoid_focal_loss', 'CrossEntropyLoss', 'cross_entropy',
     'binary_cross_entropy', 'L1Loss', 'SmoothL1Loss', 'l1_loss',
-    'smooth_l1_loss'
+    'smooth_l1_loss', 'VarifocalLoss'
 ]
 
 # the JAX package's other losses, not ported yet
 LOSSES.not_ported.update({name: 'ROADMAP.md A7' for name in (
     'AssociativeEmbeddingLoss', 'BalancedL1Loss', 'BoundedIoULoss', 'GHMC',
-    'GHMR', 'GaussianFocalLoss', 'MSELoss', 'VarifocalLoss')})
+    'GHMR', 'GaussianFocalLoss', 'MSELoss')})
 LOSSES.not_ported['DiceLoss'] = 'ROADMAP.md A8'

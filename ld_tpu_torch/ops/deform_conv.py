@@ -1,5 +1,7 @@
-"""Modulated deformable convolution, DCNv2 (port of
-`ld_tpu/ops/deform_conv.py:24-137`), NCHW, in plain PyTorch.
+"""Deformable convolutions (port of `ld_tpu/ops/deform_conv.py`), NCHW, in
+plain PyTorch: the modulated DCNv2 layer with its own offset conv
+(`ModulatedDeformConv2d`, `:24-137`), and the DCNv1 layer that takes its
+offsets from the caller (`DeformConv`, `:140-185`: VFNet's star DCN).
 
 The JAX op is plain jnp (no Pallas source): a bilinear deformed im2col and
 one matrix product. The port computes it the same way:
@@ -184,3 +186,46 @@ class ModulatedDeformConv2d(nn.Module):
         return (f'{self.in_channels}, {self.out_channels}, '
                 f'kernel_size={self.kernel_size}, stride={self.stride}, '
                 f'groups={self.groups}, deform_groups={self.deform_groups}')
+
+
+class DeformConv(nn.Module):
+    """DCNv1 with offsets given by the caller (the JAX `DeformConv`), under
+    mmcv's `DeformConv2d` names: `weight` (O, C, k, k), no bias, padding
+    k // 2, one deform group, no modulation.
+
+    `offset` is (B, 2*k*k, oh, ow): a (dy, dx) pair a tap, y first, in
+    mmcv's channel order, added to the regular tap positions; zero offsets
+    give the plain k x k conv. The columns and the product are
+    `deform_columns` / `deform_product` with a mask of ones, so the offsets
+    get their gradient through the bilinear weights. The output takes the
+    input's dtype, as the JAX layer's does."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1):
+        super().__init__()
+        k = kernel_size
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.kernel_size, self.stride, self.padding = k, stride, k // 2
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def init_weights(self, generator: torch.Generator):
+        """The JAX layer's he-normal `weight`."""
+        he_normal_(self.weight, generator)
+
+    def forward(self, x: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+        b, k = x.shape[0], self.kernel_size
+        kk = k * k
+        oh, ow = offset.shape[-2:]
+        off = offset.float().reshape(b, kk, 2, oh, ow)
+        dy = off[:, :, 0].permute(0, 2, 3, 1)[..., None]  # (B, oh, ow, kk, 1)
+        dx = off[:, :, 1].permute(0, 2, 3, 1)[..., None]
+        cols = deform_columns(x.float(), dy, dx, torch.ones_like(dy),
+                              self.stride, self.padding, k)
+        out = deform_product(cols, self.weight.float(), 1)
+        out = out.view(b, oh, ow, self.out_channels).permute(0, 3, 1, 2)
+        return out.to(x.dtype).contiguous()
+
+    def extra_repr(self) -> str:
+        return (f'{self.in_channels}, {self.out_channels}, '
+                f'kernel_size={self.kernel_size}, stride={self.stride}')

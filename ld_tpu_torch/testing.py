@@ -380,6 +380,63 @@ def write_coco_instances(root, num_images=8, sizes=((480, 640), ),
     return ann_file, img_dir + os.sep
 
 
+def write_lvis_instances(root, num_images=8, sizes=((480, 640), ),
+                         num_classes=1203, seed=0, max_objects=4,
+                         split='train2017'):
+    """A seeded LVIS-v1-format instance set under `root`: JPEG images (PIL,
+    quality 90; dim noise, each object painted in a colour of its class)
+    under `root/<split>/` and `lvis_v1.json`. As in LVIS v1, an image
+    carries no `file_name`, only a `coco_url` whose last two parts are
+    `<split>/<12-digit id>.jpg`, and its `neg_category_ids` /
+    `not_exhaustive_category_ids`; the `num_classes` categories (ids 1 to
+    num_classes, names 'lvis_<id>') come in shuffled order. Image i has
+    size sizes[i % len(sizes)] (h, w) and 1 to `max_objects` star-shaped
+    polygon objects of any class. Returns (ann_file, img_prefix)."""
+    import json
+
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, split), exist_ok=True)
+    images, anns = [], []
+    for i in range(num_images):
+        h, w = sizes[i % len(sizes)]
+        img_id = 1000 + 7 * i
+        img = (rs.randint(0, 256, (h, w, 3)) // 4).astype(np.uint8)
+        for _ in range(rs.randint(1, max_objects + 1)):
+            cat = int(rs.randint(num_classes)) + 1
+            radius = rs.uniform(0.08, 0.3) * min(h, w)
+            cx = rs.uniform(radius, w - radius)
+            cy = rs.uniform(radius, h - radius)
+            poly = _polygon(rs, cx, cy, radius, rs.randint(6, 11))
+            pts = poly.reshape(-1, 2)
+            x1, y1 = pts.min(0)
+            x2, y2 = pts.max(0)
+            color = np.random.RandomState(cat).randint(100, 256, 3)
+            # a box-shaped paint of the object is enough to detect it
+            img[int(y1):int(y2), int(x1):int(x2)] = color
+            anns.append(dict(id=len(anns) + 1, image_id=img_id,
+                             category_id=cat,
+                             bbox=[float(x1), float(y1), float(x2 - x1),
+                                   float(y2 - y1)],
+                             area=_poly_area(poly),
+                             segmentation=[[float(v) for v in poly]]))
+        name = f'{img_id:012d}.jpg'
+        Image.fromarray(img[..., ::-1]).save(
+            os.path.join(root, split, name), format='JPEG', quality=90)
+        images.append(dict(
+            id=img_id, height=h, width=w,
+            coco_url=f'http://images.cocodataset.org/{split}/{name}',
+            neg_category_ids=sorted(int(c) + 1 for c in rs.choice(
+                num_classes, 3, replace=False)),
+            not_exhaustive_category_ids=[int(rs.randint(num_classes)) + 1]))
+    cats = [dict(id=int(c) + 1, name=f'lvis_{c + 1}', frequency='rcf'[c % 3])
+            for c in rs.permutation(num_classes)]
+    ann_file = os.path.join(root, 'lvis_v1.json')
+    with open(ann_file, 'w') as f:
+        json.dump(dict(images=images, annotations=anns, categories=cats), f)
+    return ann_file, root + os.sep
+
+
 # ---- data parallelism: spawned ranks ----------------------------------------
 
 SPAWN_TIMEOUT_S = 600.0

@@ -277,7 +277,9 @@ _HEAD_CONVS = {'gfl_cls': 'gfl_cls', 'gfl_reg': 'gfl_reg',
                'retina_cls': 'atss_cls', 'retina_reg': 'atss_reg',
                'conv_cls': 'conv_cls', 'conv_reg': 'conv_reg',
                'conv_centerness': 'conv_centerness',
-               'reg_conf_1': 'reg_conf.0', 'reg_conf_2': 'reg_conf.2'}
+               'reg_conf_1': 'reg_conf.0', 'reg_conf_2': 'reg_conf.2',
+               'vfnet_reg': 'vfnet_reg', 'vfnet_reg_refine': 'vfnet_reg_refine',
+               'vfnet_cls': 'vfnet_cls'}
 _FCOS_CONVS = dict(_HEAD_CONVS, atss_cls='conv_cls', atss_reg='conv_reg',
                    atss_centerness='conv_centerness')
 # the plain RetinaHead keeps mmdet's retina_* names
@@ -288,20 +290,24 @@ _RETINA_CONVS = dict(_HEAD_CONVS, retina_cls='retina_cls',
 def _head_key(path: tuple, convs: Dict[str, str] = _HEAD_CONVS) -> str:
     leaf_name = {'kernel': 'weight', 'bias': 'bias'}
     m = re.fullmatch(r'(cls|reg)_conv(\d+)', path[0])
+    block = None
     if m is not None:
         kind, i = m.groups()
         if len(path) == 2:        # the Retina towers' bare biased convs
             return f'{kind}_convs.{i}.conv.{leaf_name[path[1]]}'
+        block = f'{kind}_convs.{i}'
+    elif path[0] == 'vfnet_reg_conv':   # VFNet's conv + GN block
+        block = path[0]
+    if block is not None:
         sub, leaf = path[1], path[-1]
         if sub == 'Conv_0' and leaf == 'kernel':
-            return f'{kind}_convs.{i}.conv.weight'
+            return f'{block}.conv.weight'
         if sub == 'ModulatedDeformConv_0':   # dcn_on_last_conv
-            return f'{kind}_convs.{i}.conv.' + (
+            return f'{block}.conv.' + (
                 f'conv_offset.{leaf_name[leaf]}' if 'conv_offset' in path
                 else 'weight')
         if sub == 'GroupNorm_0':
-            return f'{kind}_convs.{i}.gn.' + {'scale': 'weight',
-                                              'bias': 'bias'}[leaf]
+            return f'{block}.gn.' + {'scale': 'weight', 'bias': 'bias'}[leaf]
         raise KeyError(path)
     if path[0] in convs and len(path) == 2:
         return f'{convs[path[0]]}.{leaf_name[path[1]]}'
@@ -449,11 +455,13 @@ def state_dict_from_jax(variables: Dict,
     `roi_head.bbox_head.S.*` and `roi_head.mask_head.S.*`, HTC's
     `roi_head/semantic` to `roi_head.semantic_head.*`; with
     `bbox_head.retina_cls.*` in `keys` the plain Retina head keeps its
-    `retina_*` names.
+    `retina_*` names. A VFNet head's `vfnet_*` convs, its star `*_dconv`
+    kernels (3 x 3 taps) and its `scales_refine` vector map to mmdet's
+    names (the JAX converter has no VFNet rule: ROADMAP.md caveat 45).
 
     Raises KeyError on a leaf outside the ResNet / Res2Net / FPN, the
-    dense-head (GFL family, Retina, FCOS, ATSS), RPN, RoI-head and mask-head
-    families.
+    dense-head (GFL family, Retina, FCOS, ATSS, VFNet), RPN, RoI-head and
+    mask-head families.
     """
     sd: Dict[str, np.ndarray] = {}
     params = variables['params']
@@ -495,9 +503,17 @@ def state_dict_from_jax(variables: Dict,
                 if rest[-2:] == ('bn', 'scale'):
                     sd[key[:-len('weight')] + 'num_batches_tracked'] = \
                         np.zeros((), np.int64)
-            elif scope == 'head_net' and rest == ('scales', ):
+            elif scope == 'head_net' and rest in (('scales', ),
+                                                  ('scales_refine', )):
                 for lvl, s in enumerate(value):
-                    sd[f'bbox_head.scales.{lvl}.scale'] = np.float32(s)
+                    sd[f'bbox_head.{rest[0]}.{lvl}.scale'] = np.float32(s)
+                continue
+            elif scope == 'head_net' and rest[0].endswith('_dconv') and \
+                    rest[1:] == ('kernel', ):
+                # VFNet's star DeformConv: a (3*3*C, O) kernel, rows
+                # tap-major (HWIO)
+                sd[f'bbox_head.{rest[0]}.weight'] = _conv_weight(
+                    value.reshape(3, 3, -1, value.shape[-1]))
                 continue
             elif scope == 'head_net' and re.fullmatch(
                     r'(cls|reg)_norm_l\d+_d\d+', rest[0]):

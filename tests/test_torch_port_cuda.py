@@ -15,8 +15,9 @@ plain torch on the card, the DCN layer and the voting NMS, are held against
 the CPU, and so are a Res2Net-50-DCN trunk, the GI masks of an IMv2
 step with the Res2Net-101-DCN teacher, a Faster R-CNN's forward and a
 Mask R-CNN's losses and masks, the ResNet variants' blocks
-(weight-standardized conv, GCNet's ContextBlock, GeneralizedAttention) and
-a GN + WS Mask R-CNN's `forward_test`.
+(weight-standardized conv, GCNet's ContextBlock, GeneralizedAttention), a
+GN + WS Mask R-CNN's `forward_test`, VFNet's star DeformConv, head and
+varifocal loss, and the RoI head's NMS at LVIS's 1203 classes.
 """
 import pytest
 import torch
@@ -736,3 +737,140 @@ def test_gn_ws_mask_rcnn_forward_test_on_the_card_equals_the_cpu(no_tf32):
     assert (g_labels[gi] == w_labels[wi]).all()
     assert abs(g_dets[gi] - w_dets[wi]).max() <= 5e-3
     assert abs(got[3][0][ok][gi] - want[3][0][ok][wi]).max() <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hw', [(100, 168), (13, 21)])
+def test_star_deform_conv_on_the_card_equals_the_cpu(no_tf32, hw):
+    """VFNet's star DeformConv (plain torch, offsets from the caller) at a
+    P3 and a P6 map of 800x1344, 256 channels, offsets of +-4 cells: the
+    card against the CPU within 1e-4 of the largest output, and the input's,
+    offsets' and weight's gradients the same way."""
+    _need_card()
+    from ld_tpu_torch.ops.deform_conv import DeformConv
+    gen = torch.Generator().manual_seed(0)
+    layer = DeformConv(256, 256)
+    layer.init_weights(gen)
+    x = torch.randn(1, 256, *hw, generator=gen)
+    offset = (torch.rand(1, 18, *hw, generator=gen) - 0.5) * 8
+    outs, grads = [], []
+    for device in ('cpu', 'cuda'):
+        m = DeformConv(256, 256).to(device)
+        m.load_state_dict(layer.state_dict())
+        xi = x.detach().to(device).requires_grad_(True)
+        oi = offset.detach().to(device).requires_grad_(True)
+        out = m(xi, oi)
+        out.square().mean().backward()
+        outs.append(out.detach().cpu())
+        grads.append([t.grad.cpu() for t in (xi, oi, m.weight)])
+    assert float((outs[1] - outs[0]).abs().max()) <= \
+        1e-4 * float(outs[0].abs().max())
+    for g, c in zip(grads[1], grads[0]):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+
+
+def _vfnet_head(seed=0):
+    from ld_tpu_torch.models.heads import VFNetHead
+    head = VFNetHead(num_classes=4, in_channels=64, stacked_convs=2,
+                     feat_channels=64, dcn_on_last_conv=True)
+    head.init_weights(torch.Generator().manual_seed(seed))
+    from ld_tpu_torch.testing import randomize_dcn_offsets
+    randomize_dcn_offsets(head, seed)
+    with torch.no_grad():
+        head.vfnet_cls.bias.zero_()
+    return head
+
+
+@pytest.mark.cuda
+def test_vfnet_head_on_the_card_equals_the_cpu(no_tf32):
+    """The VFNet head (width 64, the DCN tower option, 4 classes) on random
+    FPN features of a 2x3x128x192 batch: its three outputs within 5e-3,
+    its losses within rtol 1e-3 a term, and the decode of the CPU's outputs
+    on the card (one nms_keep launch) with the same labels and kept set,
+    boxes and scores within 1e-4."""
+    _need_card()
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    head = _vfnet_head()
+    gen = torch.Generator().manual_seed(1)
+    feats = [torch.randn(2, 64, h, w, generator=gen)
+             for h, w in ((16, 24), (8, 12), (4, 6), (2, 3), (1, 2))]
+    batch = detection_batch(2, 128, 192, num_classes=4, seed=0,
+                            device='cpu')
+    sizes = [tuple(f.shape[-2:]) for f in feats]
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        m = copy.deepcopy(head).to(device).train()
+        outs = m([f.to(device) for f in feats])
+        losses = m.loss(outs, {k: v.to(device) for k, v in batch.items()},
+                        sizes)
+        runs[device] = ([[x.detach().cpu() for x in part] for part in outs],
+                        {k: float(v.detach()) for k, v in losses.items()})
+    (c_outs, c_loss), (g_outs, g_loss) = runs['cpu'], runs['cuda']
+    for cp, gp in zip(c_outs, g_outs):
+        for c, g in zip(cp, gp):
+            assert float((g - c).abs().max()) <= 5e-3
+    for k, c in c_loss.items():
+        assert abs(g_loss[k] - c) <= 1e-3 * abs(c), k
+    with torch.no_grad():
+        want = head.eval().get_bboxes(c_outs, batch['img_hw'])
+        launches = nms_keep.launches
+        got = head.cuda().get_bboxes([[x.cuda() for x in part]
+                                      for part in c_outs],
+                                     batch['img_hw'].cuda())
+        torch.cuda.synchronize()
+    assert nms_keep.launches == launches + 1
+    got = [t.cpu() for t in got]
+    assert want[2].sum() > 0 and torch.equal(got[2], want[2])
+    assert torch.equal(got[1], want[1])
+    assert float((got[0] - want[0]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_varifocal_loss_on_the_card_equals_the_cpu():
+    _need_card()
+    from ld_tpu_torch.models.losses import VarifocalLoss
+    gen = torch.Generator().manual_seed(0)
+    pred = torch.randn(2, 5000, 80, generator=gen) * 3
+    target = torch.zeros_like(pred)
+    pos = torch.rand(2, 5000, generator=gen) < 0.02
+    target[pos, torch.randint(0, 80, (int(pos.sum()), ), generator=gen)] = \
+        torch.rand(int(pos.sum()), generator=gen)
+    loss = VarifocalLoss()
+    vals, grads = [], []
+    for device in ('cpu', 'cuda'):
+        p = pred.detach().to(device).requires_grad_(True)
+        v = loss(p, target.to(device), avg_factor=float(pos.sum()))
+        v.backward()
+        vals.append(float(v.detach()))
+        grads.append(p.grad.cpu())
+    assert abs(vals[1] - vals[0]) <= 1e-5 * abs(vals[0])
+    assert float((grads[1] - grads[0]).abs().max()) <= \
+        1e-5 * float(grads[0].abs().max())
+
+
+@pytest.mark.cuda
+def test_lvis_scale_roi_nms_on_the_card():
+    """The RoI head's class-aware NMS at LVIS's width: 1000 rois x 1203
+    classes of class-specific boxes, score_thr 0.0001, every pair above it
+    at random weights, so the candidates stop at the max_candidates cap
+    (K = 1024): one launch, the detections identical with the plain keep
+    mask."""
+    _need_card()
+    from ld_tpu_torch.ops.nms import multiclass_nms
+    gen = torch.Generator().manual_seed(0)
+    n, c = 1000, 1203
+    scores = torch.softmax(torch.randn(1, n, c + 1, generator=gen) * 0.3,
+                           -1)[..., :c].cuda()
+    xy = torch.rand(1, n, c, 2, generator=gen) * 1000
+    boxes = torch.cat([xy, xy + torch.rand(1, n, c, 2, generator=gen) * 300
+                       + 1], -1).cuda()
+    assert bool((scores > 1e-4).all())
+    launches = nms_keep.launches
+    got = multiclass_nms(boxes, scores, 1e-4, 0.5, max_per_img=300)
+    torch.cuda.synchronize()
+    assert nms_keep.launches == launches + 1
+    want = multiclass_nms(boxes, scores, 1e-4, 0.5, max_per_img=300,
+                          keep_fn=nms_keep_ref)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got[2].sum()) == 300
