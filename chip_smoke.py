@@ -5,11 +5,12 @@ and evaluation, the synthetic train-to-AP harness, the AP landscape, the
 HTTP server, the export, the classic one-stage heads, the two-stage
 stack, Mask R-CNN, the cascades (Cascade R-CNN, Cascade Mask R-CNN, HTC),
 the HRNet and RegNet detectors, the ResNet's plugin, 'DCN' and GN + WS
-variants, the LVIS / crop / augmentation / robustness data paths and
-VarifocalNet on one CUDA card and check them.
+variants, the LVIS / crop / augmentation / robustness data paths,
+VarifocalNet, Guided Anchoring and RepPoints on one CUDA card and check
+them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
-    python3 chip_smoke.py --phases data_host vfnet   # those phases alone
+    python3 chip_smoke.py --phases guided_anchoring reppoints   # alone
 
 Phases, one JSON object per line each:
   1. device  — the card, torch/CUDA versions, TF32 switched off and printed,
@@ -293,6 +294,32 @@ Phases, one JSON object per line each:
                card against the CPU; the widest config, vfnet_x101_64x4d_
                fpn_mdconv_c3-c5_mstrain_2x_coco.py, 1 + 3 calls at batch 1.
                Launches must equal VFNET_LAUNCHES. Budget 60 s.
+ 24. guided_anchoring — configs/guided_anchoring/ at full width, float32,
+               seed 0 (each adaption's offset conv seeded off the grid,
+               the class and location biases 0): GA-RetinaNet R50
+               `forward_test` at 800x1344, 1 + 3 calls at batch 1 (1
+               launch a call, the detections identical with the plain keep
+               mask; one profiled call with the adaption DeformConv's share
+               of device time, 10 calls a forward) and 1 + 2 at batch 2,
+               1 + 2 steps at batch 2 (no launch), its outputs, first-step
+               losses and decode at 1x3x128x192 on the card against the
+               CPU; GA-Faster R-CNN R50 1 + 3 calls at batch 1 (2 launches
+               a call: its GA-RPN's proposals at K = 1000, the RoI head's
+               at 1024), 1 + 2 steps at batch 2 (1 launch a step; the
+               ApproxMaxIoU matrix at strides 4-64 in its peak memory),
+               against the CPU (`roi_reference`, the proposals' decode);
+               GA-RPN R50 1 + 2 calls at batch 1 (1 launch a call, with
+               the adaption DeformConv's share). Launches must equal
+               GA_LAUNCHES. Budget 45 s.
+ 25. reppoints — configs/reppoints/ at full width, float32, seed 0 (the
+               init points seeded off the grid, the class bias 0): the
+               moment R50 config 1 + 3 calls at batch 1 (with the point
+               DeformConvs' share) and 1 + 2 at batch 2, 1 + 2 steps; the
+               grid config (minmax, grid points) 1 + 2 calls and 1 + 1
+               steps; each against the CPU at 1x3x128x192 (outputs,
+               losses, decode); the X101-32x4d DCN c3-c5 config 1 + 2
+               calls. 1 launch a call, none a step; launches must equal
+               RP_LAUNCHES. Budget 45 s.
 Every phase row carries `t`, the script's seconds so far; `--phases NAME
 ...` runs the named phases alone.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
@@ -483,6 +510,32 @@ VFNET_WIDE_CALLS = (1, 3)
 # 1 launch a forward_test call, none a step
 VFNET_LAUNCHES = (sum(VFNET_CALLS) + sum(VFNET_CALLS_B2) +
                   sum(VFNET_WIDE_CALLS))
+# the guided_anchoring phase: (warm-up, timed) forward_test calls of
+# GA-RetinaNet R50 at batch 1 and 2 and its steps at batch 2, GA-Faster
+# R-CNN R50's calls at batch 1 and steps at batch 2, GA-RPN R50's calls
+GA_RETINA = 'configs/guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py'
+GA_FASTER = 'configs/guided_anchoring/ga_faster_r50_fpn_1x_coco.py'
+GA_RPN = 'configs/guided_anchoring/ga_rpn_r50_fpn_1x_coco.py'
+GA_CALLS, GA_CALLS_B2, GA_STEPS = (1, 3), (1, 2), (1, 2)
+GA_FASTER_CALLS, GA_FASTER_STEPS, GA_RPN_CALLS = (1, 3), (1, 2), (1, 2)
+# 1 launch a single-stage call (none a step), 2 a GA-Faster call (its
+# GA-RPN's proposals and the RoI head's NMS), 1 a GA-Faster step (the
+# proposals), 1 a GA-RPN call
+GA_LAUNCHES = (sum(GA_CALLS) + sum(GA_CALLS_B2) + 2 * sum(GA_FASTER_CALLS) +
+               sum(GA_FASTER_STEPS) + sum(GA_RPN_CALLS))
+# the reppoints phase: the moment R50 config's calls at batch 1 and 2 and
+# steps at batch 2, the grid config's calls and steps, the widest config's
+# calls
+RP_MOMENT = ('configs/reppoints/'
+             'reppoints_moment_r50_fpn_gn-neck+head_1x_coco.py')
+RP_GRID = 'configs/reppoints/bbox_r50_grid_center_fpn_gn-neck+head_1x_coco.py'
+RP_WIDE = ('configs/reppoints/'
+           'reppoints_moment_x101_fpn_dconv_c3-c5_gn-neck+head_2x_coco.py')
+RP_CALLS, RP_CALLS_B2, RP_STEPS = (1, 3), (1, 2), (1, 2)
+RP_GRID_CALLS, RP_GRID_STEPS, RP_WIDE_CALLS = (1, 2), (1, 1), (1, 2)
+# 1 launch a call, none a step
+RP_LAUNCHES = (sum(RP_CALLS) + sum(RP_CALLS_B2) + sum(RP_GRID_CALLS) +
+               sum(RP_WIDE_CALLS))
 
 
 T_START = time.perf_counter()
@@ -1695,13 +1748,15 @@ def top_score(torch, head, outs):
 
 
 def family_serve(torch, smi, config, depth=None, warmup=2, timed=10,
-                 hw=(800, 1344), phase='gfl_family_serve', extra=None):
+                 hw=(800, 1344), phase='gfl_family_serve', extra=None,
+                 prepare=None):
     """`forward_test` of a GFL-family config at 800x1344, batch 1, at full
     width (random weights from seed 0, DCN offsets too, the cls prediction
     bias 0 so that NMS sees candidates); 1 nms_keep launch a call, the
     detections bit-identical with the plain keep mask, and the first
     detection's score the largest class probability (no second sigmoid on
-    probabilities). `extra(model, bench)` adds figures to the row. Returns
+    probabilities). `prepare(model)` seeds more of the model before it goes
+    to the card; `extra(model, bench)` adds figures to the row. Returns
     the launch count and the emitted row."""
     from ld_tpu_torch import Config
     from ld_tpu_torch.models import build_detector
@@ -1717,6 +1772,8 @@ def family_serve(torch, smi, config, depth=None, warmup=2, timed=10,
     head = model.bbox_head
     with torch.no_grad():
         getattr(head, head.cls_pred_name).bias.zero_()
+    if prepare is not None:
+        prepare(model)
     model = model.to('cuda').eval()
     bench = dict(image=torch.randn(1, 3, *hw, device='cuda',
                                    generator=torch.Generator('cuda')
@@ -4426,12 +4483,13 @@ def phase_data_host(torch, np, smi):
     return launches
 
 
-def star_dcn_share(torch, model, bench):
+def deform_conv_share(torch, model, bench, name='star_dcn'):
     """One profiled `forward_test` call: its device time, busy share and
-    device ops, and the share of the device time that the head's star
-    DeformConv calls launch (a `record_function` range around each), with
-    the HBM bound of their gathers (four corner reads and the columns'
-    write, float32)."""
+    device ops, and the share of the device time that the head's
+    caller-offset DeformConv calls launch (VFNet's star DCN; GA's
+    adaptions, RepPoints' point DCNs under their own `name`: a
+    `record_function` range around each), with the HBM bound of their
+    gathers (four corner reads and the columns' write, float32)."""
     from torch.profiler import ProfilerActivity, profile
     from ld_tpu_torch.ops.deform_conv import DeformConv
     cols = []
@@ -4442,7 +4500,7 @@ def star_dcn_share(torch, model, bench):
     hooks = [m.register_forward_hook(count) for m in model.modules()
              if isinstance(m, DeformConv)]
     try:
-        with module_ranges(model, DeformConv, 'star_dcn') as n_modules:
+        with module_ranges(model, DeformConv, name) as n_modules:
             model.forward_test(bench)
             torch.cuda.synchronize()
             cols.clear()
@@ -4458,32 +4516,31 @@ def star_dcn_share(torch, model, bench):
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == cuda and
-               e.key != 'star_dcn']
+               e.key != name]
     total_us = sum(e.self_device_time_total for e in kernels)
-    star = [e for e in events if e.key == 'star_dcn' and
-            e.device_type != cuda]
+    star = [e for e in events if e.key == name and e.device_type != cuda]
     star_us = sum(e.device_time_total for e in star)
-    out = dict(star_dcn_modules=n_modules,
-               star_dcn_calls_per_forward=sum(e.count for e in star),
-               star_dcn_gather_bound_ms=sum(5 * 4 * n for n in cols) /
-               PEAK_HBM_BYTES * 1e3)
+    out = {f'{name}_modules': n_modules,
+           f'{name}_calls_per_forward': sum(e.count for e in star),
+           f'{name}_gather_bound_ms': sum(5 * 4 * n for n in cols) /
+           PEAK_HBM_BYTES * 1e3}
     if total_us <= 0:
         out['device_time'] = 'not measured'
         return out
-    out.update(device_ms_per_call=total_us / 1e3,
-               wall_ms_per_call_profiled=wall_us / 1e3,
-               device_busy_share=total_us / wall_us,
-               device_ops_per_call=sum(e.count for e in kernels),
-               star_dcn_device_ms_per_call=star_us / 1e3
-               if star_us > 0 else 'not measured',
-               star_dcn_device_share=star_us / total_us
-               if star_us > 0 else 'not measured')
+    out.update({'device_ms_per_call': total_us / 1e3,
+                'wall_ms_per_call_profiled': wall_us / 1e3,
+                'device_busy_share': total_us / wall_us,
+                'device_ops_per_call': sum(e.count for e in kernels),
+                f'{name}_device_ms_per_call': star_us / 1e3
+                if star_us > 0 else 'not measured',
+                f'{name}_device_share': star_us / total_us
+                if star_us > 0 else 'not measured'})
     return out
 
 
-def vfnet_serve_b2(torch, smi, base, warmup, timed):
-    """`forward_test` of the VFNet model at batch 2, 800x1344: 1 launch a
-    call; returns the launch count."""
+def serve_b2(torch, smi, base, config, phase, warmup, timed):
+    """`forward_test` of a single-stage model at batch 2, 800x1344: 1
+    launch a call; returns the launch count."""
     from ld_tpu_torch.ops.nms_cuda import nms_keep
     bench = dict(image=torch.randn(2, 3, 800, 1344, device='cuda',
                                    generator=torch.Generator('cuda')
@@ -4505,12 +4562,12 @@ def vfnet_serve_b2(torch, smi, base, warmup, timed):
             call_ms.append((time.perf_counter() - t) * 1e3)
         launches = nms_keep.launches
         # ------------------------------------------------------------------
-    check(launches == warmup + timed, f'VFNet batch 2: {launches} launches '
-          f'for {warmup + timed} calls')
+    check(launches == warmup + timed, f'{config} batch 2: {launches} '
+          f'launches for {warmup + timed} calls')
     check(tuple(dets.shape) == (2, 100, 5) and
           bool(torch.isfinite(dets).all()) and bool(valid.any(1).all()),
-          'VFNet forward_test at batch 2')
-    emit(dict(phase='vfnet_serve_b2', config=VFNET_CONFIG, nvidia_smi=smi,
+          f'{config} forward_test at batch 2')
+    emit(dict(phase=phase, config=config, nvidia_smi=smi,
               input=[2, 3, 800, 1344], warmup_calls=warmup,
               timed_calls=timed, forward_test_ms=call_ms,
               forward_test_ms_mean=sum(call_ms) / len(call_ms),
@@ -4565,26 +4622,18 @@ def phase_vfnet(torch, np, smi):
     at batch 1 (with the star DCN's device share) and 2, trained at batch
     2, and held against the CPU; the widest config served at batch 1.
     Returns the kernel's launch count over the main paths. Budget 60 s."""
-    from ld_tpu_torch.ops.deform_conv import DeformConv
     t_phase = time.perf_counter()
     launches = 0
-
-    def extra(model, bench):
-        check(sum(isinstance(m, DeformConv) for m in model.modules()) == 2,
-              'VFNet: two star DeformConv modules')
-        row = star_dcn_share(torch, model, bench)
-        check(row['star_dcn_calls_per_forward'] == 10,
-              f"VFNet: {row['star_dcn_calls_per_forward']} star DCN calls "
-              'a forward, expected 10')
-        return row
     n, _ = family_serve(torch, smi, VFNET_CONFIG, None, *VFNET_CALLS,
-                        phase='vfnet_serve', extra=extra)
+                        phase='vfnet_serve',
+                        extra=dense_dcn_extra(torch, 'star_dcn', 10))
     launches += n
     cfg, base = build_plain(torch, VFNET_CONFIG)
     with torch.no_grad():
         base.bbox_head.vfnet_cls.bias.zero_()
     model = base.to('cuda').eval()
-    launches += vfnet_serve_b2(torch, smi, model, *VFNET_CALLS_B2)
+    launches += serve_b2(torch, smi, model, VFNET_CONFIG, 'vfnet_serve_b2',
+                         *VFNET_CALLS_B2)
     base = model.cpu()
     del model
     torch.cuda.empty_cache()
@@ -4604,11 +4653,267 @@ def phase_vfnet(torch, np, smi):
     return launches
 
 
+def seed_dense_offsets(torch, model):
+    """The convs that place a GA or RepPoints head's DeformConv taps seeded
+    off the grid (`randomize_head_offsets`), and GA's location logit at 0,
+    so that every location passes the 0.01 filter; returns the number of
+    seeded convs."""
+    from ld_tpu_torch.testing import randomize_head_offsets
+    head = getattr(model, 'bbox_head', None) or model.rpn_head
+    n = randomize_head_offsets(head, seed=0)
+    check(n > 0, f'{type(head).__name__}: no offset conv seeded')
+    if hasattr(head, 'conv_loc'):
+        with torch.no_grad():
+            head.conv_loc.bias.zero_()
+    return n
+
+
+def seeded_plain(torch, config):
+    """`build_plain` with the offsets seeded, the class and location
+    biases at 0; returns (cfg, model)."""
+    cfg, base = build_plain(torch, config)
+    seed_dense_offsets(torch, base)
+    head = getattr(base, 'bbox_head', None)
+    if head is not None:
+        with torch.no_grad():
+            getattr(head, head.cls_pred_name).bias.zero_()
+    return cfg, base
+
+
+def dense_dcn_extra(torch, name, per_forward):
+    """family_serve's `extra`: the head's DeformConv share of one profiled
+    call under `name`, `per_forward` DCN calls a forward."""
+    from ld_tpu_torch.ops.deform_conv import DeformConv
+
+    def extra(model, bench):
+        check(sum(isinstance(m, DeformConv) for m in model.modules()) == 2,
+              f'{name}: two DeformConv modules')
+        row = deform_conv_share(torch, model, bench, name=name)
+        calls = row[f'{name}_calls_per_forward']
+        check(calls == per_forward, f'{name}: {calls} DeformConv calls a '
+              f'forward, expected {per_forward}')
+        return row
+    return extra
+
+
+def decode_reference(torch, base, phase, config):
+    """The decode of the CPU's outputs at 1x3x128x192 on the card against
+    the CPU: a dense head's detections (labels, valid and kept set equal,
+    boxes and scores within 1e-4), or a GA-RPN's proposals (valid equal,
+    boxes within 1e-4); one nms_keep launch on the card."""
+    import copy
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    from ld_tpu_torch.testing import detection_batch
+    batch = detection_batch(1, 128, 192, seed=0, device='cpu')
+    cpu = copy.deepcopy(base).eval()
+    card = copy.deepcopy(base).to('cuda').eval()
+    two_stage = hasattr(cpu, 'rpn_head')
+    with torch.inference_mode():
+        outs = cpu(batch['image'])
+        if two_stage:
+            outs = outs[1]
+            want = cpu.rpn_head.get_proposals(outs, batch['img_hw'])
+            decode = card.rpn_head.get_proposals
+        else:
+            want = cpu.bbox_head.get_bboxes(outs, batch['img_hw'])
+            decode = card.bbox_head.get_bboxes
+        before = nms_keep.launches
+        got = decode([[x.cuda() for x in part] for part in outs],
+                     batch['img_hw'].cuda())
+        torch.cuda.synchronize()
+        launched = nms_keep.launches - before
+        got = [x.cpu() for x in got]
+    valid = want[-1]
+    diff = float((got[0] - want[0])[valid].abs().max())
+    check(launched == 1, f'{config} decode: {launched} launches')
+    check(int(valid.sum()) > 0 and torch.equal(got[-1], valid) and
+          (two_stage or torch.equal(got[1], want[1])) and diff <= 1e-4,
+          f'{config} decode of the same outputs: card vs CPU, {diff}')
+    emit(dict(phase=phase, config=config, input='1x3x128x192',
+              decoded=int(valid.sum()), decode_max_abs_diff=diff,
+              decode_tol=1e-4, nms_keep_launches_reference=launched))
+    del card
+    torch.cuda.empty_cache()
+
+
+def ga_rpn_serve(torch, smi, warmup, timed):
+    """GA-RPN R50's `forward_test` (its proposals) at batch 1, 800x1344: 1
+    launch a call at K = nms_pre, the proposals identical with the plain
+    keep mask, the adaption DCN's share of one profiled call; returns the
+    launch count."""
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    _, base = seeded_plain(torch, GA_RPN)
+    model = base.to('cuda').eval()
+    bench = dict(image=torch.randn(1, 3, 800, 1344, device='cuda',
+                                   generator=torch.Generator('cuda')
+                                   .manual_seed(0)),
+                 img_hw=torch.tensor([[800.0, 1344.0]], device='cuda'))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        # ---- the main path: counts from 0, read right after --------------
+        nms_keep.launches = 0
+        for _ in range(warmup):
+            model.forward_test(bench)
+        torch.cuda.synchronize()
+        call_ms = []
+        for _ in range(timed):
+            t = time.perf_counter()
+            dets, _, valid = model.forward_test(bench)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t) * 1e3)
+        launches = nms_keep.launches
+        # ------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        check(launches == warmup + timed, f'{GA_RPN}: {launches} launches '
+              f'for {warmup + timed} calls')
+        check(bool(torch.isfinite(dets).all()) and int(valid.sum()) > 0,
+              f'{GA_RPN}: forward_test proposals')
+        _, rpn_outs = model(bench['image'])
+        captured = []
+
+        def capture(boxes, valid, thr):
+            captured.append(tuple(boxes.shape))
+            return nms_keep(boxes, valid, thr)
+        got = model.rpn_head.get_proposals(rpn_outs, bench['img_hw'],
+                                           keep_fn=capture)
+        want = model.rpn_head.get_proposals(rpn_outs, bench['img_hw'],
+                                            keep_fn=nms_keep_ref)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f'{GA_RPN}: proposals with the kernel differ from the plain '
+              'keep mask')
+        # the two adaptions at strides 4-64: P2's columns 619 MB a call
+        share = dense_dcn_extra(torch, 'adaption_dcn', 10)(model, bench)
+    emit(dict(phase='ga_rpn_serve', config=GA_RPN, nvidia_smi=smi,
+              input=[1, 3, 800, 1344], warmup_calls=warmup,
+              timed_calls=timed, forward_test_ms=call_ms,
+              forward_test_ms_mean=sum(call_ms) / len(call_ms),
+              max_memory_allocated_bytes=peak, nms_keep_launches=launches,
+              nms_k=captured[0][1], proposals=int(valid.sum()),
+              plain_keep_identical=True, **share))
+    del model, base, rpn_outs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_guided_anchoring(torch, np, smi):
+    """Guided Anchoring at full width, float32, seed 0 (the adaptions'
+    offset convs seeded off the grid, the class and location biases 0):
+    GA-RetinaNet R50 served at batch 1 (with the adaption DCN's device
+    share) and 2, trained at batch 2, held against the CPU; GA-Faster
+    R-CNN R50 served at batch 1 (the K of each NMS) and trained at batch 2
+    (peak memory: its ApproxMaxIoU at strides 4-64), held against the CPU,
+    its fc_cls peaked (`peak_scores`) for serving; GA-RPN R50 served. Returns the kernel's launch count over the main
+    paths. Budget 45 s."""
+    import copy
+    from ld_tpu_torch.models.heads import GARPNHead
+    t_phase = time.perf_counter()
+    launches = 0
+    n, _ = family_serve(torch, smi, GA_RETINA, None, *GA_CALLS,
+                        phase='ga_retina_serve',
+                        prepare=lambda m: seed_dense_offsets(torch, m),
+                        extra=dense_dcn_extra(torch, 'adaption_dcn', 10))
+    launches += n
+    cfg, base = seeded_plain(torch, GA_RETINA)
+    model = base.to('cuda').eval()
+    launches += serve_b2(torch, smi, model, GA_RETINA, 'ga_retina_serve_b2',
+                         *GA_CALLS_B2)
+    base = model.cpu()
+    del model
+    torch.cuda.empty_cache()
+    n, _ = detector_steps(torch, smi, cfg, base, *GA_STEPS, per_step=0,
+                          phase='ga_retina_train')
+    launches += n
+    worst, worst_med = outputs_reference(torch, np, base)
+    emit(dict(phase='ga_retina_reference', config=GA_RETINA,
+              input='1x3x128x192', max_abs_diff=worst, tol_abs=5e-3,
+              max_median_rel_diff=worst_med, tol_median_rel=2e-4))
+    phase_train_reference(torch, cfg, base, gi=False,
+                          phase='ga_retina_train_reference')
+    decode_reference(torch, base, 'ga_retina_decode_reference', GA_RETINA)
+    del base
+
+    cfg, base = seeded_plain(torch, GA_FASTER)
+    check(isinstance(base.rpn_head, GARPNHead), 'GA-Faster: a GA-RPN')
+    model = peak_scores(torch, copy.deepcopy(base)).to('cuda').eval()
+    n, row, _ = roi_serve(torch, smi, model, GA_FASTER, 'ga_faster_serve',
+                          batches=(1, ), warmup=GA_FASTER_CALLS[0],
+                          timed=GA_FASTER_CALLS[1], prof_iters=1)
+    launches += n
+    del model
+    torch.cuda.empty_cache()
+    n, _ = detector_steps(torch, smi, cfg, base, *GA_FASTER_STEPS,
+                          per_step=1, phase='ga_faster_train')
+    launches += n
+    roi_reference(torch, np, base, GA_FASTER, 'ga_faster_reference')
+    decode_reference(torch, base, 'ga_faster_proposals_reference',
+                     GA_FASTER)
+    del base
+    launches += ga_rpn_serve(torch, smi, *GA_RPN_CALLS)
+    torch.cuda.empty_cache()
+    check(launches == GA_LAUNCHES, f'guided_anchoring phase: {launches} '
+          f'nms_keep launches, expected {GA_LAUNCHES}')
+    emit(dict(phase='guided_anchoring_done',
+              seconds=time.perf_counter() - t_phase, budget_s=45,
+              nms_keep_launches=launches, ga_faster_nms_k=row['nms_k']))
+    return launches
+
+
+def phase_reppoints(torch, np, smi):
+    """RepPoints at full width, float32, seed 0 (the init points seeded off
+    the grid, the class bias 0): the moment R50 config served at batch 1
+    (with the point DCNs' device share) and 2, trained at batch 2 and held
+    against the CPU; the grid config served, trained one step and held
+    against the CPU; the widest config (X101 with DCNv2 in c3-c5) served.
+    Returns the kernel's launch count over the main paths. Budget 45 s."""
+    t_phase = time.perf_counter()
+    launches = 0
+
+    def prepare(m):
+        return seed_dense_offsets(torch, m)
+    for config, calls, steps in ((RP_MOMENT, RP_CALLS, RP_STEPS),
+                                 (RP_GRID, RP_GRID_CALLS, RP_GRID_STEPS)):
+        tag = 'rp_moment' if config == RP_MOMENT else 'rp_grid'
+        n, _ = family_serve(torch, smi, config, None, *calls,
+                            phase=f'{tag}_serve', prepare=prepare,
+                            extra=dense_dcn_extra(torch, 'points_dcn', 10)
+                            if config == RP_MOMENT else None)
+        launches += n
+        cfg, base = seeded_plain(torch, config)
+        if config == RP_MOMENT:
+            model = base.to('cuda').eval()
+            launches += serve_b2(torch, smi, model, config,
+                                 f'{tag}_serve_b2', *RP_CALLS_B2)
+            base = model.cpu()
+            del model
+            torch.cuda.empty_cache()
+        n, _ = detector_steps(torch, smi, cfg, base, *steps, per_step=0,
+                              phase=f'{tag}_train')
+        launches += n
+        worst, worst_med = outputs_reference(torch, np, base)
+        emit(dict(phase=f'{tag}_reference', config=config,
+                  input='1x3x128x192', max_abs_diff=worst, tol_abs=5e-3,
+                  max_median_rel_diff=worst_med, tol_median_rel=2e-4))
+        phase_train_reference(torch, cfg, base, gi=False,
+                              phase=f'{tag}_train_reference')
+        decode_reference(torch, base, f'{tag}_decode_reference', config)
+        del base
+    n, _ = family_serve(torch, smi, RP_WIDE, None, *RP_WIDE_CALLS,
+                        phase='rp_wide_serve', prepare=prepare)
+    launches += n
+    torch.cuda.empty_cache()
+    check(launches == RP_LAUNCHES, f'reppoints phase: {launches} nms_keep '
+          f'launches, expected {RP_LAUNCHES}')
+    emit(dict(phase='reppoints_done', seconds=time.perf_counter() - t_phase,
+              budget_s=45, nms_keep_launches=launches))
+    return launches
+
+
 def run_phases(names):
     """`--phases NAME ...`: only the named phases (dcn, res2net, ddp,
-    hrnet_regnet, resnet_variants, data_host, vfnet), each with its seconds
-    and launches, on
-    the card with TF32 off and the kernel built; no result line."""
+    hrnet_regnet, resnet_variants, data_host, vfnet, guided_anchoring,
+    reppoints), each with its seconds and launches, on the card with TF32
+    off and the kernel built; no result line."""
     import numpy as np
     import torch
     sys.path.insert(0, ROOT)
@@ -4630,7 +4935,10 @@ def run_phases(names):
                   resnet_variants=lambda: phase_resnet_variants(torch, np,
                                                                 smi),
                   data_host=lambda: phase_data_host(torch, np, smi),
-                  vfnet=lambda: phase_vfnet(torch, np, smi))
+                  vfnet=lambda: phase_vfnet(torch, np, smi),
+                  guided_anchoring=lambda: phase_guided_anchoring(
+                      torch, np, smi),
+                  reppoints=lambda: phase_reppoints(torch, np, smi))
     for name in names:
         t = time.perf_counter()
         launches = phases[name]()
@@ -4725,6 +5033,10 @@ def main():
     data_host_launches = phase_data_host(torch, np, smi)
     torch.cuda.empty_cache()
     vfnet_launches = phase_vfnet(torch, np, smi)
+    torch.cuda.empty_cache()
+    ga_launches = phase_guided_anchoring(torch, np, smi)
+    torch.cuda.empty_cache()
+    reppoints_launches = phase_reppoints(torch, np, smi)
     emit(dict(phase='script_done', seconds=time.perf_counter() - t_script))
 
     print(smi.splitlines()[0], flush=True)
@@ -4739,7 +5051,7 @@ def main():
                   two_stage_launches + mask_rcnn_launches +
                   cascade_launches + hrnet_regnet_launches +
                   resnet_variants_launches + data_host_launches +
-                  vfnet_launches),
+                  vfnet_launches + ga_launches + reppoints_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -4756,6 +5068,8 @@ def main():
         launches_resnet_variants=resnet_variants_launches,
         launches_data_host=data_host_launches,
         launches_vfnet=vfnet_launches,
+        launches_guided_anchoring=ga_launches,
+        launches_reppoints=reppoints_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

@@ -70,6 +70,7 @@ class SingleStageDetector(nn.Module):
 
 # named wrappers so the configs' `type=` names of the single-stage detectors
 # resolve
-for _name in ('GFL', 'ATSS', 'FCOS', 'RetinaNet', 'VFNet'):
+for _name in ('GFL', 'ATSS', 'FCOS', 'RetinaNet', 'VFNet',
+              'RepPointsDetector'):
     DETECTORS.register_module(name=_name, module=type(
         _name, (SingleStageDetector, ), {}))

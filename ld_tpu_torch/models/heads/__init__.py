@@ -4,9 +4,11 @@ from .classic_heads import ATSSHead, FCOSHead
 from .fcos_gfl_head import FCOSGFLHead, LDFCOSCompareHead, LDFCOSHead
 from .gfl_head import GFLHead
 from .gfocal_head import GFocalHead
+from .guided_anchor_head import GARetinaHead, GARPNHead
 from .htc_roi_head import HybridTaskCascadeRoIHead
 from .ld_gflv2 import IMv2Head, LDv2Head
 from .ld_head import IMHead, LDHead
+from .reppoints_head import RepPointsHead
 from .retina_gfl_head import LDRetinaHead, RetinaGFLHead
 from .retina_head import RetinaHead, RetinaSepBNHead
 from .roi_head import StandardRoIHead
@@ -18,4 +20,5 @@ __all__ = ['GFLHead', 'IMHead', 'LDHead', 'GFocalHead', 'LDv2Head',
            'LDFCOSHead', 'LDFCOSCompareHead', 'RetinaGFLHead',
            'LDRetinaHead', 'RetinaHead', 'RetinaSepBNHead', 'FCOSHead',
            'ATSSHead', 'RPNHead', 'StandardRoIHead', 'CascadeRoIHead',
-           'HybridTaskCascadeRoIHead', 'VFNetHead']
+           'HybridTaskCascadeRoIHead', 'VFNetHead', 'GARetinaHead',
+           'GARPNHead', 'RepPointsHead']

@@ -2,6 +2,7 @@ from .anchors import AnchorGenerator
 from .atss_assigner import AssignResult, ATSSAssigner
 from .boxes import anchor_center, bbox2distance, bbox_overlaps, distance2bbox
 from .coder import build_coder
+from .extra_assigners import ApproxMaxIoUAssigner, PointAssigner
 from .integral import integral
 from .max_iou_assigner import MaxIoUAssigner
 from .nms_cuda import nms_keep, nms_keep_ref
@@ -12,5 +13,6 @@ __all__ = [
     'AnchorGenerator', 'AssignResult', 'ATSSAssigner', 'anchor_center',
     'bbox2distance', 'bbox_overlaps', 'distance2bbox', 'integral',
     'MaxIoUAssigner', 'nms_keep', 'nms_keep_ref', 'build_coder',
-    'roi_align', 'multi_level_roi_align', 'build_sampler'
+    'roi_align', 'multi_level_roi_align', 'build_sampler',
+    'ApproxMaxIoUAssigner', 'PointAssigner'
 ]

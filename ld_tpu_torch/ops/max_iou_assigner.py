@@ -1,6 +1,9 @@
 """MaxIoU assignment, dense and batched; port of
 `ld_tpu/ops/max_iou_assigner.py:23-83`, with the images of a batch on a
-leading dimension where the JAX package `vmap`s.
+leading dimension where the JAX package `vmap`s. The anchors are one (N, 4)
+set for the batch or a (B, N, 4) set for each image (GA's guided anchors,
+RepPoints' init boxes), and a caller may hand over its own (B, N, G)
+overlap matrix (`ApproxMaxIoUAssigner`'s), as the JAX `overlaps=` does.
 
 An anchor is positive for the gt of its highest IoU when that IoU is at
 least `pos_iou_thr`. With `match_low_quality`, every gt whose best IoU is at
@@ -47,20 +50,23 @@ class MaxIoUAssigner:
                gt_labels: torch.Tensor,
                gt_valid: torch.Tensor,
                valid_mask: torch.Tensor = None,
-               num_classes: int = 80) -> AssignResult:
+               num_classes: int = 80,
+               overlaps: torch.Tensor = None) -> AssignResult:
         """MaxIoU assignment of a batch; the arguments of
         `ATSSAssigner.assign` (`num_level_anchors` is not used).
 
         Args:
-            anchors: (N, 4) xyxy.
+            anchors: (N, 4) xyxy, the same for every image, or (B, N, 4).
             gt_bboxes: (B, G, 4); gt_labels, gt_valid: (B, G).
             valid_mask: (B, N) bool anchor validity.
+            overlaps: (B, N, G) in place of the anchors' IoU with the gts.
         """
         b, num_gt = gt_bboxes.shape[:2]
         if valid_mask is None:
-            valid_mask = torch.ones((b, anchors.shape[0]), dtype=torch.bool,
+            valid_mask = torch.ones((b, anchors.shape[-2]), dtype=torch.bool,
                                     device=anchors.device)
-        overlaps = bbox_overlaps(anchors, gt_bboxes)            # (B, N, G)
+        if overlaps is None:
+            overlaps = bbox_overlaps(anchors, gt_bboxes)        # (B, N, G)
         overlaps = torch.where(gt_valid[:, None, :] & valid_mask[..., None],
                                overlaps, torch.full_like(overlaps, -1.0))
         max_overlaps = overlaps.amax(dim=-1)

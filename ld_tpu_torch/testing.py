@@ -192,6 +192,28 @@ def randomize_dcn_offsets(model, seed=0, shift=2.0):
     return len(layers)
 
 
+def randomize_head_offsets(model, seed=0, shift=2.0):
+    """Seeded normal weights (std shift / sqrt(fan_in)) and biases (std 1)
+    for the convs whose outputs place a dense head's DeformConv taps, in
+    place: GA's `feature_adaption_*.conv_offset` and RepPoints'
+    `reppoints_pts_init_out`, which start at zero or near it, so that the
+    taps fall a few pixels off the regular grid. Returns the number of
+    convs."""
+    rs = np.random.RandomState(seed)
+    convs = [m.conv_offset for name, m in model.named_modules()
+             if name.rsplit('.', 1)[-1].startswith('feature_adaption')]
+    convs += [m for name, m in model.named_modules()
+              if name.rsplit('.', 1)[-1] == 'reppoints_pts_init_out']
+    with torch.no_grad():
+        for conv in convs:
+            w, b = conv.weight, conv.bias
+            w.copy_(torch.from_numpy((rs.randn(*w.shape) * shift /
+                                      np.sqrt(w[0].numel())).astype(
+                                          np.float32)))
+            b.copy_(torch.from_numpy(rs.randn(*b.shape).astype(np.float32)))
+    return len(convs)
+
+
 def randomize_plugin_gates(model, seed=0, scale=1.0):
     """Seeded values for the parts of `model`'s backbone plugins that start
     at zero (the JAX initializers make each block the identity), in place:

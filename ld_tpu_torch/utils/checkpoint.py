@@ -279,7 +279,26 @@ _HEAD_CONVS = {'gfl_cls': 'gfl_cls', 'gfl_reg': 'gfl_reg',
                'conv_centerness': 'conv_centerness',
                'reg_conf_1': 'reg_conf.0', 'reg_conf_2': 'reg_conf.2',
                'vfnet_reg': 'vfnet_reg', 'vfnet_reg_refine': 'vfnet_reg_refine',
-               'vfnet_cls': 'vfnet_cls'}
+               'vfnet_cls': 'vfnet_cls',
+               # GA: the location and shape convs, the adaptions' offset
+               # convs, the predictions
+               'conv_loc': 'conv_loc', 'conv_shape': 'conv_shape',
+               'offset_cls': 'feature_adaption_cls.conv_offset',
+               'offset_reg': 'feature_adaption_reg.conv_offset',
+               'ga_cls': 'retina_cls', 'ga_reg': 'retina_reg',
+               # RepPoints
+               'pts_init_conv': 'reppoints_pts_init_conv',
+               'pts_init_out': 'reppoints_pts_init_out',
+               'cls_out': 'reppoints_cls_out',
+               'pts_refine_out': 'reppoints_pts_refine_out'}
+# the heads' caller-offset DeformConvs (a (3*3*C, O) kernel, rows tap-major)
+# that do not keep their JAX name: GA's adaptions, RepPoints' two DCNs;
+# VFNet's `*_dconv` keep theirs
+_DCONV_NAMES = {'adapt_cls': 'feature_adaption_cls.conv_adaption',
+                'adapt_reg': 'feature_adaption_reg.conv_adaption',
+                'cls_dconv': 'reppoints_cls_conv',
+                'pts_refine_dconv': 'reppoints_pts_refine_conv'}
+_RPN_CONVS = ('rpn_conv', 'rpn_cls', 'rpn_reg')
 _FCOS_CONVS = dict(_HEAD_CONVS, atss_cls='conv_cls', atss_reg='conv_reg',
                    atss_centerness='conv_centerness')
 # the plain RetinaHead keeps mmdet's retina_* names
@@ -324,7 +343,7 @@ def _sepbn_norm_key(path: tuple) -> str:
 def _rpn_key(path: tuple) -> str:
     """('rpn_conv' | 'rpn_cls' | 'rpn_reg', leaf) -> mmdet's RPNHead name."""
     mod, leaf = path
-    if mod not in ('rpn_conv', 'rpn_cls', 'rpn_reg'):
+    if mod not in _RPN_CONVS:
         raise KeyError(path)
     return f'{mod}.' + {'kernel': 'weight', 'bias': 'bias'}[leaf]
 
@@ -408,15 +427,19 @@ def _dense_weight(path: tuple, kernel: np.ndarray, params: Dict
     """A JAX Dense kernel (in, out) -> a Linear weight (out, in). fc1 of the
     RoI net reads its (S, S, C) roi feature flattened HWC, mmdet's
     `shared_fcs.0` flattens CHW: its rows are permuted. C is the last shared
-    conv's width, else the RPN conv's input width (the FPN's)."""
+    conv's width, else the RPN's input width (the FPN's): its `rpn_conv`'s,
+    or a GA-RPN's first tower conv's."""
     weight = kernel.T
     if path[1] != 'fc1':
         return weight
     bbox = params['roi_head'][path[0]]
     convs = sorted((k for k in bbox if re.fullmatch(r'conv\d+', k)),
                    key=lambda k: int(k[4:]))
-    c = np.shape(bbox[convs[-1]]['kernel'])[-1] if convs else \
-        np.shape(params['rpn_net']['rpn_conv']['kernel'])[2]
+    if convs:
+        c = np.shape(bbox[convs[-1]]['kernel'])[-1]
+    else:
+        rpn = params['rpn_net']
+        c = np.shape(rpn.get('rpn_conv', rpn.get('cls_conv0'))['kernel'])[2]
     s = int(round((kernel.shape[0] // c) ** 0.5))
     if s * s * c != kernel.shape[0]:
         raise ValueError(f'fc1 rows {kernel.shape[0]} are not S x S x {c}')
@@ -457,10 +480,17 @@ def state_dict_from_jax(variables: Dict,
     `bbox_head.retina_cls.*` in `keys` the plain Retina head keeps its
     `retina_*` names. A VFNet head's `vfnet_*` convs, its star `*_dconv`
     kernels (3 x 3 taps) and its `scales_refine` vector map to mmdet's
-    names (the JAX converter has no VFNet rule: ROADMAP.md caveat 45).
+    names (the JAX converter has no VFNet rule: ROADMAP.md caveat 45). A
+    GA head's net (`conv_loc`, `conv_shape`, `offset_*`, `adapt_*`,
+    `ga_*`), under `head_net` or, for a GA-RPN, `rpn_net`, maps to the
+    port's GA names (`feature_adaption_*`, `retina_*`; caveat 47), and a
+    RepPoints net (`pts_init_*`, `cls_dconv`, `cls_out`, `pts_refine_*`,
+    `moment_transfer`) to mmdet's `reppoints_*` names; the JAX converter
+    has no rule for either.
 
     Raises KeyError on a leaf outside the ResNet / Res2Net / FPN, the
-    dense-head (GFL family, Retina, FCOS, ATSS, VFNet), RPN, RoI-head and
+    dense-head (GFL family, Retina, FCOS, ATSS, VFNet, GA, RepPoints),
+    RPN, RoI-head and
     mask-head families.
     """
     sd: Dict[str, np.ndarray] = {}
@@ -508,12 +538,18 @@ def state_dict_from_jax(variables: Dict,
                 for lvl, s in enumerate(value):
                     sd[f'bbox_head.{rest[0]}.{lvl}.scale'] = np.float32(s)
                 continue
-            elif scope == 'head_net' and rest[0].endswith('_dconv') and \
-                    rest[1:] == ('kernel', ):
-                # VFNet's star DeformConv: a (3*3*C, O) kernel, rows
-                # tap-major (HWIO)
-                sd[f'bbox_head.{rest[0]}.weight'] = _conv_weight(
-                    value.reshape(3, 3, -1, value.shape[-1]))
+            elif scope in ('head_net', 'rpn_net') and rest[1:] == (
+                    'kernel', ) and (rest[0] in _DCONV_NAMES or
+                                     rest[0].endswith('_dconv')):
+                # a caller-offset DeformConv (VFNet's star DCN, GA's
+                # adaptions, RepPoints' DCNs): a (3*3*C, O) kernel, rows
+                # tap-major (HWIO); a GA-RPN's under `rpn_head`
+                head = 'bbox_head' if scope == 'head_net' else 'rpn_head'
+                sd[f'{head}.{_DCONV_NAMES.get(rest[0], rest[0])}.weight'] = \
+                    _conv_weight(value.reshape(3, 3, -1, value.shape[-1]))
+                continue
+            elif scope == 'head_net' and rest == ('moment_transfer', ):
+                sd['bbox_head.moment_transfer'] = value
                 continue
             elif scope == 'head_net' and re.fullmatch(
                     r'(cls|reg)_norm_l\d+_d\d+', rest[0]):
@@ -536,7 +572,9 @@ def state_dict_from_jax(variables: Dict,
                     sd[key] = dcn
                     continue
             elif scope == 'rpn_net':
-                key = 'rpn_head.' + _rpn_key(rest)
+                # an RPNHead's convs, or a GA-RPN's GA-Retina net
+                key = 'rpn_head.' + (_rpn_key(rest) if rest[0] in _RPN_CONVS
+                                     else _head_key(rest))
             elif scope == 'roi_head' and rest[0] == 'semantic':
                 key = 'roi_head.semantic_head.' + _semantic_key(rest)
             elif scope == 'roi_head' and rest[0].startswith('mask'):

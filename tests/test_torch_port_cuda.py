@@ -17,7 +17,9 @@ step with the Res2Net-101-DCN teacher, a Faster R-CNN's forward and a
 Mask R-CNN's losses and masks, the ResNet variants' blocks
 (weight-standardized conv, GCNet's ContextBlock, GeneralizedAttention), a
 GN + WS Mask R-CNN's `forward_test`, VFNet's star DeformConv, head and
-varifocal loss, and the RoI head's NMS at LVIS's 1203 classes.
+varifocal loss, the RoI head's NMS at LVIS's 1203 classes, the GA-Retina,
+GA-RPN and RepPoints heads (outputs, losses, decode or proposals), their
+assigners and the bounded IoU loss.
 """
 import pytest
 import torch
@@ -874,3 +876,137 @@ def test_lvis_scale_roi_nms_on_the_card():
                           keep_fn=nms_keep_ref)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert int(got[2].sum()) == 300
+
+
+def _dense_head(cfg, seed=0):
+    """A GA or RepPoints head at width 64, 4 classes, its offset convs
+    seeded off the grid, the class and location biases at 0."""
+    from ld_tpu_torch.testing import randomize_head_offsets
+    from ld_tpu_torch.utils.registry import HEADS
+    head = HEADS.build(dict(cfg))
+    head.init_weights(torch.Generator().manual_seed(seed))
+    randomize_head_offsets(head, seed)
+    with torch.no_grad():
+        getattr(head, head.cls_pred_name).bias.zero_()
+        if hasattr(head, 'conv_loc'):
+            head.conv_loc.bias.zero_()
+    return head
+
+
+_GA = dict(type='GARetinaHead', num_classes=4, in_channels=64,
+           feat_channels=64, stacked_convs=2)
+_GA_RPN = dict(type='GARPNHead', in_channels=64, feat_channels=64,
+               test_cfg=dict(nms_pre=300, max_per_img=200,
+                             nms=dict(iou_threshold=0.7)))
+_REPPOINTS = dict(type='RepPointsHead', num_classes=4, in_channels=64,
+                  feat_channels=64, point_feat_channels=64, stacked_convs=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['ga', 'ga_rpn', 'reppoints_moment',
+                                  'reppoints_grid'])
+def test_dense_offset_head_on_the_card_equals_the_cpu(no_tf32, kind):
+    """A GA-Retina, GA-RPN or RepPoints (moment, or grid + minmax) head on
+    random FPN features of a 2x3x128x192 batch: its outputs within 5e-3,
+    its losses within rtol 1e-3 a term, and the decode (detections, or
+    GA-RPN's proposals) of the CPU's outputs on the card, one nms_keep
+    launch, with the same valid mask (and labels), boxes within 1e-4."""
+    _need_card()
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    cfg = {'ga': _GA, 'ga_rpn': _GA_RPN, 'reppoints_moment': _REPPOINTS,
+           'reppoints_grid': dict(_REPPOINTS, transform_method='minmax',
+                                  use_grid_points=True)}[kind]
+    head = _dense_head(cfg)
+    gen = torch.Generator().manual_seed(1)
+    feats = [torch.randn(2, 64, h, w, generator=gen)
+             for h, w in ((16, 24), (8, 12), (4, 6), (2, 3), (1, 2))]
+    batch = detection_batch(2, 128, 192, num_classes=4, seed=0,
+                            device='cpu')
+    sizes = [tuple(f.shape[-2:]) for f in feats]
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        m = copy.deepcopy(head).to(device).train()
+        outs = m([f.to(device) for f in feats])
+        losses = m.loss(outs, {k: v.to(device) for k, v in batch.items()},
+                        sizes)
+        runs[device] = ([[x.detach().cpu() for x in part] for part in outs],
+                        {k: float(v.detach()) for k, v in losses.items()})
+    (c_outs, c_loss), (g_outs, g_loss) = runs['cpu'], runs['cuda']
+    for cp, gp in zip(c_outs, g_outs):
+        for c, g in zip(cp, gp):
+            assert float((g - c).abs().max()) <= 5e-3
+    for k, c in c_loss.items():
+        assert abs(g_loss[k] - c) <= 1e-3 * abs(c), k
+    decode = 'get_proposals' if kind == 'ga_rpn' else 'get_bboxes'
+    with torch.no_grad():
+        want = getattr(head.eval(), decode)(c_outs, batch['img_hw'])
+        launches = nms_keep.launches
+        got = getattr(head.cuda(), decode)(
+            [[x.cuda() for x in part] for part in c_outs],
+            batch['img_hw'].cuda())
+        torch.cuda.synchronize()
+    assert nms_keep.launches == launches + 1
+    got = [t.cpu() for t in got]
+    assert want[-1].sum() > 0 and torch.equal(got[-1], want[-1])
+    if kind != 'ga_rpn':
+        assert torch.equal(got[1], want[1])
+    assert float((got[0] - want[0]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_dense_assigners_on_the_card_equal_the_cpu():
+    """`PointAssigner`, `ApproxMaxIoUAssigner` and the MaxIoU assigner with
+    a box set for each image on a 2x800x1344 batch's GA geometry (strides 8-128,
+    100 gts an image): every field identical."""
+    _need_card()
+    from ld_tpu_torch.models.heads import GARetinaHead, RepPointsHead
+    from ld_tpu_torch.ops.extra_assigners import (ApproxMaxIoUAssigner,
+                                                  PointAssigner)
+    from ld_tpu_torch.ops.max_iou_assigner import MaxIoUAssigner
+    from ld_tpu_torch.testing import detection_batch
+    sizes = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]
+    batch = detection_batch(2, 800, 1344, seed=0, device='cpu')
+    squares, approxs, num_lvl, strides = GARetinaHead().geometry(sizes,
+                                                                 'cpu')
+    centers, pstrides, _ = RepPointsHead().points(sizes, 'cpu')
+    gen = torch.Generator().manual_seed(0)
+    boxes = squares + torch.randn(2, *squares.shape, generator=gen) * 4
+    runs = []
+    for device in ('cpu', 'cuda'):
+        gts = [batch[k].to(device) for k in ('gt_bboxes', 'gt_labels',
+                                             'gt_valid')]
+        runs.append([
+            PointAssigner(scale=4, pos_num=1).assign(
+                torch.cat([centers, pstrides[:, None]], -1).to(device),
+                None, *gts),
+            ApproxMaxIoUAssigner().assign(squares.to(device), num_lvl,
+                                          *gts, approxs=approxs.to(device)),
+            MaxIoUAssigner().assign(boxes.to(device), num_lvl, *gts)])
+    for c_res, g_res in zip(*runs):
+        assert int(c_res.pos_mask.sum()) > 0
+        for c, g in zip(c_res, g_res):
+            assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_bounded_iou_loss_on_the_card_equals_the_cpu():
+    _need_card()
+    from ld_tpu_torch.models.losses import BoundedIoULoss
+    gen = torch.Generator().manual_seed(0)
+    xy = torch.rand(2, 20000, 2, generator=gen) * 1000
+    pred = torch.cat([xy, xy + torch.rand(2, 20000, 2, generator=gen) * 300
+                      + 1], -1).reshape(-1, 4)
+    target = pred + torch.randn(pred.shape, generator=gen) * 20
+    weight = (torch.rand(pred.shape[0], generator=gen) < 0.05).float()
+    vals, grads = [], []
+    for device in ('cpu', 'cuda'):
+        p = pred.detach().to(device).requires_grad_(True)
+        v = BoundedIoULoss()(p, target.to(device), weight=weight.to(device),
+                             avg_factor=float(weight.sum()))
+        v.backward()
+        vals.append(float(v.detach()))
+        grads.append(p.grad.cpu())
+    assert abs(vals[1] - vals[0]) <= 1e-5 * abs(vals[0])
+    assert float((grads[1] - grads[0]).abs().max()) <= \
+        1e-5 * float(grads[0].abs().max())
