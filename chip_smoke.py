@@ -6,11 +6,11 @@ HTTP server, the export, the classic one-stage heads, the two-stage
 stack, Mask R-CNN, the cascades (Cascade R-CNN, Cascade Mask R-CNN, HTC),
 the HRNet and RegNet detectors, the ResNet's plugin, 'DCN' and GN + WS
 variants, the LVIS / crop / augmentation / robustness data paths,
-VarifocalNet, Guided Anchoring and RepPoints on one CUDA card and check
-them.
+VarifocalNet, Guided Anchoring, RepPoints, FoveaBox, SSD, Mask Scoring
+R-CNN and the ResNeSt detectors on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
-    python3 chip_smoke.py --phases guided_anchoring reppoints   # alone
+    python3 chip_smoke.py --phases fovea_ssd ms_rcnn_resnest    # alone
 
 Phases, one JSON object per line each:
   1. device  — the card, torch/CUDA versions, TF32 switched off and printed,
@@ -320,6 +320,34 @@ Phases, one JSON object per line each:
                losses, decode); the X101-32x4d DCN c3-c5 config 1 + 2
                calls. 1 launch a call, none a step; launches must equal
                RP_LAUNCHES. Budget 45 s.
+ 26. fovea_ssd — FoveaBox and SSD at full width, float32, seed 0:
+               FoveaBox R50 1 + 3 calls at batch 1 and 1 + 2 at batch 2
+               (800x1344), 1 + 2 steps at batch 2; FoveaBox-align R50 (its
+               offset conv seeded off the grid) 1 + 3 calls with the align
+               DeformConv's share of one profiled call (5 calls a
+               forward), 1 + 2 steps; FoveaBox-align R101 1 + 2 calls;
+               each R50 FoveaBox against the CPU at 1x3x128x192 (outputs,
+               first-step losses, decode); SSD300 1 + 5 calls at batch 1
+               and 1 + 3 at batch 8 (300x300; 200 detections an image, the
+               NMS at K = 1024 of 8732 x 80 pairs, identical with the
+               plain keep mask), 1 + 3 steps at batch 8, against the CPU at
+               1x3x300x300; SSD512 1 + 3 calls at batch 1 and 1 + 2 steps
+               at batch 8. 1 launch a call, none a step; launches must
+               equal FOVEA_SSD_LAUNCHES. Budget 40 s.
+ 27. ms_rcnn_resnest — Mask Scoring R-CNN and ResNeSt at full width,
+               float32, seed 0 (fc_cls peaked for serving): MS R-CNN R50
+               1 + 3 calls at batch 1 and 2 with masks, 1 + 2 steps at
+               batch 2 with box-region gt masks (loss_mask_iou), against
+               the CPU (`roi_reference`: losses, masks); MS R-CNN
+               X101-64x4d 1 + 2 calls; the ResNeSt-50 Faster R-CNN 1 + 3
+               calls at batch 1 and 2, 1 + 2 steps at batch 2 with its BNs
+               live (the running statistics' change reported), its
+               outputs at 1x3x128x192 and its first losses at 2x3x128x192
+               in training against the CPU (the trunk in float64 on both:
+               its live 2-value BNs amplify float32 rounding; the float32
+               differences reported); Cascade Mask R-CNN S101 1 + 2 calls,
+               1 + 2 steps with masks. 2 launches a call, 1 a step;
+               launches must equal MS_RESNEST_LAUNCHES. Budget 50 s.
 Every phase row carries `t`, the script's seconds so far; `--phases NAME
 ...` runs the named phases alone.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
@@ -536,6 +564,45 @@ RP_GRID_CALLS, RP_GRID_STEPS, RP_WIDE_CALLS = (1, 2), (1, 1), (1, 2)
 # 1 launch a call, none a step
 RP_LAUNCHES = (sum(RP_CALLS) + sum(RP_CALLS_B2) + sum(RP_GRID_CALLS) +
                sum(RP_WIDE_CALLS))
+
+
+# the fovea_ssd phase: (warm-up, timed) forward_test calls of FoveaBox R50
+# at batch 1 and 2 and its steps at batch 2, FoveaBox-align R50's calls and
+# steps and R101's calls; SSD300's calls at batch 1 and 8 and its steps at
+# batch 8 (mmdet's SSD300 batch a GPU), SSD512's calls and steps
+FOVEA = 'configs/foveabox/fovea_r50_fpn_4x4_1x_coco.py'
+FOVEA_ALIGN = 'configs/foveabox/fovea_align_r50_fpn_gn-head_4x4_2x_coco.py'
+FOVEA_ALIGN_R101 = ('configs/foveabox/'
+                    'fovea_align_r101_fpn_gn-head_4x4_2x_coco.py')
+SSD300 = 'configs/ssd/ssd300_coco.py'
+SSD512 = 'configs/ssd/ssd512_coco.py'
+FOVEA_CALLS, FOVEA_CALLS_B2, FOVEA_STEPS = (1, 3), (1, 2), (1, 2)
+ALIGN_CALLS, ALIGN_STEPS, ALIGN_R101_CALLS = (1, 3), (1, 2), (1, 2)
+SSD300_CALLS, SSD300_CALLS_B8, SSD300_STEPS = (1, 5), (1, 3), (1, 3)
+SSD512_CALLS, SSD512_STEPS = (1, 3), (1, 2)
+# 1 launch a call (SSD's at K = 1024 of its 8732 or 24564 anchors x 80
+# classes), none a step
+FOVEA_SSD_LAUNCHES = sum(FOVEA_CALLS + FOVEA_CALLS_B2 + ALIGN_CALLS +
+                         ALIGN_R101_CALLS + SSD300_CALLS + SSD300_CALLS_B8 +
+                         SSD512_CALLS)
+# the ms_rcnn_resnest phase: MS R-CNN R50's calls at batch 1 and 2 (with
+# masks) and its steps at batch 2 (with loss_mask_iou), MS R-CNN X101's
+# calls; the ResNeSt-50 Faster R-CNN's calls at batch 1 and 2 and its steps
+# at batch 2 (its BNs live); the widest config, Cascade Mask R-CNN S101,
+# its calls at batch 1 and its steps at batch 2
+MS_RCNN = 'configs/ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py'
+MS_X101 = 'configs/ms_rcnn/ms_rcnn_x101_64x4d_fpn_1x_coco.py'
+S50_FASTER = ('configs/resnest/faster_rcnn_s50_fpn_syncbn-backbone+head_'
+              'mstrain-range_1x_coco.py')
+S101_CASCADE = ('configs/resnest/cascade_mask_rcnn_s101_fpn_syncbn-'
+                'backbone+head_mstrain_1x_coco.py')
+MS_CALLS, MS_STEPS, MS_X101_CALLS = (1, 3), (1, 2), (1, 2)
+S50_CALLS, S50_STEPS, S101_CALLS, S101_STEPS = (1, 3), (1, 2), (1, 2), (1, 2)
+# 2 launches a two-stage call (the RPN's batch, the RoI head's or the last
+# stage's NMS), 1 a step (the proposals)
+MS_RESNEST_LAUNCHES = (2 * (2 * sum(MS_CALLS) + sum(MS_X101_CALLS) +
+                            2 * sum(S50_CALLS) + sum(S101_CALLS)) +
+                       sum(MS_STEPS) + sum(S50_STEPS) + sum(S101_STEPS))
 
 
 T_START = time.perf_counter()
@@ -931,9 +998,11 @@ REFERENCE_TOL = {None: dict(rtol=1e-3, head_atol=None, exact_gi=True),
 
 
 def phase_train_reference(torch, cfg, base, gi=True,
-                          phase='train_reference', dtype=None):
-    """The first step on 1x3x128x192 on the card against the same model on
-    the CPU, within the tolerances of `REFERENCE_TOL[dtype]`: the loss dict
+                          phase='train_reference', dtype=None,
+                          hw=(128, 192)):
+    """The first step on 1x3x`hw` (128x192) on the card against the same
+    model on the CPU, within the tolerances of `REFERENCE_TOL[dtype]`: the
+    loss dict
     term by term, with bf16 towers the head outputs too, and (with `gi`)
     the GI masks of that step, identical in float32."""
     import copy
@@ -943,7 +1012,7 @@ def phase_train_reference(torch, cfg, base, gi=True,
     runs = {}
     for device in ('cpu', 'cuda'):
         model = copy.deepcopy(base).to(device)
-        batch = detection_batch(1, 128, 192, seed=0, device=device)
+        batch = detection_batch(1, *hw, seed=0, device=device)
         step, _ = make_step(cfg, model)
         masks, gaps, heads = [], [], []
         with torch.no_grad():
@@ -964,7 +1033,7 @@ def phase_train_reference(torch, cfg, base, gi=True,
                     for a, b in zip(c_heads, g_heads))
     rel = {k: abs(g_loss[k] - c) / abs(c) for k, c in c_loss.items() if c}
     row = dict(phase=phase, config=os.path.relpath(cfg.filename, ROOT),
-               input='1x3x128x192', dtype=dtype or 'float32',
+               input='1x3x{}x{}'.format(*hw), dtype=dtype or 'float32',
                rtol=rtol, loss_cpu=c_loss, loss_card=g_loss,
                max_rel_diff=max(rel.values()), rel_diff=rel,
                head_max_abs_diff=head_diff, head_atol=tol['head_atol'])
@@ -3126,15 +3195,16 @@ def build_plain(torch, config, seed=0):
 
 def detector_steps(torch, smi, cfg, base, warmup, timed, per_step, phase,
                    batch_size=2, pad=(800, 1344), profile=False, batch=None,
-                   range_of=None, prof_steps=2):
+                   range_of=None, prof_steps=2, inspect=None):
     """`warmup` + `timed` training steps of a copy of `base` on the card
     (the config's SGD and schedule, `batch` on the card or a seeded batch
     of `batch_size` at `pad`): every loss finite and `per_step` nms_keep
     launches a step; with `profile`, the device's time by kernel over
     `prof_steps` more steps, and with `range_of` (a module class) the share
     of it that
-    the forwards of those modules launch. Returns the launch count of the
-    steps and the emitted row."""
+    the forwards of those modules launch; `inspect(model)` adds figures of
+    the stepped model to the row. Returns the launch count of the steps
+    and the emitted row."""
     import copy
     from ld_tpu_torch.ops.nms_cuda import nms_keep
     from ld_tpu_torch.testing import detection_batch
@@ -3180,6 +3250,8 @@ def detector_steps(torch, smi, cfg, base, warmup, timed, per_step, phase,
     if hasattr(model, 'teacher'):
         row['params_teacher'] = sum(p.numel()
                                     for p in model.teacher.parameters())
+    if inspect is not None:
+        row.update(inspect(model))
     if profile and range_of is None:
         row.update(step_profile(torch, step, batch, prof_steps, top_n=12))
     elif profile:
@@ -3194,7 +3266,7 @@ def detector_steps(torch, smi, cfg, base, warmup, timed, per_step, phase,
     return launches, row
 
 
-def outputs_reference(torch, np, base, scaled=False):
+def outputs_reference(torch, np, base, scaled=False, hw=(128, 192)):
     """`base`'s outputs (a dense head's, or a two-stage detector's FPN and
     RPN outputs) at 1x3x128x192 on the card against the CPU, within the
     bounds of phase_reference; returns (max abs, max median relative).
@@ -3203,7 +3275,7 @@ def outputs_reference(torch, np, base, scaled=False):
     5e-5 of each output's largest |value| in place of 5e-3 absolute, and
     the largest such ratio is returned as the first figure."""
     import copy
-    x = torch.from_numpy(np.random.RandomState(1).randn(1, 3, 128, 192)
+    x = torch.from_numpy(np.random.RandomState(1).randn(1, 3, *hw)
                          .astype(np.float32))
     cpu = copy.deepcopy(base).eval()
     card = copy.deepcopy(base).to('cuda').eval()
@@ -4680,14 +4752,14 @@ def seeded_plain(torch, config):
     return cfg, base
 
 
-def dense_dcn_extra(torch, name, per_forward):
+def dense_dcn_extra(torch, name, per_forward, modules=2):
     """family_serve's `extra`: the head's DeformConv share of one profiled
     call under `name`, `per_forward` DCN calls a forward."""
     from ld_tpu_torch.ops.deform_conv import DeformConv
 
     def extra(model, bench):
-        check(sum(isinstance(m, DeformConv) for m in model.modules()) == 2,
-              f'{name}: two DeformConv modules')
+        check(sum(isinstance(m, DeformConv) for m in model.modules()) ==
+              modules, f'{name}: {modules} DeformConv modules')
         row = deform_conv_share(torch, model, bench, name=name)
         calls = row[f'{name}_calls_per_forward']
         check(calls == per_forward, f'{name}: {calls} DeformConv calls a '
@@ -4696,7 +4768,7 @@ def dense_dcn_extra(torch, name, per_forward):
     return extra
 
 
-def decode_reference(torch, base, phase, config):
+def decode_reference(torch, base, phase, config, hw=(128, 192)):
     """The decode of the CPU's outputs at 1x3x128x192 on the card against
     the CPU: a dense head's detections (labels, valid and kept set equal,
     boxes and scores within 1e-4), or a GA-RPN's proposals (valid equal,
@@ -4704,7 +4776,7 @@ def decode_reference(torch, base, phase, config):
     import copy
     from ld_tpu_torch.ops.nms_cuda import nms_keep
     from ld_tpu_torch.testing import detection_batch
-    batch = detection_batch(1, 128, 192, seed=0, device='cpu')
+    batch = detection_batch(1, *hw, seed=0, device='cpu')
     cpu = copy.deepcopy(base).eval()
     card = copy.deepcopy(base).to('cuda').eval()
     two_stage = hasattr(cpu, 'rpn_head')
@@ -4729,7 +4801,7 @@ def decode_reference(torch, base, phase, config):
     check(int(valid.sum()) > 0 and torch.equal(got[-1], valid) and
           (two_stage or torch.equal(got[1], want[1])) and diff <= 1e-4,
           f'{config} decode of the same outputs: card vs CPU, {diff}')
-    emit(dict(phase=phase, config=config, input='1x3x128x192',
+    emit(dict(phase=phase, config=config, input='1x3x{}x{}'.format(*hw),
               decoded=int(valid.sum()), decode_max_abs_diff=diff,
               decode_tol=1e-4, nms_keep_launches_reference=launched))
     del card
@@ -4909,11 +4981,326 @@ def phase_reppoints(torch, np, smi):
     return launches
 
 
+def ssd_serve(torch, smi, config, base, calls, phase):
+    """`forward_test` of an SSD `base` (moved to the card and back) at its
+    input size, (warm-up, timed) `calls` at each batch size of the dict in
+    turn: 1 launch a call at K = 1024 of
+    its anchors x 80 classes, 200 detections an image, at the largest
+    batch the detections identical with the plain keep mask and the first
+    one's score the largest foreground softmax probability. Returns the
+    launch count."""
+    import torch.nn.functional as F
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    size = base.backbone.input_size
+    model = base.to('cuda').eval()
+    head = model.bbox_head
+    gen = torch.Generator('cuda').manual_seed(0)
+    benches = {b: dict(image=torch.randn(b, 3, size, size, device='cuda',
+                                         generator=gen),
+                       img_hw=torch.tensor([[float(size)] * 2] * b,
+                                           device='cuda'))
+               for b in calls}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    call_ms = {}
+    with torch.inference_mode():
+        # ---- the main path: counts from 0, read right after --------------
+        nms_keep.launches = 0
+        for b, bench in benches.items():
+            warmup, timed = calls[b]
+            for _ in range(warmup):
+                model.forward_test(bench)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(timed):
+                t = time.perf_counter()
+                dets, _, valid = model.forward_test(bench)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            call_ms[b] = times
+            check(tuple(dets.shape) == (b, 200, 5) and
+                  bool(torch.isfinite(dets).all()) and
+                  bool(valid.any(1).all()),
+                  f'{config} forward_test at batch {b}')
+        launches = nms_keep.launches
+        # ------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        n_calls = sum(sum(c) for c in calls.values())
+        check(launches == n_calls, f'{config}: {launches} launches for '
+              f'{n_calls} calls')
+        bench = benches[max(calls)]
+        outs = model(bench['image'])
+        captured = []
+
+        def capture(boxes, valid, thr):
+            captured.append((tuple(boxes.shape), int(valid.sum())))
+            return nms_keep(boxes, valid, thr)
+        got = head.get_bboxes(outs, bench['img_hw'], keep_fn=capture)
+        want = head.get_bboxes(outs, bench['img_hw'], keep_fn=nms_keep_ref)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f'{config}: detections with the kernel differ from the plain '
+              'keep mask')
+        cls, _ = head._flatten(*outs)
+        best = float(F.softmax(cls[0], dim=-1)[:, :head.num_classes].max())
+        check(abs(float(got[0][0, 0, 4]) - best) <= 1e-6,
+              f'{config}: first detection score {float(got[0][0, 0, 4])} '
+              f'is not the largest class probability {best}')
+    row = dict(phase=phase, config=config, nvidia_smi=smi,
+               anchors=int(cls.shape[1]), input_size=size,
+               calls={str(b): c for b, c in calls.items()},
+               max_memory_allocated_bytes=peak, nms_keep_launches=launches,
+               nms_k=captured[0][0][1], nms_valid_candidates=captured[0][1],
+               detections=int(got[2].sum()), top_score=best,
+               plain_keep_identical=True)
+    for b, times in call_ms.items():
+        row[f'forward_test_ms_b{b}'] = times
+        row[f'forward_test_ms_b{b}_mean'] = sum(times) / len(times)
+    emit(row)
+    base = model.cpu()
+    del model, outs, benches, bench
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_reference(torch, np, cfg, base, config, phase, hw=(128, 192)):
+    """A single-stage model at 1x3x`hw` on the card against the CPU: the
+    head outputs (5e-3 / 2e-4), the first step's losses (rtol 1e-3 a
+    term), the decode of the CPU's outputs (the same kept set, boxes
+    within 1e-4)."""
+    worst, worst_med = outputs_reference(torch, np, base, hw=hw)
+    emit(dict(phase=phase, config=config, input='1x3x{}x{}'.format(*hw),
+              max_abs_diff=worst, tol_abs=5e-3, max_median_rel_diff=worst_med,
+              tol_median_rel=2e-4))
+    phase_train_reference(torch, cfg, base, gi=False,
+                          phase=f'{phase}_train', hw=hw)
+    decode_reference(torch, base, f'{phase}_decode', config, hw=hw)
+
+
+def phase_fovea_ssd(torch, np, smi):
+    """FoveaBox and SSD at full width, float32, seed 0: FoveaBox R50 served
+    at batch 1 and 2 and trained at batch 2; FoveaBox-align R50 (its offset
+    conv seeded off the grid) served at batch 1 with the align DCN's device
+    share, trained at batch 2; FoveaBox-align R101 served; SSD300 served at
+    batch 1 and 8 and trained at batch 8; SSD512 served at batch 1 and
+    trained at batch 8; each R50 FoveaBox and SSD300 held against the CPU.
+    Returns the kernel's launch count over the main paths. Budget 40 s."""
+    t_phase = time.perf_counter()
+    launches = 0
+    n, _ = family_serve(torch, smi, FOVEA, None, *FOVEA_CALLS,
+                        phase='fovea_serve')
+    launches += n
+    cfg, base = build_plain(torch, FOVEA)
+    with torch.no_grad():
+        base.bbox_head.conv_cls.bias.zero_()
+    model = base.to('cuda').eval()
+    launches += serve_b2(torch, smi, model, FOVEA, 'fovea_serve_b2',
+                         *FOVEA_CALLS_B2)
+    base = model.cpu()
+    del model
+    torch.cuda.empty_cache()
+    n, _ = detector_steps(torch, smi, cfg, base, *FOVEA_STEPS, per_step=0,
+                          phase='fovea_train')
+    launches += n
+    dense_reference(torch, np, cfg, base, FOVEA, 'fovea_reference')
+    del base
+
+    def prepare(m):
+        return seed_dense_offsets(torch, m)
+    n, _ = family_serve(torch, smi, FOVEA_ALIGN, None, *ALIGN_CALLS,
+                        phase='fovea_align_serve', prepare=prepare,
+                        extra=dense_dcn_extra(torch, 'align_dcn', 5,
+                                              modules=1))
+    launches += n
+    cfg, base = seeded_plain(torch, FOVEA_ALIGN)
+    n, _ = detector_steps(torch, smi, cfg, base, *ALIGN_STEPS, per_step=0,
+                          phase='fovea_align_train')
+    launches += n
+    dense_reference(torch, np, cfg, base, FOVEA_ALIGN,
+                    'fovea_align_reference')
+    del base
+    n, _ = family_serve(torch, smi, FOVEA_ALIGN_R101, None,
+                        *ALIGN_R101_CALLS, phase='fovea_align_r101_serve',
+                        prepare=prepare)
+    launches += n
+
+    for config, calls, steps in (
+            (SSD300, {1: SSD300_CALLS, 8: SSD300_CALLS_B8}, SSD300_STEPS),
+            (SSD512, {1: SSD512_CALLS}, SSD512_STEPS)):
+        tag = os.path.basename(config)[:6]
+        cfg, base = build_plain(torch, config)
+        launches += ssd_serve(torch, smi, config, base, calls, f'{tag}_serve')
+        size = base.backbone.input_size
+        n, _ = detector_steps(torch, smi, cfg, base, *steps, per_step=0,
+                              phase=f'{tag}_train', batch_size=8,
+                              pad=(size, size))
+        launches += n
+        if config == SSD300:
+            dense_reference(torch, np, cfg, base, config, 'ssd300_reference',
+                            hw=(300, 300))
+        del base
+        torch.cuda.empty_cache()
+    check(launches == FOVEA_SSD_LAUNCHES, f'fovea_ssd phase: {launches} '
+          f'nms_keep launches, expected {FOVEA_SSD_LAUNCHES}')
+    emit(dict(phase='fovea_ssd_done', seconds=time.perf_counter() - t_phase,
+              budget_s=40, nms_keep_launches=launches))
+    return launches
+
+
+def masked_batch(torch, np, batch_size=2, hw=(800, 1344)):
+    """A seeded detection batch of 80 classes with box-region gt masks
+    (`box_masks`), on the card."""
+    from ld_tpu_torch.testing import detection_batch
+    batch = detection_batch(batch_size, *hw, num_classes=80, seed=0,
+                            device='cpu')
+    batch['gt_masks'] = box_masks(torch, np, batch)
+    return {k: v.to('cuda') for k, v in batch.items()}
+
+
+def bn_change(torch, base):
+    """detector_steps' `inspect` of a trunk with live BNs: the BNs in
+    training mode after the steps, and how far their running statistics
+    moved from `base`'s (the frozen ones must not move)."""
+    def inspect(model):
+        before = base.backbone.state_dict()
+        after = {k: v.cpu() for k, v in model.backbone.state_dict().items()}
+        live = [n for n, m in model.backbone.named_modules()
+                if isinstance(m, torch.nn.BatchNorm2d) and m.training]
+        frozen = [n for n, m in model.backbone.named_modules()
+                  if isinstance(m, torch.nn.BatchNorm2d) and not m.training]
+        moved = {s: max(float((after[f'{n}.running_{s}'] -
+                               before[f'{n}.running_{s}']).abs().max())
+                        for n in live) for s in ('mean', 'var')}
+        still = all(torch.equal(after[f'{n}.running_{s}'],
+                                before[f'{n}.running_{s}'])
+                    for n in frozen for s in ('mean', 'var'))
+        check(live and moved['mean'] > 0 and still,
+              f'live BNs: {len(live)} live, moved {moved}, frozen '
+              f'unchanged {still}')
+        return dict(bns_live=len(live), bns_frozen=len(frozen),
+                    running_mean_max_change=moved['mean'],
+                    running_var_max_change=moved['var'],
+                    frozen_bns_unchanged=still)
+    return inspect
+
+
+def resnest_train_reference(torch, np, base, config, phase):
+    """A ResNeSt detector's first losses in training (its BNs live) at
+    2x3x128x192, card against CPU, with samplers that pick every candidate
+    and the RoI losses on the CPU's proposals: with the trunk in float64 on
+    both devices, rtol 1e-3 a term; in float32, reported only. Each live
+    `bn1` over the pooled map's 2 values amplifies rounding through the
+    stages (the CPU tests found a float32 trunk's last stage 0.08 from the
+    float64 one at batch 2)."""
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    runs = {}
+    for trunk64 in (True, False):
+        props = None
+        for device in ('cpu', 'cuda'):
+            model = sample_everything(copy.deepcopy(base)).to(device).train()
+            batch = detection_batch(2, 128, 192, seed=0, device=device)
+            if trunk64:
+                model.backbone.double()
+                model.backbone.register_forward_hook(
+                    lambda m, args, outs: tuple(o.float() for o in outs))
+                batch['image'] = batch['image'].double()
+            gen = torch.Generator(device=device).manual_seed(0)
+            with torch.no_grad():
+                feats, rpn_outs = model(batch['image'])
+                sizes = [tuple(c.shape[-2:]) for c in rpn_outs[0]]
+                losses = model.rpn_head.loss(rpn_outs, batch, sizes, gen)
+                if props is None:
+                    props = model._proposals(rpn_outs, batch['img_hw'])
+                losses.update(model.roi_head.forward_train(
+                    feats, *(p.to(device) for p in props), batch, gen))
+            runs[trunk64, device] = {k: float(v) for k, v in losses.items()}
+            del model, feats, rpn_outs
+    rel = {t: {k: abs(runs[t, 'cuda'][k] - c) / abs(c)
+               for k, c in runs[t, 'cpu'].items() if c} for t in (True, False)}
+    emit(dict(phase=phase, config=config, input='2x3x128x192',
+              loss_cpu=runs[True, 'cpu'], loss_card=runs[True, 'cuda'],
+              rel_diff_trunk_float64=rel[True], rtol=1e-3,
+              rel_diff_trunk_float32=rel[False],
+              loss_cpu_trunk_float32=runs[False, 'cpu']))
+    for k, r in rel[True].items():
+        check(r <= 1e-3, f'{config} {k} (trunk in float64): card vs CPU '
+              f'{r} beyond rtol 1e-3')
+    torch.cuda.empty_cache()
+
+
+def phase_ms_rcnn_resnest(torch, np, smi):
+    """Mask Scoring R-CNN and the ResNeSt detectors at full width, float32,
+    seed 0 (fc_cls peaked, `peak_scores`, for serving): MS R-CNN R50 served
+    at batch 1 and 2 with masks, trained at batch 2 with box-region gt
+    masks (`loss_mask_iou`), held against the CPU; MS R-CNN X101-64x4d
+    served; the ResNeSt-50 Faster R-CNN served at batch 1 and 2, trained at
+    batch 2 with its BNs live (their running statistics' change
+    reported), held against the CPU; Cascade Mask R-CNN S101 served at
+    batch 1 and trained at batch 2. Returns the kernel's launch count over
+    the main paths. Budget 50 s."""
+    import copy
+    t_phase = time.perf_counter()
+    launches = 0
+    cfg, base = build_plain(torch, MS_RCNN)
+    model = peak_scores(torch, copy.deepcopy(base)).to('cuda').eval()
+    n, _, _ = roi_serve(torch, smi, model, MS_RCNN, 'ms_rcnn_serve',
+                        warmup=MS_CALLS[0], timed=MS_CALLS[1], prof_iters=1)
+    launches += n
+    del model
+    torch.cuda.empty_cache()
+    n, row = detector_steps(torch, smi, cfg, base, *MS_STEPS, per_step=1,
+                            phase='ms_rcnn_train',
+                            batch=masked_batch(torch, np))
+    launches += n
+    check(row['loss_first'].get('loss_mask_iou', 0) > 0,
+          f'{MS_RCNN}: no loss_mask_iou in {sorted(row["loss_first"])}')
+    roi_reference(torch, np, base, MS_RCNN, 'ms_rcnn_reference')
+    del base
+    for config, calls, steps in ((MS_X101, MS_X101_CALLS, None),
+                                 (S50_FASTER, S50_CALLS, S50_STEPS),
+                                 (S101_CASCADE, S101_CALLS, S101_STEPS)):
+        tag = {MS_X101: 'ms_x101', S50_FASTER: 's50_faster',
+               S101_CASCADE: 's101_cascade_mask'}[config]
+        cfg, base = build_plain(torch, config)
+        model = peak_scores(torch, copy.deepcopy(base)).to('cuda').eval()
+        n, _, _ = roi_serve(torch, smi, model, config, f'{tag}_serve',
+                            batches=(1, 2) if config == S50_FASTER else (1, ),
+                            warmup=calls[0], timed=calls[1], prof_iters=1)
+        launches += n
+        del model
+        torch.cuda.empty_cache()
+        if steps is not None:
+            live = config != MS_X101
+            n, _ = detector_steps(
+                torch, smi, cfg, base, *steps, per_step=1,
+                phase=f'{tag}_train',
+                batch=masked_batch(torch, np)
+                if base.roi_head.with_test_masks else None,
+                inspect=bn_change(torch, base) if live else None)
+            launches += n
+        if config == S50_FASTER:
+            worst, worst_med = outputs_reference(torch, np, base)
+            emit(dict(phase='s50_faster_outputs_reference', config=config,
+                      input='1x3x128x192', max_abs_diff=worst, tol_abs=5e-3,
+                      max_median_rel_diff=worst_med, tol_median_rel=2e-4))
+            resnest_train_reference(torch, np, base, config,
+                                    's50_faster_train_reference')
+        del base
+        torch.cuda.empty_cache()
+    check(launches == MS_RESNEST_LAUNCHES, f'ms_rcnn_resnest phase: '
+          f'{launches} nms_keep launches, expected {MS_RESNEST_LAUNCHES}')
+    emit(dict(phase='ms_rcnn_resnest_done',
+              seconds=time.perf_counter() - t_phase, budget_s=50,
+              nms_keep_launches=launches))
+    return launches
+
+
 def run_phases(names):
     """`--phases NAME ...`: only the named phases (dcn, res2net, ddp,
     hrnet_regnet, resnet_variants, data_host, vfnet, guided_anchoring,
-    reppoints), each with its seconds and launches, on the card with TF32
-    off and the kernel built; no result line."""
+    reppoints, fovea_ssd, ms_rcnn_resnest), each with its seconds and
+    launches, on the card with TF32 off and the kernel built; no result
+    line."""
     import numpy as np
     import torch
     sys.path.insert(0, ROOT)
@@ -4938,7 +5325,10 @@ def run_phases(names):
                   vfnet=lambda: phase_vfnet(torch, np, smi),
                   guided_anchoring=lambda: phase_guided_anchoring(
                       torch, np, smi),
-                  reppoints=lambda: phase_reppoints(torch, np, smi))
+                  reppoints=lambda: phase_reppoints(torch, np, smi),
+                  fovea_ssd=lambda: phase_fovea_ssd(torch, np, smi),
+                  ms_rcnn_resnest=lambda: phase_ms_rcnn_resnest(
+                      torch, np, smi))
     for name in names:
         t = time.perf_counter()
         launches = phases[name]()
@@ -5037,6 +5427,10 @@ def main():
     ga_launches = phase_guided_anchoring(torch, np, smi)
     torch.cuda.empty_cache()
     reppoints_launches = phase_reppoints(torch, np, smi)
+    torch.cuda.empty_cache()
+    fovea_ssd_launches = phase_fovea_ssd(torch, np, smi)
+    torch.cuda.empty_cache()
+    ms_resnest_launches = phase_ms_rcnn_resnest(torch, np, smi)
     emit(dict(phase='script_done', seconds=time.perf_counter() - t_script))
 
     print(smi.splitlines()[0], flush=True)
@@ -5051,7 +5445,8 @@ def main():
                   two_stage_launches + mask_rcnn_launches +
                   cascade_launches + hrnet_regnet_launches +
                   resnet_variants_launches + data_host_launches +
-                  vfnet_launches + ga_launches + reppoints_launches),
+                  vfnet_launches + ga_launches + reppoints_launches +
+                  fovea_ssd_launches + ms_resnest_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -5070,6 +5465,8 @@ def main():
         launches_vfnet=vfnet_launches,
         launches_guided_anchoring=ga_launches,
         launches_reppoints=reppoints_launches,
+        launches_fovea_ssd=fovea_ssd_launches,
+        launches_ms_rcnn_resnest=ms_resnest_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

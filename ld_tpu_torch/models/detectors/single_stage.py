@@ -71,6 +71,6 @@ class SingleStageDetector(nn.Module):
 # named wrappers so the configs' `type=` names of the single-stage detectors
 # resolve
 for _name in ('GFL', 'ATSS', 'FCOS', 'RetinaNet', 'VFNet',
-              'RepPointsDetector'):
+              'RepPointsDetector', 'SSD', 'FoveaBox'):
     DETECTORS.register_module(name=_name, module=type(
         _name, (SingleStageDetector, ), {}))

@@ -1,9 +1,9 @@
 """Two-stage detectors (Faster R-CNN family) and the LD through the RPN;
 port of `ld_tpu/models/detectors/two_stage.py`.
 
-`TwoStageDetector`, registered as `FasterRCNN`, `MaskRCNN`, `CascadeRCNN`
-and `HybridTaskCascade` too (each the same detector with another RoI
-head; Mask R-CNN's has a `mask_head`): backbone
+`TwoStageDetector`, registered as `FasterRCNN`, `MaskRCNN`, `CascadeRCNN`,
+`HybridTaskCascade` and `MaskScoringRCNN` too (each the same detector with
+another RoI head; Mask R-CNN's has a `mask_head`): backbone
 -> neck -> `rpn_head` -> proposals -> `roi_head`, one `nn.Module` under
 mmdet's names. `forward_train` returns the RPN's and the RoI head's
 losses: the RPN loss, its proposals (under `no_grad`, from
@@ -41,7 +41,7 @@ from .kd_one_stage import FrozenTeacher
 
 DETECTORS.not_ported.update({
     name: 'ROADMAP.md A7'
-    for name in ('MaskScoringRCNN', 'DynamicRCNN', 'GridRCNN',
+    for name in ('DynamicRCNN', 'GridRCNN',
                  'DoubleHeadRCNN', 'SCNet', 'PointRend',
                  'TridentFasterRCNN')})
 
@@ -146,7 +146,7 @@ class TwoStageDetector(nn.Module):
 
 
 for _name in ('FasterRCNN', 'MaskRCNN', 'CascadeRCNN',
-              'HybridTaskCascade'):
+              'HybridTaskCascade', 'MaskScoringRCNN'):
     DETECTORS.register_module(name=_name, module=type(
         _name, (TwoStageDetector, ), {}))
 

@@ -2,6 +2,7 @@ from .atss_gfl_head import ATSSGFLHead, LDATSSHead
 from .cascade_roi_head import CascadeRoIHead
 from .classic_heads import ATSSHead, FCOSHead
 from .fcos_gfl_head import FCOSGFLHead, LDFCOSCompareHead, LDFCOSHead
+from .fovea_head import FoveaHead
 from .gfl_head import GFLHead
 from .gfocal_head import GFocalHead
 from .guided_anchor_head import GARetinaHead, GARPNHead
@@ -12,7 +13,9 @@ from .reppoints_head import RepPointsHead
 from .retina_gfl_head import LDRetinaHead, RetinaGFLHead
 from .retina_head import RetinaHead, RetinaSepBNHead
 from .roi_head import StandardRoIHead
+from .roi_variants import MaskScoringRoIHead
 from .rpn_head import RPNHead
+from .ssd_head import SSDHead
 from .vfnet_head import VFNetHead
 
 __all__ = ['GFLHead', 'IMHead', 'LDHead', 'GFocalHead', 'LDv2Head',
@@ -21,4 +24,5 @@ __all__ = ['GFLHead', 'IMHead', 'LDHead', 'GFocalHead', 'LDv2Head',
            'LDRetinaHead', 'RetinaHead', 'RetinaSepBNHead', 'FCOSHead',
            'ATSSHead', 'RPNHead', 'StandardRoIHead', 'CascadeRoIHead',
            'HybridTaskCascadeRoIHead', 'VFNetHead', 'GARetinaHead',
-           'GARPNHead', 'RepPointsHead']
+           'GARPNHead', 'RepPointsHead', 'FoveaHead', 'SSDHead',
+           'MaskScoringRoIHead']

@@ -290,14 +290,17 @@ _HEAD_CONVS = {'gfl_cls': 'gfl_cls', 'gfl_reg': 'gfl_reg',
                'pts_init_conv': 'reppoints_pts_init_conv',
                'pts_init_out': 'reppoints_pts_init_out',
                'cls_out': 'reppoints_cls_out',
-               'pts_refine_out': 'reppoints_pts_refine_out'}
+               'pts_refine_out': 'reppoints_pts_refine_out',
+               # FoveaBox-align's offset conv
+               'align_offset': 'feature_adaption.conv_offset'}
 # the heads' caller-offset DeformConvs (a (3*3*C, O) kernel, rows tap-major)
 # that do not keep their JAX name: GA's adaptions, RepPoints' two DCNs;
 # VFNet's `*_dconv` keep theirs
 _DCONV_NAMES = {'adapt_cls': 'feature_adaption_cls.conv_adaption',
                 'adapt_reg': 'feature_adaption_reg.conv_adaption',
                 'cls_dconv': 'reppoints_cls_conv',
-                'pts_refine_dconv': 'reppoints_pts_refine_conv'}
+                'pts_refine_dconv': 'reppoints_pts_refine_conv',
+                'feature_align': 'feature_adaption.conv_adaption'}
 _RPN_CONVS = ('rpn_conv', 'rpn_cls', 'rpn_reg')
 _FCOS_CONVS = dict(_HEAD_CONVS, atss_cls='conv_cls', atss_reg='conv_reg',
                    atss_centerness='conv_centerness')
@@ -440,11 +443,86 @@ def _dense_weight(path: tuple, kernel: np.ndarray, params: Dict
     else:
         rpn = params['rpn_net']
         c = np.shape(rpn.get('rpn_conv', rpn.get('cls_conv0'))['kernel'])[2]
-    s = int(round((kernel.shape[0] // c) ** 0.5))
-    if s * s * c != kernel.shape[0]:
-        raise ValueError(f'fc1 rows {kernel.shape[0]} are not S x S x {c}')
+    return _chw_columns(weight, c)
+
+
+def _chw_columns(weight: np.ndarray, c: int) -> np.ndarray:
+    """A Linear weight (out, S*S*c) whose columns read an (S, S, c) input
+    flattened HWC -> the same weight over the CHW flatten."""
+    s = int(round((weight.shape[1] // c) ** 0.5))
+    if s * s * c != weight.shape[1]:
+        raise ValueError(f'{weight.shape[1]} inputs are not S x S x {c}')
     return weight.reshape(-1, s, s, c).transpose(0, 3, 1, 2).reshape(
         weight.shape[0], -1)
+
+
+# the JAX SSD-VGG's convs -> mmdet's `features` indices (VGG-16 with its
+# ReLUs and pools counted; a copy of the JAX converter's table)
+_VGG16_FEATURES = {
+    'conv1_0': 0, 'conv1_1': 2, 'conv2_0': 5, 'conv2_1': 7,
+    'conv3_0': 10, 'conv3_1': 12, 'conv3_2': 14,
+    'conv4_0': 17, 'conv4_1': 19, 'conv4_2': 21,
+    'conv5_0': 24, 'conv5_1': 26, 'conv5_2': 28, 'fc6': 31, 'fc7': 33}
+
+
+def _vgg_key(path: tuple) -> Optional[str]:
+    """An SSD-VGG leaf (`convB_I`, `fc6`, `fc7`, `extraI_J`, `l2_norm`)
+    -> mmdet's `features.N`, `extra.{2I + J - 1}`, `l2_norm.weight` after
+    'backbone.', or None for any other backbone leaf."""
+    mod, leaf = path[0], path[-1]
+    if mod == 'l2_norm':
+        return 'l2_norm.weight'
+    name = {'kernel': 'weight', 'bias': 'bias'}.get(leaf)
+    if mod in _VGG16_FEATURES:
+        return f'features.{_VGG16_FEATURES[mod]}.{name}'
+    m = re.fullmatch(r'extra(\d+)_([12])', mod)
+    if m is not None:
+        return f'extra.{2 * int(m.group(1)) + int(m.group(2)) - 1}.{name}'
+    return None
+
+
+# a ResNeSt split-attention conv's JAX scopes -> mmdet's
+_SPLAT = {'conv': 'conv', 'norm0': 'bn0', 'fc1': 'fc1', 'norm1': 'bn1',
+          'fc2': 'fc2'}
+
+
+def _splat_key(path: tuple) -> Optional[str]:
+    """A ResNeSt block's split-attention leaf, (`layerS_B`, 'conv2',
+    `conv` | `normI` | `fcI`, ..., leaf), -> `layerS.B.conv2.<conv |
+    bnI | fcI>.<leaf>` after 'backbone.', or None for any other leaf."""
+    if len(path) < 4 or path[1] != 'conv2' or path[2] not in _SPLAT:
+        return None
+    leaf = path[-1]
+    name = _BN_LEAVES[leaf] if path[3] == 'bn' else \
+        {'kernel': 'weight', 'bias': 'bias'}[leaf]
+    return '.'.join(_block_prefix(path[:1]) + ['conv2', _SPLAT[path[2]],
+                                                name])
+
+
+def _maskiou_key(path: tuple) -> str:
+    """('maskiou', 'convI' | 'fcI' | 'fc_iou', leaf) -> mmdet's MaskIoUHead
+    name (`convs.I.conv`, `fcs.I`, `fc_mask_iou`)."""
+    mod, leaf = path[1], path[-1]
+    name = {'kernel': 'weight', 'bias': 'bias'}[leaf]
+    m = re.fullmatch(r'(conv|fc)(\d+)', mod)
+    if m is not None:
+        kind = 'convs' if m.group(1) == 'conv' else 'fcs'
+        return f'{kind}.{m.group(2)}' + ('.conv' if kind == 'convs' else '') \
+            + f'.{name}'
+    if mod != 'fc_iou':
+        raise KeyError(path)
+    return f'fc_mask_iou.{name}'
+
+
+def _maskiou_dense(path: tuple, kernel: np.ndarray, params: Dict
+                   ) -> np.ndarray:
+    """A MaskIoU Dense kernel -> a Linear weight; fc0 reads the last conv's
+    (S, S, C) output flattened HWC, mmdet's `fcs.0` flattens CHW: its rows
+    are permuted."""
+    if path[1] != 'fc0':
+        return kernel.T
+    return _chw_columns(kernel.T, np.shape(
+        params['roi_head']['maskiou']['conv3']['kernel'])[-1])
 
 
 def _avg_down(variables: Dict, keys: Optional[Iterable[str]]) -> bool:
@@ -486,7 +564,16 @@ def state_dict_from_jax(variables: Dict,
     port's GA names (`feature_adaption_*`, `retina_*`; caveat 47), and a
     RepPoints net (`pts_init_*`, `cls_dconv`, `cls_out`, `pts_refine_*`,
     `moment_transfer`) to mmdet's `reppoints_*` names; the JAX converter
-    has no rule for either.
+    has no rule for either. So do a ResNeSt trunk (its split-attention
+    `conv2/{conv, norm0, fc1, norm1, fc2}` to `conv2.{conv, bn0, fc1, bn1,
+    fc2}`), an SSD-VGG (`convB_I`, `fc6`, `fc7`, `extraI_J`, `l2_norm` to
+    `features.N`, `extra.N`, `l2_norm.weight`: the JAX converter's map
+    inverted), an SSD head (its bare `cls_convI` / `reg_convI` to
+    `cls_convs.I` / `reg_convs.I`, where `keys` hold those names), a
+    FoveaBox head (`align_offset`, `feature_align` to
+    `feature_adaption.{conv_offset, conv_adaption}`) and a MaskIoU head
+    (`roi_head/maskiou` to `roi_head.mask_iou_head.*`, fc0's rows from the
+    HWC flatten to CHW).
 
     Raises KeyError on a leaf outside the ResNet / Res2Net / FPN, the
     dense-head (GFL family, Retina, FCOS, ATSS, VFNet, GA, RepPoints),
@@ -506,6 +593,8 @@ def state_dict_from_jax(variables: Dict,
         head_convs = _RETINA_CONVS
     num_laterals = sum(1 for k in params.get('neck', {})
                        if re.fullmatch(r'lateral_\d+', k))
+    # an SSD head's per-level convs are bare convs (`cls_convs.i.weight`)
+    ssd_head = keys is not None and 'bbox_head.cls_convs.0.weight' in keys
     # a RetinaSepBNHead's levels, from the target's keys
     sepbn_levels = len({k.split('.')[2] for k in keys or ()
                         if re.fullmatch(r'bbox_head\.cls_convs\.\d+\.0\.'
@@ -518,7 +607,12 @@ def state_dict_from_jax(variables: Dict,
                 key, value = _plugin_value(rest, value, keys)
                 sd['backbone.' + key] = value
                 continue
-            if scope == 'backbone':
+            if scope == 'backbone' and (_vgg_key(rest) or _splat_key(rest)):
+                key = 'backbone.' + (_vgg_key(rest) or _splat_key(rest))
+                if rest[-2:] == ('bn', 'scale'):
+                    sd[key[:-len('weight')] + 'num_batches_tracked'] = \
+                        np.zeros((), np.int64)
+            elif scope == 'backbone':
                 key = 'backbone.' + _backbone_key(rest, avg_down)
                 if rest[-2:] == ('bn', 'scale'):
                     sd[key[:-len('weight')] + 'num_batches_tracked'] = \
@@ -565,6 +659,12 @@ def state_dict_from_jax(variables: Dict,
                     sd[f'bbox_head.{kind}_convs.{lvl}.{i}.conv.weight'] = \
                         _conv_weight(value)
                 continue
+            elif scope == 'head_net' and ssd_head and len(rest) == 2 and \
+                    re.fullmatch(r'(cls|reg)_conv\d+', rest[0]):
+                # an SSD head's bare per-level convs
+                kind, i = rest[0].split('_conv')
+                key = f'bbox_head.{kind}_convs.{i}.' + {
+                    'kernel': 'weight', 'bias': 'bias'}[rest[1]]
             elif scope == 'head_net':
                 key = 'bbox_head.' + _head_key(rest, head_convs)
                 dcn = _dcn_value(params['head_net'], rest, value)
@@ -577,6 +677,11 @@ def state_dict_from_jax(variables: Dict,
                                      else _head_key(rest))
             elif scope == 'roi_head' and rest[0] == 'semantic':
                 key = 'roi_head.semantic_head.' + _semantic_key(rest)
+            elif scope == 'roi_head' and rest[0] == 'maskiou':
+                key = 'roi_head.mask_iou_head.' + _maskiou_key(rest)
+                if rest[-1] == 'kernel' and value.ndim == 2:
+                    sd[key] = _maskiou_dense(rest, value, params)
+                    continue
             elif scope == 'roi_head' and rest[0].startswith('mask'):
                 key = 'roi_head.mask_head.' + _mask_key(rest)
                 if rest[1] in ('upsample', 'deconv') and \

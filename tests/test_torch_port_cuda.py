@@ -19,7 +19,9 @@ Mask R-CNN's losses and masks, the ResNet variants' blocks
 GN + WS Mask R-CNN's `forward_test`, VFNet's star DeformConv, head and
 varifocal loss, the RoI head's NMS at LVIS's 1203 classes, the GA-Retina,
 GA-RPN and RepPoints heads (outputs, losses, decode or proposals), their
-assigners and the bounded IoU loss.
+assigners and the bounded IoU loss, the FoveaBox (plain and align) and
+SSD300 heads (outputs, losses, decode), a ResNeSt-50 trunk and the Mask
+Scoring RoI head's losses.
 """
 import pytest
 import torch
@@ -1010,3 +1012,116 @@ def test_bounded_iou_loss_on_the_card_equals_the_cpu():
     assert abs(vals[1] - vals[0]) <= 1e-5 * abs(vals[0])
     assert float((grads[1] - grads[0]).abs().max()) <= \
         1e-5 * float(grads[0].abs().max())
+
+
+_FOVEA = dict(type='FoveaHead', num_classes=4, in_channels=64,
+              feat_channels=64, stacked_convs=2)
+_SSD = dict(type='SSDHead', num_classes=4, in_channels=(16, ) * 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['fovea', 'fovea_align', 'ssd'])
+def test_fovea_ssd_head_on_the_card_equals_the_cpu(no_tf32, kind):
+    """A FoveaBox head (plain, and align with its offsets seeded off the
+    grid) on random FPN features of a 2x3x128x192 batch, or an SSD300 head
+    on random features of its six level sizes and a 2x3x300x300 batch: its
+    outputs within 5e-3, its losses within rtol 1e-3 a term (SSD's hard
+    negatives ranked alike), and the decode of the CPU's outputs on the
+    card, one nms_keep launch, with the same valid mask and labels, boxes
+    within 1e-4."""
+    _need_card()
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    gen = torch.Generator().manual_seed(1)
+    if kind == 'ssd':
+        from ld_tpu_torch.utils.registry import HEADS
+        head = HEADS.build(dict(_SSD))
+        head.init_weights(torch.Generator().manual_seed(0))
+        sizes = [(38, 38), (19, 19), (10, 10), (5, 5), (3, 3), (1, 1)]
+        feats = [torch.randn(2, 16, h, w, generator=gen) for h, w in sizes]
+        batch = detection_batch(2, 300, 300, num_classes=4, seed=0,
+                                device='cpu')
+    else:
+        head = _dense_head(dict(_FOVEA, with_deform=kind == 'fovea_align'))
+        feats = [torch.randn(2, 64, h, w, generator=gen)
+                 for h, w in ((16, 24), (8, 12), (4, 6), (2, 3), (1, 2))]
+        batch = detection_batch(2, 128, 192, num_classes=4, seed=0,
+                                device='cpu')
+        sizes = [tuple(f.shape[-2:]) for f in feats]
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        m = copy.deepcopy(head).to(device).train()
+        outs = m([f.to(device) for f in feats])
+        losses = m.loss(outs, {k: v.to(device) for k, v in batch.items()},
+                        sizes)
+        runs[device] = ([[x.detach().cpu() for x in part] for part in outs],
+                        {k: float(v.detach()) for k, v in losses.items()})
+    (c_outs, c_loss), (g_outs, g_loss) = runs['cpu'], runs['cuda']
+    for cp, gp in zip(c_outs, g_outs):
+        for c, g in zip(cp, gp):
+            assert float((g - c).abs().max()) <= 5e-3
+    for k, c in c_loss.items():
+        assert abs(g_loss[k] - c) <= 1e-3 * abs(c), k
+    with torch.no_grad():
+        want = head.eval().get_bboxes(c_outs, batch['img_hw'])
+        launches = nms_keep.launches
+        got = head.cuda().get_bboxes([[x.cuda() for x in part]
+                                      for part in c_outs],
+                                     batch['img_hw'].cuda())
+        torch.cuda.synchronize()
+    assert nms_keep.launches == launches + 1
+    got = [t.cpu() for t in got]
+    assert want[2].sum() > 0 and torch.equal(got[2], want[2])
+    assert torch.equal(got[1], want[1])
+    assert float((got[0] - want[0]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_resnest_and_mask_scoring_on_the_card_equal_the_cpu(no_tf32):
+    """A ResNeSt-50 trunk on running statistics at 1x3x128x192 (its four
+    outputs within 5e-5 of each one's largest value), and the Mask Scoring
+    RoI head (width 64, 4 classes, samplers that pick every candidate) on
+    random FPN features: its losses, `loss_mask_iou` included, within rtol
+    1e-3 a term."""
+    _need_card()
+    import copy
+    from ld_tpu_torch.models.backbones import ResNeSt
+    from ld_tpu_torch.testing import detection_batch
+    from ld_tpu_torch.utils.registry import HEADS
+    trunk = ResNeSt(depth=50, frozen_stages=1, norm_eval=False)
+    trunk.init_weights(torch.Generator().manual_seed(0))
+    x = torch.randn(1, 3, 128, 192, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        c_outs = trunk.eval()(x)
+        g_outs = copy.deepcopy(trunk).cuda().eval()(x.cuda())
+    for c, g in zip(c_outs, g_outs):
+        assert float((g.cpu() - c).abs().max()) <= 5e-5 * float(c.abs().max())
+    everything = dict(num=10**6, pos_fraction=1.0)
+    head = HEADS.build(dict(
+        type='MaskScoringRoIHead',
+        bbox_head=dict(num_classes=4, in_channels=64, fc_out_channels=64),
+        mask_head=dict(num_convs=4, in_channels=64, conv_out_channels=64),
+        mask_iou_head=dict(conv_out_channels=64, fc_out_channels=64),
+        bbox_roi_extractor=dict(featmap_strides=[4, 8, 16, 32]),
+        train_cfg=dict(sampler=everything)))
+    head.init_weights(torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(3)
+    feats = [torch.randn(2, 64, h, w, generator=gen)
+             for h, w in ((32, 48), (16, 24), (8, 12), (4, 6))]
+    batch = detection_batch(2, 128, 192, num_classes=4, seed=0,
+                            device='cpu')
+    batch['gt_masks'] = (torch.rand(2, batch['gt_bboxes'].shape[1], 32, 48,
+                                    generator=gen) > 0.5).to(torch.uint8)
+    props = batch['gt_bboxes'] + torch.randn(batch['gt_bboxes'].shape,
+                                             generator=gen) * 3
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        m = copy.deepcopy(head).to(device).train()
+        b = {k: v.to(device) for k, v in batch.items()}
+        losses = m.forward_train([f.to(device) for f in feats],
+                                 props.to(device), b['gt_valid'], b,
+                                 torch.Generator(device=device).manual_seed(0))
+        runs[device] = {k: float(v.detach()) for k, v in losses.items()}
+    assert 'loss_mask_iou' in runs['cpu'] and runs['cpu']['loss_mask_iou'] > 0
+    for k, c in runs['cpu'].items():
+        assert abs(runs['cuda'][k] - c) <= 1e-3 * abs(c), k
