@@ -603,6 +603,27 @@ S50_CALLS, S50_STEPS, S101_CALLS, S101_STEPS = (1, 3), (1, 2), (1, 2), (1, 2)
 MS_RESNEST_LAUNCHES = (2 * (2 * sum(MS_CALLS) + sum(MS_X101_CALLS) +
                             2 * sum(S50_CALLS) + sum(S101_CALLS)) +
                        sum(MS_STEPS) + sum(S50_STEPS) + sum(S101_STEPS))
+# the paa_fsaf_freeanchor phase: PAA R50 (score voting on), FSAF R50 and
+# FreeAnchor R50, each served at batch 1 and 2 and trained at batch 2
+PAA = 'configs/paa/paa_r50_fpn_1x_coco.py'
+FSAF = 'configs/fsaf/fsaf_r50_fpn_1x_coco.py'
+FREE_ANCHOR = 'configs/free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py'
+PFF_CALLS, PFF_CALLS_B2, PFF_STEPS = (1, 3), (1, 2), (1, 2)
+# 1 launch a call, none a step
+PAA_FSAF_FREEANCHOR_LAUNCHES = 3 * (sum(PFF_CALLS) + sum(PFF_CALLS_B2))
+# the sabl phase: SABL RetinaNet R50 (plain and GN: the same net, caveat 57)
+# served at batch 1 and 2 and trained at batch 2; SABL Faster R-CNN and
+# SABL Cascade R-CNN R50 served at batch 1 and 2 and trained at batch 2
+SABL_RETINA = 'configs/sabl/sabl_retinanet_r50_fpn_1x_coco.py'
+SABL_RETINA_GN = 'configs/sabl/sabl_retinanet_r50_fpn_gn_1x_coco.py'
+SABL_FASTER = 'configs/sabl/sabl_faster_rcnn_r50_fpn_1x_coco.py'
+SABL_CASCADE = 'configs/sabl/sabl_cascade_rcnn_r50_fpn_1x_coco.py'
+SABL_CALLS, SABL_CALLS_B2, SABL_STEPS = (1, 3), (1, 2), (1, 2)
+SABL_ROI_CALLS, SABL_ROI_STEPS = (1, 2), (1, 2)
+# 1 launch a single-stage call, none a single-stage step; 2 a two-stage
+# call (the RPN's batch, the RoI head's), 1 a two-stage step
+SABL_LAUNCHES = (2 * (sum(SABL_CALLS) + sum(SABL_CALLS_B2)) +
+                 2 * (2 * 2 * sum(SABL_ROI_CALLS) + sum(SABL_ROI_STEPS)))
 
 
 T_START = time.perf_counter()
@@ -856,7 +877,7 @@ def phase_e2e(torch, np):
     return model, launches, bench
 
 
-def phase_profile(torch, model, bench, iters=3, phase='profile'):
+def phase_profile(torch, model, bench, iters=1, phase='profile'):
     """Device time of `forward_test` at 800x1344 by kernel, from
     torch.profiler: the share of the NMS kernel and of the rest, and the
     device's busy share of the wall time; returns the emitted row."""
@@ -1064,7 +1085,7 @@ def phase_train(torch, smi, warmup=2, timed=5, batch_size=2,
 
 def ld_steps(torch, smi, config, per_step, warmup, timed, reference=True,
              batch_size=2, pad=(800, 1344), phase='gfl_family', dtype=None,
-             cpu_check=True, student_offsets=True, prof_steps=2):
+             cpu_check=True, student_offsets=True, prof_steps=1):
     """An LD config's training step at full width on the card: the student
     from seed 0, its towers in `dtype` (None: float32), the teacher from
     seed 1 with its BNs folded, the config's SGD and schedule, `warmup` +
@@ -1228,7 +1249,7 @@ def module_ranges(model, cls, name):
             h.remove()
 
 
-def step_profile(torch, step, batch, prof_steps=2, top_n=10, ranges=None):
+def step_profile(torch, step, batch, prof_steps=1, top_n=10, ranges=None):
     """Device time of `prof_steps` steps by kernel, from torch.profiler:
     device ms a step against its wall ms (the busy share), device ops a
     step, the GI NMS kernels' ms a step and the top kernels; with `ranges`
@@ -1806,8 +1827,25 @@ def top_score(torch, head, outs):
     image, computed apart from the decode: the first detection's score,
     since the best candidate always survives the top-k and the NMS."""
     from ld_tpu_torch.models.heads import ATSSGFLHead
+    from ld_tpu_torch.models.heads.gfl_head import flatten_level
     if type(head).__name__ == 'GFocalHead':
         probs = outs[0]
+    elif type(head).__name__ == 'PAAHead':
+        probs = [torch.sqrt(torch.sigmoid(c) * torch.sigmoid(r))
+                 for c, r in zip(outs[0], outs[2])]
+    elif type(head).__name__ == 'SABLRetinaHead':
+        # a score is the class sigmoid times the bucket confidence, over the
+        # per-level top-k by the sigmoid
+        best = 0.0
+        nms_pre = head.test_cfg.get('nms_pre', 1000)
+        for c, bc, br in zip(*outs):
+            p = torch.sigmoid(flatten_level(c))[0]
+            bc, br = flatten_level(bc)[0], flatten_level(br)[0]
+            conf = head.coder.decode(torch.zeros_like(bc[:, :4]),
+                                     (bc, br))[1]
+            top = torch.topk(p.amax(-1), min(nms_pre, p.shape[0])).indices
+            best = max(best, float((p[top] * conf[top, None]).max()))
+        return best
     elif isinstance(head, ATSSGFLHead):   # ATSS / FCOS, GFL and plain
         probs = [torch.sigmoid(c) * torch.sigmoid(r)
                  for c, r in zip(outs[0], outs[2])]
@@ -3195,7 +3233,7 @@ def build_plain(torch, config, seed=0):
 
 def detector_steps(torch, smi, cfg, base, warmup, timed, per_step, phase,
                    batch_size=2, pad=(800, 1344), profile=False, batch=None,
-                   range_of=None, prof_steps=2, inspect=None):
+                   range_of=None, prof_steps=1, inspect=None):
     """`warmup` + `timed` training steps of a copy of `base` on the card
     (the config's SGD and schedule, `batch` on the card or a seeded batch
     of `batch_size` at `pad`): every loss finite and `per_step` nms_keep
@@ -3569,7 +3607,7 @@ def box_masks(torch, np, batch, seed=2):
 
 
 def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
-              timed=5, prof_iters=3, max_dets=100):
+              timed=5, prof_iters=1, max_dets=100):
     """`forward_test` of a two-stage `model` on the card at 800x1344:
     `warmup` + `timed` calls at each batch size, 2 launches a call (the
     RPN's NMS of the batch and the RoI head's), the outputs checked (with
@@ -3925,7 +3963,11 @@ def phase_cascade(torch, np, smi):
         check(('loss_semantic_seg' in losses) == ('htc' in config),
               f'{config}: loss_semantic_seg')
         if reference:
-            roi_reference(torch, np, base, config, 'cascade_reference')
+            # the CPU's top 100 proposals: its three stages' RoI work
+            # (masks and HTC's semantic head included) is the phase's
+            # largest CPU cost
+            roi_reference(torch, np, base, config, 'cascade_reference',
+                          proposals=100)
         if model.roi_head.with_test_masks:
             launches += segm_eval(torch, np, smi, model, work, config,
                                   'cascade_eval', data_cfg)
@@ -3941,7 +3983,7 @@ def phase_cascade(torch, np, smi):
     return launches, kernels
 
 
-def backbone_profile(torch, model, image, iters=3):
+def backbone_profile(torch, model, image, iters=1):
     """`iters` forwards of `model.backbone` on `image` under torch.profiler:
     device ops (kernel launches and copies) a forward, device ms, wall ms
     and the busy share."""
@@ -5295,10 +5337,309 @@ def phase_ms_rcnn_resnest(torch, np, smi):
     return launches
 
 
+def paa_gmm(torch):
+    """`detector_steps`' `inspect` for PAA: on the stepped model's outputs
+    of the step batch (2x3x800x1344, seed 0), the reassignment's sizes and
+    its pieces' times: `fit_gmm_1d` alone (CUDA-event ms of 20 calls and
+    device ms from the profiler over 3), the whole `reassign` (smallest-k,
+    GMM, ranks) and the head's `reassigned` (assignment, decode and the
+    per-anchor losses too)."""
+    from torch.profiler import ProfilerActivity, profile
+    from ld_tpu_torch.models.heads.paa_head import BIG, fit_gmm_1d
+    from ld_tpu_torch.testing import detection_batch
+
+    def inspect(model):
+        head = model.bbox_head
+        batch = detection_batch(2, 800, 1344, num_classes=80, seed=0,
+                                device='cuda')
+        with torch.no_grad():
+            outs = model(batch['image'])
+            sizes = [tuple(c.shape[-2:]) for c in outs[0]]
+            r = head.reassigned(outs, batch, sizes)
+            num_gt = batch['gt_bboxes'].shape[1]
+            args = (r['pos_loss'], r['cand'], r['gt_inds'], r['level_id'],
+                    num_gt)
+            x, aidx = head.candidate_losses(*args)
+            xv = x < BIG / 2
+            gmm_ms, gmm_host = cuda_ms(lambda: fit_gmm_1d(x, xv), iters=20)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fit_gmm_1d(x, xv)
+                torch.cuda.synchronize()
+            dev_us = sum(e.self_device_time_total
+                         for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+            reassign_ms, _ = cuda_ms(lambda: head.reassign(*args), iters=10)
+            targets_ms, _ = cuda_ms(
+                lambda: head.reassigned(outs, batch, sizes), iters=5)
+        return dict(gmm_rows=x.shape[0], gmm_slots=x.shape[1],
+                    gmm_valid_rows=int((xv.sum(-1) >= 2).sum()),
+                    candidates=int(r['cand'].sum()),
+                    kept=int(r['keep'].sum()), gmm_event_ms=gmm_ms,
+                    gmm_host_ms=gmm_host,
+                    gmm_device_ms=dev_us / 3 / 1e3 if dev_us > 0
+                    else 'not measured',
+                    reassign_event_ms=reassign_ms,
+                    reassigned_event_ms=targets_ms)
+    return inspect
+
+
+def paa_reassign_reference(torch, base, hw=(128, 192)):
+    """PAA's reassigned positives of the CPU's outputs at 1x3x128x192 on
+    the card and on the CPU: identical."""
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    batch = detection_batch(1, *hw, seed=0, device='cpu')
+    cpu = copy.deepcopy(base).eval()
+    card = copy.deepcopy(base).to('cuda').eval()
+    with torch.no_grad():
+        outs = cpu(batch['image'])
+        sizes = [tuple(c.shape[-2:]) for c in outs[0]]
+        want = cpu.bbox_head.reassigned(outs, batch, sizes)
+        got = card.bbox_head.reassigned(
+            [[x.cuda() for x in part] for part in outs],
+            {k: v.cuda() for k, v in batch.items()}, sizes)
+    same = torch.equal(got['keep'].cpu(), want['keep']) and \
+        torch.equal(got['cand'].cpu(), want['cand'])
+    emit(dict(phase='paa_reassign_reference', config=PAA,
+              input='1x3x{}x{}'.format(*hw),
+              candidates=int(want['cand'].sum()),
+              kept=int(want['keep'].sum()), identical=same))
+    check(int(want['keep'].sum()) > 0 and same,
+          'PAA reassigned positives: card vs CPU differ')
+    del card
+    torch.cuda.empty_cache()
+
+
+def phase_paa_fsaf_freeanchor(torch, np, smi):
+    """PAA, FSAF and FreeAnchor at full width, float32, seed 0 (the cls
+    bias 0 so that the decode sees candidates): each R50 served at batch 1
+    and 2 (PAA with score voting), trained at batch 2 with its peak memory
+    (PAA's reassignment and GMM timed), held against the CPU (outputs, the
+    first step's losses, the decode of the same outputs; PAA's reassigned
+    positives). Returns the kernel's launch count over the main paths.
+    Budget 25 s."""
+    t_phase = time.perf_counter()
+    launches = 0
+    for config in (PAA, FSAF, FREE_ANCHOR):
+        tag = {PAA: 'paa', FSAF: 'fsaf', FREE_ANCHOR: 'free_anchor'}[config]
+        n, _ = family_serve(torch, smi, config, None, *PFF_CALLS,
+                            phase=f'{tag}_serve')
+        launches += n
+        cfg, base = build_plain(torch, config)
+        head = base.bbox_head
+        with torch.no_grad():
+            getattr(head, head.cls_pred_name).bias.zero_()
+        model = base.to('cuda').eval()
+        launches += serve_b2(torch, smi, model, config, f'{tag}_serve_b2',
+                             *PFF_CALLS_B2)
+        base = model.cpu()
+        del model
+        torch.cuda.empty_cache()
+        n, _ = detector_steps(torch, smi, cfg, base, *PFF_STEPS, per_step=0,
+                              phase=f'{tag}_train',
+                              inspect=paa_gmm(torch) if config == PAA
+                              else None)
+        launches += n
+        dense_reference(torch, np, cfg, base, config, f'{tag}_reference')
+        if config == PAA:
+            paa_reassign_reference(torch, base)
+        del base
+        torch.cuda.empty_cache()
+    check(launches == PAA_FSAF_FREEANCHOR_LAUNCHES,
+          f'paa_fsaf_freeanchor phase: {launches} nms_keep launches, '
+          f'expected {PAA_FSAF_FREEANCHOR_LAUNCHES}')
+    emit(dict(phase='paa_fsaf_freeanchor_done',
+              seconds=time.perf_counter() - t_phase, budget_s=25,
+              nms_keep_launches=launches))
+    return launches
+
+
+def bucket_decode_diff(torch, coder, props, bucket_cls, bucket_off, img_hw):
+    """The bucketing decode of CPU predictions on the card against the CPU:
+    (max box difference, max confidence difference)."""
+    want = coder.decode(props, (bucket_cls, bucket_off), max_shape=img_hw)
+    got = coder.decode(props.cuda(), (bucket_cls.cuda(), bucket_off.cuda()),
+                       max_shape=img_hw.cuda())
+    return tuple(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+
+
+def sabl_retina_bucket_reference(torch, base, config, phase,
+                                 hw=(128, 192)):
+    """The bucket decode of every square of the CPU's outputs at
+    1x3x128x192 on the card against the CPU: boxes and confidence within
+    1e-4."""
+    from ld_tpu_torch.models.heads.gfl_head import flatten_levels
+    from ld_tpu_torch.testing import detection_batch
+    batch = detection_batch(1, *hw, seed=0, device='cpu')
+    cpu = base.eval()
+    with torch.no_grad():
+        _, bcls, breg = cpu(batch['image'])
+        sizes = [tuple(c.shape[-2:]) for c in bcls]
+        squares = cpu.bbox_head.geometry(sizes, 'cpu')[0]
+        box_diff, conf_diff = bucket_decode_diff(
+            torch, cpu.bbox_head.coder, squares[None],
+            flatten_levels(bcls), flatten_levels(breg), batch['img_hw'])
+    emit(dict(phase=phase, config=config, input='1x3x{}x{}'.format(*hw),
+              squares=squares.shape[0], box_max_abs_diff=box_diff,
+              conf_max_abs_diff=conf_diff, tol=1e-4))
+    check(box_diff <= 1e-4 and conf_diff <= 1e-4,
+          f'{config} bucket decode: card vs CPU {box_diff}, {conf_diff}')
+
+
+def det_multisets(got, want):
+    """Two (dets, labels, valid) of the same inputs compared image by image
+    as multisets of (score, label, box): a cascade's averaged softmax of
+    peaked logits (`peak_scores`) gives two classes of one roi exactly
+    equal scores, which the top-k may leave in either order. Returns
+    (labels equal, the largest box or score difference)."""
+    import numpy as np
+    same, diff = True, 0.0
+    for i in range(want[0].shape[0]):
+        rows = []
+        for dets, labels, valid in (got, want):
+            d = dets[i][valid[i]].numpy()
+            lab = labels[i][valid[i]].numpy()
+            key = np.lexsort((d[:, 3].round(2), d[:, 2].round(2),
+                              d[:, 1].round(2), d[:, 0].round(2), lab,
+                              -d[:, 4].round(5)))
+            rows.append((d[key], lab[key]))
+        same = same and rows[0][1].shape == rows[1][1].shape and \
+            bool((rows[0][1] == rows[1][1]).all())
+        if same and len(rows[0][0]):
+            diff = max(diff, float(np.abs(rows[0][0] - rows[1][0]).max()))
+    return same, diff
+
+
+def sabl_roi_decode_reference(torch, base, config, phase, hw=(128, 192),
+                              proposals=200):
+    """A SABL RoI head's `simple_test` of the CPU's features and top
+    `proposals` proposals at 1x3x128x192 (fc_cls peaked, `peak_scores`) on the card against the
+    CPU, one nms_keep launch: the same valid mask, the same (score, label,
+    box) multisets (`det_multisets`), boxes within 1e-4; and its (last
+    stage's) bucket decode of the CPU's predictions on
+    those proposals, boxes and confidence within 1e-4."""
+    import copy
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    from ld_tpu_torch.testing import detection_batch
+    batch = detection_batch(1, *hw, seed=0, device='cpu')
+    cpu = peak_scores(torch, copy.deepcopy(base)).eval()
+    card = copy.deepcopy(cpu).to('cuda')
+    roi = cpu.roi_head
+    with torch.inference_mode():
+        feats, rpn_outs = cpu(batch['image'])
+        props, valid = (p[:, :proposals] for p in cpu.rpn_head.get_proposals(
+            rpn_outs, batch['img_hw']))
+        want = roi.simple_test(feats, props, valid, batch['img_hw'])
+        before = nms_keep.launches
+        got = card.roi_head.simple_test([f.cuda() for f in feats],
+                                        props.cuda(), valid.cuda(),
+                                        batch['img_hw'].cuda())
+        torch.cuda.synchronize()
+        launched = nms_keep.launches - before
+        got = [x.cpu() for x in got]
+        cascade = isinstance(roi.bbox_head, torch.nn.ModuleList)
+        head = roi.bbox_head[-1] if cascade else roi.bbox_head
+        coder = roi.coders[-1] if cascade else roi.coder
+        _, (bc, bo) = head(roi._extract(feats, props, valid))
+        r = props.shape[1]
+        box_diff, conf_diff = bucket_decode_diff(
+            torch, coder, props, bc.reshape(1, r, -1), bo.reshape(1, r, -1),
+            batch['img_hw'])
+    ok = want[2]
+    same_labels, diff = det_multisets(got, want)
+    emit(dict(phase=phase, config=config, input='1x3x{}x{}'.format(*hw),
+              proposals=int(valid.sum()), detections=int(ok.sum()),
+              decode_max_abs_diff=diff, decode_tol=1e-4,
+              bucket_box_max_abs_diff=box_diff,
+              bucket_conf_max_abs_diff=conf_diff, bucket_tol=1e-4,
+              nms_keep_launches_reference=launched))
+    check(launched == 1, f'{config} decode: {launched} launches')
+    check(int(ok.sum()) > 0 and torch.equal(got[2], ok) and same_labels and
+          diff <= 1e-4,
+          f'{config} decode of the same inputs: card vs CPU, {diff}')
+    check(box_diff <= 1e-4 and conf_diff <= 1e-4,
+          f'{config} bucket decode: card vs CPU {box_diff}, {conf_diff}')
+    del card
+    torch.cuda.empty_cache()
+
+
+def phase_sabl(torch, np, smi):
+    """The SABL family at full width, float32, seed 0: SABL RetinaNet R50,
+    plain and GN (the GN config's net is the plain one, caveat 57: the
+    same state-dict keys), each served at batch 1 and 2 and trained at
+    batch 2, held against the CPU (outputs, the first step's losses, the
+    decode and the bucket decode of the same outputs); SABL Faster R-CNN
+    and SABL Cascade R-CNN R50 (fc_cls peaked, `peak_scores`, for serving)
+    served at batch 1 and 2, trained at batch 2 (the bucket losses of each
+    stage), held against the CPU (the RPN's outputs, the losses, the RoI
+    head's decode and bucket decode of the same inputs). Returns the
+    kernel's launch count over the main paths. Budget 25 s."""
+    import copy
+    from ld_tpu_torch.apis import init_detector
+    t_phase = time.perf_counter()
+    launches = 0
+    keys = {}
+    for config in (SABL_RETINA, SABL_RETINA_GN):
+        tag = 'sabl_retina_gn' if config == SABL_RETINA_GN else 'sabl_retina'
+        n, _ = family_serve(torch, smi, config, None, *SABL_CALLS,
+                            phase=f'{tag}_serve')
+        launches += n
+        cfg, base = build_plain(torch, config)
+        keys[config] = sorted(base.state_dict())
+        with torch.no_grad():
+            base.bbox_head.retina_cls.bias.zero_()
+        model = base.to('cuda').eval()
+        launches += serve_b2(torch, smi, model, config, f'{tag}_serve_b2',
+                             *SABL_CALLS_B2)
+        base = model.cpu()
+        del model
+        torch.cuda.empty_cache()
+        n, _ = detector_steps(torch, smi, cfg, base, *SABL_STEPS, per_step=0,
+                              phase=f'{tag}_train')
+        launches += n
+        dense_reference(torch, np, cfg, base, config, f'{tag}_reference')
+        sabl_retina_bucket_reference(torch, base, config,
+                                     f'{tag}_bucket_reference')
+        del base
+        torch.cuda.empty_cache()
+    check(keys[SABL_RETINA] == keys[SABL_RETINA_GN],
+          'the SABL RetinaNet GN config does not build the plain net')
+    for config in (SABL_FASTER, SABL_CASCADE):
+        tag = 'sabl_cascade' if config == SABL_CASCADE else 'sabl_faster'
+        model = peak_scores(torch, init_detector(float32_cfg(config),
+                                                 device='cuda', seed=0))
+        n, _, _ = roi_serve(torch, smi, model, config, f'{tag}_serve',
+                            batches=(1, 2), warmup=SABL_ROI_CALLS[0],
+                            timed=SABL_ROI_CALLS[1])
+        launches += n
+        del model
+        torch.cuda.empty_cache()
+        cfg, base = build_plain(torch, config)
+        n, row = detector_steps(torch, smi, cfg, base, *SABL_ROI_STEPS,
+                                per_step=1, phase=f'{tag}_train')
+        launches += n
+        stages = ('_s0', '_s1', '_s2') if config == SABL_CASCADE else ('', )
+        check(all(f'loss_bbox_{k}{s}' in row['loss_last']
+                  for k in ('cls', 'reg') for s in stages),
+              f'{config}: bucket losses {sorted(row["loss_last"])}')
+        roi_reference(torch, np, base, config, f'{tag}_reference')
+        sabl_roi_decode_reference(torch, base, config, f'{tag}_decode')
+        del base
+        torch.cuda.empty_cache()
+    check(launches == SABL_LAUNCHES, f'sabl phase: {launches} nms_keep '
+          f'launches, expected {SABL_LAUNCHES}')
+    emit(dict(phase='sabl_done', seconds=time.perf_counter() - t_phase,
+              budget_s=25, nms_keep_launches=launches))
+    return launches
+
+
 def run_phases(names):
     """`--phases NAME ...`: only the named phases (dcn, res2net, ddp,
     hrnet_regnet, resnet_variants, data_host, vfnet, guided_anchoring,
-    reppoints, fovea_ssd, ms_rcnn_resnest), each with its seconds and
+    reppoints, fovea_ssd, ms_rcnn_resnest, paa_fsaf_freeanchor, sabl,
+    cascade), each with its seconds and
     launches, on the card with TF32 off and the kernel built; no result
     line."""
     import numpy as np
@@ -5328,7 +5669,11 @@ def run_phases(names):
                   reppoints=lambda: phase_reppoints(torch, np, smi),
                   fovea_ssd=lambda: phase_fovea_ssd(torch, np, smi),
                   ms_rcnn_resnest=lambda: phase_ms_rcnn_resnest(
-                      torch, np, smi))
+                      torch, np, smi),
+                  paa_fsaf_freeanchor=lambda: phase_paa_fsaf_freeanchor(
+                      torch, np, smi),
+                  sabl=lambda: phase_sabl(torch, np, smi),
+                  cascade=lambda: phase_cascade(torch, np, smi)[0])
     for name in names:
         t = time.perf_counter()
         launches = phases[name]()
@@ -5431,6 +5776,10 @@ def main():
     fovea_ssd_launches = phase_fovea_ssd(torch, np, smi)
     torch.cuda.empty_cache()
     ms_resnest_launches = phase_ms_rcnn_resnest(torch, np, smi)
+    torch.cuda.empty_cache()
+    pff_launches = phase_paa_fsaf_freeanchor(torch, np, smi)
+    torch.cuda.empty_cache()
+    sabl_launches = phase_sabl(torch, np, smi)
     emit(dict(phase='script_done', seconds=time.perf_counter() - t_script))
 
     print(smi.splitlines()[0], flush=True)
@@ -5446,7 +5795,8 @@ def main():
                   cascade_launches + hrnet_regnet_launches +
                   resnet_variants_launches + data_host_launches +
                   vfnet_launches + ga_launches + reppoints_launches +
-                  fovea_ssd_launches + ms_resnest_launches),
+                  fovea_ssd_launches + ms_resnest_launches +
+                  pff_launches + sabl_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -5467,6 +5817,8 @@ def main():
         launches_reppoints=reppoints_launches,
         launches_fovea_ssd=fovea_ssd_launches,
         launches_ms_rcnn_resnest=ms_resnest_launches,
+        launches_paa_fsaf_freeanchor=pff_launches,
+        launches_sabl=sabl_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

@@ -71,6 +71,6 @@ class SingleStageDetector(nn.Module):
 # named wrappers so the configs' `type=` names of the single-stage detectors
 # resolve
 for _name in ('GFL', 'ATSS', 'FCOS', 'RetinaNet', 'VFNet',
-              'RepPointsDetector', 'SSD', 'FoveaBox'):
+              'RepPointsDetector', 'SSD', 'FoveaBox', 'PAA', 'FSAF'):
     DETECTORS.register_module(name=_name, module=type(
         _name, (SingleStageDetector, ), {}))

@@ -24,10 +24,12 @@ detections' (B, 100, 28, 28) masks.
     (`loss_rpn_kd`, `loss_rpn_ld`); the RoI head trains as usual.
 
 `CascadeRCNN` and `HybridTaskCascade` are the same detector with a
-`CascadeRoIHead` / `HybridTaskCascadeRoIHead`; as in the JAX package, a
-`CascadeRoIHead` whose stages are `SABLHead`s is routed to
-`CascadeSABLRoIHead`, which waits (ROADMAP.md A7). The other two-stage
-names of the JAX package (Grid, SCNet, ...) wait for their heads (A7).
+`CascadeRoIHead` / `HybridTaskCascadeRoIHead`; as in the JAX package
+(`ld_tpu/models/detectors/two_stage.py:59-68`), a `StandardRoIHead` whose
+`bbox_head` is a `SABLHead` is routed to `SABLRoIHead`, and a
+`CascadeRoIHead` whose stages are `SABLHead`s to `CascadeSABLRoIHead`. The
+other two-stage names of the JAX package (Grid, SCNet, ...) wait for their
+heads (A7).
 """
 from __future__ import annotations
 
@@ -82,11 +84,16 @@ class TwoStageDetector(nn.Module):
         self.rpn_head = HEADS.build(rpn_cfg)
         if roi_head is not None or not isinstance(self, RPN):
             roi_cfg = dict(roi_head or dict(type='StandardRoIHead'))
-            stages = roi_cfg.get('bbox_head')
+            # a SABLHead bbox head routes the RoI head to its SABL form
+            bh = roi_cfg.get('bbox_head')
             if roi_cfg.get('type') == 'CascadeRoIHead' and \
-                    isinstance(stages, list) and \
-                    any((h or {}).get('type') == 'SABLHead' for h in stages):
+                    isinstance(bh, list) and \
+                    any((h or {}).get('type') == 'SABLHead' for h in bh):
                 roi_cfg['type'] = 'CascadeSABLRoIHead'
+            elif roi_cfg.get('type', 'StandardRoIHead') == \
+                    'StandardRoIHead' and isinstance(bh, dict) and \
+                    bh.get('type') == 'SABLHead':
+                roi_cfg['type'] = 'SABLRoIHead'
             roi_cfg.setdefault('train_cfg', train_cfg.get('rcnn'))
             roi_cfg.setdefault('test_cfg', test_cfg.get('rcnn'))
             self.roi_head = HEADS.build(roi_cfg)

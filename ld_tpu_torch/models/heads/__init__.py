@@ -3,18 +3,23 @@ from .cascade_roi_head import CascadeRoIHead
 from .classic_heads import ATSSHead, FCOSHead
 from .fcos_gfl_head import FCOSGFLHead, LDFCOSCompareHead, LDFCOSHead
 from .fovea_head import FoveaHead
+from .free_anchor_head import FreeAnchorRetinaHead
+from .fsaf_head import FSAFHead
 from .gfl_head import GFLHead
 from .gfocal_head import GFocalHead
 from .guided_anchor_head import GARetinaHead, GARPNHead
 from .htc_roi_head import HybridTaskCascadeRoIHead
 from .ld_gflv2 import IMv2Head, LDv2Head
 from .ld_head import IMHead, LDHead
+from .paa_head import PAAHead
 from .reppoints_head import RepPointsHead
 from .retina_gfl_head import LDRetinaHead, RetinaGFLHead
 from .retina_head import RetinaHead, RetinaSepBNHead
 from .roi_head import StandardRoIHead
 from .roi_variants import MaskScoringRoIHead
 from .rpn_head import RPNHead
+from .sabl_retina_head import SABLRetinaHead
+from .sabl_roi_head import CascadeSABLRoIHead, SABLRoIHead
 from .ssd_head import SSDHead
 from .vfnet_head import VFNetHead
 
@@ -25,4 +30,6 @@ __all__ = ['GFLHead', 'IMHead', 'LDHead', 'GFocalHead', 'LDv2Head',
            'ATSSHead', 'RPNHead', 'StandardRoIHead', 'CascadeRoIHead',
            'HybridTaskCascadeRoIHead', 'VFNetHead', 'GARetinaHead',
            'GARPNHead', 'RepPointsHead', 'FoveaHead', 'SSDHead',
-           'MaskScoringRoIHead']
+           'MaskScoringRoIHead', 'PAAHead', 'FSAFHead',
+           'FreeAnchorRetinaHead', 'SABLRetinaHead', 'SABLRoIHead',
+           'CascadeSABLRoIHead']

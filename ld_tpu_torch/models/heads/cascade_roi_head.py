@@ -23,6 +23,8 @@
     and clipped stage by stage, one class-aware `multiclass_nms` of the
     last stage's boxes (greedy, through `keep_fn`; the JAX head reads only
     the test config's `iou_threshold`).
+  * The stage heads come from `_build_stage_head`: `CascadeSABLRoIHead`
+    (`sabl_roi_head.py`) builds SABL heads there.
   * Cascade Mask R-CNN (`mask_head`): one `FCNMaskHead` a stage
     (`roi_head.mask_head.{i}.*`), `loss_mask_s{i}` on each stage's positive
     slice times the stage's weight, and at test time the stages' sigmoid
@@ -49,8 +51,7 @@ DEFAULT_STDS = ((0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1),
 DEFAULT_IOUS = (0.5, 0.6, 0.7)
 DEFAULT_STAGE_WEIGHTS = (1.0, 0.5, 0.25)
 
-HEADS.not_ported.update({name: 'ROADMAP.md A7' for name in (
-    'CascadeSABLRoIHead', 'SCNetRoIHead')})
+HEADS.not_ported.update({'SCNetRoIHead': 'ROADMAP.md A7'})
 
 
 def _per_stage(cfg, num_stages):
@@ -85,20 +86,21 @@ class CascadeRoIHead(StandardRoIHead):
                 'pos_iou_thr', DEFAULT_IOUS[min(i, 2)])
             self.assigners.append(MaxIoUAssigner(**dict(
                 a_cfg, pos_iou_thr=iou, neg_iou_thr=iou, min_pos_iou=iou)))
-        stages = []
-        for bh in bbox_heads:
-            bh = bh or {}
-            num_convs, num_fcs = convfc_shape(bh)
-            stages.append(ConvFCBBoxHead(
-                self.num_classes, bh.get('in_channels', 256), self.roi_size,
-                num_convs, num_fcs, bh.get('conv_out_channels', 256),
-                bh.get('fc_out_channels', 1024), reg_class_agnostic=True))
-        self.bbox_head = nn.ModuleList(stages)
+        self.bbox_head = nn.ModuleList(
+            self._build_stage_head(i, bh or {})
+            for i, bh in enumerate(bbox_heads))
         if mask_head is not None:
             self.mask_head = nn.ModuleList(
                 self._build_mask_head(dict(mh), dict(mask_roi_extractor or {}),
                                       dtype)
                 for mh in _per_stage(mask_head, num_stages))
+
+    def _build_stage_head(self, i: int, bh: dict) -> nn.Module:
+        num_convs, num_fcs = convfc_shape(bh)
+        return ConvFCBBoxHead(
+            self.num_classes, bh.get('in_channels', 256), self.roi_size,
+            num_convs, num_fcs, bh.get('conv_out_channels', 256),
+            bh.get('fc_out_channels', 1024), reg_class_agnostic=True)
 
     def init_weights(self, generator: torch.Generator):
         for head in self.bbox_head:

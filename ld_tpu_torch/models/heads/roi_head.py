@@ -40,7 +40,9 @@
 
 The sampler draws from the `torch.Generator` the caller passes in. The
 shared head of the C4 configs, GRoIE, deformable RoI pooling and the
-hard-mining samplers raise NotImplementedError (ROADMAP.md A7).
+hard-mining samplers raise NotImplementedError (ROADMAP.md A7). A
+`bbox_head` of type `SABLHead` makes the head a `SABLRoIHead`
+(`sabl_roi_head.py`), which builds its own bbox head.
 """
 from __future__ import annotations
 
@@ -209,18 +211,21 @@ class StandardRoIHead(nn.Module):
             dict(s_cfg, type=s_cfg.get('type', 'RandomSampler')),
             num=self.num_samples,
             pos_fraction=s_cfg.get('pos_fraction', 0.25))
+        self.bbox_head = self._build_bbox_head(bbox_head)
+        self.mask_head = None
+        if mask_head is not None:
+            self.mask_head = self._build_mask_head(
+                dict(mask_head), dict(mask_roi_extractor or {}), dtype)
+
+    def _build_bbox_head(self, bbox_head: dict) -> nn.Module:
         num_convs, num_fcs = convfc_shape(bbox_head)
-        self.bbox_head = ConvFCBBoxHead(
+        return ConvFCBBoxHead(
             self.num_classes, bbox_head.get('in_channels', 256),
             self.roi_size, num_convs, num_fcs,
             bbox_head.get('conv_out_channels', 256),
             bbox_head.get('fc_out_channels', 1024),
             bbox_head.get('with_avg_pool', False), self.reg_class_agnostic,
             bbox_head.get('conv_cfg'), bbox_head.get('norm_cfg'))
-        self.mask_head = None
-        if mask_head is not None:
-            self.mask_head = self._build_mask_head(
-                dict(mask_head), dict(mask_roi_extractor or {}), dtype)
 
     def _build_mask_head(self, mh: dict, mext: dict, dtype) -> FCNMaskHead:
         """`ld_tpu/models/heads/roi_head.py:330-348`, without the C4 case

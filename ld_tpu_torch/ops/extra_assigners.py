@@ -1,4 +1,4 @@
-"""The assigners of Guided Anchoring and RepPoints; port of
+"""The assigners of Guided Anchoring, RepPoints and FSAF; port of
 `ld_tpu/ops/extra_assigners.py`, with the images of a batch on a leading
 dimension where the JAX package `vmap`s.
 
@@ -13,8 +13,16 @@ dimension where the JAX package `vmap`s.
     overlap with a gt is the largest IoU among its approx anchors; then
     `MaxIoUAssigner`'s thresholds, on that overlap matrix.
 
-The file's other JAX assigners (Hungarian, CenterRegion, TaskAligned, Grid,
-Region) are not ported yet: building one raises (ROADMAP.md A7).
+  * `CenterRegionAssigner` (`:120-174`, FSAF): an anchor is positive for
+    the gts whose box shrunk about its centre by `pos_scale` holds the
+    anchor's centre (inclusive bounds), the smallest such gt winning (of
+    equal areas the lowest gt index); an anchor inside a gt shrunk by
+    `neg_scale` that is not positive is ignored, marked by `max_overlaps`
+    -1. `min_pos_iof` is accepted and not read, as in the JAX assigner
+    (ROADMAP.md caveat 59).
+
+The file's other JAX assigners (Hungarian, TaskAligned, Grid, Region) are
+not ported yet: building one raises (ROADMAP.md A7).
 """
 from __future__ import annotations
 
@@ -28,8 +36,8 @@ from .boxes import bbox_overlaps
 from .max_iou_assigner import MaxIoUAssigner
 
 ASSIGNERS.not_ported.update({name: 'ROADMAP.md A7' for name in (
-    'HungarianAssigner', 'CenterRegionAssigner', 'TaskAlignedAssigner',
-    'GridAssigner', 'RegionAssigner')})
+    'HungarianAssigner', 'TaskAlignedAssigner', 'GridAssigner',
+    'RegionAssigner')})
 
 
 def _small_topk_min(values: torch.Tensor, k: int) -> torch.Tensor:
@@ -89,6 +97,60 @@ class PointAssigner:
         return AssignResult(
             assigned_gt_inds=torch.where(pos, best, torch.full_like(best, -1)),
             max_overlaps=pos.to(torch.float32), labels=labels, pos_mask=pos)
+
+
+@ASSIGNERS.register_module()
+class CenterRegionAssigner:
+    """Positives in the gts' centre regions, an ignore band around them."""
+
+    def __init__(self, pos_scale=0.2, neg_scale=0.5, min_pos_iof=1e-2,
+                 **kwargs):
+        self.pos_scale = pos_scale
+        self.neg_scale = neg_scale
+
+    @staticmethod
+    def _in_scaled(points: torch.Tensor, gtb: torch.Tensor, scale: float):
+        """points (N, 2), gtb (B, G, 4) -> (B, N, G): the point lies in the
+        gt shrunk by `scale` about its centre, bounds included."""
+        cx = (gtb[..., 0] + gtb[..., 2]) / 2
+        cy = (gtb[..., 1] + gtb[..., 3]) / 2
+        w = (gtb[..., 2] - gtb[..., 0]) * scale
+        h = (gtb[..., 3] - gtb[..., 1]) * scale
+        px, py = points[None, :, 0:1], points[None, :, 1:2]
+        return ((px >= (cx - w / 2)[:, None]) & (px <= (cx + w / 2)[:, None])
+                & (py >= (cy - h / 2)[:, None]) &
+                (py <= (cy + h / 2)[:, None]))
+
+    def assign(self, bboxes: torch.Tensor, num_level_bboxes: Sequence[int],
+               gt_bboxes: torch.Tensor, gt_labels: torch.Tensor,
+               gt_valid: torch.Tensor, valid_mask: torch.Tensor = None,
+               num_classes: int = 80) -> AssignResult:
+        """bboxes (N, 4); the gts (B, G, ...); valid_mask (B, N). The
+        ignored anchors carry `max_overlaps` -1."""
+        n = bboxes.shape[0]
+        if valid_mask is None:
+            valid_mask = torch.ones((gt_bboxes.shape[0], n), dtype=torch.bool,
+                                    device=bboxes.device)
+        centers = torch.stack([(bboxes[:, 0] + bboxes[:, 2]) / 2,
+                               (bboxes[:, 1] + bboxes[:, 3]) / 2], -1)
+        pos_in = self._in_scaled(centers, gt_bboxes, self.pos_scale) & \
+            gt_valid[:, None, :] & valid_mask[..., None]
+        ign_in = self._in_scaled(centers, gt_bboxes, self.neg_scale) & \
+            gt_valid[:, None, :]
+        areas = (gt_bboxes[..., 2] - gt_bboxes[..., 0]) * \
+            (gt_bboxes[..., 3] - gt_bboxes[..., 1])
+        inf = torch.full((), INF, device=areas.device)
+        masked = torch.where(pos_in, areas[:, None, :], inf)
+        best = masked.argmin(dim=-1)           # the first gt on a tie
+        pos = masked.amin(dim=-1) < INF / 2
+        ignore = ign_in.any(dim=-1) & ~pos
+        labels = torch.where(pos, torch.gather(gt_labels.long(), 1, best),
+                             torch.full_like(best, num_classes))
+        one = torch.ones((), device=areas.device)
+        overlaps = torch.where(pos, one, torch.where(ignore, -one, 0 * one))
+        return AssignResult(
+            assigned_gt_inds=torch.where(pos, best, torch.full_like(best, -1)),
+            max_overlaps=overlaps, labels=labels, pos_mask=pos)
 
 
 @ASSIGNERS.register_module()

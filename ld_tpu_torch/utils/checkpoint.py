@@ -292,7 +292,10 @@ _HEAD_CONVS = {'gfl_cls': 'gfl_cls', 'gfl_reg': 'gfl_reg',
                'cls_out': 'reppoints_cls_out',
                'pts_refine_out': 'reppoints_pts_refine_out',
                # FoveaBox-align's offset conv
-               'align_offset': 'feature_adaption.conv_offset'}
+               'align_offset': 'feature_adaption.conv_offset',
+               # the SABL RetinaNet's bucket convs
+               'retina_bbox_cls': 'retina_bbox_cls',
+               'retina_bbox_reg': 'retina_bbox_reg'}
 # the heads' caller-offset DeformConvs (a (3*3*C, O) kernel, rows tap-major)
 # that do not keep their JAX name: GA's adaptions, RepPoints' two DCNs;
 # VFNet's `*_dconv` keep theirs
@@ -465,6 +468,56 @@ _VGG16_FEATURES = {
     'conv5_0': 24, 'conv5_1': 26, 'conv5_2': 28, 'fc6': 31, 'fc7': 33}
 
 
+_SABL_INDEXED = {'cls_fc': 'cls_fcs.{}', 'reg_offset_fc': 'reg_offset_fcs.{}',
+                 'reg_cls_fc': 'reg_cls_fcs.{}',
+                 'reg_pre_conv': 'reg_pre_convs.{}.conv',
+                 'reg_post_conv_x': 'reg_post_conv_xs.{}.conv',
+                 'reg_post_conv_y': 'reg_post_conv_ys.{}.conv'}
+
+
+def _sabl_value(path: tuple, value: np.ndarray, params: Dict
+                ) -> Tuple[str, np.ndarray]:
+    """('bbox' | 'stageS', module, leaf) of a JAX `SABLBBoxHeadNet` -> the
+    port's `SABLBBoxHead` name (after `S.` for a cascade stage) and value:
+    Dense kernels transposed, the one reading the flattened roi (`cls_fc1`,
+    else `fc_cls`) from the HWC flatten to CHW, the 1-D post convs to (1, 3)
+    / (3, 1) kernels, the upsamplings' kernels flipped (flax correlates)."""
+    stage = re.fullmatch(r'bbox|stage(\d+)', path[0]).group(1)
+    prefix = '' if stage is None else f'{stage}.'
+    mod, leaf = path[1], path[-1]
+    name = {'kernel': 'weight', 'bias': 'bias'}[leaf]
+    m = re.fullmatch(r'([a-z_]+?)(\d+)', mod)
+    if m is not None and m.group(1) in _SABL_INDEXED:
+        kind, i = m.group(1), int(m.group(2))
+        key = _SABL_INDEXED[kind].format(i - 1 if kind.endswith('fc') else i)
+    else:
+        kind, key = mod, mod
+    key = f'{prefix}{key}.{name}'
+    if leaf != 'kernel':
+        return key, value
+    if value.ndim == 2:
+        weight = value.T
+        net = params['roi_head'][path[0]]
+        if mod == 'cls_fc1' or (mod == 'fc_cls' and 'cls_fc1' not in net):
+            rpn = params['rpn_net']
+            c = np.shape(rpn.get('rpn_conv', rpn.get('cls_conv0'))[
+                'kernel'])[2]
+            weight = _chw_columns(weight, c)
+        return key, weight
+    if kind in ('upsample_x', 'upsample_y'):
+        return key, np.ascontiguousarray(value[::-1].transpose(1, 2, 0))
+    if kind == 'reg_post_conv_x':
+        return key, value.transpose(2, 1, 0)[:, :, None, :]
+    if kind == 'reg_post_conv_y':
+        return key, value.transpose(2, 1, 0)[:, :, :, None]
+    return key, _conv_weight(value)
+
+
+def _is_sabl(params: Dict, path: tuple) -> bool:
+    net = params.get('roi_head', {}).get(path[0])
+    return isinstance(net, dict) and 'fc_reg_cls' in net
+
+
 def _vgg_key(path: tuple) -> Optional[str]:
     """An SSD-VGG leaf (`convB_I`, `fc6`, `fc7`, `extraI_J`, `l2_norm`)
     -> mmdet's `features.N`, `extra.{2I + J - 1}`, `l2_norm.weight` after
@@ -573,7 +626,11 @@ def state_dict_from_jax(variables: Dict,
     FoveaBox head (`align_offset`, `feature_align` to
     `feature_adaption.{conv_offset, conv_adaption}`) and a MaskIoU head
     (`roi_head/maskiou` to `roi_head.mask_iou_head.*`, fc0's rows from the
-    HWC flatten to CHW).
+    HWC flatten to CHW). A SABL RetinaNet head's `retina_bbox_cls` /
+    `retina_bbox_reg` keep their names, and a SABL RoI net (`roi_head/bbox`,
+    a cascade's `roi_head/stageS`; told by its `fc_reg_cls`) maps to the
+    port's `SABLBBoxHead` names (`_sabl_value`); the JAX converter has no
+    rule for either (ROADMAP.md caveat 58).
 
     Raises KeyError on a leaf outside the ResNet / Res2Net / FPN, the
     dense-head (GFL family, Retina, FCOS, ATSS, VFNet, GA, RepPoints),
@@ -688,6 +745,10 @@ def state_dict_from_jax(variables: Dict,
                         rest[-1] == 'kernel':
                     sd[key] = _deconv_weight(value)
                     continue
+            elif scope == 'roi_head' and _is_sabl(params, rest):
+                key, value = _sabl_value(rest, value, params)
+                sd['roi_head.bbox_head.' + key] = value
+                continue
             elif scope == 'roi_head':
                 key = 'roi_head.bbox_head.' + _roi_key(rest)
                 if rest[-1] == 'kernel' and value.ndim == 2:

@@ -21,8 +21,9 @@ from JAX once and feed every RoI-head comparison. In float32 on the CPU:
     5e-3 px (the backbone's fp32 rounding reaches them through exp(dw)),
     Cascade Mask R-CNN's masks within 1e-4; HTC's three outputs;
   * every config of configs/cascade_rcnn/, configs/htc/ and the cascades
-    of configs/dcn/ builds on the meta device, and the SABL cascades raise
-    NotImplementedError naming ROADMAP.md A7; the R50 configs'
+    of configs/dcn/ builds on the meta device, the SABL cascades as a
+    `CascadeSABLRoIHead` (held against JAX in test_torch_port_sabl.py);
+    the R50 configs'
     `state_dict_from_jax` gives the port's keys and shapes exactly, and a
     JAX `.npz` loads through `load_checkpoint`;
   * one SGD step of Cascade Mask R-CNN and HTC on the port alone (finite
@@ -497,15 +498,15 @@ CONFIGS = sorted(os.path.relpath(p, ROOT) for pattern in (
 @pytest.mark.parametrize('path', CONFIGS)
 def test_cascade_config_builds_or_names_its_item(path):
     cfg = Config.fromfile(os.path.join(ROOT, path))
-    if path.startswith('configs/sabl/'):
-        # SABL heads (ROADMAP.md A7)
-        with pytest.raises(NotImplementedError, match='A7'):
-            with torch.device('meta'):
-                build_detector(cfg.model, dtype=cfg.get('dtype'))
-        return
     with torch.device('meta'):
         model = build_detector(cfg.model, dtype=cfg.get('dtype'))
     roi_head = model.roi_head
+    if path.startswith('configs/sabl/'):
+        # SABL heads: one bucketing coder and SABLBBoxHead a stage
+        assert type(roi_head).__name__ == 'CascadeSABLRoIHead'
+        assert len(roi_head.bbox_head) == 3 and roi_head.num_classes == 80
+        assert [c.scale_factor for c in roi_head.coders] == [1.7, 1.5, 1.3]
+        return
     if path.startswith('configs/dcn/'):
         # the 'DCN' type builds the DCNv2 layer in c3-c5 (caveat 36)
         assert sum(type(m).__name__ == 'ModulatedDeformConv2d'

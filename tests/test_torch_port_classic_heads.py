@@ -180,8 +180,11 @@ def test_coder_matches_jax(coder):
     want = np.asarray(jax.jit(jax.vmap(lambda b, d, s: jc.decode(
         b, d, max_shape=s)))(boxes, deltas, hw))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
-    with pytest.raises(NotImplementedError, match='A7'):
-        build_coder(dict(type='TBLRBBoxCoder'))
+    # the FSAF and SABL coders build (held against JAX in
+    # test_torch_port_paa_fsaf_freeanchor.py and test_torch_port_sabl.py)
+    assert type(build_coder(dict(type='TBLRBBoxCoder'))).__name__ == \
+        'TBLRBBoxCoder'
+    assert build_coder(dict(type='BucketingBBoxCoder')).side_num == 7
 
 
 @pytest.mark.parametrize('loss', [dict(type='L1Loss', loss_weight=2.0),

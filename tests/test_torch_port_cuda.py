@@ -21,7 +21,9 @@ varifocal loss, the RoI head's NMS at LVIS's 1203 classes, the GA-Retina,
 GA-RPN and RepPoints heads (outputs, losses, decode or proposals), their
 assigners and the bounded IoU loss, the FoveaBox (plain and align) and
 SSD300 heads (outputs, losses, decode), a ResNeSt-50 trunk and the Mask
-Scoring RoI head's losses.
+Scoring RoI head's losses, the PAA, FSAF, FreeAnchor and SABL RetinaNet
+heads (outputs, losses, PAA's reassigned positives, decode) and the SABL
+and SABL Cascade RoI heads (losses, bucket decode, `simple_test`).
 """
 import pytest
 import torch
@@ -1125,3 +1127,136 @@ def test_resnest_and_mask_scoring_on_the_card_equal_the_cpu(no_tf32):
     assert 'loss_mask_iou' in runs['cpu'] and runs['cpu']['loss_mask_iou'] > 0
     for k, c in runs['cpu'].items():
         assert abs(runs['cuda'][k] - c) <= 1e-3 * abs(c), k
+
+
+_PAA_FAMILY = dict(
+    paa=dict(type='PAAHead', anchor_generator=dict(
+        ratios=[1.0], octave_base_scale=8, scales_per_octave=1,
+        strides=[8, 16, 32, 64, 128])),
+    fsaf=dict(type='FSAFHead', train_cfg=dict(assigner=dict(
+        type='CenterRegionAssigner', pos_scale=0.5, neg_scale=0.8))),
+    free_anchor=dict(type='FreeAnchorRetinaHead'),
+    sabl_retina=dict(type='SABLRetinaHead'))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', list(_PAA_FAMILY))
+def test_paa_fsaf_free_anchor_sabl_head_on_the_card_equals_the_cpu(no_tf32,
+                                                                   kind):
+    """A PAA, FSAF, FreeAnchor or SABL RetinaNet head (width 64, 2 stacked
+    convs, 4 classes) on random FPN features of a 2x3x128x192 batch: its
+    outputs within 5e-3; its losses on the CPU's outputs within rtol 1e-3 a
+    term (PAA's reassigned positives identical); the decode of the CPU's
+    outputs on the card, one nms_keep launch, with the same valid mask and
+    labels, boxes within 1e-4."""
+    _need_card()
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    head = _dense_head(dict(_PAA_FAMILY[kind], num_classes=4, in_channels=64,
+                            feat_channels=64, stacked_convs=2))
+    gen = torch.Generator().manual_seed(1)
+    feats = [torch.randn(2, 64, h, w, generator=gen)
+             for h, w in ((16, 24), (8, 12), (4, 6), (2, 3), (1, 2))]
+    batch = detection_batch(2, 128, 192, num_classes=4, seed=0,
+                            device='cpu')
+    sizes = [tuple(f.shape[-2:]) for f in feats]
+    with torch.no_grad():
+        c_outs = head.eval()(feats)
+        g_outs = copy.deepcopy(head).cuda().eval()([f.cuda() for f in feats])
+    for cp, gp in zip(c_outs, g_outs):
+        for c, g in zip(cp, gp):
+            assert float((g.cpu() - c).abs().max()) <= 5e-3
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        m = copy.deepcopy(head).to(device).train()
+        outs = [[x.to(device) for x in part] for part in c_outs]
+        b = {k: v.to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            losses = m.loss(outs, b, sizes)
+            keep = m.reassigned(outs, b, sizes)['keep'].cpu() \
+                if kind == 'paa' else None
+        runs[device] = ({k: float(v) for k, v in losses.items()}, keep)
+    for k, c in runs['cpu'][0].items():
+        assert abs(runs['cuda'][0][k] - c) <= 1e-3 * abs(c), k
+    if kind == 'paa':
+        assert runs['cpu'][1].sum() > 0
+        assert torch.equal(runs['cuda'][1], runs['cpu'][1])
+    with torch.no_grad():
+        want = head.get_bboxes(c_outs, batch['img_hw'])
+        launches = nms_keep.launches
+        got = head.cuda().get_bboxes([[x.cuda() for x in part]
+                                      for part in c_outs],
+                                     batch['img_hw'].cuda())
+        torch.cuda.synchronize()
+    assert nms_keep.launches == launches + 1
+    got = [t.cpu() for t in got]
+    assert want[2].sum() > 0 and torch.equal(got[2], want[2])
+    assert torch.equal(got[1], want[1])
+    assert float((got[0] - want[0]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cascade', [False, True])
+def test_sabl_roi_head_on_the_card_equals_the_cpu(no_tf32, cascade):
+    """A SABL (or SABL Cascade) RoI head (width 64, 4 classes, samplers
+    that pick every candidate) on random FPN features and noisy gt
+    proposals: its losses within rtol 1e-3 a term, the bucket decode of the
+    CPU's predictions on the card within 1e-4 (boxes and confidence), and
+    `simple_test` on the card, one nms_keep launch, with the same valid
+    mask and labels, boxes within 1e-4."""
+    _need_card()
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    from ld_tpu_torch.utils.registry import HEADS
+    everything = dict(num=10**6, pos_fraction=1.0)
+    bh = dict(type='SABLHead', num_classes=4, in_channels=64,
+              cls_out_channels=64, reg_in_channels=64)
+    head = HEADS.build(dict(
+        type='CascadeSABLRoIHead' if cascade else 'SABLRoIHead',
+        bbox_head=[dict(bh) for _ in range(3)] if cascade else bh,
+        bbox_roi_extractor=dict(featmap_strides=[4, 8, 16, 32]),
+        train_cfg=dict(sampler=everything),
+        test_cfg=dict(score_thr=0.01, nms=dict(iou_threshold=0.5),
+                      max_per_img=100)))
+    head.init_weights(torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(3)
+    feats = [torch.randn(2, 64, h, w, generator=gen)
+             for h, w in ((32, 48), (16, 24), (8, 12), (4, 6))]
+    batch = detection_batch(2, 128, 192, num_classes=4, seed=0,
+                            device='cpu')
+    props = torch.cat([batch['gt_bboxes'] + torch.randn(
+        batch['gt_bboxes'].shape, generator=gen) * s for s in (2, 6, 12)], 1)
+    valid = batch['gt_valid'].repeat(1, 3)
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        m = copy.deepcopy(head).to(device).train()
+        b = {k: v.to(device) for k, v in batch.items()}
+        losses = m.forward_train([f.to(device) for f in feats],
+                                 props.to(device), valid.to(device), b,
+                                 torch.Generator(device=device).manual_seed(0))
+        runs[device] = {k: float(v.detach()) for k, v in losses.items()}
+    for k, c in runs['cpu'].items():
+        assert abs(runs['cuda'][k] - c) <= 1e-3 * abs(c), k
+    coder = head.coders[-1] if cascade else head.coder
+    bucket = torch.randn(2, 50, 28, generator=gen) * 3
+    offset = torch.randn(2, 50, 28, generator=gen)
+    want = coder.decode(props[:, :50], (bucket, offset),
+                        max_shape=batch['img_hw'])
+    got = coder.decode(props[:, :50].cuda(), (bucket.cuda(), offset.cuda()),
+                       max_shape=batch['img_hw'].cuda())
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4
+    with torch.no_grad():
+        c_feats = [f for f in feats]
+        want = head.eval().simple_test(c_feats, props, valid,
+                                       batch['img_hw'])
+        launches = nms_keep.launches
+        got = head.cuda().simple_test([f.cuda() for f in feats],
+                                      props.cuda(), valid.cuda(),
+                                      batch['img_hw'].cuda())
+        torch.cuda.synchronize()
+    assert nms_keep.launches == launches + 1
+    got = [t.cpu() for t in got]
+    assert want[2].sum() > 0 and torch.equal(got[2], want[2])
+    assert torch.equal(got[1], want[1])
+    assert float((got[0] - want[0]).abs().max()) <= 1e-4
