@@ -7,7 +7,9 @@ stack, Mask R-CNN, the cascades (Cascade R-CNN, Cascade Mask R-CNN, HTC),
 the HRNet and RegNet detectors, the ResNet's plugin, 'DCN' and GN + WS
 variants, the LVIS / crop / augmentation / robustness data paths,
 VarifocalNet, Guided Anchoring, RepPoints, FoveaBox, SSD, Mask Scoring
-R-CNN and the ResNeSt detectors on one CUDA card and check them.
+R-CNN, the ResNeSt detectors, PAA, FSAF, FreeAnchor, SABL, DetectoRS, the
+FPG, NAS-FPN, NAS-FCOS, CARAFE and PAFPN necks, Grid R-CNN and PointRend
+on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
     python3 chip_smoke.py --phases fovea_ssd ms_rcnn_resnest    # alone
@@ -348,6 +350,26 @@ Phases, one JSON object per line each:
                differences reported); Cascade Mask R-CNN S101 1 + 2 calls,
                1 + 2 steps with masks. 2 launches a call, 1 a step;
                launches must equal MS_RESNEST_LAUNCHES. Budget 50 s.
+ 28. paa_fsaf_freeanchor, sabl — PAA, FSAF and FreeAnchor R50; the SABL
+               RetinaNet, Faster and Cascade R-CNN R50 (see their
+               functions). Budgets 25 s each.
+ 29. detectors_necks — DetectoRS HTC R50 (SAC + RFP) and Cascade R-CNN
+               R50 RFP at 800x1344, FPG Faster R-CNN and NAS-FPN RetinaNet
+               at 640x640, NAS-FCOS, CARAFE and PAFPN Faster R-CNN at
+               800x1344; full width, float32, seed 0 (fc_cls peaked, a
+               dense head's cls bias 0): each 1 + 2 calls at batch 1 (the
+               detections identical with the plain keep mask), 1 + 2
+               steps at its config's samples_per_gpu (8 for FPG, 4 for
+               NAS-FCOS, 2 for the rest; HTC with box-region gt masks),
+               against the CPU (`roi_reference` at 1x3x128x192, HTC's on
+               its top 50 proposals; `dense_reference` at 1x3x128x192,
+               NAS-FPN's at 1x3x128x256). 2 launches a two-stage call, 1 a
+               single-stage call, 1 a two-stage step; launches must equal
+               DN_LAUNCHES. Budget 45 s.
+ 30. grid_point_rend — Grid R-CNN and PointRend R50 the same way at
+               800x1344 (PointRend stepped with box-region gt masks: its
+               first step has loss_point, Grid R-CNN's loss_grid);
+               launches must equal GP_LAUNCHES. Budget 15 s.
 Every phase row carries `t`, the script's seconds so far; `--phases NAME
 ...` runs the named phases alone.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
@@ -624,6 +646,38 @@ SABL_ROI_CALLS, SABL_ROI_STEPS = (1, 2), (1, 2)
 # call (the RPN's batch, the RoI head's), 1 a two-stage step
 SABL_LAUNCHES = (2 * (sum(SABL_CALLS) + sum(SABL_CALLS_B2)) +
                  2 * (2 * 2 * sum(SABL_ROI_CALLS) + sum(SABL_ROI_STEPS)))
+
+# the detectors_necks phase (budget 45 s): DetectoRS HTC R50 (SAC + RFP) and
+# Cascade R-CNN R50 RFP at 800x1344; FPG Faster R-CNN and NAS-FPN RetinaNet
+# at 640x640 (their sizes divide by 64 and 128); NAS-FCOS, CARAFE and PAFPN
+# Faster R-CNN at 800x1344: (config, input size), each served at batch 1
+# (warm-up, timed calls) and stepped at its config's samples_per_gpu
+# (8 for FPG, 4 for NAS-FCOS, 2 for the rest), then held against the CPU
+# at a small size; NAS-FPN's reference at 128x256, where its live head BNs
+# see two values a channel on P7 and each merge cell's ratio is an integer
+DN_MODELS = (
+    ('configs/detectors/detectors_htc_r50_1x_coco.py', (800, 1344)),
+    ('configs/detectors/cascade_rcnn_r50_rfp_1x_coco.py', (800, 1344)),
+    ('configs/fpg/faster_rcnn_r50_fpg_crop640_50e_coco.py', (640, 640)),
+    ('configs/nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py',
+     (640, 640)),
+    ('configs/nas_fcos/nas_fcos_nashead_r50_caffe_fpn_gn-head_4x4_1x_coco.py',
+     (800, 1344)),
+    ('configs/carafe/faster_rcnn_r50_fpn_carafe_1x_coco.py', (800, 1344)),
+    ('configs/pafpn/faster_rcnn_r50_pafpn_1x_coco.py', (800, 1344)))
+DN_CALLS, DN_STEPS = (1, 2), (1, 2)
+# the grid_point_rend phase (budget 15 s): Grid R-CNN and PointRend R50 at
+# 800x1344, PointRend stepped with box-region gt masks (`loss_point`)
+GP_MODELS = (('configs/grid_rcnn/grid_rcnn_r50_fpn_gn-head_1x_coco.py',
+              (800, 1344)),
+             ('configs/point_rend/point_rend_r50_caffe_fpn_1x_coco.py',
+              (800, 1344)))
+# 1 launch a single-stage call, none a single-stage step; 2 a two-stage call
+# (the RPN's batch, the RoI head's or the last stage's), 1 a two-stage step
+DN_LAUNCHES = (5 * (2 * sum(DN_CALLS) + sum(DN_STEPS)) + 2 * sum(DN_CALLS))
+GP_LAUNCHES = len(GP_MODELS) * (2 * sum(DN_CALLS) + sum(DN_STEPS))
+# the loss a RoI head adds, which its first step must have
+HEAD_LOSS = dict(GridRoIHead='loss_grid', PointRendRoIHead='loss_point')
 
 
 T_START = time.perf_counter()
@@ -5635,11 +5689,153 @@ def phase_sabl(torch, np, smi):
     return launches
 
 
+def neck_serve(torch, smi, model, config, phase, hw, warmup, timed):
+    """`forward_test` of `model` (on the card, in eval) at 1x3x`hw`:
+    `warmup` + `timed` calls, 1 nms_keep launch a single-stage call and 2 a
+    two-stage one, finite (1, 100, 5) detections with some valid, then the
+    same call's detections bit-identical with the plain keep mask. Emits
+    the row; returns the launch count."""
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    two_stage = hasattr(model, 'roi_head')
+    per_call = 2 if two_stage else 1
+    bench = dict(image=torch.randn(1, 3, *hw, device='cuda',
+                                   generator=torch.Generator('cuda')
+                                   .manual_seed(0)),
+                 img_hw=torch.tensor([hw], dtype=torch.float32,
+                                     device='cuda'))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        # ---- the main path: counts from 0, read right after --------------
+        nms_keep.launches = 0
+        for _ in range(warmup):
+            model.forward_test(bench)
+        torch.cuda.synchronize()
+        call_ms = []
+        for _ in range(timed):
+            t = time.perf_counter()
+            outs = model.forward_test(bench)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t) * 1e3)
+        launches = nms_keep.launches
+        # ------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        dets, valid = outs[0], outs[2]
+        check(launches == per_call * (warmup + timed),
+              f'{config}: nms_keep launched {launches} times for '
+              f'{warmup + timed} forward_test calls ({per_call} a call)')
+        check(tuple(dets.shape) == (1, 100, 5) and
+              bool(torch.isfinite(dets).all()) and int(valid.sum()) > 0,
+              f'{config}: forward_test output at {hw}')
+        runs = []
+        for keep in (nms_keep, nms_keep_ref):
+            if two_stage:
+                feats, rpn_outs = model(bench['image'])
+                props = model.rpn_head.get_proposals(
+                    rpn_outs, bench['img_hw'], keep_fn=keep)
+                runs.append(model.roi_head.simple_test(
+                    feats, *props, bench['img_hw'], keep_fn=keep))
+            else:
+                runs.append(model.bbox_head.get_bboxes(
+                    model(bench['image']), bench['img_hw'], keep_fn=keep))
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f'{config}: detections with the kernel differ from the plain '
+              'keep mask')
+    row = dict(phase=phase, config=config, nvidia_smi=smi,
+               detector=type(model).__name__,
+               backbone=type(model.backbone).__name__,
+               neck=type(model.neck).__name__,
+               params=sum(p.numel() for p in model.parameters()),
+               input=[1, 3, *hw], warmup_calls=warmup, timed_calls=timed,
+               forward_test_ms=call_ms,
+               forward_test_ms_mean=sum(call_ms) / len(call_ms),
+               max_memory_allocated_bytes=peak, nms_keep_launches=launches,
+               nms_keep_launches_per_call=per_call,
+               detections=int(valid.sum()), plain_keep_identical=True)
+    emit(row)
+    return launches
+
+
+def neck_models(torch, np, smi, models, phase_name, budget):
+    """Each (config, size) of `models` at full width, float32, seed 0 (a
+    dense head's cls bias 0, so that NMS sees candidates): served at batch
+    1 (`neck_serve`; a two-stage model's fc_cls peaked, `peak_scores`),
+    stepped at its config's samples_per_gpu at the same size
+    (with box-region gt masks where the RoI head has a mask head), held
+    against the CPU (`roi_reference` / `dense_reference`). Returns the
+    launch count over the main paths."""
+    import copy
+    t_phase = time.perf_counter()
+    launches = 0
+    for config, hw in models:
+        tag = os.path.splitext(os.path.basename(config))[0]
+        cfg, base = build_plain(torch, config)
+        two_stage = hasattr(base, 'roi_head')
+        if not two_stage:
+            head = base.bbox_head
+            with torch.no_grad():
+                getattr(head, head.cls_pred_name).bias.zero_()
+        model = copy.deepcopy(base)
+        if two_stage:
+            peak_scores(torch, model)
+        model = model.to('cuda').eval()
+        launches += neck_serve(torch, smi, model, config, f'{tag}_serve', hw,
+                               *DN_CALLS)
+        del model
+        torch.cuda.empty_cache()
+        masks = two_stage and base.roi_head.mask_head is not None
+        batch_size = cfg.data.samples_per_gpu
+        n, row = detector_steps(
+            torch, smi, cfg, base, *DN_STEPS, per_step=int(two_stage),
+            phase=f'{tag}_train', batch_size=batch_size, pad=hw,
+            batch=masked_batch(torch, np, batch_size, hw) if masks
+            else None)
+        launches += n
+        key = HEAD_LOSS.get(type(getattr(base, 'roi_head', None)).__name__)
+        check(key is None or row['loss_first'].get(key, 0) > 0,
+              f'{config}: no {key} in {sorted(row["loss_first"])}')
+        if two_stage:
+            # HTC's three stages, masks and semantic head on the CPU are
+            # the phase's largest host cost: its top 50 proposals
+            roi_reference(torch, np, base, config, f'{tag}_reference',
+                          proposals=50 if 'htc' in config else 100)
+        else:
+            dense_reference(torch, np, cfg, base, config,
+                            f'{tag}_reference',
+                            hw=(128, 256) if 'nasfpn' in config
+                            else (128, 192))
+        del base
+        torch.cuda.empty_cache()
+    emit(dict(phase=f'{phase_name}_done',
+              seconds=time.perf_counter() - t_phase, budget_s=budget,
+              nms_keep_launches=launches))
+    return launches
+
+
+def phase_detectors_necks(torch, np, smi):
+    """DetectoRS (SAC + RFP, RFP alone) and the remaining necks (FPG,
+    NAS-FPN, NAS-FCOS, CARAFE, PAFPN) at full width (`neck_models`).
+    Budget 45 s."""
+    launches = neck_models(torch, np, smi, DN_MODELS, 'detectors_necks', 45)
+    check(launches == DN_LAUNCHES, f'detectors_necks phase: {launches} '
+          f'nms_keep launches, expected {DN_LAUNCHES}')
+    return launches
+
+
+def phase_grid_point_rend(torch, np, smi):
+    """Grid R-CNN and PointRend R50 at full width (`neck_models`; the grid
+    loss and the point loss in each first step). Budget 15 s."""
+    launches = neck_models(torch, np, smi, GP_MODELS, 'grid_point_rend', 15)
+    check(launches == GP_LAUNCHES, f'grid_point_rend phase: {launches} '
+          f'nms_keep launches, expected {GP_LAUNCHES}')
+    return launches
+
+
 def run_phases(names):
     """`--phases NAME ...`: only the named phases (dcn, res2net, ddp,
     hrnet_regnet, resnet_variants, data_host, vfnet, guided_anchoring,
     reppoints, fovea_ssd, ms_rcnn_resnest, paa_fsaf_freeanchor, sabl,
-    cascade), each with its seconds and
+    detectors_necks, grid_point_rend, cascade), each with its seconds and
     launches, on the card with TF32 off and the kernel built; no result
     line."""
     import numpy as np
@@ -5673,6 +5869,10 @@ def run_phases(names):
                   paa_fsaf_freeanchor=lambda: phase_paa_fsaf_freeanchor(
                       torch, np, smi),
                   sabl=lambda: phase_sabl(torch, np, smi),
+                  detectors_necks=lambda: phase_detectors_necks(torch, np,
+                                                                smi),
+                  grid_point_rend=lambda: phase_grid_point_rend(torch, np,
+                                                                smi),
                   cascade=lambda: phase_cascade(torch, np, smi)[0])
     for name in names:
         t = time.perf_counter()
@@ -5780,6 +5980,10 @@ def main():
     pff_launches = phase_paa_fsaf_freeanchor(torch, np, smi)
     torch.cuda.empty_cache()
     sabl_launches = phase_sabl(torch, np, smi)
+    torch.cuda.empty_cache()
+    dn_launches = phase_detectors_necks(torch, np, smi)
+    torch.cuda.empty_cache()
+    gp_launches = phase_grid_point_rend(torch, np, smi)
     emit(dict(phase='script_done', seconds=time.perf_counter() - t_script))
 
     print(smi.splitlines()[0], flush=True)
@@ -5796,7 +6000,8 @@ def main():
                   resnet_variants_launches + data_host_launches +
                   vfnet_launches + ga_launches + reppoints_launches +
                   fovea_ssd_launches + ms_resnest_launches +
-                  pff_launches + sabl_launches),
+                  pff_launches + sabl_launches + dn_launches +
+                  gp_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -5819,6 +6024,8 @@ def main():
         launches_ms_rcnn_resnest=ms_resnest_launches,
         launches_paa_fsaf_freeanchor=pff_launches,
         launches_sabl=sabl_launches,
+        launches_detectors_necks=dn_launches,
+        launches_grid_point_rend=gp_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

@@ -4,15 +4,16 @@ from .hrnet import HRModule, HRNet
 from .regnet import RegNet
 from .res2net import Bottle2neck, Res2Net
 from .resnest import ResNeSt
-from .resnet import BasicBlock, Bottleneck, ResNet, ResNetV1d, ResNeXt
+from .resnet import (BasicBlock, Bottleneck, DetectoRS_ResNet, ResNet,
+                     ResNetV1d, ResNeXt, SAConv2d)
 from .ssd_vgg import SSDVGG
 
 # the JAX package's other backbones (configs name them)
 BACKBONES.not_ported.update(
     {name: 'ROADMAP.md item 22'
-     for name in ('DetectoRS_ResNet', 'TridentResNet', 'HourglassNet',
+     for name in ('TridentResNet', 'HourglassNet',
                   'Darknet')})
 
 __all__ = ['ResNet', 'ResNeXt', 'ResNetV1d', 'Res2Net', 'HRNet', 'RegNet',
            'ResNeSt', 'SSDVGG', 'BasicBlock', 'Bottleneck', 'Bottle2neck',
-           'HRModule']
+           'HRModule', 'DetectoRS_ResNet', 'SAConv2d']

@@ -46,6 +46,12 @@ on its 1x1 conv1. The detection semantics of the JAX package:
     caveat 39).
   * `zero_init_residual`: `init_weights` zeroes the scale of each block's
     last norm (the JAX `zero_init_final`).
+  * `sac=dict(type='SAC')` with `stage_with_sac` (DetectoRS): the conv2 of
+    every bottleneck of those stages is the JAX package's `SAConv2d`
+    (below), neither grouped nor dilated; SAC takes precedence over DCN, as
+    in JAX (`if with_sac ... elif with_dcn`). `DetectoRS_ResNet` is the
+    ResNet with `stage_with_sac=(False, True, True, True)` by default;
+    with `sac=None` it is the plain ResNet.
 
 Module names are mmdet's (`conv1`, `bn1`, `layer1.0.conv1`,
 `layer1.0.downsample.{0,1}`, with `deep_stem` `stem.{0,3,6}` and
@@ -67,10 +73,12 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ld_tpu_torch.models.layers import (lecun_normal_, lowered_dtype,
-                                        make_conv, make_norm, norm_name)
+from ld_tpu_torch.models.layers import (Conv2d, he_normal_, lecun_normal_,
+                                        lowered_dtype, make_conv, make_norm,
+                                        norm_name)
 from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
 from ld_tpu_torch.utils.registry import BACKBONES
 from .plugins import (PLUGIN_POSITIONS, PLUGINS, build_plugin,
@@ -78,6 +86,53 @@ from .plugins import (PLUGIN_POSITIONS, PLUGINS, build_plugin,
 
 # the `dcn` types that build the JAX package's DCNv2 layer (caveat 36)
 DCN_TYPES = ('DCNv2', 'DCN')
+
+
+class SAConv2d(nn.Module):
+    """Switchable Atrous Convolution as the JAX package writes it (port of
+    `ld_tpu/models/backbones/resnet.py:355-394`), under mmcv's SAConv2d
+    names (`weight`, `pre_context`, `switch`, `post_context`), NCHW.
+
+    x += pre_context(GAP(x)); the switch S = sigmoid(switch(avg5x5(x))),
+    the pool counting its zero padding (flax `avg_pool`), taken at full
+    resolution and then subsampled by the stride; one shared 3x3 `weight`
+    run at dilation 1 and at dilation 3, both in float32; out = S * out1 +
+    (1 - S) * out3, then out += post_context(GAP(out)), cast back to the
+    input's dtype. mmcv's layer differs (ROADMAP.md caveat 61): a separate
+    `weight_diff` for the dilated branch, weight standardization and
+    optional deformable offsets, none of which JAX has. The contexts and
+    the switch start at zero, so S starts at 0.5."""
+
+    def __init__(self, in_channels, out_channels, stride=1, dtype=None):
+        super().__init__()
+        self.stride = stride
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               3, 3))
+        self.pre_context = Conv2d(in_channels, in_channels, 1,
+                                  compute_dtype=dtype)
+        self.switch = Conv2d(in_channels, 1, 1, compute_dtype=dtype)
+        self.post_context = Conv2d(out_channels, out_channels, 1,
+                                   compute_dtype=dtype)
+
+    def init_weights(self, generator: torch.Generator):
+        """The JAX initializers: a he-normal `weight`, zero contexts and
+        switch."""
+        he_normal_(self.weight, generator)
+        for m in (self.pre_context, self.switch, self.post_context):
+            nn.init.zeros_(m.weight)
+            nn.init.zeros_(m.bias)
+
+    def forward(self, x):
+        x = x + self.pre_context(x.mean(dim=(2, 3), keepdim=True))
+        switch = torch.sigmoid(self.switch(F.avg_pool2d(
+            x, 5, 1, 2, count_include_pad=True)))
+        xf, w = x.float(), self.weight.float()
+        out1 = F.conv2d(xf, w, None, self.stride, 1)
+        out3 = F.conv2d(xf, w, None, self.stride, 3, 3)
+        switch = switch[:, :, ::self.stride, ::self.stride].float()
+        out = switch * out1 + (1 - switch) * out3
+        out = out + self.post_context(out.mean(dim=(2, 3), keepdim=True))
+        return out.to(x.dtype)
 
 
 class BasicBlock(nn.Module):
@@ -124,7 +179,8 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes, planes, stride=1, dilation=1,
                  downsample=None, conv_cfg=None, norm_cfg=None,
                  style='pytorch', dtype=None, groups=1, base_width=64,
-                 dcn=None, base_channels=64, expansion=None, plugins=None):
+                 dcn=None, base_channels=64, expansion=None, plugins=None,
+                 sac=None):
         super().__init__()
         if expansion is not None:
             # RegNet's blocks: expansion 1, output width `planes`
@@ -138,7 +194,10 @@ class Bottleneck(nn.Module):
             norm_name(norm_cfg, i) for i in (1, 2, 3))
         self.conv1 = make_conv(conv_cfg, inplanes, width, 1, s1, dtype=dtype)
         self.add_module(self.norm1_name, make_norm(norm_cfg, width, dtype))
-        if dcn is not None:
+        if sac is not None:
+            # SAC before DCN, as the JAX block; neither grouped nor dilated
+            self.conv2 = SAConv2d(width, width, s2, lowered_dtype(dtype))
+        elif dcn is not None:
             # the DCN conv2 of a ResNeXt stays grouped
             self.conv2 = ModulatedDeformConv2d(
                 width, width, 3, s2, dilation=dilation, groups=groups,
@@ -206,11 +265,6 @@ ARCH_SETTINGS = {
     152: (Bottleneck, (3, 8, 36, 3)),
 }
 
-# config keys of the JAX ResNet that select variants not ported yet, with the
-# value that means "off" (ROADMAP.md A7)
-_UNPORTED_KEYS = dict(sac=None)
-
-
 def make_deep_stem(in_channels, channels, dtype=None, conv_cfg=None,
                    norm_cfg=None) -> nn.Sequential:
     """The v1d deep stem: 3x3 convs to channels/2, channels/2 and
@@ -245,8 +299,8 @@ def init_trunk_weights(module: nn.Module, generator: torch.Generator):
     """The JAX package's initializers over a backbone: lecun-normal conv
     kernels, BN scale 1 / bias 0 / running mean 0 / running var 1, GN
     scale 1 / bias 0; a DCN conv he-normal, its `conv_offset` zero; a
-    plugin its own (`plugins.py`)."""
-    kinds = tuple(PLUGINS.values())
+    plugin and an SAConv2d their own (`plugins.py`, above)."""
+    kinds = tuple(PLUGINS.values()) + (SAConv2d, )
     skip = {id(m.conv_offset) for m in module.modules()
             if isinstance(m, ModulatedDeformConv2d)}
     skip |= {id(sub) for m in module.modules() if isinstance(m, kinds)
@@ -288,30 +342,25 @@ class ResNet(nn.Module):
                  avg_down: bool = False,
                  plugins: Sequence[dict] = None,
                  zero_init_residual: bool = False,
-                 dtype=None,
-                 **kwargs):
+                 sac: dict = None,
+                 stage_with_sac: Sequence[bool] = (False, False, False,
+                                                   False),
+                 dtype=None):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise KeyError(f'invalid depth {depth} for resnet')
         if style not in ('pytorch', 'caffe'):
             raise ValueError(f'ResNet style={style!r}')
-        for key, value in kwargs.items():
-            if key in _UNPORTED_KEYS and value != _UNPORTED_KEYS[key]:
-                raise NotImplementedError(
-                    f'ResNet {key}={value!r} is not ported to ld_tpu_torch '
-                    'yet (see ROADMAP.md A7)')
-            # stage_with_sac only matters with sac set
-            if key not in _UNPORTED_KEYS and key != 'stage_with_sac':
-                raise TypeError(f'unexpected ResNet argument {key!r}')
         block, stage_blocks = ARCH_SETTINGS[depth]
         if dcn is not None and dcn.get('type', 'DCNv2') not in DCN_TYPES:
             raise ValueError(f"ResNet dcn type {dcn['type']!r}: one of "
                              f'{DCN_TYPES}')
-        if block is BasicBlock and (groups != 1 or (
-                dcn is not None and any(stage_with_dcn))):
-            # mmdet asserts the same: BasicBlock takes no groups or DCN
-            raise ValueError(f'ResNet-{depth} (BasicBlock) takes no groups '
-                             'or dcn')
+        if block is BasicBlock and (groups != 1 or any(
+                cfg is not None and any(stages) for cfg, stages in (
+                    (dcn, stage_with_dcn), (sac, stage_with_sac)))):
+            # mmdet asserts the same: BasicBlock takes no groups, DCN or SAC
+            raise ValueError(f'ResNet-{depth} (BasicBlock) takes no groups, '
+                             'dcn or sac')
         if block is BasicBlock and plugins:
             warn_basic_block_plugins(depth)
             plugins = None
@@ -350,7 +399,9 @@ class ResNet(nn.Module):
                 extra = {} if block is BasicBlock else dict(
                     groups=groups, base_width=base_width,
                     dcn=dcn if dcn is not None and stage_with_dcn[i]
-                    else None, plugins=stage_plugins(plugins, i))
+                    else None, plugins=stage_plugins(plugins, i),
+                    sac=sac if sac is not None and stage_with_sac[i]
+                    else None)
                 layers.append(block(inplanes, planes, s, dilation,
                                     downsample, conv_cfg, norm_cfg, style,
                                     dtype, **extra))
@@ -434,3 +485,16 @@ class ResNetV1d(ResNet):
                  avg_down: bool = True, **kwargs):
         super().__init__(depth, deep_stem=deep_stem, avg_down=avg_down,
                          **kwargs)
+
+
+@BACKBONES.register_module()
+class DetectoRS_ResNet(ResNet):
+    """The ResNet whose bottleneck 3x3s are `SAConv2d`s on the stages
+    `stage_with_sac` selects, when `sac` is set (port of
+    `ld_tpu/models/backbones/resnet.py:397-402`); the RFP neck's recursion
+    never re-runs it (ROADMAP.md caveat 62)."""
+
+    def __init__(self, depth: int,
+                 stage_with_sac: Sequence[bool] = (False, True, True, True),
+                 **kwargs):
+        super().__init__(depth, stage_with_sac=stage_with_sac, **kwargs)

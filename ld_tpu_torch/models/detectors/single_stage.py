@@ -71,6 +71,7 @@ class SingleStageDetector(nn.Module):
 # named wrappers so the configs' `type=` names of the single-stage detectors
 # resolve
 for _name in ('GFL', 'ATSS', 'FCOS', 'RetinaNet', 'VFNet',
-              'RepPointsDetector', 'SSD', 'FoveaBox', 'PAA', 'FSAF'):
+              'RepPointsDetector', 'SSD', 'FoveaBox', 'PAA', 'FSAF',
+              'NASFCOS'):
     DETECTORS.register_module(name=_name, module=type(
         _name, (SingleStageDetector, ), {}))

@@ -2,8 +2,9 @@
 port of `ld_tpu/models/detectors/two_stage.py`.
 
 `TwoStageDetector`, registered as `FasterRCNN`, `MaskRCNN`, `CascadeRCNN`,
-`HybridTaskCascade` and `MaskScoringRCNN` too (each the same detector with
-another RoI head; Mask R-CNN's has a `mask_head`): backbone
+`HybridTaskCascade`, `MaskScoringRCNN`, `GridRCNN` and `PointRend` too
+(each the same detector with another RoI head; Mask R-CNN's and
+PointRend's have a `mask_head`): backbone
 -> neck -> `rpn_head` -> proposals -> `roi_head`, one `nn.Module` under
 mmdet's names. `forward_train` returns the RPN's and the RoI head's
 losses: the RPN loss, its proposals (under `no_grad`, from
@@ -28,7 +29,7 @@ detections' (B, 100, 28, 28) masks.
 (`ld_tpu/models/detectors/two_stage.py:59-68`), a `StandardRoIHead` whose
 `bbox_head` is a `SABLHead` is routed to `SABLRoIHead`, and a
 `CascadeRoIHead` whose stages are `SABLHead`s to `CascadeSABLRoIHead`. The
-other two-stage names of the JAX package (Grid, SCNet, ...) wait for their
+other two-stage names of the JAX package (SCNet, ...) wait for their
 heads (A7).
 """
 from __future__ import annotations
@@ -43,8 +44,7 @@ from .kd_one_stage import FrozenTeacher
 
 DETECTORS.not_ported.update({
     name: 'ROADMAP.md A7'
-    for name in ('DynamicRCNN', 'GridRCNN',
-                 'DoubleHeadRCNN', 'SCNet', 'PointRend',
+    for name in ('DynamicRCNN', 'DoubleHeadRCNN', 'SCNet',
                  'TridentFasterRCNN')})
 
 
@@ -153,7 +153,8 @@ class TwoStageDetector(nn.Module):
 
 
 for _name in ('FasterRCNN', 'MaskRCNN', 'CascadeRCNN',
-              'HybridTaskCascade', 'MaskScoringRCNN'):
+              'HybridTaskCascade', 'MaskScoringRCNN', 'GridRCNN',
+              'PointRend'):
     DETECTORS.register_module(name=_name, module=type(
         _name, (TwoStageDetector, ), {}))
 

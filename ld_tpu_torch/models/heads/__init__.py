@@ -1,12 +1,13 @@
 from .atss_gfl_head import ATSSGFLHead, LDATSSHead
 from .cascade_roi_head import CascadeRoIHead
-from .classic_heads import ATSSHead, FCOSHead
+from .classic_heads import ATSSHead, FCOSHead, NASFCOSHead
 from .fcos_gfl_head import FCOSGFLHead, LDFCOSCompareHead, LDFCOSHead
 from .fovea_head import FoveaHead
 from .free_anchor_head import FreeAnchorRetinaHead
 from .fsaf_head import FSAFHead
 from .gfl_head import GFLHead
 from .gfocal_head import GFocalHead
+from .grid_point_roi import GridRoIHead, PointRendRoIHead
 from .guided_anchor_head import GARetinaHead, GARPNHead
 from .htc_roi_head import HybridTaskCascadeRoIHead
 from .ld_gflv2 import IMv2Head, LDv2Head
@@ -32,4 +33,5 @@ __all__ = ['GFLHead', 'IMHead', 'LDHead', 'GFocalHead', 'LDv2Head',
            'GARPNHead', 'RepPointsHead', 'FoveaHead', 'SSDHead',
            'MaskScoringRoIHead', 'PAAHead', 'FSAFHead',
            'FreeAnchorRetinaHead', 'SABLRetinaHead', 'SABLRoIHead',
-           'CascadeSABLRoIHead']
+           'CascadeSABLRoIHead', 'GridRoIHead', 'PointRendRoIHead',
+           'NASFCOSHead']

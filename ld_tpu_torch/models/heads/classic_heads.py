@@ -163,3 +163,10 @@ class ATSSHead(ATSSGFLHead):
             regs, anchors,
             lambda a, r, hw: self.coder.decode(a, r, max_shape=hw), img_hw,
             scale_factor, rescale, cfg or self.test_cfg, 0.6, keep_fn)
+
+
+@HEADS.register_module()
+class NASFCOSHead(FCOSHead):
+    """The NAS-FCOS head of the JAX package
+    (`ld_tpu/models/heads/centripetal_head.py:229`): `FCOSHead` unchanged;
+    the searched wiring is the `NASFCOS_FPN` neck's."""

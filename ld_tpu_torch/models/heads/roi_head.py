@@ -177,7 +177,8 @@ class StandardRoIHead(nn.Module):
         bbox_head = dict(bbox_head or {})
         ext = dict(bbox_roi_extractor or {})
         if ext.get('type', 'SingleRoIExtractor') != 'SingleRoIExtractor':
-            _not_ported(f"RoI extractor {ext['type']!r} (GRoIE)")
+            _not_ported(f"RoI extractor {ext['type']!r} (GRoIE)",
+                        'Queue A item 4')
         roi_layer = dict(ext.get('roi_layer') or {})
         if roi_layer.get('type', 'RoIAlign') != 'RoIAlign':
             _not_ported(f"roi_layer {roi_layer['type']!r} (dpool)")
@@ -234,7 +235,8 @@ class StandardRoIHead(nn.Module):
         if kind != 'FCNMaskHead':
             _not_ported(f'mask head {kind!r}')
         if mext.get('type', 'SingleRoIExtractor') != 'SingleRoIExtractor':
-            _not_ported(f"mask RoI extractor {mext['type']!r} (GRoIE)")
+            _not_ported(f"mask RoI extractor {mext['type']!r} (GRoIE)",
+                        'Queue A item 4')
         self.mask_roi_size = (mext.get('roi_layer') or {}).get(
             'output_size', 14)
         mh.setdefault('num_classes', self.num_classes)

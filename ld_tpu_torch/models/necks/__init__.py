@@ -1,12 +1,11 @@
 from ld_tpu_torch.utils.registry import NECKS
 
-from .fpn import FPN
+from .extra_necks import FPG, FPN_CARAFE, NASFCOS_FPN, NASFPN, RFP
+from .fpn import FPN, PAFPN, ChannelMapper
 from .hrfpn import HRFPN
 
 # the JAX package's other necks (configs name them)
-NECKS.not_ported.update(
-    {name: 'ROADMAP.md A7'
-     for name in ('BFP', 'NASFPN', 'FPN_CARAFE', 'NASFCOS_FPN', 'FPG', 'RFP',
-                  'PAFPN', 'ChannelMapper')})
+NECKS.not_ported.update({'BFP': 'ROADMAP.md Queue A item 4'})
 
-__all__ = ['FPN', 'HRFPN']
+__all__ = ['FPN', 'HRFPN', 'PAFPN', 'ChannelMapper', 'NASFPN', 'FPN_CARAFE',
+           'NASFCOS_FPN', 'FPG', 'RFP']

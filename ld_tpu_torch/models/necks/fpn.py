@@ -144,3 +144,88 @@ class FPN(nn.Module):
                     extra = self.fpn_convs[n + j](extra)
                     outs.append(extra)
         return tuple(outs)
+
+
+@NECKS.register_module()
+class PAFPN(FPN):
+    """Path-Aggregation FPN (port of `ld_tpu/models/necks/fpn.py:118-172`):
+    the FPN's top-down path, then a bottom-up path of stride-2 3x3
+    `downsample_convs.i` added into the next level and 3x3
+    `pafpn_convs.{i-1}` on levels 1 and up (mmdet's names). As the JAX
+    neck, every conv is a plain biased conv (a `norm_cfg` / `conv_cfg` is
+    not read), and the extra convs read the last input ('on_input') or
+    the last output (any other mode, 'on_lateral' too)."""
+
+    def __init__(self, in_channels: Sequence[int], out_channels: int = 256,
+                 num_outs: int = 5, start_level: int = 0,
+                 end_level: int = -1, add_extra_convs=None,
+                 extra_convs_on_inputs: bool = True,
+                 relu_before_extra_convs: bool = False,
+                 no_norm_on_lateral: bool = False, conv_cfg: dict = None,
+                 norm_cfg: dict = None, dtype=None):
+        del no_norm_on_lateral, conv_cfg, norm_cfg     # the JAX FPN's, unread
+        super().__init__(in_channels, out_channels, num_outs, start_level,
+                         end_level, add_extra_convs, extra_convs_on_inputs,
+                         relu_before_extra_convs, dtype=dtype)
+        n = len(self.used)
+        self.downsample_convs = nn.ModuleList(
+            ConvModule(make_conv(None, out_channels, out_channels, 3, 2,
+                                 bias=True, dtype=dtype))
+            for _ in range(n - 1))
+        self.pafpn_convs = nn.ModuleList(
+            ConvModule(make_conv(None, out_channels, out_channels, 3,
+                                 bias=True, dtype=dtype))
+            for _ in range(n - 1))
+
+    def forward(self, inputs):
+        if len(inputs) != len(self.in_channels):
+            raise ValueError(f'{len(inputs)} inputs for '
+                             f'{len(self.in_channels)} in_channels')
+        laterals = [conv(inputs[lvl])
+                    for conv, lvl in zip(self.lateral_convs, self.used)]
+        for i in range(len(laterals) - 1, 0, -1):
+            h, w = laterals[i - 1].shape[-2:]
+            laterals[i - 1] = laterals[i - 1] + upsample_nearest_to(
+                laterals[i], h, w)
+        n = len(laterals)
+        inter = [self.fpn_convs[i](laterals[i]) for i in range(n)]
+        for i in range(n - 1):
+            inter[i + 1] = inter[i + 1] + self.downsample_convs[i](inter[i])
+        outs = [inter[0]] + [self.pafpn_convs[i - 1](inter[i])
+                             for i in range(1, n)]
+        if self.num_outs > n:
+            if not self.extra_mode:
+                for _ in range(self.num_outs - n):
+                    outs.append(F.max_pool2d(outs[-1], 1, stride=2))
+            else:
+                extra = inputs[self.used[-1]] \
+                    if self.extra_mode == 'on_input' else outs[-1]
+                for j in range(self.num_outs - n):
+                    if j > 0 and self.relu_before_extra_convs:
+                        extra = F.relu(extra)
+                    extra = self.fpn_convs[n + j](extra)
+                    outs.append(extra)
+        return tuple(outs)
+
+
+@NECKS.register_module()
+class ChannelMapper(nn.Module):
+    """A k x k biased conv a level to a common width (port of
+    `ld_tpu/models/necks/fpn.py:176-192`), mmdet's `convs.i.conv`."""
+
+    def __init__(self, in_channels: Sequence[int], out_channels: int = 256,
+                 kernel_size: int = 3, dtype=None):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            ConvModule(make_conv(None, c, out_channels, kernel_size,
+                                 bias=True, dtype=dtype))
+            for c in in_channels)
+
+    def init_weights(self, generator: torch.Generator):
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                lecun_normal_(m.weight, generator)
+                nn.init.zeros_(m.bias)
+
+    def forward(self, inputs):
+        return tuple(conv(x) for conv, x in zip(self.convs, inputs))

@@ -114,12 +114,21 @@ def _module_name(name: str, avg_down: bool, norm: str = 'bn') -> str:
     return norm + m.group(1)
 
 
+# the 1x1 convs of a DetectoRS SAConv2d, under mmcv's names
+_SAC_CONVS = ('pre_context', 'switch', 'post_context')
+
+
 def _backbone_key(path: tuple, avg_down: bool = False) -> str:
     """('conv1', 'kernel') / ('layer1_0', 'norm2', 'bn', 'scale') /
-    ('layer3_0', 'conv2', 'conv_offset', 'bias') / ... -> the mmdet
+    ('layer3_0', 'conv2', 'conv_offset', 'bias') / ('layer2_0', 'conv2',
+    'switch', 'kernel') / ... -> the mmdet
     ResNet / Res2Net / HRNet / RegNet name after 'backbone.'
     (`_block_prefix`, `_module_name`)."""
     *mods, leaf = path
+    if mods[-1] in _SAC_CONVS:     # an SAConv2d's context / switch conv
+        return '.'.join(_block_prefix(mods[:-2]) + [
+            _module_name(mods[-2], avg_down), mods[-1],
+            {'kernel': 'weight', 'bias': 'bias'}[leaf]])
     if mods[-1] in ('bn', 'gn'):   # BatchNorm / GroupNorm: .../normX/bn/<leaf>
         return '.'.join(_block_prefix(mods[:-2]) + [
             _module_name(mods[-2], avg_down, mods[-1]), _BN_LEAVES[leaf]])
@@ -266,6 +275,67 @@ def _neck_key(path: tuple, num_laterals: int) -> str:
     if kind == 'fpn_extra':
         i += num_laterals
     return f'fpn_convs.{i}.conv.{name}'
+
+
+_GN_LEAVES = {'scale': 'weight', 'bias': 'bias'}
+
+
+def _extra_neck_key(path: tuple, neck: Dict) -> Optional[str]:
+    """A leaf of the JAX package's other necks (`ld_tpu/models/necks/
+    extra_necks.py`, `fpn.py:118-192`) -> the port's name after 'neck.'
+    (`models/necks/extra_necks.py`, `fpn.py`), or None for an FPN / HRFPN
+    leaf. Their laterals `lateralI` count from the first read level, the
+    smallest I in the tree; a NAS-FCOS tree (with `cell0_conv`) numbers its
+    extra convs `extraK` from 3."""
+    mod, leaf = path[0], path[-1]
+    name = {'kernel': 'weight', 'bias': 'bias'}.get(leaf)
+    m = re.fullmatch(r'lateral(\d+)', mod)
+    if m is not None:
+        first = min(int(k[len('lateral'):]) for k in neck
+                    if re.fullmatch(r'lateral\d+', k))
+        return f'lateral_convs.{int(m.group(1)) - first}.conv.{name}'
+    m = re.fullmatch(r'extra(\d+)', mod)
+    if m is not None:
+        if 'cell0_conv' in neck:
+            return f'extra_convs.{int(m.group(1)) - 3}.conv.{name}'
+        return f'extra_downsamples.{m.group(1)}.0.conv.{name}'
+    m = re.fullmatch(r's(\d+)_(\w+_\d\d_\d)', mod)     # a NAS-FPN cell
+    if m is not None:
+        return f'fpn_stages.{m.group(1)}.{m.group(2)}.out_conv.conv.{name}'
+    m = re.fullmatch(r'upsample(\d+)', mod)              # a CARAFE
+    if m is not None:
+        return f'upsample_modules.{int(m.group(1)) - 1}.{path[1]}.{name}'
+    m = re.fullmatch(r'cell(\d)_(conv|gn)', mod)         # NAS-FCOS
+    if m is not None:
+        return f'cells.{m.group(1)}.{m.group(2)}.' + (
+            _GN_LEAVES[leaf] if m.group(2) == 'gn' else name)
+    m = re.fullmatch(r's(\d+)_l(\d+)_(across|up|down)_(conv|gn)', mod)
+    if m is not None:                                   # FPG
+        s, lvl, kind, sub = m.groups()
+        return f'stages.{s}.{lvl}.{kind}.{sub}.' + (
+            _GN_LEAVES[leaf] if sub == 'gn' else name)
+    m = re.fullmatch(r'aspp_s(\d+)_l(\d+)_b(\d)', mod)   # RFP
+    if m is not None:
+        s, lvl, b = (int(g) for g in m.groups())
+        return f'rfp_aspp.{s - 1}.{lvl}.aspp.{b - 1}.{name}'
+    m = re.fullmatch(r'(refine|gate)_s(\d+)_l(\d+)', mod)
+    if m is not None:
+        kind = {'refine': 'rfp_refine', 'gate': 'rfp_weight'}[m.group(1)]
+        return f'{kind}.{int(m.group(2)) - 1}.{m.group(3)}.{name}'
+    m = re.fullmatch(r'(downsample_conv|pafpn_conv|map)_(\d+)', mod)
+    if m is not None:                                   # PAFPN, ChannelMapper
+        kind, i = m.group(1), int(m.group(2))
+        kind = {'map': 'convs'}.get(kind, kind + 's')
+        return f'{kind}.{i - (kind == "pafpn_convs")}.conv.{name}'
+    return None
+
+
+def _carafe_encoder(value: np.ndarray, scale: int = 2) -> np.ndarray:
+    """A JAX CARAFE `content_encoder` kernel / bias, its s*s*k^2 outputs in
+    (s, s, k^2) order, -> mmcv's pixel-shuffle order (k^2, s, s)."""
+    lead = value.shape[:-1]
+    v = value.reshape(*lead, scale * scale, -1)
+    return np.swapaxes(v, -1, -2).reshape(value.shape)
 
 
 # the JAX heads' final convs -> mmdet's names; the JAX FCOS-GFL head's
@@ -419,6 +489,33 @@ def _semantic_key(path: tuple) -> str:
     if mod is None:
         raise KeyError(path)
     return f'{mod}.{name}'
+
+
+def _grid_point_value(path: tuple, value: np.ndarray
+                      ) -> Tuple[str, np.ndarray]:
+    """A Grid R-CNN grid net leaf (`grid`, `convI` | `gnI` | `deconv1` |
+    `deconv2`, leaf) or a PointRend point MLP leaf (`point`, `fcI` |
+    `logits`, leaf) -> its port name after 'roi_head.' (`grid_head.convs.
+    I.conv` / `.gn`, `grid_head.deconvN`, the kernel flipped;
+    `point_head.fcs.I.conv`, `point_head.fc_logits`, a (1, in, out) kernel
+    to Conv1d's (out, in, 1)) and value."""
+    net, mod, leaf = path
+    name = {'kernel': 'weight', 'bias': 'bias', 'scale': 'weight'}[leaf]
+    if net == 'grid':
+        m = re.fullmatch(r'(conv|gn)(\d+)', mod)
+        if m is not None:
+            key = f'grid_head.convs.{m.group(2)}.{m.group(1)}.{name}'
+            return key, _conv_weight(value) if value.ndim == 4 else value
+        if mod not in ('deconv1', 'deconv2'):
+            raise KeyError(path)
+        return f'grid_head.{mod}.{name}', \
+            _deconv_weight(value) if value.ndim == 4 else value
+    m = re.fullmatch(r'fc(\d+)', mod)
+    if m is None and mod != 'logits':
+        raise KeyError(path)
+    key = f'point_head.fcs.{m.group(1)}.conv.{name}' if m is not None \
+        else f'point_head.fc_logits.{name}'
+    return key, value.transpose(2, 1, 0) if value.ndim == 3 else value
 
 
 def _deconv_weight(kernel: np.ndarray) -> np.ndarray:
@@ -630,7 +727,13 @@ def state_dict_from_jax(variables: Dict,
     `retina_bbox_reg` keep their names, and a SABL RoI net (`roi_head/bbox`,
     a cascade's `roi_head/stageS`; told by its `fc_reg_cls`) maps to the
     port's `SABLBBoxHead` names (`_sabl_value`); the JAX converter has no
-    rule for either (ROADMAP.md caveat 58).
+    rule for either (ROADMAP.md caveat 58). Neither has it one for a
+    DetectoRS SAConv (`conv2/{switch, pre_context, post_context}`), the
+    other necks (`_extra_neck_key`: RFP, NAS-FPN, CARAFE, NAS-FCOS, FPG,
+    PAFPN, ChannelMapper; CARAFE's encoder channels reordered,
+    `_carafe_encoder`) or the Grid R-CNN and PointRend nets
+    (`roi_head/grid`, `roi_head/point`, `_grid_point_value`), which map
+    here too.
 
     Raises KeyError on a leaf outside the ResNet / Res2Net / FPN, the
     dense-head (GFL family, Retina, FCOS, ATSS, VFNet, GA, RepPoints),
@@ -678,6 +781,18 @@ def state_dict_from_jax(variables: Dict,
                     if coll == 'params' else None
                 if dcn is not None:
                     sd[key] = dcn
+                    continue
+            elif scope == 'neck' and rest[0] == 'fpn':     # RFP's own FPN
+                inner = params['neck']['fpn']
+                key = 'neck.fpn.' + _neck_key(rest[1:], sum(
+                    1 for k in inner if re.fullmatch(r'lateral_\d+', k)))
+            elif scope == 'neck' and (extra := _extra_neck_key(
+                    rest, params['neck'])) is not None:
+                key = 'neck.' + extra
+                if rest[1:2] == ('content_encoder', ):
+                    sd[key] = _carafe_encoder(value)
+                    if value.ndim == 4:
+                        sd[key] = _conv_weight(sd[key])
                     continue
             elif scope == 'neck':
                 key = 'neck.' + _neck_key(rest, num_laterals)
@@ -739,6 +854,10 @@ def state_dict_from_jax(variables: Dict,
                 if rest[-1] == 'kernel' and value.ndim == 2:
                     sd[key] = _maskiou_dense(rest, value, params)
                     continue
+            elif scope == 'roi_head' and rest[0] in ('grid', 'point'):
+                key, value = _grid_point_value(rest, value)
+                sd['roi_head.' + key] = value
+                continue
             elif scope == 'roi_head' and rest[0].startswith('mask'):
                 key = 'roi_head.mask_head.' + _mask_key(rest)
                 if rest[1] in ('upsample', 'deconv') and \

@@ -318,10 +318,10 @@ def padded_samples(samples, stages=None):
 def programs(ref):
     """Every JAX program of the file, traced one after another, each
     compiled in a thread as soon as it is traced (the traces hold the
-    interpreter lock, XLA's compiles do not), at LLVM -O0: the RoI heads'
-    `forward_train` (samplers picking every candidate), Cascade Mask
-    R-CNN's `simple_test` and the mask-loss programs of
-    `mask_loss_programs`."""
+    interpreter lock, XLA's compiles do not), HTC's, the longest to
+    compile, first, at LLVM -O0: the RoI heads' `forward_train` (samplers
+    picking every candidate), Cascade Mask R-CNN's `simple_test` and the
+    mask-loss programs of `mask_loss_programs`."""
     f = ref
     b = f['j_batch']['image'].shape[0]
     roi = [jax.ShapeDtypeStruct(shape, dtype) for shape, dtype in (
@@ -329,24 +329,27 @@ def programs(ref):
         ((b, N_ROIS), jnp.int32), ((b, N_ROIS), jnp.int32))]
     stack = [jax.ShapeDtypeStruct((3, ) + r.shape, r.dtype) for r in roi]
     gm = f['j_batch']['gt_masks']
+    cascade, htc = mask_loss_programs(f)
+    params = roi_vars(f, 'cascade_mask')['params']
+    rh = f['dets']['cascade_mask'].roi_head
+    # the programs that take the longest to compile (HTC's) first
     jobs = {}
-    for kind in ('cascade_mask', 'htc'):
+    for kind in ('htc', 'cascade_mask'):
         jobs[f'train_{kind}'] = (jax.jit(
             lambda v, x, p, pv, b, rh=f['dets'][kind].roi_head:
             rh.forward_train(v, list(x), p, pv, b,
                              rng=jax.random.PRNGKey(5))), (
             roi_vars(f, kind), f['feats'], f['all_props'], f['all_valid'],
             f['j_batch']))
-    rh = f['dets']['cascade_mask'].roi_head
+        if kind == 'htc':
+            jobs['mask_htc'] = (htc, [roi_vars(f, 'htc')['params'], gm] +
+                                stack)
     jobs['simple_test'] = (jax.jit(lambda v, x, p, pv, hw: rh.simple_test(
         v, list(x), p, pv, hw, jnp.ones((2, 4), jnp.float32),
         rescale=True)), (roi_vars(f, 'cascade_mask'), f['feats'],
                          f['props'], f['valid'], f['j_batch']['img_hw']))
-    cascade, htc = mask_loss_programs(f)
-    params = roi_vars(f, 'cascade_mask')['params']
     jobs['mask_cascade_mask'] = (cascade, [dict(params=params['mask0']),
                                            gm] + roi)
-    jobs['mask_htc'] = (htc, [roi_vars(f, 'htc')['params'], gm] + stack)
     with ThreadPoolExecutor(len(jobs)) as pool:
         # each compiles while the next is traced
         done = {k: pool.submit(fn.lower(*args).compile, compiler_options=O0)

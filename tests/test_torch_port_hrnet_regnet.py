@@ -178,8 +178,8 @@ def ref():
         return {f'hrfpn_{s}_{p}': JHRFPN(
             in_channels=HR_CHANNELS, out_channels=64, stride=s,
             pooling_type=p).apply(v, feats) for s, p in HRFPNS}
-    jobs['hrfpn'] = (hrfpns, (out['hrfpn'], jax.eval_shape(
-        JHRNet(extra=HRNETS['small']).apply, out['hrnet_small'], x)))
+    # the small HRNet's outputs, as its program's lowering gives them
+    jobs['hrfpn'] = (hrfpns, (out['hrfpn'], 'hrnet_small'))
 
     def bf16(v, nv, x):
         net = JHRNet(extra=HRNETS['small'], dtype=jnp.bfloat16)
@@ -206,11 +206,18 @@ def ref():
     # once
     options = {k: dict(xla_backend_optimization_level=0) for k in jobs}
     options['bf16']['xla_allow_excess_precision'] = False
+    lowered, futures = {}, {}
     with ThreadPoolExecutor(len(jobs)) as pool:
-        # each compiles while the next is traced
-        futures = {k: pool.submit(jax.jit(fn).lower(*args).compile,
-                                  compiler_options=options[k])
-                   for k, (fn, args) in jobs.items()}
+        # each compiles while the next is traced, the detectors first
+        for k in ('faster', 'fcos', *jobs):
+            fn, args = jobs[k]
+            if k in futures:
+                continue
+            if k == 'hrfpn':
+                args = (args[0], lowered[args[1]].out_info)
+            lowered[k] = jax.jit(fn).lower(*args)
+            futures[k] = pool.submit(lowered[k].compile,
+                                     compiler_options=options[k])
     compiled = {k: f.result() for k, f in futures.items()}
     for k, (_, args) in jobs.items():
         if k != 'hrfpn':
@@ -415,10 +422,11 @@ def test_config_builds(path):
 
 def test_unported_necks_name_their_item():
     assert not {'HRNet', 'RegNet'} & set(BACKBONES.not_ported)
-    for name in ('BFP', 'NASFPN', 'FPN_CARAFE', 'NASFCOS_FPN', 'FPG', 'RFP',
+    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue A item 4'):
+        NECKS.build(dict(type='BFP'))
+    for name in ('NASFPN', 'FPN_CARAFE', 'NASFCOS_FPN', 'FPG', 'RFP',
                  'PAFPN', 'ChannelMapper'):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md A7'):
-            NECKS.build(dict(type=name))
+        assert name not in NECKS.not_ported and NECKS.get(name) is not None
     with pytest.raises(KeyError):
         NECKS.build(dict(type='NoSuchNeck'))
     with pytest.raises(NotImplementedError):

@@ -220,7 +220,8 @@ def float64_programs(pool, tv, sv, j_batch):
     """ResNeSt-50 with live BNs in float64 (under `jax.enable_x64`): a
     training forward, the running statistics after it and the gradient of
     a fixed linear function of its outputs; and the ResNeSt-50 Faster
-    R-CNN's `forward_train` with its trunk in float64. In float32 each
+    R-CNN's `forward_train` with its trunk in float64, each compiling in
+    `pool`: {name: (future, args)}. In float32 each
     live `bn1` over 2 values amplifies rounding: the JAX float32 trunk's
     last stage lies ~1.9 from the float64 one, the port's ~0.08, where
     the two float64 runs agree to 1e-8."""
@@ -255,12 +256,10 @@ def float64_programs(pool, tv, sv, j_batch):
             s50_train64=(lambda v, b: det.forward_train(
                 v, b, jax.random.PRNGKey(0)), (dv, dict(j_batch,
                                                         image=image))))
-        lowered = {k: jax.jit(fn).lower(*args)
-                   for k, (fn, args) in jobs.items()}
-        # optimised: at -O0 the float64 convs run 20x slower
-        futures = {k: pool.submit(low.compile) for k, low in lowered.items()}
-        return {f'{k}_out': futures[k].result()(*jobs[k][1])
-                for k in jobs}
+        # optimised: at -O0 the float64 convs run 20x slower; each compiles
+        # while the next program is traced
+        return {k: (pool.submit(jax.jit(fn).lower(*args).compile), args)
+                for k, (fn, args) in jobs.items()}
 
 
 @pytest.fixture(scope='module')
@@ -270,6 +269,16 @@ def ref():
     j_batch, t_batch = mask_batches()
     out = {}
     jobs = {}
+    pool = ThreadPoolExecutor(12)
+
+    # ResNeSt-50 and its Faster R-CNN first: their float64 programs,
+    # compiled optimised, take the longest to compile
+    s50 = j_build_detector(small_two_stage(S50_CONFIG))
+    sv = out['s50'] = fill_tree(jax.eval_shape(lambda: s50.init_variables(
+        jax.random.PRNGKey(0), (1, 64, 96, 3))), seed=8)
+    trunk = JResNeSt(**RESNEST_KW)
+    tv = out['trunk'] = filled(trunk, 11, j_batch['image'])
+    pending = float64_programs(pool, tv, sv, j_batch)
 
     # the split-attention conv: running statistics, then the batch's
     x = nhwc(randn(SPLAT_X, 0))
@@ -305,21 +314,17 @@ def ref():
     props, pvalid = proposals(t_batch)
 
     def roi_run(params, feats, props, pvalid, b):
-        losses, vjp = jax.vjp(lambda p, f: head.forward_train(
-            {'params': p}, f, props, pvalid, b, jax.random.PRNGKey(0)),
-            params, feats)
+        # differentiated for the MaskIoU parameters and the features only
+        losses, vjp = jax.vjp(lambda m, f: head.forward_train(
+            {'params': dict(params, maskiou=m)}, f, props, pvalid, b,
+            jax.random.PRNGKey(0)), params['maskiou'], feats)
         ones = jax.tree_util.tree_map(jnp.ones_like, losses)
         iou = {k: v * (k == 'loss_mask_iou') for k, v in ones.items()}
-        return losses, vjp(ones)[0]['maskiou'], vjp(iou)[1]
+        return losses, vjp(ones)[0], vjp(iou)[1]
     jobs['roi'] = (roi_run, (rv, feats, props, pvalid, j_batch))
 
-    # ResNeSt-50 Faster R-CNN: the trunk alone on running statistics,
-    # at batch 1 in training, and the detector's detections
-    s50 = j_build_detector(small_two_stage(S50_CONFIG))
-    sv = out['s50'] = fill_tree(jax.eval_shape(lambda: s50.init_variables(
-        jax.random.PRNGKey(0), (1, 64, 96, 3))), seed=8)
-    trunk = JResNeSt(**RESNEST_KW)
-    tv = out['trunk'] = filled(trunk, 11, j_batch['image'])
+    # the trunk alone on running statistics, at batch 1 in training, and
+    # the detector's detections
     jobs['trunk'] = (trunk.apply, (tv, j_batch['image']))
 
     # batch 1: the pooled map's bn1 over one value a channel
@@ -336,26 +341,36 @@ def ref():
         jax.random.PRNGKey(0), (1, 64, 96, 3))), seed=10)
 
     def ms_run(v, b):
-        def total(params):
+        # differentiated for the two parameter sets held, so that the
+        # trunk's backward is neither traced nor compiled
+        p = v['params']
+
+        def total(sub):
+            params = dict(p, roi_head=dict(p['roi_head'],
+                                           maskiou=sub['maskiou']),
+                          neck=dict(p['neck'], fpn_conv_0=sub['fpn_conv_0']))
             losses = ms.forward_train(dict(v, params=params), b,
                                       jax.random.PRNGKey(0))
             return sum(losses.values()), losses
         (_, losses), grads = jax.value_and_grad(total, has_aux=True)(
-            v['params'])
-        return (losses, {'maskiou': grads['roi_head']['maskiou'],
-                         'fpn_conv_0': grads['neck']['fpn_conv_0']},
-                ms.forward_test(v, b))
+            {'maskiou': p['roi_head']['maskiou'],
+             'fpn_conv_0': p['neck']['fpn_conv_0']})
+        return losses, grads, ms.forward_test(v, b)
     jobs['ms'] = (ms_run, (mv, j_batch))
 
     options = dict(xla_backend_optimization_level=0)
-    with ThreadPoolExecutor(len(jobs) + 2) as pool:
-        # each compiles while the next is traced
-        futures = {k: pool.submit(jax.jit(fn).lower(*args).compile,
-                                  compiler_options=options)
-                   for k, (fn, args) in jobs.items()}
-        out.update(float64_programs(pool, tv, sv, j_batch))
-    for k, (_, args) in jobs.items():
-        out[f'{k}_out'] = futures[k].result()(*args)
+    try:
+        # the largest first; each compiles while the next is traced
+        for k in ('ms', 'roi', 's50', 'trunk', *jobs):
+            if k not in pending:
+                fn, args = jobs[k]
+                pending[k] = (pool.submit(jax.jit(fn).lower(*args).compile,
+                                          compiler_options=options), args)
+        for k, (compiled, args) in pending.items():
+            with jax.enable_x64(k.endswith('64')):
+                out[f'{k}_out'] = compiled.result()(*args)
+    finally:
+        pool.shutdown()
     return dict(numpy_tree(out), t_batch=t_batch,
                 proposals=(props, pvalid))
 

@@ -9,8 +9,9 @@
 The kernel itself is held against its plain version on the card in
 tests/test_torch_port_cuda.py.
 """
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +21,13 @@ from ld_tpu_torch.ops import nms as port_nms
 from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
 from ld_tpu_torch.testing import NMS_SETS, nms_set
 from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
+
+# the JAX references, each compiled once a shape (op by op, the fixpoint's
+# loop costs ~10x as much)
+j_cluster_nms_keep = jax.jit(jax_nms._cluster_nms_keep, static_argnums=2)
+j_multiclass_nms = jax.jit(jax_nms.multiclass_nms, static_argnums=(2, 3),
+                           static_argnames=('exact_preprune', ))
+j_nms = jax.jit(jax_nms.nms, static_argnums=(2, 3, 4))
 
 
 def _sorted_candidates(rng, k, classes=4):
@@ -52,7 +60,7 @@ def test_nms_keep_ref_equals_cluster_nms_keep(k, name):
     rng = np.random.RandomState(k)
     for thr in (0.5, 0.6):
         boxes, scores, valid, fixed = _keep_case(rng, k, name)
-        want = np.asarray(jax_nms._cluster_nms_keep(
+        want = np.asarray(j_cluster_nms_keep(
             jnp.asarray(boxes), jnp.asarray(scores), thr,
             valid=jnp.asarray(valid)))
         got = nms_keep_ref(torch.from_numpy(boxes)[None],
@@ -112,8 +120,8 @@ def _check_multiclass(boxes, scores, **kw):
     got = port_nms.multiclass_nms(torch.from_numpy(boxes),
                                   torch.from_numpy(scores), 0.05, 0.6, **kw)
     for i in range(boxes.shape[0]):
-        want = jax_nms.multiclass_nms(jnp.asarray(boxes[i]),
-                                      jnp.asarray(scores[i]), 0.05, 0.6, **kw)
+        want = j_multiclass_nms(jnp.asarray(boxes[i]),
+                                jnp.asarray(scores[i]), 0.05, 0.6, **kw)
         np.testing.assert_allclose(got[0][i].numpy(), np.asarray(want[0]),
                                    rtol=0, atol=1e-5)
         np.testing.assert_array_equal(got[1][i].numpy(), np.asarray(want[1]))
@@ -153,9 +161,9 @@ def test_nms_matches_jax():
     boxes, scores = _mc_inputs(rng, 1, 300, 1)
     boxes, scores = boxes[0], scores[0, :, 0]
     for max_out, score_thr in ((50, float('-inf')), (300, 0.3)):
-        want_idx, want_valid = jax_nms.nms(jnp.asarray(boxes),
-                                           jnp.asarray(scores), 0.5, max_out,
-                                           score_thr)
+        want_idx, want_valid = j_nms(jnp.asarray(boxes),
+                                     jnp.asarray(scores), 0.5, max_out,
+                                     score_thr)
         idx, valid = port_nms.nms(torch.from_numpy(boxes),
                                   torch.from_numpy(scores), 0.5, max_out,
                                   score_thr)

@@ -70,7 +70,7 @@ from ld_tpu.models.necks.fpn import FPN as JFPN
 from ld_tpu.utils.checkpoint import convert_torch_state_dict
 from ld_tpu_torch import Config
 from ld_tpu_torch.models import build_detector
-from ld_tpu_torch.models.backbones import ResNet, ResNeXt
+from ld_tpu_torch.models.backbones import ResNet, ResNeXt, SAConv2d
 from ld_tpu_torch.models.backbones.plugins import (ContextBlock,
                                                    GeneralizedAttention)
 from ld_tpu_torch.models.heads.mask_head import FCNMaskHead
@@ -493,7 +493,8 @@ def test_dcn_v1_checkpoint_names_caveat_36():
 def test_zero_init_residual_and_basic_block_plugins():
     """`zero_init_residual` zeroes each block's last norm (GN and BN alike)
     at init; a BasicBlock ResNet drops its plugins with a warning, as the
-    JAX package drops them."""
+    JAX package drops them; `sac` builds SAConv2d on the selected stages
+    of a Bottleneck ResNet and is refused by a BasicBlock one."""
     gen = torch.Generator().manual_seed(0)
     for norm in (None, GN):
         model = ResNet(depth=50, base_channels=16, norm_cfg=norm,
@@ -508,8 +509,17 @@ def test_zero_init_residual_and_basic_block_plugins():
         r18 = ResNet(depth=18, plugins=[dict(cfg=CB,
                                              position='after_conv3')])
     assert not any(isinstance(m, ContextBlock) for m in r18.modules())
-    with pytest.raises(NotImplementedError, match='A7'):
-        ResNet(depth=50, sac=dict(type='SAC'))
+    # SAC builds on the stages `stage_with_sac` selects, never on a
+    # BasicBlock
+    with torch.device('meta'):
+        sac = ResNet(depth=50, sac=dict(type='SAC'),
+                     stage_with_sac=(False, True, False, False))
+    assert [n for n, m in sac.named_modules()
+            if isinstance(m, SAConv2d)] == [f'layer2.{i}.conv2'
+                                            for i in range(4)]
+    with pytest.raises(ValueError, match='sac'):
+        ResNet(depth=18, sac=dict(type='SAC'),
+               stage_with_sac=(False, True, True, True))
 
 
 # ---- neck and RoI heads -----------------------------------------------------

@@ -188,24 +188,31 @@ def test_three_sgd_steps_track_jax(ld):
 
 def _jax_gi_masks(head, outs, t_outs):
     """The JAX head's GI mask of each level, computed as its
-    `_imitation_loss` computes them."""
-    cls_flat, pred_flat = j_flatten(outs[0]), j_flatten(outs[1])
-    soft_label, soft_target = j_flatten(t_outs[0]), j_flatten(t_outs[1])
-    anchors, num_lvl, _, _ = head.level_geometry(
-        [c.shape[1:3] for c in outs[0]])
-    b, masks, lo = cls_flat.shape[0], [], 0
-    for lvl, n in enumerate(num_lvl):
-        hi = lo + n
-        centers = jnp.tile(j_anchor_center(anchors[lo:hi]) /
-                           head.anchor_generator.strides[lvl][0], (b, 1))
-        masks.append(np.asarray(head._gi_mask(
-            cls_flat[:, lo:hi].reshape(-1, head.cls_out_channels),
-            soft_label[:, lo:hi].reshape(-1, head.cls_out_channels),
-            pred_flat[:, lo:hi].reshape(-1, pred_flat.shape[-1]),
-            soft_target[:, lo:hi].reshape(-1, pred_flat.shape[-1]),
-            centers, gi_candidates=head.gi_candidates, gi_top=head.gi_top)))
-        lo = hi
-    return masks
+    `_imitation_loss` computes them, in one program (op by op, the five
+    NMS fixpoints take ~40x as long)."""
+    def masks_of(outs, t_outs):
+        cls_flat, pred_flat = j_flatten(outs[0]), j_flatten(outs[1])
+        soft_label, soft_target = j_flatten(t_outs[0]), j_flatten(t_outs[1])
+        anchors, num_lvl, _, _ = head.level_geometry(
+            [c.shape[1:3] for c in outs[0]])
+        b, masks, lo = cls_flat.shape[0], [], 0
+        for lvl, n in enumerate(num_lvl):
+            hi = lo + n
+            centers = jnp.tile(j_anchor_center(anchors[lo:hi]) /
+                               head.anchor_generator.strides[lvl][0], (b, 1))
+            masks.append(head._gi_mask(
+                cls_flat[:, lo:hi].reshape(-1, head.cls_out_channels),
+                soft_label[:, lo:hi].reshape(-1, head.cls_out_channels),
+                pred_flat[:, lo:hi].reshape(-1, pred_flat.shape[-1]),
+                soft_target[:, lo:hi].reshape(-1, pred_flat.shape[-1]),
+                centers, gi_candidates=head.gi_candidates,
+                gi_top=head.gi_top))
+            lo = hi
+        return masks
+    masks = jax.jit(masks_of).lower(outs, t_outs).compile(
+        compiler_options=dict(xla_backend_optimization_level=0))(outs,
+                                                                  t_outs)
+    return [np.asarray(m) for m in masks]
 
 
 def test_gi_arm_matches_jax(ld):
