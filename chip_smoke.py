@@ -95,7 +95,7 @@ Phases, one JSON object per line each:
                build_detector / make_train_step / forward_test: the LDv2
                config configs/ldv2/ld_r50_gflv2_r101_fpn_1x.py (R50
                GFocalV2 student from seed 0, R101 GFocalV2 teacher from
-               seed 1 with its BNs folded, gibox imitation) for 1 + 3 steps
+               seed 1 with its BNs folded, gibox imitation) for 1 + 2 steps
                at batch 2, 800x1344, 5 kernel launches a step, its GI masks
                and loss_im identical with the plain keep mask; the IMv2
                config for one step (loss_dfl 0, 5 launches); LD on ATSS-,
@@ -370,6 +370,22 @@ Phases, one JSON object per line each:
                800x1344 (PointRend stepped with box-region gt masks: its
                first step has loss_point, Grid R-CNN's loss_grid);
                launches must equal GP_LAUNCHES. Budget 15 s.
+ 31. libra_pisa — Libra Faster R-CNN R50 (FPN + non-local BFP,
+               CombinedSampler), Libra RetinaNet R50 (BalancedL1; its cls
+               conv x 10 behind the BFP), PISA Faster and Mask R-CNN (box-
+               region gt masks) and PISA RetinaNet R50 the same way (each
+               RoI head's reference sampler its config's type at num = the
+               candidates; loss_carl in each PISA model's first step);
+               PISA SSD300 1 + 2 calls at batch 1, 1 + 2 steps at batch 8,
+               against the CPU at 300x300. Launches must equal
+               LP_LAUNCHES. Budget 40 s.
+ 32. groie_mining — GRoIE Faster, Mask and Grid R-CNN R50 and Faster
+               R-CNN R50 with OHEM and with ScoreHLR (fc_cls peaked in
+               their steps and references) the same way; then the sampler
+               check: every new sampler on the card and on the CPU, on
+               draws made on the CPU and a full-width step's candidates,
+               selections identical, ScoreHLR's weights within 1e-6.
+               Launches must equal GM_LAUNCHES. Budget 30 s.
 Every phase row carries `t`, the script's seconds so far; `--phases NAME
 ...` runs the named phases alone.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
@@ -419,7 +435,7 @@ VOC_SPLITS = {'VOC2007': {'trainval': 6, 'test': 8},
 TTA_SCALES = (1000, 600, 1333, 800)
 # the gfl_family phase's LD configs (each with its R101 teacher): (config,
 # nms_keep launches a step, warm-up steps, timed steps, card-vs-CPU check)
-FAMILY_LD = (('configs/ldv2/ld_r50_gflv2_r101_fpn_1x.py', 5, 1, 3, True),
+FAMILY_LD = (('configs/ldv2/ld_r50_gflv2_r101_fpn_1x.py', 5, 1, 2, True),
              ('configs/imv2/im_r50_gflv2_r101_1x.py', 5, 0, 1, False),
              ('configs/ld/ld_r50_atss_r101_1x.py', 0, 1, 2, True),
              ('configs/ld/ld_r50_fcos_r101_1x.py', 0, 1, 2, True),
@@ -436,17 +452,17 @@ DCN_SERVE = ('configs/gfl/gfl_r101_dcn_fpn_mstrain_2x_coco.py',
              'configs/gfl/gfl_x101_32x4d_fpn_dconv_c4-c5_mstrain_2x_coco.py')
 DCN_LAYERS = (('r101_stage2', 128, (100, 168), 1),
               ('x101_stage3', 512, (50, 84), 32))
-DCN_LD = (('configs/ld/ld_r101_gflv1_r101dcn_fpn_coco_2x.py', 1, 3),
-          ('configs/ld/ld_x101_32x4d_dcn_self_2x_coco.py', 1, 2))
+DCN_LD = (('configs/ld/ld_r101_gflv1_r101dcn_fpn_coco_2x.py', 1, 2),
+          ('configs/ld/ld_x101_32x4d_dcn_self_2x_coco.py', 1, 1))
 # the res2net phase: the GFLv2-Res2Net-101-DCN teacher served (warm-up and
 # timed forward_test calls), its DCN layer count, and the IMv2 configs that
 # distil it (config, warm-up steps, timed steps, student dtype, card vs CPU)
 RES2NET_TEACHER = 'configs/imv2/gflv2_r2n101_dcn_fpn_2x.py'
-RES2NET_SERVE_CALLS = (1, 4)
+RES2NET_SERVE_CALLS = (1, 2)
 RES2NET_DCN_LAYERS = 90
-RES2NET_IM = (('configs/imv2/im_r101_gflv2_r2n101_dcn_2x.py', 1, 3, None,
+RES2NET_IM = (('configs/imv2/im_r101_gflv2_r2n101_dcn_2x.py', 1, 2, None,
                True),
-              ('configs/imv2/im_gflv2_r2n101_dcn_self-2x.py', 1, 2,
+              ('configs/imv2/im_gflv2_r2n101_dcn_self-2x.py', 1, 1,
                'bfloat16', False),
               ('configs/imv2/im_gflv2_x101-32x4dr2n101_dcn_2x.py', 1, 1, None,
                False))
@@ -676,8 +692,75 @@ GP_MODELS = (('configs/grid_rcnn/grid_rcnn_r50_fpn_gn-head_1x_coco.py',
 # (the RPN's batch, the RoI head's or the last stage's), 1 a two-stage step
 DN_LAUNCHES = (5 * (2 * sum(DN_CALLS) + sum(DN_STEPS)) + 2 * sum(DN_CALLS))
 GP_LAUNCHES = len(GP_MODELS) * (2 * sum(DN_CALLS) + sum(DN_STEPS))
-# the loss a RoI head adds, which its first step must have
-HEAD_LOSS = dict(GridRoIHead='loss_grid', PointRendRoIHead='loss_point')
+# the libra_pisa phase (budget 40 s): Libra Faster R-CNN R50 (FPN + non-local
+# BFP, CombinedSampler), Libra RetinaNet R50 (BalancedL1 at beta 0.11), PISA
+# Faster and Mask R-CNN R50 (the Mask R-CNN stepped with box-region gt
+# masks) and PISA RetinaNet R50 at 800x1344, as the detectors_necks models;
+# PISA SSD300 served at batch 1 and stepped at mmdet's per-GPU 8
+LP_MODELS = (
+    ('configs/libra_rcnn/libra_faster_rcnn_r50_fpn_1x_coco.py', (800, 1344)),
+    ('configs/libra_rcnn/libra_retinanet_r50_fpn_1x_coco.py', (800, 1344)),
+    ('configs/pisa/pisa_faster_rcnn_r50_fpn_1x_coco.py', (800, 1344)),
+    ('configs/pisa/pisa_mask_rcnn_r50_fpn_1x_coco.py', (800, 1344)),
+    ('configs/pisa/pisa_retinanet_r50_fpn_1x_coco.py', (800, 1344)))
+PISA_SSD = 'configs/pisa/pisa_ssd300_coco.py'
+PISA_SSD_CALLS, PISA_SSD_STEPS = (1, 2), (1, 2)
+LP_LAUNCHES = (3 * (2 * sum(DN_CALLS) + sum(DN_STEPS)) + 2 * sum(DN_CALLS) +
+               sum(PISA_SSD_CALLS))
+# the groie_mining phase (budget 30 s): GRoIE Faster, Mask and Grid R-CNN
+# R50, and Faster R-CNN R50 with the OHEM sampler of
+# configs/faster_rcnn/faster_rcnn_r50_fpn_ohem_1x_coco.py and with a
+# ScoreHLRSampler (mmdet's PISA settings), each moved under
+# roi_head.train_cfg (the config's top-level train_cfg is read by neither
+# package, ROADMAP.md caveat 20); the two mining models' fc_cls peaked in
+# their steps and references too, so that ScoreHLR's negatives pass its
+# score_thr; then the sampler check
+OHEM_CONFIG = 'configs/faster_rcnn/faster_rcnn_r50_fpn_ohem_1x_coco.py'
+SCORE_HLR = dict(type='ScoreHLRSampler', num=512, pos_fraction=0.25,
+                 neg_pos_ub=-1, add_gt_as_proposals=True, k=0.5, bias=0.,
+                 score_thr=0.05, iou_thr=0.5)
+# the samplers of the sampler check, at the configs' num 512
+CHECK_SAMPLERS = dict(
+    instance_balanced_pos=dict(type='InstanceBalancedPosSampler', num=512,
+                               pos_fraction=0.25),
+    iou_balanced_neg=dict(type='IoUBalancedNegSampler', num=512,
+                          pos_fraction=0.25, floor_thr=-1, floor_fraction=0,
+                          num_bins=3),
+    iou_balanced_neg_floor=dict(type='IoUBalancedNegSampler', num=512,
+                                pos_fraction=0.25, floor_thr=0.1,
+                                floor_fraction=0.5, num_bins=3),
+    combined=dict(type='CombinedSampler', num=512, pos_fraction=0.25,
+                  pos_sampler=dict(type='InstanceBalancedPosSampler'),
+                  neg_sampler=dict(type='IoUBalancedNegSampler',
+                                   floor_thr=-1, floor_fraction=0,
+                                   num_bins=3)),
+    ohem=dict(type='OHEMSampler', num=512, pos_fraction=0.25),
+    score_hlr=SCORE_HLR)
+
+
+def ohem_sampler(cfg):
+    """The OHEM config's `train_cfg.rcnn.sampler` under
+    `model.roi_head.train_cfg`."""
+    cfg.model.roi_head.train_cfg = dict(sampler=dict(
+        cfg.train_cfg.rcnn.sampler))
+
+
+def score_hlr_sampler(cfg):
+    cfg.model.roi_head.train_cfg = dict(sampler=dict(SCORE_HLR))
+
+
+GM_MODELS = (
+    ('configs/groie/faster_rcnn_r50_fpn_groie_1x_coco.py', (800, 1344)),
+    ('configs/groie/mask_rcnn_r50_fpn_groie_1x_coco.py', (800, 1344)),
+    ('configs/groie/grid_rcnn_r50_fpn_gn-head_groie_1x_coco.py',
+     (800, 1344)),
+    (OHEM_CONFIG, (800, 1344), ohem_sampler),
+    (FASTER_CONFIG, (800, 1344), score_hlr_sampler))
+GM_LAUNCHES = len(GM_MODELS) * (2 * sum(DN_CALLS) + sum(DN_STEPS))
+# the loss a head adds, which its first step must have
+HEAD_LOSS = dict(GridRoIHead='loss_grid', PointRendRoIHead='loss_point',
+                 PISARoIHead='loss_carl', PISARetinaHead='loss_carl',
+                 PISASSDHead='loss_carl')
 
 
 T_START = time.perf_counter()
@@ -1129,7 +1212,7 @@ def phase_train_reference(torch, cfg, base, gi=True,
           'GI masks differ between the card and the CPU')
 
 
-def phase_train(torch, smi, warmup=2, timed=5, batch_size=2,
+def phase_train(torch, smi, warmup=2, timed=3, batch_size=2,
                 pad=(800, 1344)):
     """The GI config's LD training step at full width on the card; returns
     the kernel's launch count over the main path's steps."""
@@ -2004,7 +2087,7 @@ def family_serve(torch, smi, config, depth=None, warmup=2, timed=10,
 
 
 def phase_gfl_family(torch, smi):
-    """The other GFL-family heads at full width: LDv2 (1 + 3 steps), IMv2
+    """The other GFL-family heads at full width: LDv2 (1 + 2 steps), IMv2
     (1 step), LD on ATSS-, FCOS- and Retina-GFL (1 + 2 steps each), then
     `forward_test` of a GFocalV2, ATSS-, FCOS- and Retina-GFL R50; returns
     the kernel's launch count over their main paths."""
@@ -3274,12 +3357,14 @@ def flat_tensors(obj):
     return [obj]
 
 
-def build_plain(torch, config, seed=0):
-    """A config's detector on the CPU in float32, from `seed`; returns (cfg,
-    model)."""
+def build_plain(torch, config, seed=0, edit=None):
+    """A config's detector on the CPU in float32, from `seed`, after
+    `edit(cfg)` where given; returns (cfg, model)."""
     from ld_tpu_torch import Config
     from ld_tpu_torch.models import build_detector
     cfg = Config.fromfile(os.path.join(ROOT, config))
+    if edit is not None:
+        edit(cfg)
     model = build_detector(cfg.model)
     model.init_weights(torch.Generator().manual_seed(seed))
     return cfg, model
@@ -3422,6 +3507,21 @@ def sample_everything(model):
     model.rpn_head.num_samples, model.rpn_head.pos_fraction = 10**9, 1.0
     model.roi_head.num_samples = 10**9
     model.roi_head.sampler = RandomSampler(num=10**9, pos_fraction=1.0)
+    return model
+
+
+def sampler_of_type(model, candidates):
+    """`model`'s RoI sampler rebuilt as its config's type (its sub-samplers
+    too) at num = `candidates`, the candidates an image, and pos_fraction
+    1: every candidate is picked, and ScoreHLR's label weights still decay
+    from 1 over the importance ranks."""
+    from ld_tpu_torch.ops.samplers import build_sampler
+    roi = model.roi_head
+    cfg = dict(roi.train_cfg.get('sampler') or {})
+    roi.num_samples = candidates
+    roi.sampler = build_sampler(dict(
+        cfg, type=cfg.get('type', 'RandomSampler'), num=candidates,
+        pos_fraction=1.0))
     return model
 
 
@@ -3757,14 +3857,16 @@ def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
 
 
 def roi_reference(torch, np, base, config, phase, proposals=200,
-                  scaled=False):
+                  scaled=False, own_sampler=False):
     """The card against the CPU at 1x3x128x192 on `base`'s weights with
     samplers that pick every candidate and box-region gt masks: the FPN and
     RPN outputs (5e-3 / 2e-4; with `scaled`, 5e-5 of each output's largest
     value, `outputs_reference`), every loss (the RPN's and the RoI head's,
     the mask and semantic losses included) on the CPU's top `proposals`
     proposals (None: all), rtol 1e-3 a term; with test masks, the masks of
-    the CPU's detections (of a copy with peaked scores) within 5e-3."""
+    the CPU's detections (of a copy with peaked scores) within 5e-3. With
+    `own_sampler` the RoI head keeps its config's sampler type
+    (`sampler_of_type`)."""
     import copy
     from ld_tpu_torch.testing import detection_batch
     worst, worst_med = outputs_reference(torch, np, base, scaled)
@@ -3787,6 +3889,9 @@ def roi_reference(torch, np, base, config, phase, proposals=200,
         if props is None:
             props = [p[:, :proposals] for p in model._proposals(
                 rpn_outs, batch['img_hw'])]
+        if own_sampler:
+            sampler_of_type(model, batch['gt_bboxes'].shape[1] +
+                            props[0].shape[1])
         losses.update(model.roi_head.forward_train(
             feats, *(p.to(device) for p in props), batch, gen))
         runs[device] = {k: float(v.detach()) for k, v in losses.items()}
@@ -5756,27 +5861,43 @@ def neck_serve(torch, smi, model, config, phase, hw, warmup, timed):
     return launches
 
 
-def neck_models(torch, np, smi, models, phase_name, budget):
-    """Each (config, size) of `models` at full width, float32, seed 0 (a
-    dense head's cls bias 0, so that NMS sees candidates): served at batch
-    1 (`neck_serve`; a two-stage model's fc_cls peaked, `peak_scores`),
+def neck_models(torch, np, smi, models, phase_name, budget,
+                own_sampler=False):
+    """Each (config, size[, edit]) of `models` at full width, float32, seed
+    0, the config changed by `edit(cfg)` where given (a dense head's cls
+    bias 0, so that NMS sees candidates, and behind a BFP its cls weights x
+    10): served at batch
+    1 (`neck_serve`; a two-stage model's fc_cls peaked, `peak_scores`, and a
+    hard-mining one's in its steps and reference too),
     stepped at its config's samples_per_gpu at the same size
-    (with box-region gt masks where the RoI head has a mask head), held
-    against the CPU (`roi_reference` / `dense_reference`). Returns the
-    launch count over the main paths."""
+    (with box-region gt masks where the RoI head has a mask head), the
+    head's own loss in its first step (`HEAD_LOSS`), held
+    against the CPU (`roi_reference` with `own_sampler` /
+    `dense_reference`). Returns the launch count over the main paths."""
     import copy
     t_phase = time.perf_counter()
     launches = 0
-    for config, hw in models:
+    for config, hw, *edit in models:
         tag = os.path.splitext(os.path.basename(config))[0]
-        cfg, base = build_plain(torch, config)
+        if edit:
+            tag = f'{tag}_{edit[0].__name__}'
+        cfg, base = build_plain(torch, config, edit=edit[0] if edit
+                                else None)
         two_stage = hasattr(base, 'roi_head')
+        mining = two_stage and base.roi_head.hard_mining
+        if mining:
+            peak_scores(torch, base)
         if not two_stage:
-            head = base.bbox_head
+            conv = getattr(base.bbox_head, base.bbox_head.cls_pred_name)
             with torch.no_grad():
-                getattr(head, head.cls_pred_name).bias.zero_()
+                conv.bias.zero_()
+                if type(base.neck).__name__ == 'SequentialNeck':
+                    # BFP's averaged levels narrow the logits: at weights
+                    # x 1 the 100 kept scores lie 1 ulp apart at 0.5, and
+                    # the card's sigmoid orders them unlike the CPU's
+                    conv.weight.mul_(10.0)
         model = copy.deepcopy(base)
-        if two_stage:
+        if two_stage and not mining:
             peak_scores(torch, model)
         model = model.to('cuda').eval()
         launches += neck_serve(torch, smi, model, config, f'{tag}_serve', hw,
@@ -5791,14 +5912,16 @@ def neck_models(torch, np, smi, models, phase_name, budget):
             batch=masked_batch(torch, np, batch_size, hw) if masks
             else None)
         launches += n
-        key = HEAD_LOSS.get(type(getattr(base, 'roi_head', None)).__name__)
+        key = HEAD_LOSS.get(type(base.roi_head if two_stage
+                                 else base.bbox_head).__name__)
         check(key is None or row['loss_first'].get(key, 0) > 0,
               f'{config}: no {key} in {sorted(row["loss_first"])}')
         if two_stage:
             # HTC's three stages, masks and semantic head on the CPU are
             # the phase's largest host cost: its top 50 proposals
             roi_reference(torch, np, base, config, f'{tag}_reference',
-                          proposals=50 if 'htc' in config else 100)
+                          proposals=50 if 'htc' in config else 100,
+                          own_sampler=own_sampler)
         else:
             dense_reference(torch, np, cfg, base, config,
                             f'{tag}_reference',
@@ -5822,6 +5945,131 @@ def phase_detectors_necks(torch, np, smi):
     return launches
 
 
+def phase_libra_pisa(torch, np, smi):
+    """Libra R-CNN (FPN + BFP, CombinedSampler; BalancedL1 on the
+    RetinaNet) and PISA (Faster and Mask R-CNN, RetinaNet) R50 at full width
+    (`neck_models`, each RoI sampler its config's type in the reference;
+    `loss_carl` in each PISA model's first step), then PISA SSD300 served at
+    batch 1, stepped at batch 8 and held against the CPU. Budget 40 s."""
+    t_phase = time.perf_counter()
+    launches = neck_models(torch, np, smi, LP_MODELS, 'libra_pisa_models',
+                           30, own_sampler=True)
+    cfg, base = build_plain(torch, PISA_SSD)
+    launches += ssd_serve(torch, smi, PISA_SSD, base, {1: PISA_SSD_CALLS},
+                          'pisa_ssd300_serve')
+    size = base.backbone.input_size
+    n, row = detector_steps(torch, smi, cfg, base, *PISA_SSD_STEPS,
+                            per_step=0, phase='pisa_ssd300_train',
+                            batch_size=8, pad=(size, size))
+    launches += n
+    check(row['loss_first'].get('loss_carl', 0) > 0,
+          f'{PISA_SSD}: no loss_carl in {sorted(row["loss_first"])}')
+    dense_reference(torch, np, cfg, base, PISA_SSD, 'pisa_ssd300_reference',
+                    hw=(size, size))
+    del base
+    torch.cuda.empty_cache()
+    check(launches == LP_LAUNCHES, f'libra_pisa phase: {launches} nms_keep '
+          f'launches, expected {LP_LAUNCHES}')
+    emit(dict(phase='libra_pisa_done', seconds=time.perf_counter() -
+              t_phase, budget_s=40, nms_keep_launches=launches))
+    return launches
+
+
+def sampler_check(torch, smi, batch_size=2, hw=(800, 1344)):
+    """Each sampler of `CHECK_SAMPLERS` on the card and on the CPU, on the
+    same inputs: uniform draws made on the CPU and copied to the card, and
+    the candidates of the ScoreHLR Faster R-CNN's own step on the card (the
+    gts joined to its training proposals, their assignment's `gt_inds`, the
+    largest IoU with a gt, the boxes, and the preliminary pass's CE and
+    fg scores, `hard_mining_extras`, its fc_cls peaked) copied to the CPU.
+    The selections must be identical and ScoreHLR's label weights within
+    1e-6. No nms_keep launch counts here (the proposals' are not a main
+    path)."""
+    from ld_tpu_torch.ops.boxes import bbox_overlaps
+    from ld_tpu_torch.ops.samplers import build_sampler
+    from ld_tpu_torch.testing import detection_batch
+    t = time.perf_counter()
+    cfg, base = build_plain(torch, FASTER_CONFIG, edit=score_hlr_sampler)
+    model = peak_scores(torch, base).to('cuda').train()
+    batch = detection_batch(batch_size, *hw, num_classes=80, seed=0,
+                            device='cuda')
+    roi = model.roi_head
+    with torch.no_grad():
+        feats, rpn_outs = model(batch['image'])
+        props, valid = model._proposals(rpn_outs, batch['img_hw'],
+                                        model.train_cfg.get('rpn_proposal'))
+        extras = roi.hard_mining_extras(feats, props, valid, batch)
+        gtb, gtl, gtv = (batch['gt_bboxes'], batch['gt_labels'].long(),
+                         batch['gt_valid'])
+        cand = torch.cat([gtb, props], dim=1)
+        cv = torch.cat([gtv, valid], dim=1)
+        res = roi.assigner.assign(cand, None, gtb, gtl, gtv, cv,
+                                  num_classes=roi.num_classes)
+        max_iou = torch.where(gtv[:, None, :], bbox_overlaps(cand, gtb),
+                              torch.zeros((), device='cuda')).amax(-1)
+    card = dict(pos=res.pos_mask & cv, neg=~res.pos_mask & cv,
+                gt_inds=res.assigned_gt_inds, max_overlaps=max_iou,
+                boxes=cand, **extras)
+    cpu = {k: v.cpu() for k, v in card.items()}
+    draws = torch.rand((3, *cand.shape[:2]),
+                       generator=torch.Generator().manual_seed(0))
+    rows = {}
+    for name, s_cfg in CHECK_SAMPLERS.items():
+        sampler = build_sampler(dict(s_cfg))
+        n = 2 + sampler.extra_neg_draws
+        outs = []
+        for ins, d in ((card, draws[:n].to('cuda')), (cpu, draws[:n])):
+            kw = {k: v for k, v in ins.items() if k not in ('pos', 'neg')}
+            with torch.no_grad():
+                outs.append([None if x is None else x.cpu()
+                             for x in sampler.select(d, ins['pos'],
+                                                     ins['neg'], **kw)])
+        (g_pos, g_neg, g_w), (c_pos, c_neg, c_w) = outs
+        same = torch.equal(g_pos, c_pos) and torch.equal(g_neg, c_neg)
+        row = dict(identical=same, picked_pos=g_pos.sum(-1).tolist(),
+                   picked_neg=g_neg.sum(-1).tolist())
+        if g_w is not None:
+            neg_w = c_w[cpu['neg']]
+            row.update(weight_max_abs_diff=float((g_w - c_w).abs().max()),
+                       weight_min=float(neg_w.min()),
+                       weight_max=float(neg_w.max()),
+                       valid_negatives=int((cpu['neg'] & (
+                           cpu['scores'] > s_cfg['score_thr'])).sum()))
+        rows[name] = row
+    emit(dict(phase='sampler_check', config=FASTER_CONFIG, nvidia_smi=smi,
+              batch=[batch_size, 3, *hw],
+              candidates=list(cand.shape[:2]),
+              positives=card['pos'].sum(-1).tolist(),
+              negatives=card['neg'].sum(-1).tolist(), samplers=rows,
+              weight_tol=1e-6, seconds=time.perf_counter() - t))
+    for name, row in rows.items():
+        check(row['identical'], f'sampler {name}: the card and the CPU '
+              'select differently')
+        check(row.get('weight_max_abs_diff', 0) <= 1e-6,
+              f'sampler {name}: label weights differ by '
+              f'{row.get("weight_max_abs_diff")}')
+    w = rows['score_hlr']
+    check(w['valid_negatives'] > 0 and w['weight_min'] < w['weight_max'],
+          f'ScoreHLR: no decayed label weight ({w})')
+    del model, feats, rpn_outs
+    torch.cuda.empty_cache()
+
+
+def phase_groie_mining(torch, np, smi):
+    """GRoIE Faster, Mask and Grid R-CNN R50 and Faster R-CNN R50 with OHEM
+    and with ScoreHLR at full width (`neck_models`, each RoI sampler its
+    config's type in the reference), then `sampler_check`. Budget 30 s."""
+    t_phase = time.perf_counter()
+    launches = neck_models(torch, np, smi, GM_MODELS, 'groie_mining_models',
+                           25, own_sampler=True)
+    sampler_check(torch, smi)
+    check(launches == GM_LAUNCHES, f'groie_mining phase: {launches} '
+          f'nms_keep launches, expected {GM_LAUNCHES}')
+    emit(dict(phase='groie_mining_done', seconds=time.perf_counter() -
+              t_phase, budget_s=30, nms_keep_launches=launches))
+    return launches
+
+
 def phase_grid_point_rend(torch, np, smi):
     """Grid R-CNN and PointRend R50 at full width (`neck_models`; the grid
     loss and the point loss in each first step). Budget 15 s."""
@@ -5835,7 +6083,8 @@ def run_phases(names):
     """`--phases NAME ...`: only the named phases (dcn, res2net, ddp,
     hrnet_regnet, resnet_variants, data_host, vfnet, guided_anchoring,
     reppoints, fovea_ssd, ms_rcnn_resnest, paa_fsaf_freeanchor, sabl,
-    detectors_necks, grid_point_rend, cascade), each with its seconds and
+    detectors_necks, grid_point_rend, libra_pisa, groie_mining, cascade),
+    each with its seconds and
     launches, on the card with TF32 off and the kernel built; no result
     line."""
     import numpy as np
@@ -5873,6 +6122,8 @@ def run_phases(names):
                                                                 smi),
                   grid_point_rend=lambda: phase_grid_point_rend(torch, np,
                                                                 smi),
+                  libra_pisa=lambda: phase_libra_pisa(torch, np, smi),
+                  groie_mining=lambda: phase_groie_mining(torch, np, smi),
                   cascade=lambda: phase_cascade(torch, np, smi)[0])
     for name in names:
         t = time.perf_counter()
@@ -5984,6 +6235,10 @@ def main():
     dn_launches = phase_detectors_necks(torch, np, smi)
     torch.cuda.empty_cache()
     gp_launches = phase_grid_point_rend(torch, np, smi)
+    torch.cuda.empty_cache()
+    lp_launches = phase_libra_pisa(torch, np, smi)
+    torch.cuda.empty_cache()
+    gm_launches = phase_groie_mining(torch, np, smi)
     emit(dict(phase='script_done', seconds=time.perf_counter() - t_script))
 
     print(smi.splitlines()[0], flush=True)
@@ -6001,7 +6256,7 @@ def main():
                   vfnet_launches + ga_launches + reppoints_launches +
                   fovea_ssd_launches + ms_resnest_launches +
                   pff_launches + sabl_launches + dn_launches +
-                  gp_launches),
+                  gp_launches + lp_launches + gm_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -6026,6 +6281,8 @@ def main():
         launches_sabl=sabl_launches,
         launches_detectors_necks=dn_launches,
         launches_grid_point_rend=gp_launches,
+        launches_libra_pisa=lp_launches,
+        launches_groie_mining=gm_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,

@@ -14,7 +14,8 @@ from typing import Dict
 import torch
 from torch import nn
 
-from ld_tpu_torch.utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
+from ld_tpu_torch.models.necks.seq import build_neck
+from ld_tpu_torch.utils.registry import BACKBONES, DETECTORS, HEADS
 
 
 @DETECTORS.register_module()
@@ -23,11 +24,8 @@ class SingleStageDetector(nn.Module):
     def __init__(self, backbone, neck=None, bbox_head=None, train_cfg=None,
                  test_cfg=None, pretrained=None):
         super().__init__()
-        if isinstance(neck, (list, tuple)):
-            raise NotImplementedError('stacked necks are not ported to '
-                                      'ld_tpu_torch yet (see ROADMAP.md)')
         self.backbone = BACKBONES.build(dict(backbone))
-        self.neck = NECKS.build(dict(neck)) if neck is not None else None
+        self.neck = build_neck(neck)
         head_cfg = dict(bbox_head)
         head_cfg.setdefault('train_cfg', train_cfg)
         head_cfg.setdefault('test_cfg', test_cfg)

@@ -39,7 +39,8 @@ from typing import Dict
 import torch
 from torch import nn
 
-from ld_tpu_torch.utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
+from ld_tpu_torch.models.necks.seq import build_neck
+from ld_tpu_torch.utils.registry import BACKBONES, DETECTORS, HEADS
 from .kd_one_stage import FrozenTeacher
 
 DETECTORS.not_ported.update({
@@ -71,13 +72,10 @@ class TwoStageDetector(nn.Module):
     def __init__(self, backbone, neck=None, rpn_head=None, roi_head=None,
                  train_cfg=None, test_cfg=None, pretrained=None):
         super().__init__()
-        if isinstance(neck, (list, tuple)):
-            raise NotImplementedError('stacked necks are not ported to '
-                                      'ld_tpu_torch yet (see ROADMAP.md A7)')
         train_cfg = dict(train_cfg or {})
         test_cfg = dict(test_cfg or {})
         self.backbone = BACKBONES.build(dict(backbone))
-        self.neck = NECKS.build(dict(neck)) if neck is not None else None
+        self.neck = build_neck(neck)
         rpn_cfg = dict(rpn_head or dict(type='RPNHead', in_channels=256))
         rpn_cfg.setdefault('train_cfg', train_cfg.get('rpn'))
         rpn_cfg.setdefault('test_cfg', test_cfg.get('rpn'))

@@ -13,6 +13,7 @@ from .htc_roi_head import HybridTaskCascadeRoIHead
 from .ld_gflv2 import IMv2Head, LDv2Head
 from .ld_head import IMHead, LDHead
 from .paa_head import PAAHead
+from .pisa_heads import PISARetinaHead, PISARoIHead, PISASSDHead
 from .reppoints_head import RepPointsHead
 from .retina_gfl_head import LDRetinaHead, RetinaGFLHead
 from .retina_head import RetinaHead, RetinaSepBNHead
@@ -34,4 +35,4 @@ __all__ = ['GFLHead', 'IMHead', 'LDHead', 'GFocalHead', 'LDv2Head',
            'MaskScoringRoIHead', 'PAAHead', 'FSAFHead',
            'FreeAnchorRetinaHead', 'SABLRetinaHead', 'SABLRoIHead',
            'CascadeSABLRoIHead', 'GridRoIHead', 'PointRendRoIHead',
-           'NASFCOSHead']
+           'NASFCOSHead', 'PISARetinaHead', 'PISARoIHead', 'PISASSDHead']

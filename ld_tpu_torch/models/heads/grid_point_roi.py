@@ -24,8 +24,10 @@
     point. At test time the head is Mask R-CNN's, with coarse masks only:
     the JAX head has no subdivision pass (ROADMAP.md caveat 65).
 
-The weights of both nets go JAX -> port (`state_dict_from_jax`); a
-`GenericRoIExtractor` (GRoIE) raises, naming ROADMAP.md Queue A item 4.
+The weights of both nets go JAX -> port (`state_dict_from_jax`). A
+`GenericRoIExtractor` (GRoIE) as `grid_roi_extractor` pools the grid
+features at every level (`roi_head.grid_roi_extractor.{pre,post}_module`,
+`ld_tpu/models/heads/grid_point_roi.py:75-110`), as the bbox one does.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from ld_tpu_torch.ops.roi_align import multi_level_roi_align
 from ld_tpu_torch.parallel.dist import global_sum
 from ld_tpu_torch.utils.registry import HEADS
 from .mask_head import mask_targets
-from .roi_head import StandardRoIHead, _not_ported
+from .roi_head import StandardRoIHead, build_roi_extractor
 
 EPS = 1e-6
 
@@ -106,9 +108,6 @@ class GridRoIHead(StandardRoIHead):
 
     def __init__(self, grid_roi_extractor=None, grid_head=None, **kwargs):
         gext = dict(grid_roi_extractor or {})
-        if gext.get('type', 'SingleRoIExtractor') != 'SingleRoIExtractor':
-            _not_ported(f"grid RoI extractor {gext['type']!r} (GRoIE)",
-                        'Queue A item 4')
         super().__init__(**kwargs)
         gh = dict(grid_head or {})
         self.grid_points = gh.get('grid_points', 9)
@@ -116,18 +115,26 @@ class GridRoIHead(StandardRoIHead):
         self.grid_roi_size = (gext.get('roi_layer') or {}).get(
             'output_size', 14)
         self.whisker = gh.get('whisker', 0.25)
+        in_channels = dict(kwargs.get('bbox_head') or {}).get(
+            'in_channels', 256)
+        self.grid_roi_extractor = build_roi_extractor(
+            gext, self.grid_roi_size, self.featmap_strides, in_channels)
         self.grid_head = GridHead(
-            dict(kwargs.get('bbox_head') or {}).get('in_channels', 256),
-            self.grid_points, gh.get('conv_out_channels', 64),
+            in_channels, self.grid_points, gh.get('conv_out_channels', 64),
             gh.get('num_convs', 8), kwargs.get('dtype'))
 
     def init_weights(self, generator: torch.Generator):
         super().init_weights(generator)
         self.grid_head.init_weights(generator)
+        if self.grid_roi_extractor is not None:
+            self.grid_roi_extractor.init_weights(generator)
 
     def _grid_heat(self, feats, boxes, valid):
         """The grid net's (R, 9, S, S) logits of whisker-expanded `boxes`
         (B, n, 4)."""
+        if self.grid_roi_extractor is not None:
+            return self.grid_head(self.grid_roi_extractor(feats, boxes,
+                                                          valid))
         return self.grid_head(multi_level_roi_align(
             feats[:len(self.featmap_strides)], boxes, valid,
             self.grid_roi_size, self.featmap_strides))

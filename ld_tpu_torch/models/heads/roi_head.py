@@ -38,11 +38,26 @@
     (B, max_per_img, 28, 28) sigmoid masks of the detections in roi space,
     pooled on their boxes in the network input's coordinates.
 
+  * GRoIE (`GenericRoIExtractor`, `ld_tpu/models/heads/roi_head.py:
+    122-158, 436-463`) for the bbox and mask extractors: RoIAlign of every
+    roi at every level, a shared `pre_module` on each (a k x k conv with
+    bias, then ReLU), their sum (or concatenation), a `post_module` plugin
+    (`GeneralizedAttention` in the configs), zeros for invalid rois; under
+    `roi_head.{bbox,mask}_roi_extractor.{pre,post}_module.*`. The mask
+    branch still runs on the positive slice.
+  * Hard mining (`OHEMSampler`, `ScoreHLRSampler`,
+    `ld_tpu/models/heads/roi_head.py:315-318, 548-578`): a preliminary pass
+    without gradient extracts every candidate (the gts joined to the
+    proposals), runs the bbox net and hands the sampler each candidate's
+    CE at its assigned label (`loss`) and its largest foreground softmax
+    probability (`scores`). ScoreHLR's negative label weights (`weights` of
+    the sampled rois) scale the rois' classification weights.
+
 The sampler draws from the `torch.Generator` the caller passes in. The
-shared head of the C4 configs, GRoIE, deformable RoI pooling and the
-hard-mining samplers raise NotImplementedError (ROADMAP.md A7). A
-`bbox_head` of type `SABLHead` makes the head a `SABLRoIHead`
-(`sabl_roi_head.py`), which builds its own bbox head.
+shared head of the C4 configs and deformable RoI pooling raise
+NotImplementedError (ROADMAP.md A7). A `bbox_head` of type `SABLHead`
+makes the head a `SABLRoIHead` (`sabl_roi_head.py`), which builds its own
+bbox head.
 """
 from __future__ import annotations
 
@@ -53,6 +68,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ld_tpu_torch.models.backbones.plugins import build_plugin
 from ld_tpu_torch.models.layers import (lecun_normal_, make_conv, make_norm,
                                         norm_name)
 from ld_tpu_torch.ops.boxes import bbox_overlaps
@@ -60,7 +76,7 @@ from ld_tpu_torch.ops.coder import build_coder
 from ld_tpu_torch.ops.max_iou_assigner import MaxIoUAssigner
 from ld_tpu_torch.ops.nms import multiclass_nms
 from ld_tpu_torch.ops.nms_cuda import nms_keep
-from ld_tpu_torch.ops.roi_align import multi_level_roi_align
+from ld_tpu_torch.ops.roi_align import multi_level_roi_align, roi_align
 from ld_tpu_torch.ops.samplers import build_sampler, uniform_keys
 from ld_tpu_torch.parallel.dist import global_sum
 from ld_tpu_torch.utils.registry import HEADS, LOSSES
@@ -165,6 +181,92 @@ class ConvFCBBoxHead(nn.Module):
         return self.fc_cls(x).float(), self.fc_reg(x).float()
 
 
+class ConvReLU(nn.Module):
+    """A biased k x k conv, then ReLU (a GRoIE `pre_module`: mmcv's
+    ConvModule `.conv`)."""
+
+    def __init__(self, in_channels, out_channels=256, kernel_size=3,
+                 padding=None):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
+                              padding=kernel_size // 2 if padding is None
+                              else padding)
+
+    def forward(self, x):
+        return torch.relu(self.conv(x))
+
+
+class GenericRoIExtractor(nn.Module):
+    """GRoIE's all-level extractor of one branch (the JAX `GroIENet` with
+    its all-level RoIAlign): (B, n) rois -> (B*n, C, S, S), float32."""
+
+    def __init__(self, out_size: int, featmap_strides, in_channels: int,
+                 aggregation: str = 'sum', pre_cfg=None, post_cfg=None):
+        super().__init__()
+        if aggregation not in ('sum', 'concat'):
+            raise ValueError(f'GRoIE aggregation {aggregation!r}')
+        self.out_size = out_size
+        self.featmap_strides = tuple(featmap_strides)
+        self.aggregation = aggregation
+        self.pre_module = None
+        c = in_channels
+        if pre_cfg:
+            self.pre_module = self._sub(pre_cfg, c)
+            c = pre_cfg.get('out_channels', 256) \
+                if pre_cfg.get('type', 'ConvModule') == 'ConvModule' else c
+        if aggregation == 'concat':
+            c *= len(self.featmap_strides)
+        self.post_module = self._sub(post_cfg, c) if post_cfg else None
+
+    @staticmethod
+    def _sub(cfg: dict, in_channels: int) -> nn.Module:
+        cfg = {k: v for k, v in cfg.items() if k != 'in_channels'}
+        if cfg.get('type', 'ConvModule') == 'ConvModule':
+            return ConvReLU(in_channels, cfg.get('out_channels', 256),
+                            cfg.get('kernel_size', 3), cfg.get('padding'))
+        return build_plugin(cfg, in_channels)
+
+    def init_weights(self, generator: torch.Generator):
+        with torch.no_grad():
+            for m in (self.pre_module, self.post_module):
+                if isinstance(m, ConvReLU):
+                    lecun_normal_(m.conv.weight, generator)
+                    nn.init.zeros_(m.conv.bias)
+                elif m is not None:
+                    m.init_weights(generator)
+
+    def forward(self, feats, rois: torch.Tensor, roi_valid: torch.Tensor):
+        b, n = rois.shape[:2]
+        flat = rois.reshape(-1, 4)
+        batch_idx = torch.arange(b, device=rois.device).repeat_interleave(n)
+        levels = [roi_align(feats[lvl], flat, batch_idx, self.out_size,
+                            1.0 / stride)
+                  for lvl, stride in enumerate(self.featmap_strides)]
+        if self.pre_module is not None:
+            # one conv over the levels stacked on the batch
+            levels = self.pre_module(torch.cat(levels)).split(b * n)
+        agg = torch.cat(levels, dim=1) if self.aggregation == 'concat' \
+            else sum(levels)
+        if self.post_module is not None:
+            agg = self.post_module(agg)
+        return agg * roi_valid.reshape(-1, 1, 1, 1)
+
+
+def build_roi_extractor(ext: dict, out_size: int, featmap_strides,
+                        in_channels: int):
+    """A `GenericRoIExtractor` of a GRoIE extractor config, None for mmdet's
+    `SingleRoIExtractor` (the level-routed `multi_level_roi_align`)."""
+    kind = ext.get('type', 'SingleRoIExtractor')
+    if kind == 'SingleRoIExtractor':
+        return None
+    if kind != 'GenericRoIExtractor':
+        _not_ported(f'RoI extractor {kind!r}')
+    return GenericRoIExtractor(
+        out_size, featmap_strides, ext.get('out_channels', in_channels),
+        ext.get('aggregation', 'sum'), ext.get('pre_cfg'),
+        ext.get('post_cfg'))
+
+
 @HEADS.register_module()
 class StandardRoIHead(nn.Module):
 
@@ -176,9 +278,6 @@ class StandardRoIHead(nn.Module):
             _not_ported('the shared res5 RoI head of the C4 configs')
         bbox_head = dict(bbox_head or {})
         ext = dict(bbox_roi_extractor or {})
-        if ext.get('type', 'SingleRoIExtractor') != 'SingleRoIExtractor':
-            _not_ported(f"RoI extractor {ext['type']!r} (GRoIE)",
-                        'Queue A item 4')
         roi_layer = dict(ext.get('roi_layer') or {})
         if roi_layer.get('type', 'RoIAlign') != 'RoIAlign':
             _not_ported(f"roi_layer {roi_layer['type']!r} (dpool)")
@@ -186,6 +285,9 @@ class StandardRoIHead(nn.Module):
         self.roi_size = roi_layer.get('output_size', 7)
         self.featmap_strides = tuple(ext.get('featmap_strides',
                                              (4, 8, 16, 32)))
+        self.bbox_roi_extractor = build_roi_extractor(
+            ext, self.roi_size, self.featmap_strides,
+            bbox_head.get('in_channels', 256))
         self.num_classes = bbox_head.get('num_classes', 80)
         self.reg_class_agnostic = bbox_head.get('reg_class_agnostic', False)
         self.reg_decoded_bbox = bbox_head.get('reg_decoded_bbox', False)
@@ -212,8 +314,12 @@ class StandardRoIHead(nn.Module):
             dict(s_cfg, type=s_cfg.get('type', 'RandomSampler')),
             num=self.num_samples,
             pos_fraction=s_cfg.get('pos_fraction', 0.25))
+        # OHEM / ScoreHLR read a preliminary pass's losses and scores
+        self.hard_mining = type(self.sampler).__name__ in (
+            'OHEMSampler', 'ScoreHLRSampler')
         self.bbox_head = self._build_bbox_head(bbox_head)
         self.mask_head = None
+        self.mask_roi_extractor = None
         if mask_head is not None:
             self.mask_head = self._build_mask_head(
                 dict(mask_head), dict(mask_roi_extractor or {}), dtype)
@@ -234,11 +340,11 @@ class StandardRoIHead(nn.Module):
         kind = mh.pop('type', 'FCNMaskHead')
         if kind != 'FCNMaskHead':
             _not_ported(f'mask head {kind!r}')
-        if mext.get('type', 'SingleRoIExtractor') != 'SingleRoIExtractor':
-            _not_ported(f"mask RoI extractor {mext['type']!r} (GRoIE)",
-                        'Queue A item 4')
         self.mask_roi_size = (mext.get('roi_layer') or {}).get(
             'output_size', 14)
+        self.mask_roi_extractor = build_roi_extractor(
+            mext, self.mask_roi_size, self.featmap_strides,
+            mh.get('in_channels', 256))
         mh.setdefault('num_classes', self.num_classes)
         mh.setdefault('roi_size', self.mask_roi_size)
         return FCNMaskHead(dtype=dtype, **mh)
@@ -253,8 +359,13 @@ class StandardRoIHead(nn.Module):
         self.bbox_head.init_weights(generator)
         if self.mask_head is not None:
             self.mask_head.init_weights(generator)
+        for ext in (self.bbox_roi_extractor, self.mask_roi_extractor):
+            if ext is not None:
+                ext.init_weights(generator)
 
     def _extract(self, feats: List[torch.Tensor], rois, roi_valid):
+        if self.bbox_roi_extractor is not None:
+            return self.bbox_roi_extractor(feats, rois, roi_valid)
         return multi_level_roi_align(feats[:len(self.featmap_strides)], rois,
                                      roi_valid, self.roi_size,
                                      self.featmap_strides)
@@ -262,17 +373,20 @@ class StandardRoIHead(nn.Module):
     # ---- training ----------------------------------------------------------
     def sample_rois(self, proposals, prop_valid, gt_bboxes, gt_labels,
                     gt_valid, generator: torch.Generator, assigner=None,
-                    coder=None) -> Dict:
+                    coder=None, extras=None) -> Dict:
         """Assign and sample a fixed set of `num` rois an image.
 
         Args:
             proposals: (B, P, 4); prop_valid: (B, P); the gts (B, G, ...).
             assigner, coder: in place of the head's own (a cascade stage's).
+            extras: the hard-mining samplers' inputs (`hard_mining_extras`).
         Returns:
             dict of rois (B, n, 4), roi_valid, roi_pos (B, n), labels (B, n),
             targets (B, n, 4) (deltas, or the gt boxes with
             `reg_decoded_bbox`), gt_inds (B, n) (each roi's assigned gt, 0
-            where none). The positives come first in each image.
+            where none), and where the sampler weights the negatives (B, n)
+            `weights` (1 on the positives). The positives come first in
+            each image.
         """
         if self.add_gt_as_proposals:
             proposals = torch.cat([gt_bboxes, proposals], dim=1)
@@ -287,9 +401,7 @@ class StandardRoIHead(nn.Module):
         pos_sel, neg_sel, neg_w = self.sampler.sample(
             generator, res.pos_mask & prop_valid,
             ~res.pos_mask & prop_valid, gt_inds=res.assigned_gt_inds,
-            max_overlaps=raw_iou, boxes=proposals)
-        if neg_w is not None:
-            _not_ported('negative label weights of a hard-mining sampler')
+            max_overlaps=raw_iou, boxes=proposals, **(extras or {}))
         sel = pos_sel | neg_sel
         rank_keys = pos_sel.float() + sel.float() + \
             uniform_keys(generator, sel) * 0.5
@@ -306,8 +418,36 @@ class StandardRoIHead(nn.Module):
         gts = torch.gather(gt_bboxes, 1, safe[..., None].expand(-1, -1, 4))
         targets = gts if self.reg_decoded_bbox else \
             (coder or self.coder).encode(rois, gts)
-        return dict(rois=rois, roi_valid=take(sel), roi_pos=roi_pos,
-                    labels=labels, targets=targets, gt_inds=safe)
+        s = dict(rois=rois, roi_valid=take(sel), roi_pos=roi_pos,
+                 labels=labels, targets=targets, gt_inds=safe)
+        if neg_w is not None:
+            s['weights'] = take(torch.where(pos_sel, torch.ones_like(neg_w),
+                                            neg_w))
+        return s
+
+    def hard_mining_extras(self, feats, proposals, prop_valid, batch
+                           ) -> Dict[str, torch.Tensor]:
+        """The OHEM / ScoreHLR inputs of every candidate (the gts joined to
+        the proposals), (B, N) each, without gradient: `loss`, the CE of
+        the bbox net's logits at the assigned label (the background where
+        none), and `scores`, the largest foreground softmax probability."""
+        gtb, gtl, gtv = (batch['gt_bboxes'], batch['gt_labels'].long(),
+                         batch['gt_valid'])
+        with torch.no_grad():
+            cand, cv = proposals, prop_valid
+            if self.add_gt_as_proposals:
+                cand = torch.cat([gtb, proposals], dim=1)
+                cv = torch.cat([gtv, prop_valid], dim=1)
+            b, n = cand.shape[:2]
+            cls, _ = self.bbox_head(self._extract(feats, cand, cv))
+            res = self.assigner.assign(cand, None, gtb, gtl, gtv, cv,
+                                       num_classes=self.num_classes)
+            lab = torch.where(res.pos_mask, res.labels,
+                              torch.full_like(res.labels, self.num_classes))
+            ce = -torch.gather(F.log_softmax(cls, dim=-1), 1,
+                               lab.reshape(-1, 1))[:, 0]
+            scores = F.softmax(cls, dim=-1)[:, :self.num_classes].amax(-1)
+        return dict(loss=ce.reshape(b, n), scores=scores.reshape(b, n))
 
     def _select_reg(self, reg, labels):
         if self.reg_class_agnostic:
@@ -323,7 +463,9 @@ class StandardRoIHead(nn.Module):
         validf = s['roi_valid'].reshape(-1).to(torch.float32)
         posf = s['roi_pos'].reshape(-1).to(torch.float32)
         avg = global_sum(validf.sum()).clamp(min=1.0)
-        loss_cls = self.loss_cls(cls, labels, weight=validf, avg_factor=avg)
+        weight = validf if 'weights' not in s else \
+            validf * s['weights'].reshape(-1)
+        loss_cls = self.loss_cls(cls, labels, weight=weight, avg_factor=avg)
         reg_sel = self._select_reg(reg, labels)
         tgt = s['targets'].reshape(-1, 4)
         if self.reg_decoded_bbox:
@@ -340,9 +482,11 @@ class StandardRoIHead(nn.Module):
 
     def forward_train(self, feats, proposals, prop_valid, batch,
                       generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        extras = self.hard_mining_extras(feats, proposals, prop_valid,
+                                         batch) if self.hard_mining else None
         s = self.sample_rois(proposals, prop_valid, batch['gt_bboxes'],
                              batch['gt_labels'].long(), batch['gt_valid'],
-                             generator)
+                             generator, extras=extras)
         cls, reg = self.bbox_head(self._extract(feats, s['rois'],
                                                 s['roi_valid']))
         losses = self.bbox_losses(cls, reg, s)
@@ -351,6 +495,8 @@ class StandardRoIHead(nn.Module):
         return losses
 
     def _mask_feats(self, feats, rois, valid):
+        if self.mask_roi_extractor is not None:
+            return self.mask_roi_extractor(feats, rois, valid)
         return multi_level_roi_align(feats[:len(self.featmap_strides)], rois,
                                      valid, self.mask_roi_size,
                                      self.featmap_strides)

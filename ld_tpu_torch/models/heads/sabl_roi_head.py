@@ -267,7 +267,7 @@ class SABLRoIHead(_SABLParts, StandardRoIHead):
         bbox_head = dict(bbox_head or {})
         super().__init__(bbox_roi_extractor=bbox_roi_extractor,
                          bbox_head=bbox_head, **kwargs)
-        if type(self.sampler).__name__ in ('OHEMSampler', 'ScoreHLRSampler'):
+        if self.hard_mining:
             raise NotImplementedError(
                 'OHEM/ScoreHLR hard mining is not wired into SABLRoIHead, as '
                 'in the JAX package: use RandomSampler')

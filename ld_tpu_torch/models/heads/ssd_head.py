@@ -172,7 +172,11 @@ class SSDHead(nn.Module):
 
     def loss_pieces(self, outputs, batch, featmap_sizes) -> Dict:
         """Assignment, per-anchor CE, the hard-negative keep mask and the
-        per-anchor SmoothL1 of a batch, (B, N) each."""
+        per-anchor SmoothL1 of a batch, (B, N) each, with what the PISA head
+        reweights by (`ld_tpu/models/heads/ssd_head.py:176-217`): the
+        anchors (N, 4), the flat logits (B, N, C + 1) and deltas (B, N, 4),
+        the targets (B, N, 4), the assigned gt indices and the global
+        positive count (clamped at 1)."""
         cls_flat, reg_flat = self._flatten(*outputs)
         anchors = self._anchors(featmap_sizes, cls_flat.device)
         gtb = batch['gt_bboxes']
@@ -200,12 +204,15 @@ class SSDHead(nn.Module):
         beta = self.smoothl1_beta
         sl1 = torch.where(diff < beta, 0.5 * diff * diff / beta,
                           diff - 0.5 * beta).sum(-1)
-        return dict(labels=res.labels, pos=pos, posf=posf, ce=ce,
+        return dict(anchors=anchors, cls_flat=cls_flat, reg_flat=reg_flat,
+                    labels=res.labels, pos=pos, posf=posf, deltas=deltas,
+                    gt_inds=res.assigned_gt_inds,
+                    num_pos=global_sum(posf.sum()).clamp(min=1.0), ce=ce,
                     neg_keep=neg_keep, sl1=sl1)
 
     def loss(self, outputs, batch, featmap_sizes) -> Dict[str, torch.Tensor]:
         t = self.loss_pieces(outputs, batch, featmap_sizes)
-        num_pos = global_sum(t['posf'].sum()).clamp(min=1.0)
+        num_pos = t['num_pos']
         cls_w = t['posf'] + t['neg_keep'].to(torch.float32)
         return dict(loss_cls=(t['ce'] * cls_w).sum() / num_pos,
                     loss_bbox=(t['sl1'] * t['posf']).sum() / num_pos)

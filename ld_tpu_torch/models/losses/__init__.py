@@ -10,7 +10,8 @@ from .smooth_l1_loss import L1Loss, SmoothL1Loss, l1_loss, smooth_l1_loss
 from .kd_loss import (IMLoss, KnowledgeDistillationKLDivLoss, im_loss,
                       knowledge_distillation_kl_div_loss)
 from .varifocal_loss import VarifocalLoss
-from .misc_losses import BoundedIoULoss, bounded_iou_loss
+from .misc_losses import (BalancedL1Loss, BoundedIoULoss, balanced_l1_loss,
+                          bounded_iou_loss)
 
 __all__ = [
     'reduce_loss', 'weight_reduce_loss', 'weighted_loss', 'QualityFocalLoss',
@@ -20,11 +21,12 @@ __all__ = [
     'knowledge_distillation_kl_div_loss', 'im_loss', 'FocalLoss',
     'sigmoid_focal_loss', 'CrossEntropyLoss', 'cross_entropy',
     'binary_cross_entropy', 'L1Loss', 'SmoothL1Loss', 'l1_loss',
-    'smooth_l1_loss', 'VarifocalLoss', 'BoundedIoULoss', 'bounded_iou_loss'
+    'smooth_l1_loss', 'VarifocalLoss', 'BalancedL1Loss', 'BoundedIoULoss',
+    'balanced_l1_loss', 'bounded_iou_loss'
 ]
 
 # the JAX package's other losses, not ported yet
 LOSSES.not_ported.update({name: 'ROADMAP.md A7' for name in (
-    'AssociativeEmbeddingLoss', 'BalancedL1Loss', 'GHMC',
+    'AssociativeEmbeddingLoss', 'GHMC',
     'GHMR', 'GaussianFocalLoss', 'MSELoss')})
 LOSSES.not_ported['DiceLoss'] = 'ROADMAP.md A8'

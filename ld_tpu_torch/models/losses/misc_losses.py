@@ -1,6 +1,11 @@
-"""The JAX package's misc losses; port of `BoundedIoULoss`
-(`ld_tpu/models/losses/misc_losses.py:121-161`). The file's other losses
-(`BalancedL1Loss`, GHM, ...) are not ported yet (ROADMAP.md A7).
+"""The JAX package's misc losses; port of `BalancedL1Loss` and
+`BoundedIoULoss` (`ld_tpu/models/losses/misc_losses.py:19-45, 121-161`).
+The file's other losses (GHM, ...) are not ported yet (ROADMAP.md A7).
+
+Balanced L1 (Libra R-CNN) of |pred - target| = x, with b = e^(gamma /
+alpha) - 1: alpha / b (b x + 1) ln(b x / beta + 1) - alpha x under `beta`,
+gamma x + gamma / b - alpha beta over it; element-wise, through the
+`weighted_loss` contract.
 
 Bounded IoU (Libra R-CNN) on decoded xyxy boxes: for the centre offsets
 1 - max((t - 2|d|) / (t + 2|d| + eps), 0) on each axis, for the sides
@@ -11,11 +16,42 @@ before the `weighted_loss` reduction, as the JAX loss does.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from ld_tpu_torch.utils.registry import LOSSES
 from .utils import weighted_loss
+
+
+@weighted_loss
+def balanced_l1_loss(pred, target, beta=1.0, alpha=0.5, gamma=1.5):
+    diff = (pred - target).abs()
+    b = math.e**(gamma / alpha) - 1
+    return torch.where(
+        diff < beta,
+        alpha / b * (b * diff + 1) * torch.log(b * diff / beta + 1) -
+        alpha * diff,
+        gamma * diff + gamma / b - alpha * beta)
+
+
+@LOSSES.register_module()
+class BalancedL1Loss(nn.Module):
+
+    def __init__(self, alpha=0.5, gamma=1.5, beta=1.0, reduction='mean',
+                 loss_weight=1.0):
+        super().__init__()
+        self.alpha, self.gamma, self.beta = alpha, gamma, beta
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def forward(self, pred, target, weight=None, avg_factor=None,
+                reduction_override=None):
+        reduction = reduction_override or self.reduction
+        return self.loss_weight * balanced_l1_loss(
+            pred, target, weight, beta=self.beta, alpha=self.alpha,
+            gamma=self.gamma, reduction=reduction, avg_factor=avg_factor)
 
 
 @weighted_loss

@@ -1,11 +1,20 @@
 """The long-tail necks (port of `ld_tpu/models/necks/extra_necks.py:33-430`),
-NCHW: NAS-FPN with its merge cells, CARAFE and FPN_CARAFE, NASFCOS_FPN, FPG
-and the RFP of DetectoRS.
+NCHW: the BFP of Libra R-CNN, NAS-FPN with its merge cells, CARAFE and
+FPN_CARAFE, NASFCOS_FPN, FPG and the RFP of DetectoRS.
 
 Each follows the JAX module's code; where mmdet has the module the names
 are mmdet's, where the JAX module is a redesign they keep its layout under
 names a reader can map (ROADMAP.md caveats 62-64):
 
+  * `BFP`: every level gathered to `refine_level`'s size (an adaptive max
+    pool of the finer levels, mmdet's, which is the JAX module's
+    integer-ratio pool wherever the ratio is an integer and also runs where
+    it is not, as at 800x1344's 13x21 P6: ROADMAP.md caveat 69; a nearest
+    upsample of the coarser) and averaged, refined by nothing, a 3x3 conv (`refine.conv`) or an
+    embedded-Gaussian non-local block (reduction 1, no 1/sqrt(C) scale,
+    mmcv's `NonLocal2d` names `refine.{g,theta,phi,conv_out}.conv`), then
+    scattered back (the inverse resizes) and added to each level. Its
+    (HW x HW) attention is one `torch.matmul` a side, as the JAX einsum.
   * `NASFPN`: 1x1 `lateral_convs.i.conv` on the inputs `start_level` to
     `len(in_channels) - 1`, `extra_downsamples.i` (a 1x1 conv, then a 2x2
     stride-2 max pool) up to five levels, then `stack_times` stages of the
@@ -95,6 +104,68 @@ def _init_convs(module: nn.Module, generator: torch.Generator):
 
 def _end_level(in_channels, end_level) -> int:
     return len(in_channels) if end_level in (-1, None) else end_level
+
+
+class NonLocal2d(nn.Module):
+    """mmcv's embedded-Gaussian `NonLocal2d` at reduction 1 without the
+    1/sqrt(C) scale: x + conv_out(softmax(theta(x) phi(x)^T) g(x))."""
+
+    def __init__(self, channels: int, dtype=None):
+        super().__init__()
+        for name in ('g', 'theta', 'phi', 'conv_out'):
+            setattr(self, name, _conv(channels, channels, 1, dtype=dtype))
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+
+        def rows(conv):
+            return conv(x).reshape(b, c, h * w).transpose(1, 2)
+        attn = torch.softmax(torch.matmul(
+            rows(self.theta), rows(self.phi).transpose(1, 2)), dim=-1)
+        y = torch.matmul(attn, rows(self.g))
+        return x + self.conv_out(y.transpose(1, 2).reshape(b, c, h, w))
+
+
+@NECKS.register_module()
+class BFP(nn.Module):
+
+    def __init__(self, in_channels: int = 256, num_levels: int = 5,
+                 refine_level: int = 2, refine_type: str = None,
+                 dtype=None):
+        super().__init__()
+        if refine_type not in (None, 'conv', 'non_local'):
+            raise ValueError(f'BFP refine_type {refine_type!r}')
+        self.in_channels = in_channels
+        self.num_levels = num_levels
+        self.refine_level = refine_level
+        if refine_type == 'conv':
+            self.refine = _conv(in_channels, in_channels, 3, dtype=dtype)
+        elif refine_type == 'non_local':
+            self.refine = NonLocal2d(in_channels, dtype)
+        else:
+            self.refine = None
+
+    def init_weights(self, generator: torch.Generator):
+        _init_convs(self, generator)
+
+    def forward(self, inputs):
+        if len(inputs) != self.num_levels:
+            raise ValueError(f'{len(inputs)} inputs for {self.num_levels} '
+                             'levels')
+        gh, gw = inputs[self.refine_level].shape[-2:]
+        feats = [F.adaptive_max_pool2d(x, (gh, gw)) if i < self.refine_level
+                 else upsample_nearest_to(x, gh, gw)
+                 for i, x in enumerate(inputs)]
+        bsf = sum(feats) / len(feats)
+        if self.refine is not None:
+            bsf = self.refine(bsf)
+        outs = []
+        for i, x in enumerate(inputs):
+            oh, ow = x.shape[-2:]
+            res = upsample_nearest_to(bsf, oh, ow) if i < self.refine_level \
+                else F.adaptive_max_pool2d(bsf, (oh, ow))
+            outs.append(x + res)
+        return tuple(outs)
 
 
 class MergeCell(nn.Module):

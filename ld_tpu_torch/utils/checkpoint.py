@@ -168,8 +168,14 @@ def _plugin_value(rest: tuple, value: np.ndarray,
             k.startswith(f'backbone.{block}.{name}_{m.group(2)}.')
             for k in keys):
         name = f'{name}_{m.group(2)}'
-    mod, leaf = rest[2:-1], rest[-1]
-    prefix = f'{block}.{name}.'
+    return _plugin_module_value(f'{block}.{name}.', rest[2:-1], rest[-1],
+                                value)
+
+
+def _plugin_module_value(prefix: str, mod: tuple, leaf: str,
+                         value: np.ndarray) -> Tuple[str, np.ndarray]:
+    """A leaf (module..., leaf) of a JAX plugin under the port's `prefix`
+    (`_plugin_value`)."""
     if not mod:                                 # gamma, appr / geom bias
         return prefix + leaf, value.reshape(-1)
     f = re.fullmatch(r'(channel_add|channel_mul)_(conv0|ln|conv1)', mod[0])
@@ -318,6 +324,12 @@ def _extra_neck_key(path: tuple, neck: Dict) -> Optional[str]:
     if m is not None:
         s, lvl, b = (int(g) for g in m.groups())
         return f'rfp_aspp.{s - 1}.{lvl}.aspp.{b - 1}.{name}'
+    m = re.fullmatch(r'nl_(g|theta|phi|out)', mod)         # BFP
+    if m is not None:
+        return f"refine.{'conv_out' if m.group(1) == 'out' else m.group(1)}" \
+            f'.conv.{name}'
+    if mod == 'refine':
+        return f'refine.conv.{name}'
     m = re.fullmatch(r'(refine|gate)_s(\d+)_l(\d+)', mod)
     if m is not None:
         kind = {'refine': 'rfp_refine', 'gate': 'rfp_weight'}[m.group(1)]
@@ -328,6 +340,41 @@ def _extra_neck_key(path: tuple, neck: Dict) -> Optional[str]:
         kind = {'map': 'convs'}.get(kind, kind + 's')
         return f'{kind}.{i - (kind == "pafpn_convs")}.conv.{name}'
     return None
+
+
+def _neck_leaf(rest: tuple, neck: Dict, value: np.ndarray,
+               sd: Dict[str, np.ndarray], prefix: str = 'neck.'
+               ) -> Optional[str]:
+    """A JAX neck leaf `rest` of the tree `neck` -> its port name, or None
+    where it wrote the entry into `sd` itself: a stacked neck's child
+    `necks_I` under `neck.I.`, RFP's own FPN under `fpn.`, the other necks
+    (`_extra_neck_key`, CARAFE's encoder reordered), then the FPN / HRFPN
+    (with a BN's `num_batches_tracked`)."""
+    m = re.fullmatch(r'necks_(\d+)', rest[0])
+    if m is not None:
+        return _neck_leaf(rest[1:], neck[rest[0]], value, sd,
+                          f'{prefix}{m.group(1)}.')
+    if rest[0] == 'fpn':                                # RFP's own FPN
+        return prefix + 'fpn.' + _neck_key(rest[1:], sum(
+            1 for k in neck['fpn'] if re.fullmatch(r'lateral_\d+', k)))
+    extra = _extra_neck_key(rest, neck)
+    if extra is not None:
+        if rest[1:2] != ('content_encoder', ):
+            return prefix + extra
+        enc = _carafe_encoder(value)
+        sd[prefix + extra] = _conv_weight(enc) if value.ndim == 4 else enc
+        return None
+    key = prefix + _neck_key(rest, sum(
+        1 for k in neck if re.fullmatch(r'lateral_\d+', k)))
+    if rest[-2:] == ('bn', 'scale'):
+        sd[key[:-len('weight')] + 'num_batches_tracked'] = \
+            np.zeros((), np.int64)
+    return key
+
+
+# the JAX GRoIE trees -> the port's extractors
+_GROIE = {'groie': 'bbox_roi_extractor', 'groie_mask': 'mask_roi_extractor',
+          'groie_grid': 'grid_roi_extractor'}
 
 
 def _carafe_encoder(value: np.ndarray, scale: int = 2) -> np.ndarray:
@@ -733,7 +780,13 @@ def state_dict_from_jax(variables: Dict,
     PAFPN, ChannelMapper; CARAFE's encoder channels reordered,
     `_carafe_encoder`) or the Grid R-CNN and PointRend nets
     (`roi_head/grid`, `roi_head/point`, `_grid_point_value`), which map
-    here too.
+    here too, nor for a stacked neck (`neck/necks_I/...` to `neck.I.*`,
+    `_neck_leaf`), BFP (`nl_{g,theta,phi,out}` to mmcv's
+    `refine.{g,theta,phi,conv_out}.conv`, a conv `refine` to
+    `refine.conv`) or the GRoIE trees (`roi_head/groie`, `groie_mask`,
+    `groie_grid` to the bbox, mask and grid extractors' `pre_module.conv`
+    and `post_module`, the latter with the plugins' GeneralizedAttention
+    names).
 
     Raises KeyError on a leaf outside the ResNet / Res2Net / FPN, the
     dense-head (GFL family, Retina, FCOS, ATSS, VFNet, GA, RepPoints),
@@ -751,8 +804,6 @@ def state_dict_from_jax(variables: Dict,
     elif keys is not None and any(k.startswith('bbox_head.retina_cls.')
                                   for k in keys):
         head_convs = _RETINA_CONVS
-    num_laterals = sum(1 for k in params.get('neck', {})
-                       if re.fullmatch(r'lateral_\d+', k))
     # an SSD head's per-level convs are bare convs (`cls_convs.i.weight`)
     ssd_head = keys is not None and 'bbox_head.cls_convs.0.weight' in keys
     # a RetinaSepBNHead's levels, from the target's keys
@@ -782,23 +833,10 @@ def state_dict_from_jax(variables: Dict,
                 if dcn is not None:
                     sd[key] = dcn
                     continue
-            elif scope == 'neck' and rest[0] == 'fpn':     # RFP's own FPN
-                inner = params['neck']['fpn']
-                key = 'neck.fpn.' + _neck_key(rest[1:], sum(
-                    1 for k in inner if re.fullmatch(r'lateral_\d+', k)))
-            elif scope == 'neck' and (extra := _extra_neck_key(
-                    rest, params['neck'])) is not None:
-                key = 'neck.' + extra
-                if rest[1:2] == ('content_encoder', ):
-                    sd[key] = _carafe_encoder(value)
-                    if value.ndim == 4:
-                        sd[key] = _conv_weight(sd[key])
-                    continue
             elif scope == 'neck':
-                key = 'neck.' + _neck_key(rest, num_laterals)
-                if rest[-2:] == ('bn', 'scale'):
-                    sd[key[:-len('weight')] + 'num_batches_tracked'] = \
-                        np.zeros((), np.int64)
+                key = _neck_leaf(rest, params['neck'], value, sd)
+                if key is None:
+                    continue
             elif scope == 'head_net' and rest in (('scales', ),
                                                   ('scales_refine', )):
                 for lvl, s in enumerate(value):
@@ -847,6 +885,15 @@ def state_dict_from_jax(variables: Dict,
                 # an RPNHead's convs, or a GA-RPN's GA-Retina net
                 key = 'rpn_head.' + (_rpn_key(rest) if rest[0] in _RPN_CONVS
                                      else _head_key(rest))
+            elif scope == 'roi_head' and rest[0] in _GROIE:
+                key = f'roi_head.{_GROIE[rest[0]]}.'
+                if rest[1] == 'post':
+                    key, value = _plugin_module_value(
+                        key + 'post_module.', rest[2:-1], rest[-1], value)
+                    sd[key] = value
+                    continue
+                key += 'pre_module.conv.' + (
+                    'bias' if rest[-1] == 'bias' else 'weight')
             elif scope == 'roi_head' and rest[0] == 'semantic':
                 key = 'roi_head.semantic_head.' + _semantic_key(rest)
             elif scope == 'roi_head' and rest[0] == 'maskiou':

@@ -22,8 +22,8 @@ Float32 on the CPU:
     head) with masks within 1e-4;
   * Grid R-CNN R50 at full width on the meta device: names and shapes are
     `state_dict_from_jax` of the JAX `jax.eval_shape` tree;
-  * every config of the two folders builds; the GRoIE Grid config stops
-    at `GenericRoIExtractor`, naming ROADMAP.md Queue A item 4.
+  * every config of the two folders builds, and so does the GRoIE Grid
+    config (its grid extractor a `GenericRoIExtractor`).
 
 The `ref` fixture traces each JAX program once and compiles it in a thread
 as soon as it is traced, at LLVM -O0.
@@ -327,13 +327,19 @@ def test_config_builds(path):
 
 
 def test_groie_grid_config_names_queue_a_item_4():
+    """The GRoIE Grid R-CNN config (Queue A item 4) builds: its grid
+    extractor is an all-level `GenericRoIExtractor`, and an unknown
+    extractor type still raises."""
     cfg = Config.fromfile(os.path.join(
         ROOT, 'configs/groie/grid_rcnn_r50_fpn_gn-head_groie_1x_coco.py'))
-    with pytest.raises(NotImplementedError, match='Queue A item 4'):
-        with torch.device('meta'):
-            build_detector(cfg.model)
-    with pytest.raises(NotImplementedError, match='Queue A item 4'):
-        GridRoIHead(grid_roi_extractor=dict(type='GenericRoIExtractor'))
+    with torch.device('meta'):
+        model = build_detector(cfg.model)
+    assert isinstance(model.roi_head, GridRoIHead)
+    assert type(model.roi_head.grid_roi_extractor).__name__ == \
+        'GenericRoIExtractor'
+    assert model.roi_head.grid_roi_extractor.out_size == 14
+    with pytest.raises(NotImplementedError):
+        GridRoIHead(grid_roi_extractor=dict(type='SomeRoIExtractor'))
 
 
 def test_grid_rcnn_full_width_names_and_shapes_match_jax():

@@ -422,10 +422,8 @@ def test_config_builds(path):
 
 def test_unported_necks_name_their_item():
     assert not {'HRNet', 'RegNet'} & set(BACKBONES.not_ported)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue A item 4'):
-        NECKS.build(dict(type='BFP'))
     for name in ('NASFPN', 'FPN_CARAFE', 'NASFCOS_FPN', 'FPG', 'RFP',
-                 'PAFPN', 'ChannelMapper'):
+                 'PAFPN', 'ChannelMapper', 'BFP'):
         assert name not in NECKS.not_ported and NECKS.get(name) is not None
     with pytest.raises(KeyError):
         NECKS.build(dict(type='NoSuchNeck'))
