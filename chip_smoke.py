@@ -8,8 +8,10 @@ the HRNet and RegNet detectors, the ResNet's plugin, 'DCN' and GN + WS
 variants, the LVIS / crop / augmentation / robustness data paths,
 VarifocalNet, Guided Anchoring, RepPoints, FoveaBox, SSD, Mask Scoring
 R-CNN, the ResNeSt detectors, PAA, FSAF, FreeAnchor, SABL, DetectoRS, the
-FPG, NAS-FPN, NAS-FCOS, CARAFE and PAFPN necks, Grid R-CNN and PointRend
-on one CUDA card and check them.
+FPG, NAS-FPN, NAS-FCOS, CARAFE and PAFPN necks, Grid R-CNN and PointRend,
+Libra R-CNN, PISA, GRoIE and hard mining, SCNet, the C4 shared res5 head,
+deformable RoI pooling, Double-Head and Dynamic R-CNN, the mmdet v1
+anchors and the GHM losses on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
     python3 chip_smoke.py --phases fovea_ssd ms_rcnn_resnest    # alone
@@ -111,15 +113,22 @@ Phases, one JSON object per line each:
                first detection's score the largest class probability, and
                the NMS candidate count K.
  10. bf16, dcn, res2net — the configs' bf16 dtype; the DCN / ResNeXt
-               rows; the imitation tables' Res2Net-101-DCN teacher rows:
-               forward_test of configs/imv2/gflv2_r2n101_dcn_fpn_2x.py at
-               800x1344 (1 launch a call, 90 DCN layers, their device
+               rows; the imitation tables' Res2Net-DCN teacher rows. The
+               dcn and res2net phases run their 101-layer configs at depth
+               50 (`DEPTH_CUT`; widths, heads and schedules kept, the
+               config and its teacher written under work_dirs/
+               chip_smoke_depth/ by `depth_config`): GFL-R50-DCN (13 DCN
+               layers) and GFL-X50-32x4d-DCN (9) served 1 + 3 calls, the
+               DCN LD configs' students and teachers at 50; forward_test
+               of configs/imv2/gflv2_r2n101_dcn_fpn_2x.py at depth 50 and
+               800x1344 (1 launch a call, 39 DCN layers, their device
                share), the same model as a folded teacher at batch 2, its
                head outputs at 1x3x128x192 on the card against the CPU, and
                the three IMv2 configs that distil it at batch 2, 800x1344
-               (5 launches a step; the R101 student's first step against
-               the CPU, the self student in its bf16 dtype); the phase's
-               launch count must equal RES2NET_LAUNCHES.
+               (students at 50; 5 launches a step; the first student's
+               first step against the CPU, the self student in its bf16
+               dtype); the phase's launch count must equal
+               RES2NET_LAUNCHES.
  11. ddp     — data parallelism over 2 ranks sharing the card (gloo; NCCL
                where there is a card a rank): (a) 3 steps of the GI config
                at full width, float32, batch 2 a rank at 800x1344 in 2
@@ -204,7 +213,8 @@ Phases, one JSON object per line each:
                _base_/datasets/coco_instance.py's train pipeline (the mask
                tower on the 128-roi positive slice), 1 + 2 with it on every
                roi (the same first loss_mask within 1e-4); the card against
-               the CPU at 1x3x128x192 (masks within 5e-3); 1 + 2 steps of
+               the CPU at 1x3x128x192 on the top 50 proposals (masks within
+               5e-3); 1 + 2 steps of
                the X101-32x8d config through its own mask-loading pipeline;
                `eval_detector` -> `evaluate(['bbox', 'segm'])` over 8
                polygon images (2 launches a batch; the gts as detections
@@ -220,7 +230,7 @@ Phases, one JSON object per line each:
                gt_masks through coco_instance.py's train pipeline (1 launch
                a step; every stage's losses, HTC's loss_semantic_seg); for
                Cascade Mask R-CNN and HTC the card against the CPU at
-               1x3x128x192 on the top 200 proposals (rtol 1e-3 a loss,
+               1x3x128x192 on the top 50 proposals (rtol 1e-3 a loss,
                masks within 5e-3), and Cascade Mask R-CNN's evaluation over
                the polygon set (AP 1.0 for the gts); then the kernel alone
                on a batch-2 call's RPN (K = 4819) and last-stage (K = 1024)
@@ -232,7 +242,7 @@ Phases, one JSON object per line each:
                launches a call, outputs identical with the plain keep mask),
                its HRNet's device ops, device ms and busy share a forward,
                1 + 3 steps at batch 2 under the profiler (1 launch a step),
-               the card against the CPU at 1x3x128x192 on the top 200
+               the card against the CPU at 1x3x128x192 on the top 50
                proposals (rtol 1e-3 a loss, FPN / RPN outputs 5e-3), then
                1 + 3 calls in the config's own bf16 dtype; FCOS
                HRNetV2p-W32 (HRFPN at stride 2): 1 + 5 calls (1 launch a
@@ -253,15 +263,15 @@ Phases, one JSON object per line each:
                launches a call; 1 + 3 steps with gt_masks through
                coco_instance.py's pipeline under the profiler, 1 launch a
                step; the card against the CPU at 1x3x128x192 on the top
-               200 proposals: losses rtol 1e-3, outputs 5e-3, masks 5e-3),
+               50 proposals: losses rtol 1e-3, outputs 5e-3, masks 5e-3),
                configs/empirical_attention/faster_rcnn_r50_fpn_attention_
                1111_1x_coco.py (the same, unmasked, with the attention
                blocks' share of a step's device time, and one c4 attention
                block, 2x256x50x84, against the CPU within 1e-4 of its
                largest output and residual), configs/dcn/faster_rcnn_r50_
                fpn_dconv_c3-c5_1x_coco.py (1 + 5 calls) and the X101-32x4d
-               DCN + GCNet Cascade Mask R-CNN of configs/gcnet/ (1 + 2
-               calls). Launches must equal RESNET_VARIANTS_LAUNCHES (78).
+               DCN + GCNet Cascade Mask R-CNN of configs/gcnet/ at depth 50
+               (1 + 2 calls). Launches must equal RESNET_VARIANTS_LAUNCHES (78).
                Budget 80 s.
  22. data_host — the host side of the data layer on the card's machine:
                a seeded LVIS-v1 set (1203 categories, 8 JPEGs at COCO sizes
@@ -294,7 +304,8 @@ Phases, one JSON object per line each:
                and the decode of the same outputs (labels and kept set
                equal, boxes and scores within 1e-4) at 1x3x128x192 on the
                card against the CPU; the widest config, vfnet_x101_64x4d_
-               fpn_mdconv_c3-c5_mstrain_2x_coco.py, 1 + 3 calls at batch 1.
+               fpn_mdconv_c3-c5_mstrain_2x_coco.py at depth 50, 1 + 3 calls
+               at batch 1.
                Launches must equal VFNET_LAUNCHES. Budget 60 s.
  24. guided_anchoring — configs/guided_anchoring/ at full width, float32,
                seed 0 (each adaption's offset conv seeded off the grid,
@@ -319,15 +330,16 @@ Phases, one JSON object per line each:
                DeformConvs' share) and 1 + 2 at batch 2, 1 + 2 steps; the
                grid config (minmax, grid points) 1 + 2 calls and 1 + 1
                steps; each against the CPU at 1x3x128x192 (outputs,
-               losses, decode); the X101-32x4d DCN c3-c5 config 1 + 2
-               calls. 1 launch a call, none a step; launches must equal
+               losses, decode); the X101-32x4d DCN c3-c5 config at depth
+               50, 1 + 2 calls. 1 launch a call, none a step; launches must equal
                RP_LAUNCHES. Budget 45 s.
  26. fovea_ssd — FoveaBox and SSD at full width, float32, seed 0:
                FoveaBox R50 1 + 3 calls at batch 1 and 1 + 2 at batch 2
                (800x1344), 1 + 2 steps at batch 2; FoveaBox-align R50 (its
                offset conv seeded off the grid) 1 + 3 calls with the align
                DeformConv's share of one profiled call (5 calls a
-               forward), 1 + 2 steps; FoveaBox-align R101 1 + 2 calls;
+               forward), 1 + 2 steps; the FoveaBox-align R101 config at
+               depth 50, 1 + 2 calls;
                each R50 FoveaBox against the CPU at 1x3x128x192 (outputs,
                first-step losses, decode); SSD300 1 + 5 calls at batch 1
                and 1 + 3 at batch 8 (300x300; 200 detections an image, the
@@ -341,14 +353,14 @@ Phases, one JSON object per line each:
                1 + 3 calls at batch 1 and 2 with masks, 1 + 2 steps at
                batch 2 with box-region gt masks (loss_mask_iou), against
                the CPU (`roi_reference`: losses, masks); MS R-CNN
-               X101-64x4d 1 + 2 calls; the ResNeSt-50 Faster R-CNN 1 + 3
+               X101-64x4d at depth 50, 1 + 2 calls; the ResNeSt-50 Faster R-CNN 1 + 3
                calls at batch 1 and 2, 1 + 2 steps at batch 2 with its BNs
                live (the running statistics' change reported), its
                outputs at 1x3x128x192 and its first losses at 2x3x128x192
                in training against the CPU (the trunk in float64 on both:
                its live 2-value BNs amplify float32 rounding; the float32
-               differences reported); Cascade Mask R-CNN S101 1 + 2 calls,
-               1 + 2 steps with masks. 2 launches a call, 1 a step;
+               differences reported); Cascade Mask R-CNN S101 at depth 50,
+               1 + 2 calls, 1 + 2 steps with masks. 2 launches a call, 1 a step;
                launches must equal MS_RESNEST_LAUNCHES. Budget 50 s.
  28. paa_fsaf_freeanchor, sabl — PAA, FSAF and FreeAnchor R50; the SABL
                RetinaNet, Faster and Cascade R-CNN R50 (see their
@@ -386,6 +398,27 @@ Phases, one JSON object per line each:
                draws made on the CPU and a full-width step's candidates,
                selections identical, ScoreHLR's weights within 1e-6.
                Launches must equal GM_LAUNCHES. Budget 30 s.
+ 33. roi_variants — SCNet, Faster and Mask R-CNN C4 (caffe), Faster R-CNN
+               with deformable and modulated deformable RoI pooling,
+               Double-Head and Dynamic R-CNN, all R50 at 800x1344, float32,
+               seed 0 (`VAR_MODELS`): `forward_test` at batch 1 and 2, 1 +
+               2 calls each (2 launches a call; identical with the plain
+               keep mask; the C4 mask model's 14x14 masks), the deformable
+               RoI pooling's share of a call's device time and its bound;
+               1 + 1 steps at batch 2 (box-region gt masks for SCNet and
+               the C4 Mask R-CNN; `loss_glbctx`); the card against the CPU
+               at 1x3x128x192 (`roi_reference`; Dynamic R-CNN's IoU
+               thresholds and SmoothL1 beta, `dynamic_reference`); then
+               nms_keep alone on the C4 RPN's K = 6000 (test) and 12000
+               (training) candidates at B = 1 and 2. Launches must equal
+               VAR_LAUNCHES. Budget 45 s.
+ 34. legacy_ghm — RetinaNet R50 with GHM-C / GHM-R: 1 + 1 steps at batch
+               2, against the CPU at 1x3x128x192 (outputs, losses,
+               decode); Faster R-CNN and RetinaNet R50 v1 served 1 + 2
+               calls at batch 1, their anchors (the RPN's plain at centre
+               offset 0.5, the RetinaNet's mmdet v1 layout) on the card
+               equal to the CPU's, the decode of the CPU's outputs against
+               the CPU. Launches must equal LG_LAUNCHES. Budget 15 s.
 Every phase row carries `t`, the script's seconds so far; `--phases NAME
 ...` runs the named phases alone.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
@@ -395,7 +428,8 @@ K = 2048, B = 1, the `_tta_merge` keys the first TTA image's own merge, the
 `_k4819` keys the RPN's proposals at B = 1 (`_k4819_b2` at B = 2), the
 `_k16800` keys the dense-kept set at K = 16800, B = 1, the
 `_cascade_rpn_b2` / `_cascade_roi_b2` keys a batch-2 Cascade R-CNN call's
-two NMS;
+two NMS, the `_k6000` / `_k12000` keys (`_b2` at B = 2) the C4 RPN's test
+and training candidates;
 `launches` counts all main paths, `launches_<phase>` each), and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script exits
 non-zero and prints no result; so does a host without CUDA.
@@ -459,7 +493,8 @@ DCN_LD = (('configs/ld/ld_r101_gflv1_r101dcn_fpn_coco_2x.py', 1, 2),
 # distil it (config, warm-up steps, timed steps, student dtype, card vs CPU)
 RES2NET_TEACHER = 'configs/imv2/gflv2_r2n101_dcn_fpn_2x.py'
 RES2NET_SERVE_CALLS = (1, 2)
-RES2NET_DCN_LAYERS = 90
+# at depth 50: 13 blocks in stages 2-4, 3 DCN splits each
+RES2NET_DCN_LAYERS = 39
 RES2NET_IM = (('configs/imv2/im_r101_gflv2_r2n101_dcn_2x.py', 1, 2, None,
                True),
               ('configs/imv2/im_gflv2_r2n101_dcn_self-2x.py', 1, 1,
@@ -760,7 +795,41 @@ GM_LAUNCHES = len(GM_MODELS) * (2 * sum(DN_CALLS) + sum(DN_STEPS))
 # the loss a head adds, which its first step must have
 HEAD_LOSS = dict(GridRoIHead='loss_grid', PointRendRoIHead='loss_point',
                  PISARoIHead='loss_carl', PISARetinaHead='loss_carl',
-                 PISASSDHead='loss_carl')
+                 PISASSDHead='loss_carl', SCNetRoIHead='loss_glbctx')
+# the roi_variants phase (budget 45 s): SCNet, Faster and Mask R-CNN C4
+# (caffe), Faster R-CNN with deformable and modulated deformable RoI
+# pooling, Double-Head and Dynamic R-CNN, all R50 at 800x1344: (config,
+# box-region gt masks in its steps), each served at batch 1 and 2
+# (warm-up, timed calls a batch), stepped at batch 2 (warm-up, timed) and
+# held against the CPU at 128x192; the C4 RPN's NMS sizes (test_cfg.rpn's
+# and train_cfg.rpn_proposal's nms_pre), timed alone
+VAR_MODELS = (
+    ('configs/scnet/scnet_r50_fpn_1x_coco.py', True),
+    ('configs/faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py', False),
+    ('configs/mask_rcnn/mask_rcnn_r50_caffe_c4_1x_coco.py', True),
+    ('configs/dcn/faster_rcnn_r50_fpn_dpool_1x_coco.py', False),
+    ('configs/dcn/faster_rcnn_r50_fpn_mdpool_1x_coco.py', False),
+    ('configs/double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py', False),
+    ('configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py', False))
+VAR_CALLS, VAR_STEPS = (1, 2), (1, 1)
+C4_RPN_K = (6000, 12000)
+# 2 launches a call (the RPN's batch, the RoI head's or the last stage's
+# NMS) at batch 1 and 2, 1 a step (the proposals)
+VAR_LAUNCHES = len(VAR_MODELS) * (2 * 2 * sum(VAR_CALLS) + sum(VAR_STEPS))
+# the legacy_ghm phase (budget 15 s): RetinaNet R50 with the GHM losses
+# stepped at batch 2; Faster R-CNN and RetinaNet R50 v1 (mmdet 1.x anchors
+# and coder) served at batch 1 (warm-up, timed calls)
+GHM_RETINA = 'configs/ghm/retinanet_ghm_r50_fpn_1x_coco.py'
+V1_FASTER = 'configs/legacy_1.x/faster_rcnn_r50_fpn_1x_coco_v1.py'
+V1_RETINA = 'configs/legacy_1.x/retinanet_r50_fpn_1x_coco_v1.py'
+LG_CALLS, LG_STEPS = (1, 2), (1, 1)
+# 2 launches a two-stage call, 1 a single-stage call, none a single-stage
+# step
+LG_LAUNCHES = 2 * sum(LG_CALLS) + sum(LG_CALLS)
+# the depth the earlier phases run their 101-layer models at (widths kept):
+# the dcn and res2net teachers and students, the X101 / S101 / R101 models
+# of resnet_variants, vfnet, reppoints, fovea_ssd and ms_rcnn_resnest
+DEPTH_CUT = 50
 
 
 T_START = time.perf_counter()
@@ -2458,24 +2527,26 @@ def phase_dcn(torch, smi):
             out = dcn_device_share(
                 torch, model, lambda: model.forward_test(bench), iters=1)
             if voting:
-                out.update(voting_serve(torch, model, bench))
+                out.update(voting_serve(torch, model, bench, 1, 3))
             out.update(teacher_forward(torch, model, iters=1))
             return out
-        n, row = family_serve(torch, smi, config, warmup=2, timed=5,
-                              phase='dcn_serve', extra=extra)
-        check(row['dcn_layers'] == (30 if 'r101' in config else 26),
+        n, row = family_serve(torch, smi, config, DEPTH_CUT, warmup=1,
+                              timed=3, phase='dcn_serve', extra=extra)
+        # at depth 50: R50-DCN c3-c5 13 layers, X50-DCN c4-c5 9
+        check(row['dcn_layers'] == (13 if 'r101' in config else 9),
               f'{config}: {row["dcn_layers"]} DCN layers')
         launches += n
     layers = [dcn_layer_check(torch, *spec) for spec in DCN_LAYERS]
     emit(dict(phase='dcn_layers', nvidia_smi=smi, layers=layers))
     for config, warmup, timed in DCN_LD:
-        n, row = ld_steps(torch, smi, config, 0, warmup, timed,
-                          phase='dcn_train', prof_steps=1)
+        n, row = ld_steps(torch, smi, depth_config(config), 0, warmup,
+                          timed, phase='dcn_train', prof_steps=1)
         check(row['dcn_layers_teacher'] > 0, f'{config}: no DCN teacher')
         launches += n
     for config, _, _ in DCN_LD:
-        launches += ld_steps(torch, smi, config, 0, 1, 1, reference=False,
-                             phase='dcn_bf16', dtype='bfloat16')[0]
+        launches += ld_steps(torch, smi, depth_config(config), 0, 1, 1,
+                             reference=False, phase='dcn_bf16',
+                             dtype='bfloat16')[0]
     return launches
 
 def teacher_reference(torch, np, config):
@@ -2532,15 +2603,16 @@ def phase_res2net(torch, np, smi):
         out.update(teacher_forward(torch, model, iters=1))
         return out
     warmup, timed = RES2NET_SERVE_CALLS
-    launches, row = family_serve(torch, smi, RES2NET_TEACHER, warmup=warmup,
-                                 timed=timed, phase='res2net_serve',
-                                 extra=extra)
+    launches, row = family_serve(torch, smi, RES2NET_TEACHER, DEPTH_CUT,
+                                 warmup=warmup, timed=timed,
+                                 phase='res2net_serve', extra=extra)
     check(row['backbone'] == 'Res2Net' and
           row['dcn_layers'] == RES2NET_DCN_LAYERS,
           f'{RES2NET_TEACHER}: {row["backbone"]} with {row["dcn_layers"]} '
           'DCN layers')
-    teacher_reference(torch, np, RES2NET_TEACHER)
+    teacher_reference(torch, np, depth_config(RES2NET_TEACHER))
     for config, warmup, timed, dtype, cpu_check in RES2NET_IM:
+        config = depth_config(config)
         # the teacher's ms and a step's profile with the card-vs-CPU
         # check only: the profiler's post-processing of a Res2Net-DCN
         # student's step (~40k device ops) takes tens of seconds
@@ -3357,17 +3429,39 @@ def flat_tensors(obj):
     return [obj]
 
 
-def build_plain(torch, config, seed=0, edit=None):
+def build_plain(torch, config, seed=0, edit=None, depth=None):
     """A config's detector on the CPU in float32, from `seed`, after
-    `edit(cfg)` where given; returns (cfg, model)."""
+    `edit(cfg)` where given, its backbone at `depth` where given; returns
+    (cfg, model)."""
     from ld_tpu_torch import Config
     from ld_tpu_torch.models import build_detector
     cfg = Config.fromfile(os.path.join(ROOT, config))
     if edit is not None:
         edit(cfg)
+    if depth is not None:
+        cfg.model.backbone.depth = depth
     model = build_detector(cfg.model)
     model.init_weights(torch.Generator().manual_seed(seed))
     return cfg, model
+
+
+def depth_config(config, depth=DEPTH_CUT):
+    """`config` with its backbone at `depth`, and the backbone of the
+    teacher it names by path at `depth` too, written under
+    work_dirs/chip_smoke_depth/ (widths, heads and schedules kept);
+    returns the written file's path."""
+    from ld_tpu_torch import Config
+    out = os.path.join(ROOT, 'work_dirs', 'chip_smoke_depth')
+    os.makedirs(out, exist_ok=True)
+    cfg = Config.fromfile(os.path.join(ROOT, config))
+    cfg.model.backbone.depth = depth
+    teacher = cfg.model.get('teacher_config')
+    if isinstance(teacher, str):
+        cfg.model.teacher_config = depth_config(teacher, depth)
+    path = os.path.join(out, '{}_d{}.py'.format(
+        os.path.splitext(os.path.basename(config))[0], depth))
+    cfg.dump(path)
+    return path
 
 
 def detector_steps(torch, smi, cfg, base, warmup, timed, per_step, phase,
@@ -3761,7 +3855,7 @@ def box_masks(torch, np, batch, seed=2):
 
 
 def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
-              timed=5, prof_iters=1, max_dets=100):
+              timed=5, prof_iters=1, max_dets=100, mask_size=28):
     """`forward_test` of a two-stage `model` on the card at 800x1344:
     `warmup` + `timed` calls at each batch size, 2 launches a call (the
     RPN's NMS of the batch and the RoI head's), the outputs checked (with
@@ -3770,7 +3864,8 @@ def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
     busy share at the smallest over `prof_iters` profiled calls. Emits the
     row; returns (launches, row, the captured NMS inputs (boxes, valid,
     thr) of the largest batch's call). `max_dets`: the test config's
-    max_per_img."""
+    max_per_img; `mask_size`: the test masks' side (28, the C4 head's
+    14)."""
     from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
     gen = torch.Generator('cuda').manual_seed(0)
     benches = {b: dict(image=torch.randn(b, 3, 800, 1344, device='cuda',
@@ -3808,7 +3903,8 @@ def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
                   f'{config} forward_test at batch {b}')
             if with_masks:
                 masks = outs[3]
-                check(tuple(masks.shape) == (b, max_dets, 28, 28) and
+                check(tuple(masks.shape) == (b, max_dets, mask_size,
+                                             mask_size) and
                       bool(torch.isfinite(masks).all()) and
                       0 <= float(masks.min()) and float(masks.max()) <= 1,
                       f'{config} forward_test masks at batch {b}')
@@ -3856,15 +3952,18 @@ def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
     return launches, row, captured
 
 
-def roi_reference(torch, np, base, config, phase, proposals=200,
+def roi_reference(torch, np, base, config, phase, proposals=50,
                   scaled=False, own_sampler=False):
     """The card against the CPU at 1x3x128x192 on `base`'s weights with
     samplers that pick every candidate and box-region gt masks: the FPN and
     RPN outputs (5e-3 / 2e-4; with `scaled`, 5e-5 of each output's largest
     value, `outputs_reference`), every loss (the RPN's and the RoI head's,
     the mask and semantic losses included) on the CPU's top `proposals`
-    proposals (None: all), rtol 1e-3 a term; with test masks, the masks of
-    the CPU's detections (of a copy with peaked scores) within 5e-3. With
+    proposals (None: all; 50 by default: the mask towers run on every
+    sampled roi there, the references' largest CPU cost), rtol 1e-3 a
+    term; with test masks, the masks of
+    the CPU's detections (of a copy with peaked scores, tested on its top
+    `proposals` proposals) within 5e-3. With
     `own_sampler` the RoI head keeps its config's sampler type
     (`sampler_of_type`)."""
     import copy
@@ -3875,6 +3974,11 @@ def roi_reference(torch, np, base, config, phase, proposals=200,
     dets = None
     if base.roi_head.with_test_masks:
         peaked = peak_scores(torch, copy.deepcopy(base).eval())
+        if proposals is not None:
+            # the CPU's test on its top `proposals` proposals too (a C4
+            # head runs res5 on every one)
+            peaked.rpn_head.test_cfg = dict(peaked.rpn_head.test_cfg,
+                                            max_per_img=proposals)
         with torch.inference_mode():
             dets = peaked.forward_test(cpu_batch)[:3]
         del peaked
@@ -4026,8 +4130,7 @@ def phase_mask_rcnn(torch, np, smi):
           f"loss_mask on the positive slice {first['loss_mask']!r}, on "
           f"every roi {all_first['loss_mask']!r}")
     del all_rois, batch
-    roi_reference(torch, np, base, MASK_CONFIG, 'mask_rcnn_reference',
-                  proposals=None)
+    roi_reference(torch, np, base, MASK_CONFIG, 'mask_rcnn_reference')
     del base
 
     # the X101-32x8d config through its own pipeline over a polygon set
@@ -4122,11 +4225,7 @@ def phase_cascade(torch, np, smi):
         check(('loss_semantic_seg' in losses) == ('htc' in config),
               f'{config}: loss_semantic_seg')
         if reference:
-            # the CPU's top 100 proposals: its three stages' RoI work
-            # (masks and HTC's semantic head included) is the phase's
-            # largest CPU cost
-            roi_reference(torch, np, base, config, 'cascade_reference',
-                          proposals=100)
+            roi_reference(torch, np, base, config, 'cascade_reference')
         if model.roi_head.with_test_masks:
             launches += segm_eval(torch, np, smi, model, work, config,
                                   'cascade_eval', data_cfg)
@@ -4439,11 +4538,14 @@ def phase_resnet_variants(torch, np, smi):
 
     # served only: drawn by init_detector, their gates and offsets seeded
     # on the card
-    for config, layers, calls in ((RV_DCN, (0, 0, 13, 0), RV_DCN_CALLS),
-                                  (RV_CASCADE, (30, 0, 30, 0),
-                                   RV_CASCADE_CALLS)):
+    for config, layers, calls, depth in (
+            (RV_DCN, (0, 0, 13, 0), RV_DCN_CALLS, None),
+            (RV_CASCADE, (13, 0, 13, 0), RV_CASCADE_CALLS, DEPTH_CUT)):
         t = time.perf_counter()
-        model = init_detector(float32_cfg(config), device='cuda', seed=0)
+        cfg = float32_cfg(config)
+        if depth is not None:
+            cfg.model.backbone.depth = depth
+        model = init_detector(cfg, device='cuda', seed=0)
         randomize_dcn_offsets(model, seed=0)
         randomize_plugin_gates(model, seed=0)
         check(layer_counts(model) == layers,
@@ -4756,14 +4858,52 @@ def phase_data_host(torch, np, smi):
     return launches
 
 
+def module_share(torch, model, bench, cls, name):
+    """One profiled `forward_test` call of `model` on `bench`: its device
+    time, busy share and device ops, and the share of its device time
+    that the forwards of its `cls` modules launch (a `record_function`
+    range named `name` around each)."""
+    from torch.profiler import ProfilerActivity, profile
+    with module_ranges(model, cls, name) as n_modules, \
+            torch.inference_mode():
+        model.forward_test(bench)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            model.forward_test(bench)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == cuda and e.key != name]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    ranged = [e for e in events if e.key == name and e.device_type != cuda]
+    range_us = sum(e.device_time_total for e in ranged)
+    out = {f'{name}_modules': n_modules,
+           f'{name}_calls_per_forward': sum(e.count for e in ranged)}
+    if total_us <= 0:
+        out['device_time'] = 'not measured'
+        return out
+    out.update({'device_ms_per_call': total_us / 1e3,
+                'wall_ms_per_call_profiled': wall_us / 1e3,
+                'device_busy_share': total_us / wall_us,
+                'device_ops_per_call': sum(e.count for e in kernels),
+                f'{name}_device_ms_per_call': range_us / 1e3
+                if range_us > 0 else 'not measured',
+                f'{name}_device_share': range_us / total_us
+                if range_us > 0 else 'not measured'})
+    return out
+
+
 def deform_conv_share(torch, model, bench, name='star_dcn'):
     """One profiled `forward_test` call: its device time, busy share and
     device ops, and the share of the device time that the head's
     caller-offset DeformConv calls launch (VFNet's star DCN; GA's
     adaptions, RepPoints' point DCNs under their own `name`: a
-    `record_function` range around each), with the HBM bound of their
-    gathers (four corner reads and the columns' write, float32)."""
-    from torch.profiler import ProfilerActivity, profile
+    `record_function` range around each, `module_share`), with the HBM
+    bound of their gathers (four corner reads and the columns' write,
+    float32)."""
     from ld_tpu_torch.ops.deform_conv import DeformConv
     cols = []
 
@@ -4773,41 +4913,13 @@ def deform_conv_share(torch, model, bench, name='star_dcn'):
     hooks = [m.register_forward_hook(count) for m in model.modules()
              if isinstance(m, DeformConv)]
     try:
-        with module_ranges(model, DeformConv, name) as n_modules:
-            model.forward_test(bench)
-            torch.cuda.synchronize()
-            cols.clear()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t = time.perf_counter()
-                model.forward_test(bench)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t) * 1e6
+        out = module_share(torch, model, bench, DeformConv, name)
     finally:
         for h in hooks:
             h.remove()
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == cuda and
-               e.key != name]
-    total_us = sum(e.self_device_time_total for e in kernels)
-    star = [e for e in events if e.key == name and e.device_type != cuda]
-    star_us = sum(e.device_time_total for e in star)
-    out = {f'{name}_modules': n_modules,
-           f'{name}_calls_per_forward': sum(e.count for e in star),
-           f'{name}_gather_bound_ms': sum(5 * 4 * n for n in cols) /
-           PEAK_HBM_BYTES * 1e3}
-    if total_us <= 0:
-        out['device_time'] = 'not measured'
-        return out
-    out.update({'device_ms_per_call': total_us / 1e3,
-                'wall_ms_per_call_profiled': wall_us / 1e3,
-                'device_busy_share': total_us / wall_us,
-                'device_ops_per_call': sum(e.count for e in kernels),
-                f'{name}_device_ms_per_call': star_us / 1e3
-                if star_us > 0 else 'not measured',
-                f'{name}_device_share': star_us / total_us
-                if star_us > 0 else 'not measured'})
+    # a warm-up call, then the profiled one: the second half of the counts
+    out[f'{name}_gather_bound_ms'] = sum(
+        5 * 4 * n for n in cols[len(cols) // 2:]) / PEAK_HBM_BYTES * 1e3
     return out
 
 
@@ -4915,7 +5027,7 @@ def phase_vfnet(torch, np, smi):
     launches += n
     vfnet_reference(torch, np, cfg, base)
     del base
-    n, _ = family_serve(torch, smi, VFNET_WIDE, None, *VFNET_WIDE_CALLS,
+    n, _ = family_serve(torch, smi, VFNET_WIDE, DEPTH_CUT, *VFNET_WIDE_CALLS,
                         phase='vfnet_wide_serve')
     launches += n
     torch.cuda.empty_cache()
@@ -5171,7 +5283,7 @@ def phase_reppoints(torch, np, smi):
                               phase=f'{tag}_train_reference')
         decode_reference(torch, base, f'{tag}_decode_reference', config)
         del base
-    n, _ = family_serve(torch, smi, RP_WIDE, None, *RP_WIDE_CALLS,
+    n, _ = family_serve(torch, smi, RP_WIDE, DEPTH_CUT, *RP_WIDE_CALLS,
                         phase='rp_wide_serve', prepare=prepare)
     launches += n
     torch.cuda.empty_cache()
@@ -5319,7 +5431,7 @@ def phase_fovea_ssd(torch, np, smi):
     dense_reference(torch, np, cfg, base, FOVEA_ALIGN,
                     'fovea_align_reference')
     del base
-    n, _ = family_serve(torch, smi, FOVEA_ALIGN_R101, None,
+    n, _ = family_serve(torch, smi, FOVEA_ALIGN_R101, DEPTH_CUT,
                         *ALIGN_R101_CALLS, phase='fovea_align_r101_serve',
                         prepare=prepare)
     launches += n
@@ -5462,7 +5574,8 @@ def phase_ms_rcnn_resnest(torch, np, smi):
                                  (S101_CASCADE, S101_CALLS, S101_STEPS)):
         tag = {MS_X101: 'ms_x101', S50_FASTER: 's50_faster',
                S101_CASCADE: 's101_cascade_mask'}[config]
-        cfg, base = build_plain(torch, config)
+        cfg, base = build_plain(torch, config, depth=None
+                                if config == S50_FASTER else DEPTH_CUT)
         model = peak_scores(torch, copy.deepcopy(base)).to('cuda').eval()
         n, _, _ = roi_serve(torch, smi, model, config, f'{tag}_serve',
                             batches=(1, 2) if config == S50_FASTER else (1, ),
@@ -5917,10 +6030,7 @@ def neck_models(torch, np, smi, models, phase_name, budget,
         check(key is None or row['loss_first'].get(key, 0) > 0,
               f'{config}: no {key} in {sorted(row["loss_first"])}')
         if two_stage:
-            # HTC's three stages, masks and semantic head on the CPU are
-            # the phase's largest host cost: its top 50 proposals
             roi_reference(torch, np, base, config, f'{tag}_reference',
-                          proposals=50 if 'htc' in config else 100,
                           own_sampler=own_sampler)
         else:
             dense_reference(torch, np, cfg, base, config,
@@ -6079,11 +6189,266 @@ def phase_grid_point_rend(torch, np, smi):
     return launches
 
 
+def deform_roi_pool_bound(torch, model, bench):
+    """The least time one call's deformable RoI pooling could take on the
+    card: its two passes' bilinear reads (4 corners of C float32 values a
+    sample, 2 x 2 samples a bin, every valid roi) and its output written,
+    over the HBM rate, against its FCs' float32 operations (2 x the
+    multiply-adds of each Linear over the rois) over the fp32 peak; the
+    larger of the two, with what bounds it."""
+    ext = model.roi_head.bbox_roi_extractor
+    seen = []
+    hook = ext.register_forward_hook(
+        lambda m, args, out: seen.append((int(args[2].sum()),
+                                          int(args[0][0].shape[1]))))
+    try:
+        with torch.inference_mode():
+            model.forward_test(bench)
+    finally:
+        hook.remove()
+    rois, c = seen[-1]
+    bins = ext.out_size * ext.out_size
+    samples = rois * bins * 4
+    gather_bytes = 2 * samples * 4 * c * 4 + rois * bins * c * 4
+    fcs = [m for fc in (ext.offset_fc, ext.mask_fc) if fc is not None
+           for m in fc if hasattr(m, 'in_features')]
+    flops = sum(2 * rois * m.in_features * m.out_features for m in fcs)
+    by_bytes = gather_bytes / PEAK_HBM_BYTES * 1e3
+    by_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return dict(deform_roi_pool_rois=rois,
+                deform_roi_pool_gather_bytes=gather_bytes,
+                deform_roi_pool_fc_flops=flops,
+                deform_roi_pool_bound_ms=max(by_bytes, by_ops),
+                deform_roi_pool_bound_by='bytes' if by_bytes >= by_ops
+                else 'operations')
+
+
+def rpn_candidates(torch, model, cfg_rpn, batch_size=2, hw=(800, 1344)):
+    """The (boxes, valid, thr) a two-stage `model`'s RPN hands nms_keep
+    on a seeded batch at `hw` under `cfg_rpn` (its test or its
+    training-proposal config)."""
+    from ld_tpu_torch.ops.nms_cuda import nms_keep
+    captured = []
+
+    def capture(boxes, valid, thr):
+        captured.append((boxes.clone(), valid.clone(), thr))
+        return nms_keep(boxes, valid, thr)
+    image = torch.randn(batch_size, 3, *hw, device='cuda',
+                        generator=torch.Generator('cuda').manual_seed(1))
+    img_hw = torch.tensor([hw] * batch_size, dtype=torch.float32,
+                          device='cuda')
+    with torch.inference_mode():
+        _, rpn_outs = model(image)
+        model.rpn_head.get_proposals(rpn_outs, img_hw, cfg=cfg_rpn,
+                                     keep_fn=capture)
+    return captured[0]
+
+
+def dynamic_reference(torch, base, config, phase, proposals=100,
+                      hw=(128, 192)):
+    """Dynamic R-CNN's per-image IoU thresholds and its SmoothL1 beta on
+    the card against the CPU at 1x3x`hw`: the CPU's top `proposals`
+    training proposals on both, the same uniform draws (made on the CPU),
+    the sampled rois identical; thresholds and beta within 1e-6."""
+    import copy
+    from ld_tpu_torch.testing import detection_batch
+    cpu_batch = detection_batch(1, *hw, seed=0, device='cpu')
+    props, draws, runs = None, None, {}
+    for device in ('cpu', 'cuda'):
+        model = copy.deepcopy(base).to(device).train()
+        b = {k: v.to(device) for k, v in cpu_batch.items()}
+        head = model.roi_head
+        with torch.no_grad():
+            feats, rpn_outs = model(b['image'])
+            if props is None:
+                props = [p[:, :proposals].cpu() for p in model._proposals(
+                    rpn_outs, b['img_hw'], model.train_cfg.get(
+                        'rpn_proposal'))]
+                n = props[0].shape[1] + b['gt_bboxes'].shape[1]
+                draws = torch.rand((3, 1, n),
+                                   generator=torch.Generator().manual_seed(0))
+            p, v = (x.to(device) for x in props)
+            thr = head.iou_thresholds(p, v, b['gt_bboxes'],
+                                      b['gt_valid'])[0]
+            s = head.sample_rois(p, v, b['gt_bboxes'], b['gt_labels'].long(),
+                                 b['gt_valid'], None, draws=draws.to(device))
+            posf = s['roi_pos'].reshape(-1, 1).float().expand(-1, 4)
+            beta = head.loss_bbox.beta(s['targets'].reshape(-1, 4), posf)
+        runs[device] = (thr.cpu(), float(beta), s['roi_pos'].cpu(),
+                        s['rois'].cpu())
+        del model, feats, rpn_outs
+    (c_thr, c_beta, c_pos, c_rois), (g_thr, g_beta, g_pos, g_rois) = \
+        runs['cpu'], runs['cuda']
+    row = dict(phase=phase, config=config, input='1x3x{}x{}'.format(*hw),
+               iou_thr_cpu=c_thr.tolist(), iou_thr_card=g_thr.tolist(),
+               beta_cpu=c_beta, beta_card=g_beta,
+               positives=int(c_pos.sum()),
+               iou_thr_max_abs_diff=float((g_thr - c_thr).abs().max()),
+               beta_abs_diff=abs(g_beta - c_beta), tol=1e-6)
+    emit(row)
+    check(torch.equal(g_pos, c_pos) and
+          float((g_rois - c_rois).abs().max()) <= 1e-4,
+          f'{config}: the dynamic sampler picks differently on the card')
+    check(row['iou_thr_max_abs_diff'] <= 1e-6 and
+          row['beta_abs_diff'] <= 1e-6 * max(c_beta, 1.0),
+          f'{config}: dynamic IoU threshold / beta, card vs CPU {row}')
+    torch.cuda.empty_cache()
+
+
+def phase_roi_variants(torch, np, smi):
+    """SCNet, Faster and Mask R-CNN C4, deformable / modulated deformable
+    RoI pooling Faster R-CNN, Double-Head and Dynamic R-CNN R50 at full
+    width, float32, seed 0 (`VAR_MODELS`): each served at batch 1 and 2
+    (`roi_serve`, fc_cls peaked: 2 launches a call, outputs identical with
+    the plain keep mask, the C4 mask model's 14x14 masks), with dpool /
+    mdpool the deformable RoI pooling's share of a call's device time and
+    its bound; stepped at batch 2 (box-region gt masks where a mask head
+    trains; SCNet's first step with `loss_glbctx`); the card against the
+    CPU at 1x3x128x192 (`roi_reference`: every loss term; the C4 masks),
+    Dynamic R-CNN's thresholds and beta too (`dynamic_reference`); then
+    nms_keep alone on the C4 RPN's test (K = 6000) and training
+    (K = 12000) candidates at B = 1 and 2. Budget 45 s. Returns the
+    launches over the main paths and the C4 kernel rows by (K, B)."""
+    import copy
+    from ld_tpu_torch.models.heads.roi_head import DeformRoIPoolExtractor
+    t_phase = time.perf_counter()
+    launches, c4_rows = 0, {}
+    for config, masks in VAR_MODELS:
+        tag = os.path.splitext(os.path.basename(config))[0]
+        cfg, base = build_plain(torch, config)
+        model = peak_scores(torch, copy.deepcopy(base)).to('cuda').eval()
+        c4 = base.roi_head.shared_head is not None
+        n, row, captured = roi_serve(
+            torch, smi, model, config, f'{tag}_serve', batches=(1, 2),
+            warmup=VAR_CALLS[0], timed=VAR_CALLS[1],
+            mask_size=14 if c4 else 28)
+        launches += n
+        if isinstance(model.roi_head.bbox_roi_extractor,
+                      DeformRoIPoolExtractor):
+            bench = dict(image=torch.randn(
+                1, 3, 800, 1344, device='cuda',
+                generator=torch.Generator('cuda').manual_seed(0)),
+                img_hw=torch.tensor([[800.0, 1344.0]], device='cuda'))
+            emit(dict(phase=f'{tag}_deform_roi_pool', config=config,
+                      nvidia_smi=smi,
+                      **module_share(torch, model, bench,
+                                     DeformRoIPoolExtractor,
+                                     'deform_roi_pool'),
+                      **deform_roi_pool_bound(torch, model, bench)))
+        if c4 and not c4_rows:
+            test = captured[0]
+            train = rpn_candidates(torch, model,
+                                   model.train_cfg.get('rpn_proposal'))
+            check(tuple(test[0].shape) == (2, C4_RPN_K[0], 4) and
+                  tuple(train[0].shape) == (2, C4_RPN_K[1], 4),
+                  f'{config}: the RPN NMS at K = {test[0].shape[1]} (test),'
+                  f' {train[0].shape[1]} (training)')
+            rows = kernel_rows(torch, smi, [
+                (boxes[:b].contiguous(), valid[:b].contiguous(), thr)
+                for boxes, valid, thr in (test, train) for b in (1, 2)],
+                ('c4_rpn_test', ) * 2 + ('c4_rpn_train', ) * 2)
+            c4_rows = {(r['K'], r['B']): r for r in rows}
+        del model, captured
+        torch.cuda.empty_cache()
+        n, row = detector_steps(
+            torch, smi, cfg, base, *VAR_STEPS, per_step=1,
+            phase=f'{tag}_train',
+            batch=masked_batch(torch, np) if masks else None)
+        launches += n
+        key = HEAD_LOSS.get(type(base.roi_head).__name__)
+        check(key is None or row['loss_first'].get(key, 0) > 0,
+              f'{config}: no {key} in {sorted(row["loss_first"])}')
+        check(not masks or any(k.startswith('loss_mask')
+                               for k in row['loss_first']),
+              f'{config}: no mask loss in {sorted(row["loss_first"])}')
+        # SCNet's six mask-tower runs on every sampled roi (HTC's
+        # information flow) are the phase's largest CPU cost: its top 20
+        roi_reference(torch, np, base, config, f'{tag}_reference',
+                      proposals=20 if 'scnet' in config else 50)
+        if type(base.roi_head).__name__ == 'DynamicRoIHead':
+            dynamic_reference(torch, base, config, f'{tag}_dynamic')
+        del base
+        torch.cuda.empty_cache()
+    check(launches == VAR_LAUNCHES, f'roi_variants phase: {launches} '
+          f'nms_keep launches, expected {VAR_LAUNCHES}')
+    emit(dict(phase='roi_variants_done', seconds=time.perf_counter() -
+              t_phase, budget_s=45, nms_keep_launches=launches))
+    return launches, c4_rows
+
+
+def phase_legacy_ghm(torch, np, smi):
+    """RetinaNet R50 with the GHM losses (`GHM_RETINA`): 1 + 1 steps at
+    batch 2 (GHMC / GHMR finite), its outputs, first-step losses and decode
+    at 1x3x128x192 against the CPU (`dense_reference`); Faster R-CNN and
+    RetinaNet R50 v1 (`V1_FASTER`, `V1_RETINA`) served at batch 1
+    (`neck_serve`: 2 / 1 launches a call, identical with the plain keep
+    mask), their anchors on the card bit-equal to the CPU's (the RPN's the
+    plain layout at centre offset 0.5, the RetinaNet's mmdet v1's), and the
+    decode of the CPU's outputs (the RPN's proposals, the RetinaNet's
+    detections) against the CPU. Budget 15 s. Returns the launches over
+    the main paths."""
+    import copy
+    from ld_tpu_torch.ops.anchors import AnchorGenerator, LegacyAnchorGenerator
+    t_phase = time.perf_counter()
+    cfg, base = build_plain(torch, GHM_RETINA)
+    check((type(base.bbox_head.loss_cls).__name__,
+           type(base.bbox_head.loss_bbox).__name__) == ('GHMC', 'GHMR'),
+          f'{GHM_RETINA}: losses')
+    launches, row = detector_steps(torch, smi, cfg, base, *LG_STEPS,
+                                   per_step=0, phase='retinanet_ghm_train')
+    check(all(row['loss_first'].get(k, 0) > 0
+              for k in ('loss_cls', 'loss_bbox')),
+          f'{GHM_RETINA}: losses {row["loss_first"]}')
+    conv = base.bbox_head.retina_cls
+    with torch.no_grad():
+        conv.bias.zero_()
+    dense_reference(torch, np, cfg, base, GHM_RETINA,
+                    'retinanet_ghm_reference')
+    del base
+    for config, kind in ((V1_FASTER, AnchorGenerator),
+                         (V1_RETINA, LegacyAnchorGenerator)):
+        tag = os.path.splitext(os.path.basename(config))[0]
+        _, base = build_plain(torch, config)
+        two_stage = hasattr(base, 'roi_head')
+        head = base.rpn_head if two_stage else base.bbox_head
+        gen = head.anchor_generator
+        if two_stage:
+            peak_scores(torch, base)
+        else:
+            with torch.no_grad():
+                base.bbox_head.retina_cls.bias.zero_()
+        sizes = [(-(-800 // s[1]), -(-1344 // s[0])) for s in gen.strides]
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(
+            gen.grid_anchors(sizes, device='cuda'), gen.grid_anchors(sizes)))
+        check(type(gen) is kind and same and
+              (not two_stage or gen.center_offset == 0.5),
+              f'{config}: {type(gen).__name__} anchors, card vs CPU equal '
+              f'{same}')
+        emit(dict(phase=f'{tag}_anchors', config=config,
+                  generator=type(gen).__name__,
+                  center_offset=getattr(gen, 'center_offset', None),
+                  anchors=sum(a.shape[0] for a in gen.grid_anchors(sizes)),
+                  card_equals_cpu=same))
+        model = copy.deepcopy(base).to('cuda').eval()
+        launches += neck_serve(torch, smi, model, config, f'{tag}_serve',
+                               (800, 1344), *LG_CALLS)
+        del model
+        decode_reference(torch, base, f'{tag}_decode_reference', config)
+        del base
+        torch.cuda.empty_cache()
+    check(launches == LG_LAUNCHES, f'legacy_ghm phase: {launches} nms_keep '
+          f'launches, expected {LG_LAUNCHES}')
+    emit(dict(phase='legacy_ghm_done', seconds=time.perf_counter() -
+              t_phase, budget_s=15, nms_keep_launches=launches))
+    return launches
+
+
 def run_phases(names):
     """`--phases NAME ...`: only the named phases (dcn, res2net, ddp,
     hrnet_regnet, resnet_variants, data_host, vfnet, guided_anchoring,
     reppoints, fovea_ssd, ms_rcnn_resnest, paa_fsaf_freeanchor, sabl,
-    detectors_necks, grid_point_rend, libra_pisa, groie_mining, cascade),
+    detectors_necks, grid_point_rend, libra_pisa, groie_mining,
+    roi_variants, legacy_ghm, cascade),
     each with its seconds and
     launches, on the card with TF32 off and the kernel built; no result
     line."""
@@ -6124,6 +6489,8 @@ def run_phases(names):
                                                                 smi),
                   libra_pisa=lambda: phase_libra_pisa(torch, np, smi),
                   groie_mining=lambda: phase_groie_mining(torch, np, smi),
+                  roi_variants=lambda: phase_roi_variants(torch, np, smi)[0],
+                  legacy_ghm=lambda: phase_legacy_ghm(torch, np, smi),
                   cascade=lambda: phase_cascade(torch, np, smi)[0])
     for name in names:
         t = time.perf_counter()
@@ -6239,6 +6606,10 @@ def main():
     lp_launches = phase_libra_pisa(torch, np, smi)
     torch.cuda.empty_cache()
     gm_launches = phase_groie_mining(torch, np, smi)
+    torch.cuda.empty_cache()
+    var_launches, c4_rows = phase_roi_variants(torch, np, smi)
+    torch.cuda.empty_cache()
+    lg_launches = phase_legacy_ghm(torch, np, smi)
     emit(dict(phase='script_done', seconds=time.perf_counter() - t_script))
 
     print(smi.splitlines()[0], flush=True)
@@ -6256,7 +6627,8 @@ def main():
                   vfnet_launches + ga_launches + reppoints_launches +
                   fovea_ssd_launches + ms_resnest_launches +
                   pff_launches + sabl_launches + dn_launches +
-                  gp_launches + lp_launches + gm_launches),
+                  gp_launches + lp_launches + gm_launches +
+                  var_launches + lg_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -6283,6 +6655,8 @@ def main():
         launches_grid_point_rend=gp_launches,
         launches_libra_pisa=lp_launches,
         launches_groie_mining=gm_launches,
+        launches_roi_variants=var_launches,
+        launches_legacy_ghm=lg_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,
@@ -6305,7 +6679,11 @@ def main():
                        'bound_ms')},
         **{f'{key}_{row["set"]}_b2': row[key] for row in cascade_k
            for key in ('K', 'ms', 'host_ms', 'device_ms', 'plain_ms',
-                       'bound_ms')})]))
+                       'bound_ms')},
+        **{f'{key}_k{k}{"" if b == 1 else "_b2"}': row[key]
+           for (k, b), row in c4_rows.items()
+           for key in ('ms', 'host_ms', 'device_ms', 'plain_ms', 'bound_ms',
+                       'bound_by')})]))
     emit(dict(ok=True, device=dict(platform='gpu',
                                    kind=torch.cuda.get_device_name(0),
                                    count=torch.cuda.device_count())))

@@ -60,7 +60,8 @@ def aug_test(model: torch.nn.Module, views: List[Dict],
     if not hasattr(model, 'bbox_head'):
         raise NotImplementedError(
             'test-time augmentation of a two-stage detector is not ported '
-            'to ld_tpu_torch yet (see ROADMAP.md A7)')
+            'to ld_tpu_torch yet (see ROADMAP.md Queue A, keys that '
+            'still raise)')
     cfg = cfg or model.bbox_head.test_cfg
     device = next(model.parameters()).device
     all_boxes, all_scores = [], []

@@ -80,7 +80,8 @@ def _check_frozen_bn(model, world: int):
         raise NotImplementedError(
             f'{len(live)} BatchNorm layer(s) train their statistics (e.g. '
             f'{live[0]}: norm_eval=False or SyncBN): global-batch BN over '
-            f'{world} ranks is not ported (see ROADMAP.md, A7)')
+            f'{world} ranks is not ported (see ROADMAP.md Queue A item '
+            '11)')
 
 
 def _load_teacher(model, logger):

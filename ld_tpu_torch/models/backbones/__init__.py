@@ -9,10 +9,10 @@ from .resnet import (BasicBlock, Bottleneck, DetectoRS_ResNet, ResNet,
 from .ssd_vgg import SSDVGG
 
 # the JAX package's other backbones (configs name them)
-BACKBONES.not_ported.update(
-    {name: 'ROADMAP.md item 22'
-     for name in ('TridentResNet', 'HourglassNet',
-                  'Darknet')})
+BACKBONES.not_ported.update({
+    'TridentResNet': 'ROADMAP.md Queue A item 7',
+    'Darknet': 'ROADMAP.md Queue A item 7',
+    'HourglassNet': 'ROADMAP.md Queue A item 9'})
 
 __all__ = ['ResNet', 'ResNeXt', 'ResNetV1d', 'Res2Net', 'HRNet', 'RegNet',
            'ResNeSt', 'SSDVGG', 'BasicBlock', 'Bottleneck', 'Bottle2neck',

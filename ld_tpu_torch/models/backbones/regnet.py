@@ -133,7 +133,8 @@ class RegNet(nn.Module):
         if dcn is not None and dcn.get('type', 'DCNv2') != 'DCNv2':
             raise NotImplementedError(
                 f"RegNet dcn type {dcn['type']!r} is not ported to "
-                'ld_tpu_torch yet (see ROADMAP.md A7)')
+                'ld_tpu_torch yet (see ROADMAP.md Queue A, keys that '
+                'still raise)')
         self.out_indices = tuple(out_indices)
         self.norm_eval = norm_eval
         self.conv1 = make_conv(None, 3, base_channels, 3, 2, dtype=dtype)

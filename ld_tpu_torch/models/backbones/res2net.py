@@ -124,7 +124,8 @@ class Res2Net(nn.Module):
         if dcn is not None and dcn.get('type', 'DCNv2') != 'DCNv2':
             raise NotImplementedError(
                 f"Res2Net dcn type {dcn['type']!r} is not ported to "
-                'ld_tpu_torch yet (see ROADMAP.md A7)')
+                'ld_tpu_torch yet (see ROADMAP.md Queue A, keys that '
+                'still raise)')
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
         self.norm_eval = norm_eval

@@ -2,9 +2,10 @@
 port of `ld_tpu/models/detectors/two_stage.py`.
 
 `TwoStageDetector`, registered as `FasterRCNN`, `MaskRCNN`, `CascadeRCNN`,
-`HybridTaskCascade`, `MaskScoringRCNN`, `GridRCNN` and `PointRend` too
-(each the same detector with another RoI head; Mask R-CNN's and
-PointRend's have a `mask_head`): backbone
+`HybridTaskCascade`, `MaskScoringRCNN`, `GridRCNN`, `PointRend`, `SCNet`,
+`DoubleHeadRCNN` and `DynamicRCNN` too (each the same detector with
+another RoI head; Mask R-CNN's and PointRend's have a `mask_head`):
+backbone
 -> neck -> `rpn_head` -> proposals -> `roi_head`, one `nn.Module` under
 mmdet's names. `forward_train` returns the RPN's and the RoI head's
 losses: the RPN loss, its proposals (under `no_grad`, from
@@ -28,9 +29,8 @@ detections' (B, 100, 28, 28) masks.
 `CascadeRoIHead` / `HybridTaskCascadeRoIHead`; as in the JAX package
 (`ld_tpu/models/detectors/two_stage.py:59-68`), a `StandardRoIHead` whose
 `bbox_head` is a `SABLHead` is routed to `SABLRoIHead`, and a
-`CascadeRoIHead` whose stages are `SABLHead`s to `CascadeSABLRoIHead`. The
-other two-stage names of the JAX package (SCNet, ...) wait for their
-heads (A7).
+`CascadeRoIHead` whose stages are `SABLHead`s to `CascadeSABLRoIHead`.
+`TridentFasterRCNN` waits for TridentNet (ROADMAP.md Queue A item 7).
 """
 from __future__ import annotations
 
@@ -43,10 +43,7 @@ from ld_tpu_torch.models.necks.seq import build_neck
 from ld_tpu_torch.utils.registry import BACKBONES, DETECTORS, HEADS
 from .kd_one_stage import FrozenTeacher
 
-DETECTORS.not_ported.update({
-    name: 'ROADMAP.md A7'
-    for name in ('DynamicRCNN', 'DoubleHeadRCNN', 'SCNet',
-                 'TridentFasterRCNN')})
+DETECTORS.not_ported['TridentFasterRCNN'] = 'ROADMAP.md Queue A item 7'
 
 
 def reject_mask_head(model, what: str) -> None:
@@ -152,7 +149,7 @@ class TwoStageDetector(nn.Module):
 
 for _name in ('FasterRCNN', 'MaskRCNN', 'CascadeRCNN',
               'HybridTaskCascade', 'MaskScoringRCNN', 'GridRCNN',
-              'PointRend'):
+              'PointRend', 'SCNet', 'DoubleHeadRCNN', 'DynamicRCNN'):
     DETECTORS.register_module(name=_name, module=type(
         _name, (TwoStageDetector, ), {}))
 

@@ -9,7 +9,7 @@ from .gfl_head import GFLHead
 from .gfocal_head import GFocalHead
 from .grid_point_roi import GridRoIHead, PointRendRoIHead
 from .guided_anchor_head import GARetinaHead, GARPNHead
-from .htc_roi_head import HybridTaskCascadeRoIHead
+from .htc_roi_head import HybridTaskCascadeRoIHead, SCNetRoIHead
 from .ld_gflv2 import IMv2Head, LDv2Head
 from .ld_head import IMHead, LDHead
 from .paa_head import PAAHead
@@ -18,7 +18,8 @@ from .reppoints_head import RepPointsHead
 from .retina_gfl_head import LDRetinaHead, RetinaGFLHead
 from .retina_head import RetinaHead, RetinaSepBNHead
 from .roi_head import StandardRoIHead
-from .roi_variants import MaskScoringRoIHead
+from .roi_variants import (DoubleHeadRoIHead, DynamicRoIHead,
+                           MaskScoringRoIHead)
 from .rpn_head import RPNHead
 from .sabl_retina_head import SABLRetinaHead
 from .sabl_roi_head import CascadeSABLRoIHead, SABLRoIHead
@@ -35,4 +36,5 @@ __all__ = ['GFLHead', 'IMHead', 'LDHead', 'GFocalHead', 'LDv2Head',
            'MaskScoringRoIHead', 'PAAHead', 'FSAFHead',
            'FreeAnchorRetinaHead', 'SABLRetinaHead', 'SABLRoIHead',
            'CascadeSABLRoIHead', 'GridRoIHead', 'PointRendRoIHead',
-           'NASFCOSHead', 'PISARetinaHead', 'PISARoIHead', 'PISASSDHead']
+           'NASFCOSHead', 'PISARetinaHead', 'PISARoIHead', 'PISASSDHead',
+           'SCNetRoIHead', 'DoubleHeadRoIHead', 'DynamicRoIHead']

@@ -51,8 +51,6 @@ DEFAULT_STDS = ((0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1),
 DEFAULT_IOUS = (0.5, 0.6, 0.7)
 DEFAULT_STAGE_WEIGHTS = (1.0, 0.5, 0.25)
 
-HEADS.not_ported.update({'SCNetRoIHead': 'ROADMAP.md A7'})
-
 
 def _per_stage(cfg, num_stages):
     return list(cfg) if isinstance(cfg, list) else [cfg] * num_stages

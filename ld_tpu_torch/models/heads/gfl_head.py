@@ -22,7 +22,9 @@ Port of `ld_tpu/models/heads/gfl_head.py:39-104` (towers), `:200-311`
 
 Module names are mmdet's (`cls_convs.i.{conv,gn}`, `gfl_cls`, `gfl_reg`,
 `scales.i.scale`). The other GFL-family heads subclass this one and replace
-`_build_predictors` / `forward` (and the towers, for Retina).
+`_build_predictors` / `forward` (and the towers, for Retina). An
+`anchor_generator` of type `LegacyAnchorGenerator` (RetinaNet v1) builds
+mmdet v1's anchor layout (`ops/anchors.py`), as the JAX head does.
 
 A compute `dtype` lowers the towers' convs and GroupNorms and the
 prediction convs (JAX `gfl_head.py:39-104`). Each prediction comes out cast
@@ -39,7 +41,7 @@ import torch
 from torch import nn
 
 from ld_tpu_torch.models.layers import Conv2d, GroupNorm, lowered_dtype
-from ld_tpu_torch.ops.anchors import AnchorGenerator
+from ld_tpu_torch.ops.anchors import AnchorGenerator, LegacyAnchorGenerator
 from ld_tpu_torch.ops.boxes import (anchor_center, bbox2distance,
                                     bbox_overlaps, distance2bbox)
 from ld_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
@@ -134,10 +136,12 @@ class GFLHead(nn.Module):
             ratios=[1.0], octave_base_scale=8, scales_per_octave=1,
             strides=[8, 16, 32, 64, 128]))
         ag_type = ag.pop('type', 'AnchorGenerator')
-        if ag_type != 'AnchorGenerator':
+        generators = dict(AnchorGenerator=AnchorGenerator,
+                          LegacyAnchorGenerator=LegacyAnchorGenerator)
+        if ag_type not in generators:
             raise NotImplementedError(f'{ag_type} is not ported to '
                                       'ld_tpu_torch yet (see ROADMAP.md)')
-        self.anchor_generator = AnchorGenerator(**ag)
+        self.anchor_generator = generators[ag_type](**ag)
         self.num_levels = self.anchor_generator.num_levels
         loss_cls = loss_cls or dict(
             type='QualityFocalLoss', use_sigmoid=True, beta=2.0,

@@ -28,6 +28,15 @@
 
 Weights: `roi_head.bbox_head.{i}`, `roi_head.mask_head.{i}` (mmdet's
 `HTCMaskHead` names) and `roi_head.semantic_head`.
+
+`SCNetRoIHead` (`ld_tpu/models/heads/htc_roi_head.py:261-318`) is this head
+plus `GlobalContextHead` (`roi_head.glbctx_head`: the mean of the FPN
+levels' spatial means, `fc1` + ReLU, then `fc_cls`, one logit a class, and
+`fc_ctx`, a context vector): training adds `loss_glbctx`, `glbctx_weight`
+(3) x the mean BCE of the logits against each image's set of valid gt
+labels. As in JAX, the context vector is computed and fused into nothing,
+and no feature relay runs beyond HTC's information flow (ROADMAP.md caveat
+77); the test path is HTC's.
 """
 from __future__ import annotations
 
@@ -250,4 +259,65 @@ class HybridTaskCascadeRoIHead(CascadeRoIHead):
                 losses[f'loss_mask_s{i}'] = w * self.htc_mask_loss(
                     i, feats, sem_feat, s, batch['gt_masks'])
             boxes, valid = self.refine(i, s, reg), s['roi_valid']
+        return losses
+
+
+class GlobalContextHead(nn.Module):
+    """SCNet's global-context branch (the JAX `GlobalContextNet`), in
+    float32."""
+
+    def __init__(self, num_classes=80, in_channels=256, channels=256):
+        super().__init__()
+        self.fc1 = nn.Linear(in_channels, channels)
+        self.fc_cls = nn.Linear(channels, num_classes)
+        self.fc_ctx = nn.Linear(channels, channels)
+
+    def init_weights(self, generator: torch.Generator):
+        """flax Dense's init: lecun-normal kernels, zero biases."""
+        with torch.no_grad():
+            for fc in (self.fc1, self.fc_cls, self.fc_ctx):
+                lecun_normal_(fc.weight, generator)
+                nn.init.zeros_(fc.bias)
+
+    def forward(self, feats):
+        """FPN levels (B, C, H_l, W_l) -> (multilabel logits (B, K), the
+        context vector (B, channels))."""
+        pooled = sum(f.float().mean(dim=(2, 3)) for f in feats) / len(feats)
+        x = torch.relu(self.fc1(pooled))
+        return self.fc_cls(x), self.fc_ctx(x)
+
+
+@HEADS.register_module()
+class SCNetRoIHead(HybridTaskCascadeRoIHead):
+
+    def __init__(self, *args, glbctx_weight=3.0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.glbctx_weight = glbctx_weight
+        # its fc1 reads the FPN's width, the bbox heads' input
+        bh = kwargs.get('bbox_head') or {}
+        bh = bh[0] if isinstance(bh, (list, tuple)) else bh
+        self.glbctx_head = GlobalContextHead(self.num_classes,
+                                             bh.get('in_channels', 256))
+
+    def init_weights(self, generator: torch.Generator):
+        super().init_weights(generator)
+        self.glbctx_head.init_weights(generator)
+
+    def glbctx_loss(self, feats, batch) -> torch.Tensor:
+        """`loss_glbctx` of the FPN levels `feats` against each image's
+        valid gt labels."""
+        logits, _ = self.glbctx_head(feats)
+        labels = batch['gt_labels'].long().clamp(0, self.num_classes - 1)
+        onehot = F.one_hot(labels, self.num_classes).to(logits.dtype) * \
+            batch['gt_valid'].to(logits.dtype)[..., None]
+        target = onehot.clamp(0, 1).amax(dim=1)
+        bce = F.binary_cross_entropy_with_logits(logits, target,
+                                                 reduction='none')
+        return self.glbctx_weight * global_mean(bce)
+
+    def forward_train(self, feats, proposals, prop_valid, batch,
+                      generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        losses = super().forward_train(feats, proposals, prop_valid, batch,
+                                       generator)
+        losses['loss_glbctx'] = self.glbctx_loss(feats, batch)
         return losses

@@ -88,7 +88,8 @@ class FCNMaskHead(nn.Module):
                 upsample_cfg.get('type', 'deconv') != 'deconv':
             raise NotImplementedError(
                 f"mask head upsample {upsample_cfg['type']!r} is not ported "
-                'to ld_tpu_torch yet (see ROADMAP.md A7)')
+                'to ld_tpu_torch yet (see ROADMAP.md Queue A, keys that '
+                'still raise)')
         self.num_classes = num_classes
         self.roi_size = roi_size
         self.mask_stride = mask_stride

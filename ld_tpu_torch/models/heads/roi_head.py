@@ -53,11 +53,34 @@
     probability (`scores`). ScoreHLR's negative label weights (`weights` of
     the sampled rois) scale the rois' classification weights.
 
-The sampler draws from the `torch.Generator` the caller passes in. The
-shared head of the C4 configs and deformable RoI pooling raise
-NotImplementedError (ROADMAP.md A7). A `bbox_head` of type `SABLHead`
-makes the head a `SABLRoIHead` (`sabl_roi_head.py`), which builds its own
-bbox head.
+  * The C4 configs' `shared_head` (`ResLayer`, `ld_tpu/models/heads/
+    roi_head.py:180-218, 249-275, 410-434`): mmdet's ResNet stage
+    `layer{stage + 1}` (R50's res5: 3 caffe bottlenecks 1024 -> 2048, the
+    first at stride 2) run on the roi batch, weight-shared, its BNs always
+    on their running statistics (as the JAX net, which applies it out of
+    training mode), frozen under `requires_grad=False`; under
+    `roi_head.shared_head.layer4.*`. The RoIAlign of the bbox extractor
+    (14x14 on the stride-16 C4 map) goes through it to (R, 2048, 7, 7),
+    then the avg-pooled `BBoxHead`. The mask branch of a C4 config (no
+    `mask_roi_extractor`) pools at the bbox extractor's size and runs the
+    same shared stage, its `FCNMaskHead` at the post-res5 size (7, its
+    logits 14x14).
+  * Deformable RoI pooling (`roi_layer` `DeformRoIPoolPack` /
+    `ModulatedDeformRoIPoolPack`, the JAX `DeformRoIPoolNet`,
+    `roi_head.py:87-117, 281-291, 436-457`): the plain level-routed
+    RoIAlign first, then its (R, C x 7 x 7) features, flattened CHW,
+    through `offset_fc` (Linear to `deform_fc_channels`, ReLU, Linear to 2
+    x 7 x 7, the last zero at init) to each bin's (dx, dy), the roi pooled
+    again with those offsets (`multi_level_roi_align_offsets`, x gamma),
+    and with the modulated form times `mask_fc`'s sigmoid (Linear, ReLU,
+    Linear to 7 x 7, the last zero at init: 0.5 at init); under
+    `roi_head.bbox_roi_extractor.{offset_fc,mask_fc}.{0,2}`. One set of
+    FCs serves every level, as in JAX (mmdet builds one a level: ROADMAP.md
+    caveat 74). The mask branch pools plainly.
+
+The sampler draws from the `torch.Generator` the caller passes in. A
+`bbox_head` of type `SABLHead` makes the head a `SABLRoIHead`
+(`sabl_roi_head.py`), which builds its own bbox head.
 """
 from __future__ import annotations
 
@@ -69,6 +92,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ld_tpu_torch.models.backbones.plugins import build_plugin
+from ld_tpu_torch.models.backbones.resnet import (ARCH_SETTINGS, Bottleneck,
+                                                  init_trunk_weights,
+                                                  make_shortcut)
 from ld_tpu_torch.models.layers import (lecun_normal_, make_conv, make_norm,
                                         norm_name)
 from ld_tpu_torch.ops.boxes import bbox_overlaps
@@ -76,14 +102,16 @@ from ld_tpu_torch.ops.coder import build_coder
 from ld_tpu_torch.ops.max_iou_assigner import MaxIoUAssigner
 from ld_tpu_torch.ops.nms import multiclass_nms
 from ld_tpu_torch.ops.nms_cuda import nms_keep
-from ld_tpu_torch.ops.roi_align import multi_level_roi_align, roi_align
+from ld_tpu_torch.ops.roi_align import (multi_level_roi_align,
+                                       multi_level_roi_align_offsets,
+                                       roi_align)
 from ld_tpu_torch.ops.samplers import build_sampler, uniform_keys
 from ld_tpu_torch.parallel.dist import global_sum
 from ld_tpu_torch.utils.registry import HEADS, LOSSES
 from .mask_head import FCNMaskHead
 
 
-def _not_ported(what: str, item: str = 'A7'):
+def _not_ported(what: str, item: str = 'Queue A, keys that still raise'):
     raise NotImplementedError(f'{what} is not ported to ld_tpu_torch yet '
                               f'(see ROADMAP.md {item})')
 
@@ -252,11 +280,113 @@ class GenericRoIExtractor(nn.Module):
         return agg * roi_valid.reshape(-1, 1, 1, 1)
 
 
+class DeformRoIPoolExtractor(nn.Module):
+    """A `SingleRoIExtractor` with a deformable `roi_layer`: (B, n) rois ->
+    (B*n, C, S, S), float32, zeros for invalid rois (the module docstring
+    says how)."""
+
+    def __init__(self, out_size: int, featmap_strides, in_channels: int,
+                 deform_fc_channels: int = 1024, modulated: bool = False,
+                 gamma: float = 0.1):
+        super().__init__()
+        self.out_size = out_size
+        self.featmap_strides = tuple(featmap_strides)
+        self.gamma = gamma
+        flat = in_channels * out_size * out_size
+        bins = out_size * out_size
+        self.offset_fc = nn.Sequential(
+            nn.Linear(flat, deform_fc_channels), nn.ReLU(inplace=True),
+            nn.Linear(deform_fc_channels, 2 * bins))
+        self.mask_fc = nn.Sequential(
+            nn.Linear(flat, deform_fc_channels), nn.ReLU(inplace=True),
+            nn.Linear(deform_fc_channels, bins), nn.Sigmoid()) \
+            if modulated else None
+
+    def init_weights(self, generator: torch.Generator):
+        """The JAX net's: lecun-normal first Linears, zero second ones and
+        biases (the offsets 0 at init, the modulation 0.5)."""
+        with torch.no_grad():
+            for fc in (self.offset_fc, self.mask_fc):
+                if fc is None:
+                    continue
+                lecun_normal_(fc[0].weight, generator)
+                for p in (fc[0].bias, fc[2].weight, fc[2].bias):
+                    nn.init.zeros_(p)
+
+    def forward(self, feats, rois: torch.Tensor, roi_valid: torch.Tensor):
+        levels = feats[:len(self.featmap_strides)]
+        s = self.out_size
+        first = multi_level_roi_align(levels, rois, roi_valid, s,
+                                      self.featmap_strides).flatten(1)
+        offsets = self.offset_fc(first).view(-1, 2, s, s)
+        out = multi_level_roi_align_offsets(levels, rois, roi_valid, offsets,
+                                            s, self.featmap_strides,
+                                            gamma=self.gamma)
+        if self.mask_fc is not None:
+            out = out * self.mask_fc(first).view(-1, 1, s, s)
+        return out
+
+
+class ResLayer(nn.Module):
+    """The C4 configs' weight-shared ResNet stage over a roi batch (mmdet's
+    `ResLayer` shared head; the module docstring says how)."""
+
+    def __init__(self, depth=50, stage=3, stride=2, dilation=1,
+                 style='caffe', norm_cfg=None, dtype=None, **kwargs):
+        super().__init__()
+        block, stage_blocks = ARCH_SETTINGS[depth]
+        if block is not Bottleneck:
+            _not_ported(f'a ResLayer shared head of depth {depth}')
+        planes = 64 * 2**stage
+        inplanes = planes * block.expansion // 2
+        layers = []
+        for b in range(stage_blocks[stage]):
+            s = stride if b == 0 else 1
+            downsample = make_shortcut(
+                inplanes, planes * block.expansion, s, False, dtype, None,
+                norm_cfg) if b == 0 else None
+            layers.append(block(inplanes, planes, s, dilation, downsample,
+                                None, norm_cfg, style, dtype))
+            inplanes = planes * block.expansion
+        self.layer_name = f'layer{stage + 1}'
+        self.add_module(self.layer_name, nn.Sequential(*layers))
+        if (norm_cfg or {}).get('requires_grad', True) is False:
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.requires_grad_(False)
+
+    def init_weights(self, generator: torch.Generator):
+        init_trunk_weights(self, generator)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        for m in self.modules():
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                m.eval()
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(R, C, S, S) roi features -> (R, 4 x planes, S / stride, ...),
+        float32."""
+        return getattr(self, self.layer_name)(x).float()
+
+
 def build_roi_extractor(ext: dict, out_size: int, featmap_strides,
                         in_channels: int):
-    """A `GenericRoIExtractor` of a GRoIE extractor config, None for mmdet's
+    """A `GenericRoIExtractor` of a GRoIE extractor config, a
+    `DeformRoIPoolExtractor` of a deformable `roi_layer`, None for mmdet's
     `SingleRoIExtractor` (the level-routed `multi_level_roi_align`)."""
     kind = ext.get('type', 'SingleRoIExtractor')
+    roi_layer = dict(ext.get('roi_layer') or {})
+    layer = roi_layer.get('type', 'RoIAlign')
+    if kind == 'SingleRoIExtractor' and layer in (
+            'DeformRoIPoolPack', 'ModulatedDeformRoIPoolPack'):
+        return DeformRoIPoolExtractor(
+            out_size, featmap_strides, in_channels,
+            roi_layer.get('deform_fc_channels', 1024),
+            layer.startswith('Modulated'), roi_layer.get('gamma', 0.1))
+    if layer != 'RoIAlign':
+        _not_ported(f'roi_layer {layer!r}')
     if kind == 'SingleRoIExtractor':
         return None
     if kind != 'GenericRoIExtractor':
@@ -274,20 +404,30 @@ class StandardRoIHead(nn.Module):
                  mask_roi_extractor=None, mask_head=None, shared_head=None,
                  train_cfg=None, test_cfg=None, dtype=None, **kwargs):
         super().__init__()
-        if shared_head is not None:
-            _not_ported('the shared res5 RoI head of the C4 configs')
         bbox_head = dict(bbox_head or {})
         ext = dict(bbox_roi_extractor or {})
         roi_layer = dict(ext.get('roi_layer') or {})
-        if roi_layer.get('type', 'RoIAlign') != 'RoIAlign':
-            _not_ported(f"roi_layer {roi_layer['type']!r} (dpool)")
         # as the JAX head: only output_size is read (ROADMAP.md caveat 18)
         self.roi_size = roi_layer.get('output_size', 7)
         self.featmap_strides = tuple(ext.get('featmap_strides',
                                              (4, 8, 16, 32)))
+        self.shared_head = None
+        self.feat_size = self.roi_size
+        if shared_head is not None:
+            sh = {k: v for k, v in shared_head.items()
+                  if k not in ('type', 'pretrained')}
+            self.shared_head = ResLayer(dtype=dtype, **sh)
+            self.feat_size = -(-self.roi_size // sh.get('stride', 2))
         self.bbox_roi_extractor = build_roi_extractor(
             ext, self.roi_size, self.featmap_strides,
-            bbox_head.get('in_channels', 256))
+            ext.get('out_channels', 256) if self.shared_head is not None
+            else bbox_head.get('in_channels', 256))
+        if self.shared_head is not None and \
+                self.bbox_roi_extractor is not None:
+            # the JAX head skips the shared stage after such an extractor
+            _not_ported('a shared head behind a GRoIE or deformable '
+                        'extractor (no config sets one; ROADMAP.md caveat '
+                        '74)')
         self.num_classes = bbox_head.get('num_classes', 80)
         self.reg_class_agnostic = bbox_head.get('reg_class_agnostic', False)
         self.reg_decoded_bbox = bbox_head.get('reg_decoded_bbox', False)
@@ -322,30 +462,36 @@ class StandardRoIHead(nn.Module):
         self.mask_roi_extractor = None
         if mask_head is not None:
             self.mask_head = self._build_mask_head(
-                dict(mask_head), dict(mask_roi_extractor or {}), dtype)
+                dict(mask_head), mask_roi_extractor, dtype)
 
     def _build_bbox_head(self, bbox_head: dict) -> nn.Module:
         num_convs, num_fcs = convfc_shape(bbox_head)
         return ConvFCBBoxHead(
             self.num_classes, bbox_head.get('in_channels', 256),
-            self.roi_size, num_convs, num_fcs,
+            self.feat_size, num_convs, num_fcs,
             bbox_head.get('conv_out_channels', 256),
             bbox_head.get('fc_out_channels', 1024),
             bbox_head.get('with_avg_pool', False), self.reg_class_agnostic,
             bbox_head.get('conv_cfg'), bbox_head.get('norm_cfg'))
 
-    def _build_mask_head(self, mh: dict, mext: dict, dtype) -> FCNMaskHead:
-        """`ld_tpu/models/heads/roi_head.py:330-348`, without the C4 case
-        (a shared head raises above)."""
+    def _build_mask_head(self, mh: dict, mext, dtype) -> FCNMaskHead:
+        """`ld_tpu/models/heads/roi_head.py:330-348`: with a shared head and
+        no mask extractor (C4), the mask rois pool at the bbox extractor's
+        size and the mask head sees the shared stage's output size."""
         kind = mh.pop('type', 'FCNMaskHead')
         if kind != 'FCNMaskHead':
             _not_ported(f'mask head {kind!r}')
+        mh.setdefault('num_classes', self.num_classes)
+        if mext is None and self.shared_head is not None:
+            self.mask_roi_size = self.roi_size
+            mh.setdefault('roi_size', self.feat_size)
+            return FCNMaskHead(dtype=dtype, **mh)
+        mext = dict(mext or {})
         self.mask_roi_size = (mext.get('roi_layer') or {}).get(
             'output_size', 14)
         self.mask_roi_extractor = build_roi_extractor(
             mext, self.mask_roi_size, self.featmap_strides,
             mh.get('in_channels', 256))
-        mh.setdefault('num_classes', self.num_classes)
         mh.setdefault('roi_size', self.mask_roi_size)
         return FCNMaskHead(dtype=dtype, **mh)
 
@@ -359,16 +505,20 @@ class StandardRoIHead(nn.Module):
         self.bbox_head.init_weights(generator)
         if self.mask_head is not None:
             self.mask_head.init_weights(generator)
-        for ext in (self.bbox_roi_extractor, self.mask_roi_extractor):
-            if ext is not None:
-                ext.init_weights(generator)
+        for m in (self.bbox_roi_extractor, self.mask_roi_extractor,
+                  self.shared_head):
+            if m is not None:
+                m.init_weights(generator)
+
+    def _shared(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.shared_head is None else self.shared_head(x)
 
     def _extract(self, feats: List[torch.Tensor], rois, roi_valid):
         if self.bbox_roi_extractor is not None:
             return self.bbox_roi_extractor(feats, rois, roi_valid)
-        return multi_level_roi_align(feats[:len(self.featmap_strides)], rois,
-                                     roi_valid, self.roi_size,
-                                     self.featmap_strides)
+        return self._shared(multi_level_roi_align(
+            feats[:len(self.featmap_strides)], rois, roi_valid,
+            self.roi_size, self.featmap_strides))
 
     # ---- training ----------------------------------------------------------
     def sample_rois(self, proposals, prop_valid, gt_bboxes, gt_labels,
@@ -497,9 +647,9 @@ class StandardRoIHead(nn.Module):
     def _mask_feats(self, feats, rois, valid):
         if self.mask_roi_extractor is not None:
             return self.mask_roi_extractor(feats, rois, valid)
-        return multi_level_roi_align(feats[:len(self.featmap_strides)], rois,
-                                     valid, self.mask_roi_size,
-                                     self.featmap_strides)
+        return self._shared(multi_level_roi_align(
+            feats[:len(self.featmap_strides)], rois, valid,
+            self.mask_roi_size, self.featmap_strides))
 
     def positive_slice(self, s: Dict) -> Dict:
         """The first `max_pos` rois of each image of the sampled rois `s`,

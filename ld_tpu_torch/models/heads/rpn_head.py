@@ -17,6 +17,10 @@ NCHW.
     sigmoid, the decode clipped to the image, then ONE greedy NMS over all
     levels together (ROADMAP.md caveat 19) of every image of the batch, one
     `nms_keep` launch: (B, max_per_img, 4) proposals and their validity.
+
+An `anchor_generator` of type `LegacyAnchorGenerator` (the `legacy_1.x`
+configs) builds the plain generator with the config's `center_offset`, as
+the JAX RPN drops the type (ROADMAP.md caveat 71).
 """
 from __future__ import annotations
 
@@ -46,10 +50,11 @@ class RPNHead(nn.Module):
         super().__init__()
         ag = dict(anchor_generator or dict(
             scales=[8], ratios=[0.5, 1.0, 2.0], strides=[4, 8, 16, 32, 64]))
+        # the legacy type builds the plain layout, as in JAX (caveat 71)
         ag_type = ag.pop('type', 'AnchorGenerator')
-        if ag_type != 'AnchorGenerator':
+        if ag_type not in ('AnchorGenerator', 'LegacyAnchorGenerator'):
             raise NotImplementedError(f'{ag_type} is not ported to '
-                                      'ld_tpu_torch yet (see ROADMAP.md A7)')
+                                      'ld_tpu_torch yet (see ROADMAP.md)')
         self.anchor_generator = AnchorGenerator(**ag)
         self.num_levels = self.anchor_generator.num_levels
         self.num_anchors = self.anchor_generator.num_base_anchors[0]

@@ -10,8 +10,8 @@ from .smooth_l1_loss import L1Loss, SmoothL1Loss, l1_loss, smooth_l1_loss
 from .kd_loss import (IMLoss, KnowledgeDistillationKLDivLoss, im_loss,
                       knowledge_distillation_kl_div_loss)
 from .varifocal_loss import VarifocalLoss
-from .misc_losses import (BalancedL1Loss, BoundedIoULoss, balanced_l1_loss,
-                          bounded_iou_loss)
+from .misc_losses import (GHMC, GHMR, BalancedL1Loss, BoundedIoULoss,
+                          balanced_l1_loss, bounded_iou_loss)
 
 __all__ = [
     'reduce_loss', 'weight_reduce_loss', 'weighted_loss', 'QualityFocalLoss',
@@ -22,11 +22,11 @@ __all__ = [
     'sigmoid_focal_loss', 'CrossEntropyLoss', 'cross_entropy',
     'binary_cross_entropy', 'L1Loss', 'SmoothL1Loss', 'l1_loss',
     'smooth_l1_loss', 'VarifocalLoss', 'BalancedL1Loss', 'BoundedIoULoss',
-    'balanced_l1_loss', 'bounded_iou_loss'
+    'balanced_l1_loss', 'bounded_iou_loss', 'GHMC', 'GHMR'
 ]
 
 # the JAX package's other losses, not ported yet
-LOSSES.not_ported.update({name: 'ROADMAP.md A7' for name in (
-    'AssociativeEmbeddingLoss', 'GHMC',
-    'GHMR', 'GaussianFocalLoss', 'MSELoss')})
-LOSSES.not_ported['DiceLoss'] = 'ROADMAP.md A8'
+LOSSES.not_ported.update({name: 'ROADMAP.md Queue A item 9' for name in (
+    'AssociativeEmbeddingLoss', 'GaussianFocalLoss')})
+LOSSES.not_ported['MSELoss'] = 'ROADMAP.md Queue A item 7'
+LOSSES.not_ported['DiceLoss'] = 'ROADMAP.md Queue A item 8'

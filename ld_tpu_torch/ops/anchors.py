@@ -1,10 +1,16 @@
 """Anchor generation for multi-level dense heads (port of
-`ld_tpu/ops/anchors.py:20-132`).
+`ld_tpu/ops/anchors.py:20-132, 151-172`).
 
 Base anchors from octave scales x ratios centred at `center_offset * stride`,
 shifted over the feature grid row-major (anchor i*W+j sits at pixel
 (j*stride, i*stride)). The anchors are computed in numpy float32 exactly as
 the JAX generator computes them, then handed to the caller's device.
+
+`LegacyAnchorGenerator` is mmdet v1's layout (the `legacy_1.x` configs'
+GFL-lineage heads, e.g. RetinaNet v1): a base anchor's centre at
+0.5 x (size - 1), its corners centre -+ 0.5 x (w - 1), rounded to
+integers (`center_offset` is taken and not read). An RPN takes the key and
+builds the plain generator, as the JAX RPN does (ROADMAP.md caveat 71).
 """
 from __future__ import annotations
 
@@ -119,3 +125,19 @@ class AnchorGenerator:
             a = self.num_base_anchors[lvl]
             flags.append(grid.repeat_interleave(a) if a > 1 else grid)
         return flags
+
+
+class LegacyAnchorGenerator(AnchorGenerator):
+    """mmdet v1.x's base anchors (`ld_tpu/ops/anchors.py:151-172`)."""
+
+    def _single_level_base_anchors(self, base_size: float,
+                                   level: int) -> np.ndarray:
+        w = h = float(base_size)
+        x_center, y_center = 0.5 * (w - 1), 0.5 * (h - 1)
+        h_ratios = np.sqrt(self.ratios)
+        w_ratios = 1.0 / h_ratios
+        ws = (w * w_ratios[:, None] * self.scales[None, :]).reshape(-1)
+        hs = (h * h_ratios[:, None] * self.scales[None, :]).reshape(-1)
+        return np.round(np.stack([
+            x_center - 0.5 * (ws - 1), y_center - 0.5 * (hs - 1),
+            x_center + 0.5 * (ws - 1), y_center + 0.5 * (hs - 1)], axis=-1))

@@ -22,7 +22,7 @@ dimension where the JAX package `vmap`s.
     (ROADMAP.md caveat 59).
 
 The file's other JAX assigners (Hungarian, TaskAligned, Grid, Region) are
-not ported yet: building one raises (ROADMAP.md A7).
+not ported yet: building one raises, naming its ROADMAP.md Queue A item.
 """
 from __future__ import annotations
 
@@ -35,9 +35,11 @@ from .atss_assigner import INF, AssignResult
 from .boxes import bbox_overlaps
 from .max_iou_assigner import MaxIoUAssigner
 
-ASSIGNERS.not_ported.update({name: 'ROADMAP.md A7' for name in (
-    'HungarianAssigner', 'TaskAlignedAssigner', 'GridAssigner',
-    'RegionAssigner')})
+ASSIGNERS.not_ported.update({
+    'RegionAssigner': 'ROADMAP.md Queue A item 6',
+    'TaskAlignedAssigner': 'ROADMAP.md Queue A item 6',
+    'GridAssigner': 'ROADMAP.md Queue A item 7',
+    'HungarianAssigner': 'ROADMAP.md Queue A item 10'})
 
 
 def _small_topk_min(values: torch.Tensor, k: int) -> torch.Tensor:

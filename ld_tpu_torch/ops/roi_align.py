@@ -11,8 +11,14 @@ floor(log2(sqrt(area) / finest_scale + 1e-6)), clipped to the levels, and
 pools it at that level only: the JAX op pools every roi at every level and
 masks the others away, with the same numbers. Invalid rois give zeros.
 
-The deformable RoI pooling of the dpool configs (`*_offsets`) raises
-NotImplementedError (ROADMAP.md A7).
+Deformable RoI pooling (the dpool / mdpool configs; port of
+`roi_align_offsets`, `ld_tpu/ops/roi_align.py:75-167`): `roi_align` with
+`offsets` (R, 2, out, out), a (dx, dy) a bin in units of the roi's size
+(mmcv's channel order, x first): every sample of bin (i, j) moves by
+gamma x (dx x roi_w, dy x roi_h), roi_w and roi_h on the map (after the
+scale, floored at 1e-3); the samples then read the map as above, corners
+clamped to its edge. `multi_level_roi_align_offsets` is its level-routed
+form.
 """
 from __future__ import annotations
 
@@ -24,11 +30,15 @@ import torch
 def roi_align(features: torch.Tensor, rois: torch.Tensor,
               batch_idx: torch.Tensor, out_size: int = 7,
               spatial_scale: float = 1.0, sampling_ratio: int = 2,
-              aligned: bool = True) -> torch.Tensor:
+              aligned: bool = True, offsets: torch.Tensor = None,
+              gamma: float = 0.1) -> torch.Tensor:
     """Args:
         features: (B, C, H, W).
         rois: (R, 4) xyxy in image coordinates; batch_idx: (R,) the image
             of each roi.
+        offsets: optional (R, 2, out_size, out_size) (dx, dy) a bin, in
+            units of gamma x the roi's size (deformable RoI pooling; the
+            half-pixel shift is then always taken, as in JAX).
     Returns:
         (R, C, out_size, out_size)
     """
@@ -37,12 +47,20 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
     s = sampling_ratio
     boxes = rois * spatial_scale - (0.5 if aligned else 0.0)
     x1, y1 = boxes[:, 0], boxes[:, 1]
-    bin_w = (boxes[:, 2] - x1).clamp(min=1e-3) / out_size
-    bin_h = (boxes[:, 3] - y1).clamp(min=1e-3) / out_size
+    roi_w = (boxes[:, 2] - x1).clamp(min=1e-3)
+    roi_h = (boxes[:, 3] - y1).clamp(min=1e-3)
     grid = (torch.arange(out_size * s, device=rois.device,
                          dtype=rois.dtype) + 0.5) / s
-    xs = x1[:, None] + grid * bin_w[:, None]                   # (R, S)
-    ys = y1[:, None] + grid * bin_h[:, None]
+    # the sample coordinates, (R, S, 1) rows and (R, 1, S) columns; with
+    # offsets each of the (R, S, S) samples has its own
+    ys = (y1[:, None] + grid * (roi_h / out_size)[:, None])[:, :, None]
+    xs = (x1[:, None] + grid * (roi_w / out_size)[:, None])[:, None, :]
+    if offsets is not None:
+        # each bin's offset over its s x s samples
+        off = offsets.float().repeat_interleave(s, dim=2) \
+            .repeat_interleave(s, dim=3)                     # (R, 2, S, S)
+        xs = xs + off[:, 0] * (gamma * roi_w)[:, None, None]
+        ys = ys + off[:, 1] * (gamma * roi_h)[:, None, None]
 
     def corners(v, size):
         v0 = torch.floor(v).clamp(0, size - 1)
@@ -56,8 +74,8 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
     out = None
     for yi, wy in ((y0, wy0), (y1i, wy1)):
         for xi, wx in ((x0, wx0), (x1i, wx1)):
-            rows = ((base + yi[:, :, None]) * w + xi[:, None, :]).reshape(-1)
-            wgt = (wy[:, :, None] * wx[:, None, :]).reshape(-1, 1)
+            rows = ((base + yi) * w + xi).reshape(-1)
+            wgt = (wy * wx).reshape(-1, 1)
             vals = flat.index_select(0, rows).float()          # (R*S*S, C)
             out = vals * wgt if out is None else \
                 torch.addcmul(out, vals, wgt)
@@ -78,12 +96,15 @@ def multi_level_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                           roi_valid: torch.Tensor, out_size: int = 7,
                           featmap_strides=(4, 8, 16, 32),
                           finest_scale: int = 56,
-                          sampling_ratio: int = 2) -> torch.Tensor:
+                          sampling_ratio: int = 2,
+                          offsets: torch.Tensor = None,
+                          gamma: float = 0.1) -> torch.Tensor:
     """Level-routed RoIAlign of a batch.
 
     Args:
         feats: (B, C, H_l, W_l) maps, one a level.
         rois: (B, R, 4); roi_valid: (B, R) bool.
+        offsets: optional (B*R, 2, out_size, out_size), as `roi_align`'s.
     Returns:
         (B*R, C, out_size, out_size), zeros for invalid rois.
     """
@@ -98,15 +119,22 @@ def multi_level_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     for lvl, stride in enumerate(featmap_strides):
         idx = torch.nonzero(valid & (target == lvl)).squeeze(1)
         if idx.numel():
-            out[idx] = roi_align(feats[lvl], flat[idx], batch_idx[idx],
-                                 out_size, 1.0 / stride, sampling_ratio)
+            out[idx] = roi_align(
+                feats[lvl], flat[idx], batch_idx[idx], out_size, 1.0 / stride,
+                sampling_ratio, offsets=None if offsets is None
+                else offsets[idx], gamma=gamma)
     return out
 
 
-def roi_align_offsets(*args, **kwargs):
-    raise NotImplementedError('deformable RoI pooling (dpool / mdpool) is '
-                              'not ported to ld_tpu_torch yet (see '
-                              'ROADMAP.md A7)')
-
-
-multi_level_roi_align_offsets = roi_align_offsets
+def multi_level_roi_align_offsets(feats: Sequence[torch.Tensor],
+                                  rois: torch.Tensor, roi_valid: torch.Tensor,
+                                  offsets: torch.Tensor, out_size: int = 7,
+                                  featmap_strides=(4, 8, 16, 32),
+                                  finest_scale: int = 56,
+                                  sampling_ratio: int = 2,
+                                  gamma: float = 0.1) -> torch.Tensor:
+    """The deformable second pass (`ld_tpu/ops/roi_align.py:152-167`):
+    `multi_level_roi_align` with each roi's (2, out, out) offsets."""
+    return multi_level_roi_align(feats, rois, roi_valid, out_size,
+                                 featmap_strides, finest_scale,
+                                 sampling_ratio, offsets, gamma)

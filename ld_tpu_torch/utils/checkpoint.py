@@ -722,6 +722,65 @@ def _maskiou_dense(path: tuple, kernel: np.ndarray, params: Dict
         params['roi_head']['maskiou']['conv3']['kernel'])[-1])
 
 
+def _dpool_value(path: tuple, value: np.ndarray, params: Dict
+                 ) -> Tuple[str, np.ndarray]:
+    """('dpool', 'offset_fc1' | 'offset_fc2' | 'mask_fc1' | 'mask_fc2',
+    leaf) -> its name after `roi_head.bbox_roi_extractor.` and its value:
+    `offset_fc.{0,2}` / `mask_fc.{0,2}`. The first Linears read the roi
+    flattened HWC in JAX, CHW in the port (rows permuted); the JAX offsets
+    come out (i, j, xy), the port's (xy, i, j) (mmcv's), so offset_fc2's
+    outputs are reordered."""
+    mod, leaf = path[1], path[-1]
+    m = re.fullmatch(r'(offset|mask)_fc([12])', mod)
+    if m is None:
+        raise KeyError(path)
+    name = f'{m.group(1)}_fc.{0 if m.group(2) == "1" else 2}.' + \
+        {'kernel': 'weight', 'bias': 'bias'}[leaf]
+    w = value.T if leaf == 'kernel' else value
+    bins = np.shape(params['roi_head']['dpool']['offset_fc2']['bias'])[0] // 2
+    if m.group(2) == '1' and leaf == 'kernel':
+        w = _chw_columns(w, w.shape[1] // bins)
+    elif mod == 'offset_fc2':
+        s = int(round(bins ** 0.5))
+        w = w.reshape(s, s, 2, -1).transpose(2, 0, 1, 3).reshape(
+            w.shape) if w.ndim == 2 else \
+            w.reshape(s, s, 2).transpose(2, 0, 1).reshape(-1)
+    return name, w
+
+
+def _double_head_value(path: tuple, value: np.ndarray, params: Dict
+                       ) -> Tuple[str, np.ndarray]:
+    """A JAX Double-Head net leaf (`roi_head/bbox` with `res_id`) -> its
+    name after `roi_head.bbox_head.` and its value: `res_id` /
+    `res_cN` / `res_nN` to `res_block.conv_identity.conv` /
+    `res_block.convN.{conv,gn}`, `convI_cJ` / `convI_nJ` to
+    `conv_branch.I.convJ` / `gnJ`, `fcI` to `fc_branch.I` (fc0's rows from
+    the HWC flatten to CHW), `fc_cls`, `fc_reg`."""
+    mod, leaf = path[1], path[-1]
+    name = {'kernel': 'weight', 'bias': 'bias', 'scale': 'weight'}[leaf]
+    if mod in ('fc_cls', 'fc_reg') or re.fullmatch(r'fc\d', mod):
+        w = value.T if leaf == 'kernel' else value
+        if mod == 'fc0' and leaf == 'kernel':
+            w = _chw_columns(w, np.shape(
+                params['roi_head']['bbox']['res_id']['kernel'])[2])
+        key = mod if mod in ('fc_cls', 'fc_reg') else \
+            f'fc_branch.{mod[2:]}'
+        return f'{key}.{name}', w
+    if mod == 'res_id':
+        return 'res_block.conv_identity.conv.weight', _conv_weight(value)
+    m = re.fullmatch(r'res_([cn])(\d)', mod)
+    if m is not None:
+        part = 'conv' if m.group(1) == 'c' else 'gn'
+        return (f'res_block.conv{m.group(2)}.{part}.{name}',
+                _conv_weight(value) if value.ndim == 4 else value)
+    m = re.fullmatch(r'conv(\d+)_([cn])(\d)', mod)
+    if m is None:
+        raise KeyError(path)
+    part = 'conv' if m.group(2) == 'c' else 'gn'
+    return (f'conv_branch.{m.group(1)}.{part}{m.group(3)}.{name}',
+            _conv_weight(value) if value.ndim == 4 else value)
+
+
 def _avg_down(variables: Dict, keys: Optional[Iterable[str]]) -> bool:
     """Whether the backbone's shortcuts pool before their conv (mmdet's
     `downsample.{1,2}` names). The JAX tree does not say so for a ResNet:
@@ -786,7 +845,12 @@ def state_dict_from_jax(variables: Dict,
     `refine.conv`) or the GRoIE trees (`roi_head/groie`, `groie_mask`,
     `groie_grid` to the bbox, mask and grid extractors' `pre_module.conv`
     and `post_module`, the latter with the plugins' GeneralizedAttention
-    names).
+    names), nor for the C4 shared res5 (`roi_head/shared/{params,
+    batch_stats}/layer4_B/...` to `roi_head.shared_head.layer4.B.*`, the
+    backbone's names), deformable RoI pooling (`roi_head/dpool`,
+    `_dpool_value`), the Double-Head net (`_double_head_value`) or SCNet's
+    global context (`roi_head/glbctx/{fc1,fc_cls,fc_ctx}` to
+    `roi_head.glbctx_head.*`).
 
     Raises KeyError on a leaf outside the ResNet / Res2Net / FPN, the
     dense-head (GFL family, Retina, FCOS, ATSS, VFNet, GA, RepPoints),
@@ -894,6 +958,27 @@ def state_dict_from_jax(variables: Dict,
                     continue
                 key += 'pre_module.conv.' + (
                     'bias' if rest[-1] == 'bias' else 'weight')
+            elif scope == 'roi_head' and rest[0] == 'shared':
+                # the C4 shared res5: its params and running statistics
+                # both sit in the params tree, under `params` / `batch_stats`
+                key = 'roi_head.shared_head.' + _backbone_key(rest[2:])
+                if rest[-2:] == ('bn', 'scale'):
+                    sd[key[:-len('weight')] + 'num_batches_tracked'] = \
+                        np.zeros((), np.int64)
+            elif scope == 'roi_head' and rest[0] == 'dpool':
+                key, value = _dpool_value(rest, value, params)
+                sd['roi_head.bbox_roi_extractor.' + key] = value
+                continue
+            elif scope == 'roi_head' and rest[0] == 'glbctx':
+                sd[f'roi_head.glbctx_head.{rest[1]}.' + (
+                    'weight' if rest[-1] == 'kernel' else 'bias')] = \
+                    value.T if rest[-1] == 'kernel' else value
+                continue
+            elif scope == 'roi_head' and rest[0] == 'bbox' and \
+                    'res_id' in params['roi_head']['bbox']:
+                key, value = _double_head_value(rest, value, params)
+                sd['roi_head.bbox_head.' + key] = value
+                continue
             elif scope == 'roi_head' and rest[0] == 'semantic':
                 key = 'roi_head.semantic_head.' + _semantic_key(rest)
             elif scope == 'roi_head' and rest[0] == 'maskiou':

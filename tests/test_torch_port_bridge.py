@@ -36,6 +36,9 @@ HEAD_KW = dict(num_classes=NUM_CLASSES, in_channels=64, stacked_convs=2,
 # layers between XLA and oneDNN
 OUT_ABS, OUT_MEDIAN_REL = 5e-3, 2e-4
 LOSS_RTOL = 2e-4
+# XLA's LLVM at -O0: a JAX reference compiles several times faster, and
+# runs once
+O0 = dict(xla_backend_optimization_level=0)
 
 
 def randomize_norms(model, seed):
@@ -197,3 +200,31 @@ def fill_tree(tree, seed):
             return rs.uniform(-0.5, 0.5, shape).astype(np.float32)
         return rs.uniform(-0.1, 0.1, shape).astype(np.float32)
     return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def compile_in(pool, fn, *args):
+    """`fn` jitted and lowered on `args` (arrays, or `jax.ShapeDtypeStruct`
+    trees such as another lowering's `out_info`), compiled at -O0 in the
+    thread pool `pool` (tracing holds the interpreter lock, XLA's compile
+    does not): (the lowering, a future of the compiled program)."""
+    lowered = jax.jit(fn).lower(*args)
+    return lowered, pool.submit(lowered.compile, compiler_options=O0)
+
+
+def networks_and_loss(det, variables, t_vars, j_batch):
+    """A JAX KD detector's student and teacher forwards and its head's
+    loss, jitted apart and compiled in parallel at -O0: the loss dict."""
+    from concurrent.futures import ThreadPoolExecutor
+    image = j_batch['image']
+    with ThreadPoolExecutor(3) as pool:
+        ls, fs = compile_in(pool, lambda v: det.apply(
+            v, image, train=True, output_features=True), variables)
+        lt, ft = compile_in(pool, lambda v: det.teacher.apply(
+            v, image, output_features=True), t_vars)
+        _, fl = compile_in(pool, lambda o, f, to, tf: det.bbox_head.loss(
+            o, j_batch, [c.shape[1:3] for c in o[0]], tuple(to),
+            student_feats=f, teacher_feats=tf), *ls.out_info,
+            *lt.out_info)
+        outs, feats = fs.result()(variables)
+        t_outs, t_feats = ft.result()(t_vars)
+        return fl.result()(outs, feats, t_outs, t_feats)

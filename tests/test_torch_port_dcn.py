@@ -26,6 +26,7 @@ test_torch_port_bridge.py); inputs come from numpy seeds:
 """
 import copy
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -53,8 +54,9 @@ from ld_tpu_torch.utils.checkpoint import state_dict_from_jax
 from ld_tpu_torch.utils.fuse_conv_bn import fuse_conv_bn
 from ld_tpu_torch.utils.registry import HEADS
 from test_torch_port_bridge import (HEAD_KW, HW, TEST_CFG, assert_dets_close,
-                                    assert_losses_close, nchw,
-                                    randomize_norms, to_jax_variables)
+                                    assert_losses_close, compile_in, nchw,
+                                    networks_and_loss, randomize_norms,
+                                    to_jax_variables)
 from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -110,9 +112,12 @@ def test_dcn_layer_matches_jax(deform_groups, groups, stride):
 
     def j_loss(v, xi):
         return jnp.sum(j_layer.apply(v, xi) * cot_nhwc)
-    want = np.asarray(jax.jit(j_layer.apply)(variables, x_nhwc))
-    j_gv, j_gx = jax.jit(jax.grad(j_loss, argnums=(0, 1)))(variables,
-                                                           x_nhwc)
+    with ThreadPoolExecutor(2) as pool:
+        fwd = compile_in(pool, j_layer.apply, variables, x_nhwc)[1]
+        grad = compile_in(pool, jax.grad(j_loss, argnums=(0, 1)), variables,
+                          x_nhwc)[1]
+        want = np.asarray(fwd.result()(variables, x_nhwc))
+        j_gv, j_gx = grad.result()(variables, x_nhwc)
 
     xt = torch.from_numpy(x).requires_grad_(True)
     out = layer(xt)
@@ -195,15 +200,19 @@ def backbone_outputs():
     """Each backbone in both packages on the same 1x3x64x64 input: {name:
     (port model, JAX variables, port outputs, JAX outputs NCHW)}."""
     x = np.random.RandomState(5).randn(1, 3, 64, 64).astype(np.float32)
-    out = {}
-    for name, (_, j_cls, kw) in BACKBONES.items():
-        model, variables = _backbone(name)
-        want = jax.jit(j_cls(**kw).apply)(
-            variables, jnp.asarray(x.transpose(0, 2, 3, 1)))
-        with torch.no_grad():
-            got = model(torch.from_numpy(x))
-        out[name] = (model, variables, x, got,
-                     [np.asarray(w).transpose(0, 3, 1, 2) for w in want])
+    x_nhwc = jnp.asarray(x.transpose(0, 2, 3, 1))
+    out, jobs = {}, {}
+    with ThreadPoolExecutor(len(BACKBONES)) as pool:
+        for name, (_, j_cls, kw) in BACKBONES.items():
+            model, variables = _backbone(name)
+            jobs[name] = (model, variables, compile_in(
+                pool, j_cls(**kw).apply, variables, x_nhwc)[1])
+        for name, (model, variables, compiled) in jobs.items():
+            want = compiled.result()(variables, x_nhwc)
+            with torch.no_grad():
+                got = model(torch.from_numpy(x))
+            out[name] = (model, variables, x, got,
+                         [np.asarray(w).transpose(0, 3, 1, 2) for w in want])
     return out
 
 
@@ -318,13 +327,7 @@ def test_ld_dcn_detector_forward_train_matches_jax():
     np_batch = detection_batch_np(2, *HW, num_classes=80, max_gts=8, seed=5)
     j_batch = {k: jnp.asarray(v) for k, v in np_batch.items()}
     j_batch['image'] = jnp.asarray(np_batch['image'].transpose(0, 2, 3, 1))
-    outs, feats = jax.jit(lambda v: det.apply(
-        v, j_batch['image'], train=True, output_features=True))(variables)
-    t_outs, t_feats = jax.jit(lambda v: det.teacher.apply(
-        v, j_batch['image'], output_features=True))(t_vars)
-    want = jax.jit(lambda o, f, to, tf: det.bbox_head.loss(
-        o, j_batch, [c.shape[1:3] for c in o[0]], tuple(to),
-        student_feats=f, teacher_feats=tf))(outs, feats, t_outs, t_feats)
+    want = networks_and_loss(det, variables, t_vars, j_batch)
 
     got = model.train().forward_train(
         {k: torch.from_numpy(v) for k, v in np_batch.items()})

@@ -37,8 +37,9 @@ from ld_tpu_torch.testing import detection_batch_np
 from test_torch_port_bridge import (HW, NUM_CLASSES, assert_dets_close,
                                     assert_losses_close, assert_outputs_close,
                                     bare_heads, batches, both_head_forward,
-                                    fpn_feats, nchw, port_and_jax_head,
-                                    port_outs, random_like, to_jax_variables)
+                                    fpn_feats, nchw, networks_and_loss,
+                                    port_and_jax_head, port_outs, random_like,
+                                    to_jax_variables)
 from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -211,13 +212,7 @@ def test_ldv2_detector_forward_train_matches_jax():
     np_batch = detection_batch_np(2, *HW, num_classes=80, max_gts=8, seed=5)
     j_batch = {k: jnp.asarray(v) for k, v in np_batch.items()}
     j_batch['image'] = jnp.asarray(np_batch['image'].transpose(0, 2, 3, 1))
-    outs, feats = jax.jit(lambda v: det.apply(
-        v, j_batch['image'], train=True, output_features=True))(variables)
-    t_outs, t_feats = jax.jit(lambda v: det.teacher.apply(
-        v, j_batch['image'], output_features=True))(t_vars)
-    want = jax.jit(lambda o, f, to, tf: det.bbox_head.loss(
-        o, j_batch, [c.shape[1:3] for c in o[0]], tuple(to),
-        student_feats=f, teacher_feats=tf))(outs, feats, t_outs, t_feats)
+    want = networks_and_loss(det, variables, t_vars, j_batch)
 
     got = model.train().forward_train(
         {k: torch.from_numpy(v) for k, v in np_batch.items()})

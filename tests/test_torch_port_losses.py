@@ -45,7 +45,7 @@ from ld_tpu_torch.ops.atss_assigner import ATSSAssigner
 from ld_tpu_torch.parallel.optim import build_lr_schedule
 from ld_tpu_torch.testing import detection_batch_np
 from ld_tpu_torch.utils.checkpoint import load_from_jax
-from test_torch_port_bridge import fill_tree
+from test_torch_port_bridge import O0, fill_tree
 from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -206,7 +206,8 @@ def test_gfl_head_loss_matches_jax():
     j_batch = {k: jnp.asarray(v) for k, v in batch.items()}
     j_batch['image'] = jnp.asarray(batch['image'].transpose(0, 2, 3, 1))
     j_batch['gt_labels'] = jnp.asarray(batch['gt_labels'].astype(np.int32))
-    want = jax.jit(det.forward_train)(variables, j_batch)
+    want = jax.jit(det.forward_train).lower(variables, j_batch).compile(
+        compiler_options=O0)(variables, j_batch)
     got = model.forward_train({k: torch.from_numpy(v)
                                for k, v in batch.items()})
     assert sorted(got) == ['loss_bbox', 'loss_cls', 'loss_dfl']

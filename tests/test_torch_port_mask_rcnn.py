@@ -663,17 +663,16 @@ MASK_CONFIGS = sorted(os.path.relpath(p, ROOT) for p in glob.glob(
 @pytest.mark.parametrize('path', MASK_CONFIGS)
 def test_mask_rcnn_config_builds(path):
     cfg = Config.fromfile(os.path.join(ROOT, path))
-    if 'c4' in path:
-        # the shared res5 head waits (ROADMAP.md A7)
-        with pytest.raises(NotImplementedError, match='A7'):
-            with torch.device('meta'):
-                build_detector(cfg.model, dtype=cfg.get('dtype'))
-        return
     with torch.device('meta'):
         model = build_detector(cfg.model, dtype=cfg.get('dtype'))
     assert type(model).__name__ == 'MaskRCNN'
     head = model.roi_head.mask_head
-    assert head.conv_logits.out_channels == 80 and head.roi_size == 14
+    c4 = 'c4' in path
+    # the C4 mask head reads the shared res5's 7x7 output of 14x14 rois
+    assert head.conv_logits.out_channels == 80 and \
+        head.roi_size == (7 if c4 else 14)
+    assert (model.roi_head.shared_head is not None) == c4
+    assert model.roi_head.mask_roi_size == 14
 
 
 def test_state_dict_from_jax_round_trip_of_the_r50_config():

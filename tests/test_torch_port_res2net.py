@@ -56,7 +56,7 @@ from ld_tpu_torch.testing import detection_batch
 from ld_tpu_torch.utils.checkpoint import state_dict_from_jax
 from ld_tpu_torch.utils.fuse_conv_bn import fuse_conv_bn
 from ld_tpu_torch.utils.registry import BACKBONES
-from test_torch_port_bridge import assert_dets_close
+from test_torch_port_bridge import O0, assert_dets_close
 from test_torch_port_threads import one_intra_op_thread  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -183,22 +183,29 @@ def ref():
         return det.bbox_head.get_bboxes(det.bbox_head.net.apply(
             head, list(fpn)), jnp.asarray(IMG_HW))
 
-    lowered = dict(r2n50=jax.jit(r2n.apply).lower(out['r2n50'], x),
-                   v1d=jax.jit(v1d.apply).lower(out['v1d'], x),
-                   two=jax.jit(jax.grad(two_grads, has_aux=True)).lower(
-                       two_vars['params']),
-                   two16=jax.jit(two16.apply).lower(two_vars, x2_16))
+    # each program compiles (at LLVM -O0) in a thread as soon as it is
+    # traced; the bf16 one with XLA's excess precision off too
+    pool = ThreadPoolExecutor(5)
+    lowered, compiled = {}, {}
+
+    def submit(name, lowering, **options):
+        lowered[name] = lowering
+        compiled[name] = pool.submit(lowering.compile,
+                                     compiler_options=dict(O0, **options))
+    submit('r2n50', jax.jit(r2n.apply).lower(out['r2n50'], x))
+    submit('two', jax.jit(jax.grad(two_grads, has_aux=True)).lower(
+        two_vars['params']))
+    submit('two16', jax.jit(two16.apply).lower(two_vars, x2_16),
+           xla_allow_excess_precision=False)
+    submit('v1d', jax.jit(v1d.apply).lower(out['v1d'], x))
     feats = lowered['r2n50'].out_info
     neck = init_variables(det.neck, feats, seed=8)
     head = init_variables(det.bbox_head.net, list(jax.eval_shape(
         det.neck.apply, neck, feats)), seed=9)
     head['params']['gfl_cls']['bias'][:] = 0
-    lowered['tail'] = jax.jit(tail).lower(neck, head, feats)
-    options = dict(two16={'xla_allow_excess_precision': False})
-    with ThreadPoolExecutor(len(lowered)) as pool:
-        compiled = dict(zip(lowered, pool.map(
-            lambda k: lowered[k].compile(compiler_options=options.get(k)),
-            lowered)))
+    submit('tail', jax.jit(tail).lower(neck, head, feats))
+    compiled = {k: f.result() for k, f in compiled.items()}
+    pool.shutdown()
 
     out['r2n50_out'] = compiled['r2n50'](out['r2n50'], x)
     out['v1d_out'] = compiled['v1d'](out['v1d'], x)

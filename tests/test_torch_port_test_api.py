@@ -24,6 +24,7 @@ import json
 import os
 
 import cv2
+import jax
 import numpy as np
 import pytest
 import torch
@@ -124,9 +125,9 @@ def test_eval_detector_keys_results_by_dataset_index(devkit):
 
 
 def test_aug_test_matches_jax():
-    """The port's weights, converted into the JAX tree (the JAX package
-    compiles each op of an eager run once per shape: one tower conv per
-    level keeps that cheap)."""
+    """The port's weights, converted into the JAX tree (one tower conv per
+    level keeps the reference cheap; its network and decode are jitted,
+    since op by op the JAX package compiles each op once a shape)."""
     cfg = model_cfg(18)
     cfg['bbox_head'] = dict(cfg['bbox_head'], stacked_convs=1)
     model = _model(seed=11, num_classes=4, cfg=cfg)
@@ -134,6 +135,9 @@ def test_aug_test_matches_jax():
         {k: v.numpy() for k, v in model.state_dict().items()})
     assert variables.pop('_unmapped') == []
     det = j_build_detector(cfg)
+    det.apply = jax.jit(det.apply)
+    det.bbox_head.get_bboxes = jax.jit(det.bbox_head.get_bboxes,
+                                       static_argnames=('with_nms', ))
     img = np.random.RandomState(12).randint(0, 256, (64, 96, 3), np.uint8)
     kw = dict(img_scales=[(96, 64)], flip=True, **NORM)
     views = build_aug_views(img, **kw)
