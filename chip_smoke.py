@@ -131,8 +131,9 @@ Phases, one JSON object per line each:
                RES2NET_LAUNCHES.
  11. ddp     — data parallelism over 2 ranks sharing the card (gloo; NCCL
                where there is a card a rank): (a) 3 steps of the GI config
-               at full width, float32, batch 2 a rank at 800x1344 in 2
-               spawned ranks against one process at batch 4 over the same
+               at full width, float32, batch 2 a rank at 800x1344 in the 2
+               ranks of (b)'s torchrun launch, its first job, against one
+               process at batch 4 over the same
                images and weights (loss terms rtol 1e-3, GI masks
                identical, parameters after the step within 1e-5 of their
                largest value, 5 launches a step a rank); (b) this script
@@ -226,19 +227,19 @@ Phases, one JSON object per line each:
                `forward_test` at batch 1 and 2 (HTC: 1), 2 + 5 calls each (2
                launches a call: the RPN's and the last stage's NMS; outputs
                identical with the plain keep mask; Cascade Mask R-CNN's
-               masks the stages' average); 1 + 3 steps each at batch 2 with
+               masks the stages' average); 1 + 2 steps each at batch 2 with
                gt_masks through coco_instance.py's train pipeline (1 launch
                a step; every stage's losses, HTC's loss_semantic_seg); for
                Cascade Mask R-CNN and HTC the card against the CPU at
-               1x3x128x192 on the top 50 proposals (rtol 1e-3 a loss,
+               1x3x128x192 on the top 20 proposals (rtol 1e-3 a loss,
                masks within 5e-3), and Cascade Mask R-CNN's evaluation over
                the polygon set (AP 1.0 for the gts); then the kernel alone
                on a batch-2 call's RPN (K = 4819) and last-stage (K = 1024)
-               NMS inputs. Launches must equal CASCADE_LAUNCHES (90).
+               NMS inputs. Launches must equal CASCADE_LAUNCHES (87).
                Budget 75 s.
  20. hrnet_regnet — full width, float32, seed 0, 800x1344:
                configs/hrnet/faster_rcnn_hrnetv2p_w40_1x_coco.py (fc_cls x
-               100): `forward_test` at batch 1 and 2, 2 + 5 calls each (2
+               100): `forward_test` at batch 1 and 2, 1 + 3 calls each (2
                launches a call, outputs identical with the plain keep mask),
                its HRNet's device ops, device ms and busy share a forward,
                1 + 3 steps at batch 2 under the profiler (1 launch a step),
@@ -253,7 +254,7 @@ Phases, one JSON object per line each:
                seeded offsets on its 23 grouped DCN conv2 layers, and one
                such layer (432 channels, 9 groups) against the CPU within
                1e-4 of its largest output; RetinaNet RegNetX-800MF 1 + 5
-               calls. Launches must equal HRNET_REGNET_LAUNCHES (75).
+               calls. Launches must equal HRNET_REGNET_LAUNCHES (63).
                Budget 80 s.
  21. resnet_variants — full width, float32, seed 0, 800x1344, every
                plugin's zero-init gate and every DCN offset conv seeded:
@@ -374,7 +375,7 @@ Phases, one JSON object per line each:
                steps at its config's samples_per_gpu (8 for FPG, 4 for
                NAS-FCOS, 2 for the rest; HTC with box-region gt masks),
                against the CPU (`roi_reference` at 1x3x128x192, HTC's on
-               its top 50 proposals; `dense_reference` at 1x3x128x192,
+               its top 20 proposals; `dense_reference` at 1x3x128x192,
                NAS-FPN's at 1x3x128x256). 2 launches a two-stage call, 1 a
                single-stage call, 1 a two-stage step; launches must equal
                DN_LAUNCHES. Budget 45 s.
@@ -419,6 +420,28 @@ Phases, one JSON object per line each:
                offset 0.5, the RetinaNet's mmdet v1 layout) on the card
                equal to the CPU's, the decode of the CPU's outputs against
                the CPU. Launches must equal LG_LAUNCHES. Budget 15 s.
+ 35. crpn_tood — the Cascade RPN Faster R-CNN R50-caffe (fc_cls x 100),
+               the Cascade RPN alone and TOOD R50 (cls biases 0, offset
+               branch seeded) at full width, float32, seed 0, 800x1344:
+               1 + 2 calls at batch 1 and 2 (2 launches a Faster R-CNN
+               call, 1 an RPN or TOOD call; outputs identical with the
+               plain keep mask; the adaptive convs' share of a call's
+               device time and their gather bound), 1 + 1 steps at batch 2
+               (1 launch a Faster R-CNN step), the card against the CPU at
+               1x3x128x192 (outputs, every loss term, the decode; the
+               RegionAssigner, MaxIoU and TaskAlignedAssigner results).
+               Launches must equal CT_LAUNCHES (26). Budget 20 s.
+ 36. yolo_trident — YOLOv3 D53 (its three configs' one model) 1 + 2
+               calls at batch 1 and 2 on seeded batches at 320, 416 and 608
+               (1 launch a call), 1 + 1 steps at batch 2 at 608 (none), the
+               card against the CPU at 1x3x128x192; TridentNet R50-caffe
+               (fc_cls x 100) at 800x1344: 1 + 2 calls at batch 1 and 2 (2
+               launches a call), 1 + 1 steps at batch 2 (1 a step, the RPN
+               and RoI head on the 3B branch-folded images), the card
+               against the CPU at 1x3x128x192 on its branch-tiled gts and
+               each branch's map, then the kernel alone on its training
+               RPN's K = 12000 candidates at B = 1, 3 and 6. Launches must
+               equal YT_LAUNCHES (32). Budget 30 s.
 Every phase row carries `t`, the script's seconds so far; `--phases NAME
 ...` runs the named phases alone.
 Then the `nvidia-smi` name/power-limit line, one JSON line of kernel figures
@@ -429,7 +452,8 @@ K = 2048, B = 1, the `_tta_merge` keys the first TTA image's own merge, the
 `_k16800` keys the dense-kept set at K = 16800, B = 1, the
 `_cascade_rpn_b2` / `_cascade_roi_b2` keys a batch-2 Cascade R-CNN call's
 two NMS, the `_k6000` / `_k12000` keys (`_b2` at B = 2) the C4 RPN's test
-and training candidates;
+and training candidates, the `_trident_k12000_b{1,3,6}` keys the trident
+RPN's training candidates;
 `launches` counts all main paths, `launches_<phase>` each), and last
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script exits
 non-zero and prints no result; so does a host without CUDA.
@@ -524,11 +548,11 @@ MASK_EVAL_SET = (8, ((480, 640), (640, 480)))
 # run: 2 a forward_test call (2 + 5 at each batch size), 1 a step, 2 an
 # eval batch (Cascade Mask R-CNN's 8 images: 4 batches of 2)
 CASCADE_CONFIGS = (
-    ('configs/cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py', (1, 2), (1, 3),
+    ('configs/cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py', (1, 2), (1, 2),
      False),
     ('configs/cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_coco.py', (1, 2),
-     (1, 3), True),
-    ('configs/htc/htc_r50_fpn_1x_coco.py', (1, ), (1, 3), True))
+     (1, 2), True),
+    ('configs/htc/htc_r50_fpn_1x_coco.py', (1, ), (1, 2), True))
 CASCADE_LAUNCHES = sum(2 * 7 * len(b) + sum(s)
                        for _, b, s, _ in CASCADE_CONFIGS) + 2 * 4
 # the hrnet_regnet phase: Faster R-CNN on the widest HRNet (W40), FCOS on
@@ -543,7 +567,7 @@ REG_MASK = 'configs/regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_coco.py'
 REG_MDCONV = ('configs/regnet/'
               'mask_rcnn_regnetx-3.2GF_fpn_mdconv_c3-c5_1x_coco.py')
 REG_RETINA = 'configs/regnet/retinanet_regnetx-800MF_fpn_1x_coco.py'
-HR_SERVE_CALLS, HR_BF16_CALLS, HR_STEPS = (2, 5), (1, 3), (1, 3)
+HR_SERVE_CALLS, HR_BF16_CALLS, HR_STEPS = (1, 3), (1, 3), (1, 3)
 HR_FCOS_CALLS, HR_FCOS_STEPS = (1, 5), (1, 2)
 REG_SERVE_CALLS, REG_STEPS, REG_MDCONV_STEPS = (1, 3), (1, 3), (1, 2)
 REG_RETINA_CALLS = (1, 5)
@@ -826,6 +850,33 @@ LG_CALLS, LG_STEPS = (1, 2), (1, 1)
 # 2 launches a two-stage call, 1 a single-stage call, none a single-stage
 # step
 LG_LAUNCHES = 2 * sum(LG_CALLS) + sum(LG_CALLS)
+# the crpn_tood phase (budget 20 s): the Cascade RPN Faster R-CNN and the
+# Cascade RPN alone (R50-caffe) and TOOD R50 at 800x1344, each served at
+# batch 1 and 2 (warm-up, timed calls a batch), stepped at batch 2 (warm-up,
+# timed) and held against the CPU at 128x192, its assigners too
+CRPN_FASTER = 'configs/cascade_rpn/crpn_faster_rcnn_r50_caffe_fpn_1x_coco.py'
+CRPN_RPN = 'configs/cascade_rpn/crpn_r50_caffe_fpn_1x_coco.py'
+TOOD_CONFIG = 'configs/tood/tood_r50_fpn_1x_coco.py'
+CT_CALLS, CT_STEPS = (1, 2), (1, 1)
+# the Faster R-CNN: 2 launches a call, 1 a step (its proposals); the RPN
+# and TOOD: 1 a call, none a step
+CT_LAUNCHES = 2 * 2 * sum(CT_CALLS) + sum(CT_STEPS) + 2 * 2 * sum(CT_CALLS)
+# the yolo_trident phase (budget 30 s): YOLOv3 D53 served at 320, 416 and
+# 608 (its three configs' model), at batch 1 and 2 on seeded batches at the
+# config's square size, stepped at batch 2 at 608; TridentNet R50-caffe at
+# 800x1344 served at batch 1 and 2, stepped at batch 2 (its predicted peak,
+# PERF.md, well under 70 GB); each held against the CPU at 128x192; the
+# trident RPN's training NMS (K = 12000 on the 3B branch-folded images)
+# timed alone at B = 1, 3 and 6
+YOLO_CONFIGS = ((320, 'configs/yolo/yolov3_d53_320_273e_coco.py'),
+                (416, 'configs/yolo/yolov3_d53_mstrain-416_273e_coco.py'),
+                (608, 'configs/yolo/yolov3_d53_mstrain-608_273e_coco.py'))
+TRIDENT_CONFIG = 'configs/tridentnet/tridentnet_r50_caffe_1x_coco.py'
+YT_CALLS, YT_STEPS = (1, 2), (1, 1)
+TRIDENT_STEP_BATCH = 2
+# YOLOv3: 1 launch a call, none a step; TridentNet: 2 a call, 1 a step
+YT_LAUNCHES = (len(YOLO_CONFIGS) * 2 * sum(YT_CALLS) + 2 * 2 * sum(YT_CALLS)
+               + sum(YT_STEPS))
 # the depth the earlier phases run their 101-layer models at (widths kept):
 # the dcn and res2net teachers and students, the X101 / S101 / R101 models
 # of resnet_variants, vfnet, reppoints, fovea_ssd and ms_rcnn_resnest
@@ -1244,7 +1295,7 @@ def phase_train_reference(torch, cfg, base, gi=True,
         masks, gaps, heads = [], [], []
         with torch.no_grad():
             outs = model(batch['image'])
-            heads = [x.cpu() for part in outs for x in part]
+            heads = [x.cpu() for x in flat_tensors(outs)]
             if gi:
                 t_outs = model.teacher(batch['image'])
                 masks = model.bbox_head.gi_masks(outs, t_outs)
@@ -2645,24 +2696,32 @@ def rel_max_diff(np, got, want):
     return diff / max(float(np.abs(want[k]).max()) for k in want)
 
 
-def ddp_step(torch, np, warmup=1, timed=2):
-    """(a) The GI config's step at full width, float32, over 2 spawned
-    ranks x 2 images of testing.detection_batch at 800x1344, against one
+DDP_STEP = (1, 2)
+
+
+def ddp_step_inputs():
+    """(a)'s config and global batch: the GI config, 2 images a rank of
+    testing.detection_batch at 800x1344."""
+    from ld_tpu_torch import Config
+    from ld_tpu_torch.testing import detection_batch_np
+    return (Config.fromfile(os.path.join(ROOT, TRAIN_CONFIG)),
+            detection_batch_np(2 * DDP_RANKS, 800, 1344, seed=0))
+
+
+def ddp_step(torch, np, work, warmup=DDP_STEP[0], timed=DDP_STEP[1]):
+    """(a) The GI config's step at full width, float32, over the 2 ranks of
+    the phase's torchrun launch (`--ddp-step-worker`, the launch's first
+    job) x 2 images of testing.detection_batch at 800x1344, against one
     process at 4 images over the same images and weights: each loss term
     within rtol 1e-3, the GI masks identical, the parameters after the
     step within 1e-5 of their largest value, 5 launches a step a rank.
     Returns the ranks' launches and the figures."""
-    from ld_tpu_torch import Config
-    from ld_tpu_torch.testing import detection_batch_np, ld_step_rank, spawn
-    cfg = Config.fromfile(os.path.join(ROOT, TRAIN_CONFIG))
-    batch = detection_batch_np(2 * DDP_RANKS, 800, 1344, seed=0)
+    from ld_tpu_torch.testing import ld_step_rank
+    cfg, batch = ddp_step_inputs()
     steps = warmup + timed
-    tmp = os.path.join(ROOT, 'work_dirs', 'chip_smoke_ddp', 'spawn')
+    # each rank counted its launches from 0 (the worker's job)
+    ranks = ddp_read(torch, os.path.join(work, 'step'))
     torch.cuda.empty_cache()
-    # ---- the main path: each child counts its launches from 0 ----------
-    ranks = spawn(ld_step_rank, DDP_RANKS, ddp_backend(torch), tmp,
-                  device='cuda', args=(cfg, batch, steps, True))
-    # --------------------------------------------------------------------
     ref = ld_step_rank(0, 1, 'cuda', cfg, batch, steps)
     torch.cuda.empty_cache()
     for r, out in enumerate(ranks):
@@ -2736,7 +2795,9 @@ def ddp_worker(argv):
     rank's img_ids, losses and launches a step (the `make_train_step` of
     train_detector wrapped; rank 0 raises SIGTERM after its step PREEMPT
     unless it is 0) and the checkpoints its work dir holds at the end;
-    `--ddp-test-worker` runs tools/test.py's main. Each job writes
+    `--ddp-test-worker` runs tools/test.py's main; `--ddp-step-worker`
+    runs `testing.ld_step_rank` on the ddp phase's (a) inputs
+    (`ddp_step_inputs`) and writes its result. Each job writes
     OUT.rank<r>.pt."""
     import torch
     sys.path.insert(0, ROOT)
@@ -2766,6 +2827,12 @@ def ddp_worker(argv):
         nms_keep.launches = 0
         torch.cuda.reset_peak_memory_stats()
         record = []
+        if mode == '--ddp-step-worker':
+            from ld_tpu_torch.testing import ld_step_rank
+            torch.save(ld_step_rank(rank, DDP_RANKS, 'cuda',
+                                    *ddp_step_inputs(), sum(DDP_STEP),
+                                    True), f'{out}.rank{rank}.pt')
+            continue
         if mode == '--ddp-train-worker':
             instrument_steps(train_api, record,
                              preempt_after=preempt if rank == 0 and preempt
@@ -2790,7 +2857,9 @@ def ddp_read(torch, out):
 
 
 def ddp_cli(torch, np, work, steps_per_epoch=3, epochs=2):
-    """(b) tools/train.py --launcher pytorch over 2 ranks with the runtime
+    """One torchrun launch of 2 ranks: first (a)'s step job (`ddp_step`
+    reads it), then
+    (b) tools/train.py --launcher pytorch over 2 ranks with the runtime
     phase's config (12 + 8 synthetic images, 2 epochs, the eval hook):
     through, and preempted by a SIGTERM to rank 0 after step 3 and resumed
     (the same img_ids per rank, the same LR per step); rank 0 alone
@@ -2824,10 +2893,12 @@ def ddp_cli(torch, np, work, steps_per_epoch=3, epochs=2):
         return ['--ddp-train-worker', os.path.join(work, name), preempt,
                 '--', cfg_path, '--work-dir', wd, '--launcher', 'pytorch',
                 *opts, *extra]
-    # one launch (its ranks' start-up costs tens of seconds): the run
-    # through, the run preempted, its resumption, and (c) the test CLI on
-    # the first run's checkpoint, in turn in each rank's process
-    args = [*train_job('through', 0, os.path.join(work, 'through')),
+    # one launch (its ranks' start-up costs tens of seconds): (a)'s step,
+    # the run through, the run preempted, its resumption, and (c) the test
+    # CLI on the first run's checkpoint, in turn in each rank's process
+    args = ['--ddp-step-worker', os.path.join(work, 'step'), 0, '--',
+            *opts[1:], '--ddp-job',
+            *train_job('through', 0, os.path.join(work, 'through')),
             '--ddp-job',
             *train_job('preempted', 3, os.path.join(work, 'cut')),
             '--ddp-job',
@@ -2934,8 +3005,8 @@ def ddp_cli(torch, np, work, steps_per_epoch=3, epochs=2):
 def phase_ddp(torch, np, smi):
     """The ddp phase: (a) one step over 2 ranks against one process, (b)
     the training CLI over 2 ranks, preempted and resumed, (c) the test CLI
-    over 2 ranks, (d) their figures beside the card's name and power
-    limit. On one card the ranks share it over gloo: these figures are the
+    over 2 ranks, all in one torchrun launch (its ranks' start-up paid
+    once), (d) their figures beside the card's name and power limit. On one card the ranks share it over gloo: these figures are the
     collective path's cost there, not a scaling figure. Returns the
     kernel's launches over the ranks' main paths."""
     import shutil
@@ -2943,8 +3014,8 @@ def phase_ddp(torch, np, smi):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     t0 = time.perf_counter()
-    step_launches, step_row = ddp_step(torch, np)
     cli_launches, cli_row = ddp_cli(torch, np, work)
+    step_launches, step_row = ddp_step(torch, np, work)
     emit(dict(phase='ddp', config=TRAIN_CONFIG, nvidia_smi=smi,
               launches=step_launches + cli_launches, **step_row, **cli_row,
               seconds=time.perf_counter() - t0))
@@ -3921,6 +3992,9 @@ def roi_serve(torch, smi, model, config, phase, batches=(1, 2), warmup=2,
         return nms_keep(boxes, valid, thr)
     with torch.inference_mode():
         feats, rpn_outs = model(bench['image'])
+        if hasattr(model, 'test_branch'):     # a TridentNet's test branch
+            feats, rpn_outs = model.test_branch(feats, rpn_outs,
+                                                bench['image'].shape[0])
         outs = {}
         for name, keep in (('kernel', capture), ('plain', nms_keep_ref)):
             props = model.rpn_head.get_proposals(rpn_outs, bench['img_hw'],
@@ -3963,7 +4037,8 @@ def roi_reference(torch, np, base, config, phase, proposals=50,
     sampled roi there, the references' largest CPU cost), rtol 1e-3 a
     term; with test masks, the masks of
     the CPU's detections (of a copy with peaked scores, tested on its top
-    `proposals` proposals) within 5e-3. With
+    `proposals` proposals) within 5e-3. A TridentNet's losses are those of
+    its branch-tiled gts (`tile_batch`). With
     `own_sampler` the RoI head keeps its config's sampler type
     (`sampler_of_type`)."""
     import copy
@@ -3988,6 +4063,8 @@ def roi_reference(torch, np, base, config, phase, proposals=50,
         batch = {k: v.to(device) for k, v in cpu_batch.items()}
         gen = torch.Generator(device=device).manual_seed(0)
         feats, rpn_outs = model(batch['image'])
+        if hasattr(model, 'tile_batch'):      # a TridentNet's branches
+            batch = model.tile_batch(batch)
         sizes = [tuple(c.shape[-2:]) for c in rpn_outs[0]]
         losses = model.rpn_head.loss(rpn_outs, batch, sizes, gen)
         if props is None:
@@ -4225,7 +4302,10 @@ def phase_cascade(torch, np, smi):
         check(('loss_semantic_seg' in losses) == ('htc' in config),
               f'{config}: loss_semantic_seg')
         if reference:
-            roi_reference(torch, np, base, config, 'cascade_reference')
+            # the mask towers run on every sampled roi of three stages:
+            # the CPU's top 20 proposals
+            roi_reference(torch, np, base, config, 'cascade_reference',
+                          proposals=20)
         if model.roi_head.with_test_masks:
             launches += segm_eval(torch, np, smi, model, work, config,
                                   'cascade_eval', data_cfg)
@@ -6030,8 +6110,11 @@ def neck_models(torch, np, smi, models, phase_name, budget,
         check(key is None or row['loss_first'].get(key, 0) > 0,
               f'{config}: no {key} in {sorted(row["loss_first"])}')
         if two_stage:
+            # an HTC's mask towers run on every sampled roi of three
+            # stages: the CPU's top 20 proposals
             roi_reference(torch, np, base, config, f'{tag}_reference',
-                          own_sampler=own_sampler)
+                          own_sampler=own_sampler,
+                          proposals=20 if 'htc' in config else 50)
         else:
             dense_reference(torch, np, cfg, base, config,
                             f'{tag}_reference',
@@ -6226,7 +6309,7 @@ def deform_roi_pool_bound(torch, model, bench):
 def rpn_candidates(torch, model, cfg_rpn, batch_size=2, hw=(800, 1344)):
     """The (boxes, valid, thr) a two-stage `model`'s RPN hands nms_keep
     on a seeded batch at `hw` under `cfg_rpn` (its test or its
-    training-proposal config)."""
+    training-proposal config); a TridentNet's over its 3B images."""
     from ld_tpu_torch.ops.nms_cuda import nms_keep
     captured = []
 
@@ -6235,10 +6318,11 @@ def rpn_candidates(torch, model, cfg_rpn, batch_size=2, hw=(800, 1344)):
         return nms_keep(boxes, valid, thr)
     image = torch.randn(batch_size, 3, *hw, device='cuda',
                         generator=torch.Generator('cuda').manual_seed(1))
-    img_hw = torch.tensor([hw] * batch_size, dtype=torch.float32,
-                          device='cuda')
     with torch.inference_mode():
         _, rpn_outs = model(image)
+        # a TridentNet's RPN sees its 3B branch-folded images
+        img_hw = torch.tensor([hw] * rpn_outs[0][0].shape[0],
+                              dtype=torch.float32, device='cuda')
         model.rpn_head.get_proposals(rpn_outs, img_hw, cfg=cfg_rpn,
                                      keep_fn=capture)
     return captured[0]
@@ -6443,12 +6527,296 @@ def phase_legacy_ghm(torch, np, smi):
     return launches
 
 
+def serve_batches(torch, smi, model, config, phase, hw=(800, 1344),
+                  batches=(1, 2), warmup=1, timed=2):
+    """`forward_test` of a single-stage or RPN detector on the card on
+    seeded batches at `hw`: `warmup` + `timed` calls at each batch size,
+    1 launch a call, finite (B, max_per_img, 5) outputs (detections, or an
+    RPN's proposals) with some valid an image; at the largest batch the
+    decode bit-identical with the plain keep mask. Emits the row; returns
+    the launch count."""
+    from ld_tpu_torch.ops.nms_cuda import nms_keep, nms_keep_ref
+    rpn = not hasattr(model, 'bbox_head')
+    gen = torch.Generator('cuda').manual_seed(0)
+    benches = {b: dict(image=torch.randn(b, 3, *hw, device='cuda',
+                                         generator=gen),
+                       img_hw=torch.tensor([[float(x) for x in hw]] * b,
+                                           device='cuda'))
+               for b in batches}
+    k = model.test_cfg['rpn']['max_per_img'] if rpn else 100
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    call_ms = {}
+    with torch.inference_mode():
+        # ---- the main path: counts from 0, read right after --------------
+        nms_keep.launches = 0
+        for b, bench in benches.items():
+            for _ in range(warmup):
+                model.forward_test(bench)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(timed):
+                t = time.perf_counter()
+                dets, _, valid = model.forward_test(bench)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            call_ms[b] = times
+            check(tuple(dets.shape) == (b, k, 5) and
+                  bool(torch.isfinite(dets).all()) and
+                  bool(valid.any(1).all()),
+                  f'{config} forward_test at batch {b}, {hw}')
+        launches = nms_keep.launches
+        # ------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        calls = len(batches) * (warmup + timed)
+        check(launches == calls, f'{config}: {launches} launches for '
+              f'{calls} calls')
+        bench = benches[max(batches)]
+        if rpn:
+            outs = model(bench['image'])[1]
+            got, want = (model.rpn_head.get_proposals(
+                outs, bench['img_hw'], model.test_cfg['rpn'], keep_fn=keep)
+                for keep in (nms_keep, nms_keep_ref))
+        else:
+            outs = model(bench['image'])
+            got, want = (model.bbox_head.get_bboxes(outs, bench['img_hw'],
+                                                    keep_fn=keep)
+                         for keep in (nms_keep, nms_keep_ref))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f'{config}: the decode with the kernel differs from the '
+              'plain keep mask')
+    row = dict(phase=phase, config=config, nvidia_smi=smi, input=list(hw),
+               detector=type(model).__name__, max_memory_allocated_bytes=peak,
+               nms_keep_launches=launches, valid=int(got[-1].sum()),
+               plain_keep_identical=True)
+    for b, times in call_ms.items():
+        row[f'forward_test_ms_b{b}'] = times
+        row[f'forward_test_ms_b{b}_mean'] = sum(times) / len(times)
+    emit(row)
+    return launches
+
+
+def assigner_reference(torch, base, config, phase, hw=(128, 192)):
+    """The assigners on the CPU's outputs at 1x3x`hw`, on the card against
+    the CPU: a Cascade RPN's `RegionAssigner` (its anchors) and stage-2
+    `MaxIoUAssigner` (the refined anchors), TOOD's `TaskAlignedAssigner`
+    (its probabilities and decoded boxes); every field equal but the
+    overlaps and TOOD's alignment metric, within 1e-6 of their largest."""
+    import copy
+    from ld_tpu_torch.models.heads.gfl_head import flatten_levels
+    from ld_tpu_torch.testing import detection_batch
+    batch = detection_batch(1, *hw, seed=0, device='cpu')
+    cpu = copy.deepcopy(base).eval()
+    with torch.inference_mode():
+        outs = cpu(batch['image'])
+    crpn = hasattr(cpu, 'rpn_head')
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        b = {k: v.to(device) for k, v in batch.items()}
+        gts = (b['gt_bboxes'], b['gt_labels'], b['gt_valid'])
+        with torch.inference_mode():
+            if crpn:
+                head = cpu.rpn_head
+                parts = [[x.to(device) for x in part] for part in outs[1]]
+                sizes = [tuple(x.shape[-2:]) for x in parts[0]]
+                mlvl = head.anchor_generator.grid_anchors(sizes, device)
+                num = [a.shape[0] for a in mlvl]
+                res = [head.region_assigner.assign(
+                    torch.cat(mlvl), num, *gts, num_classes=1,
+                    anchor_scale=head.anchor_scale, strides=head.strides),
+                    head.iou_assigner.assign(flatten_levels(parts[1], 4),
+                                             num, *gts, num_classes=1)]
+                extra = None
+            else:
+                head = cpu.bbox_head
+                cls, box = ([x.to(device) for x in part] for part in outs)
+                sizes = [tuple(x.shape[-2:]) for x in cls]
+                anchors, _, strides, _ = head.level_geometry(sizes, device)
+                valid = torch.stack([torch.cat(
+                    head.anchor_generator.valid_flags(sizes, s, device))
+                    for s in b['img_hw']])
+                r, extra = head.assigner.assign(
+                    flatten_levels(cls),
+                    flatten_levels(box) * strides[None, :, None], anchors,
+                    *gts, valid, num_classes=head.num_classes)
+                res = [r]
+        runs[device] = ([[x.cpu() for x in r] for r in res],
+                        None if extra is None else extra.cpu())
+    (c_res, c_extra), (g_res, g_extra) = runs['cpu'], runs['cuda']
+    positives = [int(r[3].sum()) for r in c_res]
+    overlap_diff = max(float((g[1] - c[1]).abs().max())
+                       for c, g in zip(c_res, g_res))
+    same = all(torch.equal(c[i], g[i]) for c, g in zip(c_res, g_res)
+               for i in (0, 2, 3))
+    row = dict(phase=phase, config=config, input='1x3x{}x{}'.format(*hw),
+               assigners=['RegionAssigner', 'MaxIoUAssigner'] if crpn
+               else ['TaskAlignedAssigner'], positives=positives,
+               fields_equal=same, overlaps_max_abs_diff=overlap_diff,
+               tol=1e-6)
+    if c_extra is not None:
+        row['metric_max_diff_of_largest'] = float(
+            (g_extra - c_extra).abs().max() / c_extra.abs().max())
+    emit(row)
+    check(all(positives) and same and overlap_diff <= 1e-6 and
+          row.get('metric_max_diff_of_largest', 0.0) <= 1e-6,
+          f'{config}: assignment, card vs CPU {row}')
+
+
+def phase_crpn_tood(torch, np, smi):
+    """The Cascade RPN Faster R-CNN (`roi_serve`, fc_cls peaked: 2 launches
+    a call; the adaptive convs' share of a call's device time and their
+    gather bound, `deform_conv_share`), the Cascade RPN alone and TOOD R50
+    (`serve_batches`: 1 launch a call; TOOD's cls biases at 0 and its
+    offset branch seeded, so that NMS sees candidates and the boxes move) at
+    800x1344, float32, seed 0: each served at batch 1 and 2 and stepped at
+    batch 2 (the Faster R-CNN 1 launch a step), then held against the CPU
+    at 1x3x128x192 (`roi_reference` / `dense_reference`: outputs, every
+    loss term, the decode; `assigner_reference`: RegionAssigner,
+    MaxIoUAssigner, TaskAlignedAssigner). Budget 20 s. Returns the
+    launches over the main paths."""
+    import copy
+    t_phase = time.perf_counter()
+    launches = 0
+    for config in (CRPN_FASTER, CRPN_RPN, TOOD_CONFIG):
+        tag = os.path.splitext(os.path.basename(config))[0]
+        cfg, base = build_plain(torch, config)
+        faster = hasattr(base, 'roi_head')
+        if config == TOOD_CONFIG:
+            head = base.bbox_head
+            with torch.no_grad():
+                head.tood_cls.bias.zero_()
+                head.cls_prob_module[2].bias.zero_()
+                head.reg_offset_module[2].weight.normal_(
+                    0.0, 0.01, generator=torch.Generator().manual_seed(3))
+        model = copy.deepcopy(base)
+        if faster:
+            peak_scores(torch, model)
+        model = model.to('cuda').eval()
+        if faster:
+            n, _, _ = roi_serve(torch, smi, model, config, f'{tag}_serve',
+                                warmup=CT_CALLS[0], timed=CT_CALLS[1])
+            bench = dict(image=torch.randn(
+                1, 3, 800, 1344, device='cuda',
+                generator=torch.Generator('cuda').manual_seed(0)),
+                img_hw=torch.tensor([[800.0, 1344.0]], device='cuda'))
+            emit(dict(phase=f'{tag}_adaptive_conv', config=config,
+                      nvidia_smi=smi, **deform_conv_share(
+                          torch, model, bench, name='crpn_adaptive_conv')))
+        else:
+            n = serve_batches(torch, smi, model, config, f'{tag}_serve',
+                              warmup=CT_CALLS[0], timed=CT_CALLS[1])
+        launches += n
+        del model
+        torch.cuda.empty_cache()
+        n, row = detector_steps(torch, smi, cfg, base, *CT_STEPS,
+                                per_step=int(faster), phase=f'{tag}_train')
+        launches += n
+        if faster:
+            roi_reference(torch, np, base, config, f'{tag}_reference')
+        else:
+            dense_reference(torch, np, cfg, base, config, f'{tag}_reference')
+        if config != CRPN_FASTER:
+            assigner_reference(torch, base, config, f'{tag}_assigners')
+        del base
+        torch.cuda.empty_cache()
+    check(launches == CT_LAUNCHES, f'crpn_tood phase: {launches} nms_keep '
+          f'launches, expected {CT_LAUNCHES}')
+    emit(dict(phase='crpn_tood_done', seconds=time.perf_counter() - t_phase,
+              budget_s=20, nms_keep_launches=launches))
+    return launches
+
+
+def trident_branch_reference(torch, np, base, hw=(128, 192)):
+    """TridentNet's three branches (the backbone's 3B output) at 1x3x`hw`
+    on the card against the CPU, each within 5e-5 of its largest value."""
+    import copy
+    x = torch.from_numpy(np.random.RandomState(1).randn(1, 3, *hw)
+                         .astype(np.float32))
+    with torch.inference_mode():
+        c = copy.deepcopy(base.backbone).eval()(x)[0]
+        g = copy.deepcopy(base.backbone).to('cuda').eval()(x.cuda())[0]
+        g = g.cpu()
+    diffs = [float((g[i] - c[i]).abs().max() / c[i].abs().max())
+             for i in range(c.shape[0])]
+    spread = [float((c[i] - c[0]).abs().max()) for i in range(1, 3)]
+    emit(dict(phase='tridentnet_branch_reference', input='1x3x{}x{}'.format(
+        *hw), branches=c.shape[0], branch_max_diff_of_largest=diffs,
+        tol_of_largest=5e-5, branch_spread_cpu=spread))
+    check(c.shape[0] == 3 and max(diffs) <= 5e-5 and min(spread) > 0,
+          f'TridentNet branches, card vs CPU {diffs}, spread {spread}')
+
+
+def phase_yolo_trident(torch, np, smi):
+    """YOLOv3 D53 (float32, seed 0; the three configs' one model) served at
+    320, 416 and 608 at batch 1 and 2 on seeded batches at those sizes
+    (`serve_batches`: 1 launch a call), stepped at batch 2 at 608 (no
+    launch), held against the CPU at 1x3x128x192 (`dense_reference`:
+    outputs, every loss term, the decode); TridentNet R50-caffe at
+    800x1344 (`roi_serve`, fc_cls peaked: 2 launches a call), stepped at
+    batch `TRIDENT_STEP_BATCH` (1 launch a step, on the 3B branch-folded
+    images), held against the CPU at 1x3x128x192 (`roi_reference` on its
+    branch-tiled gts, each branch's map, `trident_branch_reference`); then
+    nms_keep alone on its training RPN's K = 12000 candidates at B = 1, 3
+    and 6. Budget 30 s. Returns the launches over the main paths and the
+    kernel rows by (K, B)."""
+    import copy
+    from ld_tpu_torch import Config
+    t_phase = time.perf_counter()
+    launches = 0
+    models = {size: Config.fromfile(os.path.join(ROOT, c)).model
+              for size, c in YOLO_CONFIGS}
+    check(all(m == models[608] for m in models.values()),
+          'the YOLOv3 configs build different models')
+    cfg, base = build_plain(torch, YOLO_CONFIGS[-1][1])
+    model = copy.deepcopy(base).to('cuda').eval()
+    for size, config in YOLO_CONFIGS:
+        launches += serve_batches(torch, smi, model, config,
+                                  f'yolov3_{size}_serve', (size, size),
+                                  warmup=YT_CALLS[0], timed=YT_CALLS[1])
+    del model
+    torch.cuda.empty_cache()
+    n, _ = detector_steps(torch, smi, cfg, base, *YT_STEPS, per_step=0,
+                          phase='yolov3_608_train', pad=(608, 608))
+    launches += n
+    dense_reference(torch, np, cfg, base, YOLO_CONFIGS[-1][1],
+                    'yolov3_reference')
+    del base
+    cfg, base = build_plain(torch, TRIDENT_CONFIG)
+    model = peak_scores(torch, copy.deepcopy(base)).to('cuda').eval()
+    n, _, _ = roi_serve(torch, smi, model, TRIDENT_CONFIG, 'tridentnet_serve',
+                        warmup=YT_CALLS[0], timed=YT_CALLS[1])
+    launches += n
+    train = rpn_candidates(torch, model, model.train_cfg.get('rpn_proposal'))
+    check(tuple(train[0].shape) == (6, 12000, 4),
+          f'TridentNet training RPN NMS at {tuple(train[0].shape)}')
+    rows = kernel_rows(torch, smi, [
+        (train[0][:b].contiguous(), train[1][:b].contiguous(), train[2])
+        for b in (1, 3, 6)], ('trident_rpn_train', ) * 3)
+    del model, train
+    torch.cuda.empty_cache()
+    n, _ = detector_steps(torch, smi, cfg, base, *YT_STEPS, per_step=1,
+                          phase='tridentnet_train',
+                          batch_size=TRIDENT_STEP_BATCH)
+    launches += n
+    # res5 runs on every roi of the three branches: the CPU's top 10
+    roi_reference(torch, np, base, TRIDENT_CONFIG, 'tridentnet_reference',
+                  proposals=10)
+    trident_branch_reference(torch, np, base)
+    del base
+    torch.cuda.empty_cache()
+    check(launches == YT_LAUNCHES, f'yolo_trident phase: {launches} '
+          f'nms_keep launches, expected {YT_LAUNCHES}')
+    emit(dict(phase='yolo_trident_done', seconds=time.perf_counter() -
+              t_phase, budget_s=30, nms_keep_launches=launches))
+    return launches, {(r['K'], r['B']): r for r in rows}
+
+
 def run_phases(names):
     """`--phases NAME ...`: only the named phases (dcn, res2net, ddp,
     hrnet_regnet, resnet_variants, data_host, vfnet, guided_anchoring,
     reppoints, fovea_ssd, ms_rcnn_resnest, paa_fsaf_freeanchor, sabl,
     detectors_necks, grid_point_rend, libra_pisa, groie_mining,
-    roi_variants, legacy_ghm, cascade),
+    roi_variants, legacy_ghm, crpn_tood, yolo_trident, cascade),
     each with its seconds and
     launches, on the card with TF32 off and the kernel built; no result
     line."""
@@ -6491,6 +6859,9 @@ def run_phases(names):
                   groie_mining=lambda: phase_groie_mining(torch, np, smi),
                   roi_variants=lambda: phase_roi_variants(torch, np, smi)[0],
                   legacy_ghm=lambda: phase_legacy_ghm(torch, np, smi),
+                  crpn_tood=lambda: phase_crpn_tood(torch, np, smi),
+                  yolo_trident=lambda: phase_yolo_trident(torch, np,
+                                                          smi)[0],
                   cascade=lambda: phase_cascade(torch, np, smi)[0])
     for name in names:
         t = time.perf_counter()
@@ -6610,6 +6981,10 @@ def main():
     var_launches, c4_rows = phase_roi_variants(torch, np, smi)
     torch.cuda.empty_cache()
     lg_launches = phase_legacy_ghm(torch, np, smi)
+    torch.cuda.empty_cache()
+    ct_launches = phase_crpn_tood(torch, np, smi)
+    torch.cuda.empty_cache()
+    yt_launches, trident_rows = phase_yolo_trident(torch, np, smi)
     emit(dict(phase='script_done', seconds=time.perf_counter() - t_script))
 
     print(smi.splitlines()[0], flush=True)
@@ -6628,7 +7003,8 @@ def main():
                   fovea_ssd_launches + ms_resnest_launches +
                   pff_launches + sabl_launches + dn_launches +
                   gp_launches + lp_launches + gm_launches +
-                  var_launches + lg_launches),
+                  var_launches + lg_launches + ct_launches +
+                  yt_launches),
         launches_serve=launches, launches_train=train_launches,
         launches_runtime=runtime_launches, launches_voc=voc_launches,
         launches_gfl_family=family_launches, launches_bf16=bf16_launches,
@@ -6657,6 +7033,8 @@ def main():
         launches_groie_mining=gm_launches,
         launches_roi_variants=var_launches,
         launches_legacy_ghm=lg_launches,
+        launches_crpn_tood=ct_launches,
+        launches_yolo_trident=yt_launches,
         max_abs_err=max_err, ms=main_case['ms'],
         plain_ms=main_case['plain_ms'], bound_ms=main_case['bound_ms'],
         bound_by=main_case['bound_by'], library_ms=None,
@@ -6682,6 +7060,10 @@ def main():
                        'bound_ms')},
         **{f'{key}_k{k}{"" if b == 1 else "_b2"}': row[key]
            for (k, b), row in c4_rows.items()
+           for key in ('ms', 'host_ms', 'device_ms', 'plain_ms', 'bound_ms',
+                       'bound_by')},
+        **{f'{key}_trident_k{k}_b{b}': row[key]
+           for (k, b), row in trident_rows.items()
            for key in ('ms', 'host_ms', 'device_ms', 'plain_ms', 'bound_ms',
                        'bound_by')})]))
     emit(dict(ok=True, device=dict(platform='gpu',

@@ -934,7 +934,9 @@ class InstaBoost:
 @PIPELINES.register_module()
 class FusedPreprocess:
     """Resize + BGR->RGB + Normalize + Pad(size_divisor) in one native pass
-    over the output (`csrc/host/image_prep.cpp`); takes a uint8 image.
+    over the output (`csrc/host/image_prep.cpp`) for a uint8 image; any
+    other image goes through the unfused Resize, Normalize and Pad, as in
+    the JAX package (`ld_tpu/data/transforms.py:556-567`).
     Scale sampling (single, value, range and ratio_range modes) is
     Resize's. `keep_ratio=False` resizes to the scale's (w, h) exactly, as
     Resize does; the JAX package's FusedPreprocess has no such argument,
@@ -955,15 +957,24 @@ class FusedPreprocess:
                                      keep_ratio=keep_ratio,
                                      ratio_range=ratio_range,
                                      multiscale_mode=multiscale_mode)
+        self._fallback = [self._scale_sampler, Normalize(mean, std, to_rgb),
+                          Pad(size_divisor=size_divisor)]
 
     def __call__(self, results: Dict) -> Dict:
         import ctypes
 
         from ld_tpu_torch import native
         img = results['img']
-        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-            raise TypeError('FusedPreprocess takes an (H, W, 3) uint8 image, '
-                            f'got {img.dtype} {img.shape}')
+        if img.dtype != np.uint8:
+            # a float image (after PhotoMetricDistortion, the YOLOv3 and
+            # WIDER-Face pipelines) takes the unfused Resize, Normalize and
+            # Pad, as the JAX FusedPreprocess falls back to them
+            for t in self._fallback:
+                results = t(results)
+            return results
+        if img.ndim != 3 or img.shape[2] != 3:
+            raise TypeError('FusedPreprocess takes an (H, W, 3) image, got '
+                            f'{img.dtype} {img.shape}')
         lib = native.load('image_prep')
         h, w = img.shape[:2]
         scale = results.get('scale') or self._scale_sampler._sample_scale()

@@ -498,3 +498,120 @@ class DetectoRS_ResNet(ResNet):
                  stage_with_sac: Sequence[bool] = (False, True, True, True),
                  **kwargs):
         super().__init__(depth, stage_with_sac=stage_with_sac, **kwargs)
+
+
+class TridentConv(nn.Module):
+    """One 3x3 `weight` run at each branch's dilation (padding the same) on
+    that branch's chunk of the batch, in float32, the output cast back
+    (port of the shared `conv2_kernel` of `ld_tpu/models/backbones/
+    resnet.py:404-447`)."""
+
+    def __init__(self, in_channels, out_channels, stride=1,
+                 dilations=(1, 2, 3)):
+        super().__init__()
+        self.stride, self.dilations = stride, tuple(dilations)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               3, 3))
+
+    def init_weights(self, generator: torch.Generator):
+        """The JAX kernel's he-normal init."""
+        he_normal_(self.weight, generator)
+
+    def forward(self, x):
+        w = self.weight.float()
+        outs = [F.conv2d(c.float(), w, None, self.stride, d, d)
+                for c, d in zip(x.chunk(len(self.dilations), 0),
+                                self.dilations)]
+        return torch.cat(outs, 0).to(x.dtype)
+
+
+class TridentBottleneck(nn.Module):
+    """A bottleneck over the branch-folded batch (3B, C, H, W): 1x1, the
+    shared-weight `TridentConv` (the stride on it), 1x1 to 4x, each with its
+    BN, the shortcut, ReLU; mmdet's names (`conv2.weight` the shared 3x3)."""
+
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, dilations=(1, 2, 3),
+                 downsample=None, norm_cfg=None, dtype=None):
+        super().__init__()
+        self.norm1_name, self.norm2_name, self.norm3_name = (
+            norm_name(norm_cfg, i) for i in (1, 2, 3))
+        self.conv1 = make_conv(None, inplanes, planes, 1, dtype=dtype)
+        self.add_module(self.norm1_name, make_norm(norm_cfg, planes, dtype))
+        self.conv2 = TridentConv(planes, planes, stride, dilations)
+        self.add_module(self.norm2_name, make_norm(norm_cfg, planes, dtype))
+        self.conv3 = make_conv(None, planes, planes * 4, 1, dtype=dtype)
+        self.add_module(self.norm3_name,
+                        make_norm(norm_cfg, planes * 4, dtype))
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = downsample
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = self.relu(getattr(self, self.norm1_name)(self.conv1(x)))
+        out = self.relu(getattr(self, self.norm2_name)(self.conv2(out)))
+        out = getattr(self, self.norm3_name)(self.conv3(out))
+        return self.relu(out + identity)
+
+
+@BACKBONES.register_module()
+class TridentResNet(ResNet):
+    """The ResNet whose last built stage runs `num_branch` weight-shared
+    branches at `trident_dilations`, the branches folded into the batch
+    (B -> 3B) as the stage is entered (port of `ld_tpu/models/backbones/
+    resnet.py:449-505`). The C4 configs build three stages, so the trident
+    stage is res4 (`layer3`) and the output is (3B, 1024, H/16, W/16),
+    branch-major. As in the JAX backbone (ROADMAP.md caveat 90) every block
+    is 'pytorch'-style, whatever `style` the config gives, and the stem is
+    the plain 7x7 conv; `test_branch_idx` is read by the detector."""
+
+    def __init__(self, depth: int, num_branch: int = 3,
+                 test_branch_idx: int = 1,
+                 trident_dilations: Sequence[int] = (1, 2, 3),
+                 style: str = 'pytorch', **kwargs):
+        super().__init__(depth, style='pytorch', **kwargs)
+        del style
+        self.num_branch = num_branch
+        self.test_branch_idx = test_branch_idx
+        last = len(self.res_layers) - 1
+        expansion = ARCH_SETTINGS[depth][0].expansion
+        inplanes = 64 * 2 ** (last - 1) * expansion if last else 64
+        planes = 64 * 2 ** last
+        stride = kwargs.get('strides', (1, 2, 2, 2))[last]
+        norm_cfg, dtype = kwargs.get('norm_cfg'), kwargs.get('dtype')
+        blocks = []
+        for b in range(len(getattr(self, self.res_layers[-1]))):
+            s = stride if b == 0 else 1
+            downsample = None
+            if b == 0 and (s != 1 or inplanes != planes * 4):
+                downsample = make_shortcut(inplanes, planes * 4, s, False,
+                                           dtype, None, norm_cfg)
+            blocks.append(TridentBottleneck(inplanes, planes, s,
+                                            trident_dilations, downsample,
+                                            norm_cfg, dtype))
+            inplanes = planes * 4
+        self.add_module(self.res_layers[-1], nn.Sequential(*blocks))
+        self._freeze_stages()
+        if (norm_cfg or {}).get('requires_grad', True) is False:
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.requires_grad_(False)
+
+    def init_weights(self, generator: torch.Generator):
+        super().init_weights(generator)
+        for m in self.modules():
+            if isinstance(m, TridentConv):
+                m.init_weights(generator)
+
+    def forward(self, x):
+        x = self.relu(self.norm1(self.conv1(x)))
+        x = self.maxpool(x)
+        outs = []
+        for i, name in enumerate(self.res_layers):
+            if i == len(self.res_layers) - 1:
+                x = x.repeat(self.num_branch, 1, 1, 1)
+            x = getattr(self, name)(x)
+            if i in self.out_indices:
+                outs.append(x)
+        return tuple(outs)

@@ -70,6 +70,6 @@ class SingleStageDetector(nn.Module):
 # resolve
 for _name in ('GFL', 'ATSS', 'FCOS', 'RetinaNet', 'VFNet',
               'RepPointsDetector', 'SSD', 'FoveaBox', 'PAA', 'FSAF',
-              'NASFCOS'):
+              'NASFCOS', 'TOOD', 'YOLOV3'):
     DETECTORS.register_module(name=_name, module=type(
         _name, (SingleStageDetector, ), {}))

@@ -30,7 +30,15 @@ detections' (B, 100, 28, 28) masks.
 (`ld_tpu/models/detectors/two_stage.py:59-68`), a `StandardRoIHead` whose
 `bbox_head` is a `SABLHead` is routed to `SABLRoIHead`, and a
 `CascadeRoIHead` whose stages are `SABLHead`s to `CascadeSABLRoIHead`.
-`TridentFasterRCNN` waits for TridentNet (ROADMAP.md Queue A item 7).
+
+  * `TridentFasterRCNN` (`ld_tpu/models/detectors/two_stage.py:319-354`):
+    the `TridentResNet` folds its branches into the batch (B -> 3B), so in
+    training the gts and image sizes are tiled a branch, and the RPN and the
+    RoI head see 3B images; at test every feature map and RPN output is
+    sliced to the `test_branch_idx` third (ROADMAP.md caveat 91).
+  * A `CascadeRPNHead` (`rpn_head`) runs through the same calls: its
+    forward builds its anchors, its `loss` and `get_proposals` are the JAX
+    `cascade_rpn_loss` / `cascade_rpn_proposals` (caveat 93).
 """
 from __future__ import annotations
 
@@ -42,8 +50,6 @@ from torch import nn
 from ld_tpu_torch.models.necks.seq import build_neck
 from ld_tpu_torch.utils.registry import BACKBONES, DETECTORS, HEADS
 from .kd_one_stage import FrozenTeacher
-
-DETECTORS.not_ported['TridentFasterRCNN'] = 'ROADMAP.md Queue A item 7'
 
 
 def reject_mask_head(model, what: str) -> None:
@@ -232,3 +238,39 @@ class KnowledgeDistillationTwoStageDetector(FrozenTeacher, TwoStageDetector):
         sizes = [tuple(c.shape[-2:]) for c in rpn_outs[0]]
         return dict(self.rpn_head.loss_with_teacher(
             rpn_outs, batch, sizes, t_rpn_outs, generator))
+
+
+@DETECTORS.register_module()
+class TridentFasterRCNN(TwoStageDetector):
+
+    def tile_batch(self, batch):
+        """`batch` with its gts and image sizes tiled a branch,
+        branch-major as the backbone tiles the images."""
+        nb = self.backbone.num_branch
+        tiled = dict(batch)
+        for k in ('gt_bboxes', 'gt_labels', 'gt_valid', 'img_hw',
+                  'gt_masks'):
+            if k in tiled:
+                v = torch.as_tensor(tiled[k])
+                tiled[k] = v.repeat(nb, *(1, ) * (v.dim() - 1))
+        return tiled
+
+    def test_branch(self, feats, rpn_outs, b: int):
+        """The `test_branch_idx` third of the features and RPN outputs of
+        `b` images."""
+        idx = self.backbone.test_branch_idx
+        sl = slice(idx * b, (idx + 1) * b)
+        return [f[sl] for f in feats], tuple([x[sl] for x in part]
+                                             for part in rpn_outs)
+
+    def forward_train(self, batch, generator=None):
+        return super().forward_train(self.tile_batch(batch), generator)
+
+    def forward_test(self, batch, rescale=False):
+        """The `test_branch_idx` branch's detections."""
+        feats, rpn_outs = self.test_branch(*self(batch['image']),
+                                           batch['image'].shape[0])
+        proposals, valid = self._proposals(rpn_outs, batch['img_hw'])
+        return self.roi_head.simple_test(
+            feats, proposals, valid, batch['img_hw'],
+            batch.get('scale_factor'), rescale=rescale)

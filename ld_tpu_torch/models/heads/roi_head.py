@@ -724,3 +724,22 @@ class StandardRoIHead(nn.Module):
 
     def predict_masks(self, roi_feats, labels) -> torch.Tensor:
         return self.mask_head.predict(roi_feats, labels)
+
+
+@HEADS.register_module()
+class TridentRoIHead(StandardRoIHead):
+    """The `StandardRoIHead` of TridentNet: as in JAX it only carries the
+    branch knobs, since `TridentFasterRCNN` folds and slices the branches
+    (`ld_tpu/models/heads/roi_head.py:790-800`). mmdet's
+    `test_branch_idx=-1`, a merge of the three branches' detections, would
+    slice nothing in JAX: it raises here (ROADMAP.md caveat 92)."""
+
+    def __init__(self, num_branch=3, test_branch_idx=1, **kwargs):
+        if test_branch_idx == -1:
+            raise NotImplementedError(
+                'TridentRoIHead test_branch_idx=-1 (the merge of every '
+                'branch) is not in the JAX package, which would slice no '
+                'branch (ROADMAP.md caveat 92)')
+        super().__init__(**kwargs)
+        self.num_branch = num_branch
+        self.test_branch_idx = test_branch_idx

@@ -11,7 +11,8 @@ from .kd_loss import (IMLoss, KnowledgeDistillationKLDivLoss, im_loss,
                       knowledge_distillation_kl_div_loss)
 from .varifocal_loss import VarifocalLoss
 from .misc_losses import (GHMC, GHMR, BalancedL1Loss, BoundedIoULoss,
-                          balanced_l1_loss, bounded_iou_loss)
+                          MSELoss, balanced_l1_loss, bounded_iou_loss,
+                          mse_loss)
 
 __all__ = [
     'reduce_loss', 'weight_reduce_loss', 'weighted_loss', 'QualityFocalLoss',
@@ -22,11 +23,11 @@ __all__ = [
     'sigmoid_focal_loss', 'CrossEntropyLoss', 'cross_entropy',
     'binary_cross_entropy', 'L1Loss', 'SmoothL1Loss', 'l1_loss',
     'smooth_l1_loss', 'VarifocalLoss', 'BalancedL1Loss', 'BoundedIoULoss',
-    'balanced_l1_loss', 'bounded_iou_loss', 'GHMC', 'GHMR'
+    'balanced_l1_loss', 'bounded_iou_loss', 'GHMC', 'GHMR', 'MSELoss',
+    'mse_loss'
 ]
 
 # the JAX package's other losses, not ported yet
 LOSSES.not_ported.update({name: 'ROADMAP.md Queue A item 9' for name in (
     'AssociativeEmbeddingLoss', 'GaussianFocalLoss')})
-LOSSES.not_ported['MSELoss'] = 'ROADMAP.md Queue A item 7'
 LOSSES.not_ported['DiceLoss'] = 'ROADMAP.md Queue A item 8'

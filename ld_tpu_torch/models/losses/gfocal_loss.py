@@ -89,10 +89,10 @@ class QualityFocalLoss(nn.Module):
     def __init__(self, use_sigmoid=True, beta=2.0, reduction='mean',
                  loss_weight=1.0, activated=False):
         super().__init__()
-        if activated:
-            raise NotImplementedError('QualityFocalLoss activated=True (the '
-                                      'TOOD head) is not ported to '
-                                      'ld_tpu_torch yet (see ROADMAP.md)')
+        # `activated` (TOOD's probabilities) is stored and not read, as in
+        # the JAX loss: the TOOD head writes its activated QFL inline
+        # (ROADMAP.md caveat 83)
+        self.activated = activated
         self.use_sigmoid = use_sigmoid
         self.beta = beta
         self.reduction = reduction

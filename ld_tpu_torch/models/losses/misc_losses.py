@@ -1,6 +1,8 @@
 """The JAX package's misc losses; port of `BalancedL1Loss`,
-`BoundedIoULoss`, `GHMC` and `GHMR` (`ld_tpu/models/losses/misc_losses.py:
-19-45, 121-230`). Its corner and Gaussian losses wait for the corner
+`BoundedIoULoss`, `MSELoss`, `GHMC` and `GHMR` (`ld_tpu/models/losses/
+misc_losses.py:19-45, 103-230`). `MSELoss` is registered for the YOLOv3
+configs and called by no head, as in JAX: the YOLOv3 head writes its own
+squared error (ROADMAP.md caveat 87). Its corner and Gaussian losses wait for the corner
 detectors (ROADMAP.md Queue A item 9).
 
 Balanced L1 (Libra R-CNN) of |pred - target| = x, with b = e^(gamma /
@@ -72,6 +74,27 @@ class BalancedL1Loss(nn.Module):
         return self.loss_weight * balanced_l1_loss(
             pred, target, weight, beta=self.beta, alpha=self.alpha,
             gamma=self.gamma, reduction=reduction, avg_factor=avg_factor)
+
+
+@weighted_loss
+def mse_loss(pred, target):
+    return (pred - target) ** 2
+
+
+@LOSSES.register_module()
+class MSELoss(nn.Module):
+
+    def __init__(self, reduction='mean', loss_weight=1.0):
+        super().__init__()
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def forward(self, pred, target, weight=None, avg_factor=None,
+                reduction_override=None):
+        reduction = reduction_override or self.reduction
+        return self.loss_weight * mse_loss(pred, target, weight,
+                                           reduction=reduction,
+                                           avg_factor=avg_factor)
 
 
 @weighted_loss

@@ -21,8 +21,26 @@ dimension where the JAX package `vmap`s.
     -1. `min_pos_iof` is accepted and not read, as in the JAX assigner
     (ROADMAP.md caveat 59).
 
-The file's other JAX assigners (Hungarian, TaskAligned, Grid, Region) are
-not ported yet: building one raises, naming its ROADMAP.md Queue A item.
+  * `RegionAssigner` (`:302-362`, Cascade RPN's first stage): each gt maps
+    to the level floor(log2(sqrt(w*h) / (anchor_scale x strides[0])) +
+    0.5), clipped to the levels; an anchor of that level whose centre lies
+    in the gt's centre `center_ratio` region (bounds included) is positive,
+    the smallest such gt winning (of equal areas the lowest index); an
+    anchor in the `ignore_ratio` region on the level or a neighbour that is
+    not positive is ignored (`max_overlaps` -1).
+  * `TaskAlignedAssigner` (`:208-258`, TOOD): the alignment metric
+    cls_prob[gt label]^alpha x IoU(prediction, gt)^beta over the anchors
+    whose centre lies strictly inside the gt; each gt takes its `topk`
+    anchors by metric (those above 0), an anchor two gts take goes to the
+    one of larger IoU. `assign` also returns the (B, N, G) metric of the
+    candidates, 0 elsewhere. The JAX assigner is the paper's: the
+    reference ships none (ROADMAP.md caveat 81).
+  * `GridAssigner` (`:261-299`, YOLOv3's, which its head never calls, as in
+    JAX): MaxIoU thresholds over the anchors responsible for each gt, and
+    each gt claims its best responsible anchor.
+
+The file's other JAX assigner (Hungarian) is not ported yet: building it
+raises, naming its ROADMAP.md Queue A item.
 """
 from __future__ import annotations
 
@@ -35,11 +53,7 @@ from .atss_assigner import INF, AssignResult
 from .boxes import bbox_overlaps
 from .max_iou_assigner import MaxIoUAssigner
 
-ASSIGNERS.not_ported.update({
-    'RegionAssigner': 'ROADMAP.md Queue A item 6',
-    'TaskAlignedAssigner': 'ROADMAP.md Queue A item 6',
-    'GridAssigner': 'ROADMAP.md Queue A item 7',
-    'HungarianAssigner': 'ROADMAP.md Queue A item 10'})
+ASSIGNERS.not_ported['HungarianAssigner'] = 'ROADMAP.md Queue A item 10'
 
 
 def _small_topk_min(values: torch.Tensor, k: int) -> torch.Tensor:
@@ -183,3 +197,163 @@ class ApproxMaxIoUAssigner:
         return self._base.assign(squares, num_level_anchors, gt_bboxes,
                                  gt_labels, gt_valid, valid_mask,
                                  num_classes, overlaps=overlaps)
+
+
+@ASSIGNERS.register_module()
+class RegionAssigner:
+    """Cascade RPN's stage-1 assignment: a gt's centre region on its
+    scale's level."""
+
+    def __init__(self, center_ratio=0.2, ignore_ratio=0.5, **kwargs):
+        self.center_ratio = center_ratio
+        self.ignore_ratio = ignore_ratio
+
+    def assign(self, anchors: torch.Tensor, num_level_anchors: Sequence[int],
+               gt_bboxes: torch.Tensor, gt_labels: torch.Tensor,
+               gt_valid: torch.Tensor, valid_mask: torch.Tensor = None,
+               num_classes: int = 1, anchor_scale: float = 8,
+               strides: Sequence[int] = (8, 16, 32, 64, 128)
+               ) -> AssignResult:
+        """anchors (N, 4); the gts (B, G, ...); valid_mask (B, N). The
+        ignored anchors carry `max_overlaps` -1."""
+        n, dev = anchors.shape[0], anchors.device
+        if valid_mask is None:
+            valid_mask = torch.ones((gt_bboxes.shape[0], n), dtype=torch.bool,
+                                    device=dev)
+        level_id = torch.cat([torch.full((c, ), i, dtype=torch.int64,
+                                         device=dev)
+                              for i, c in enumerate(num_level_anchors)])
+        gx1, gy1, gx2, gy2 = gt_bboxes.unbind(-1)
+        w, h = gx2 - gx1, gy2 - gy1
+        scale = torch.sqrt((w * h).clamp(min=1e-6))
+        tgt_lvl = torch.floor(torch.log2(
+            scale / (anchor_scale * strides[0])) + 0.5).clamp(
+                0, len(num_level_anchors) - 1)                     # (B, G)
+        cx = ((anchors[:, 0] + anchors[:, 2]) / 2)[None, :, None]
+        cy = ((anchors[:, 1] + anchors[:, 3]) / 2)[None, :, None]
+
+        def in_region(ratio):
+            r = (1 - ratio) / 2
+            return ((cx >= (gx1 + r * w)[:, None]) &
+                    (cx <= (gx2 - r * w)[:, None]) &
+                    (cy >= (gy1 + r * h)[:, None]) &
+                    (cy <= (gy2 - r * h)[:, None]))               # (B, N, G)
+
+        on_lvl = level_id[None, :, None] == tgt_lvl.long()[:, None, :]
+        near = (level_id[None, :, None].float() -
+                tgt_lvl[:, None, :]).abs() <= 1
+        pos_in = in_region(self.center_ratio) & on_lvl & \
+            gt_valid[:, None, :] & valid_mask[..., None]
+        ign_in = in_region(self.ignore_ratio) & near & gt_valid[:, None, :]
+        inf = torch.full((), INF, device=dev)
+        masked = torch.where(pos_in, (w * h)[:, None, :], inf)
+        best = masked.argmin(dim=-1)           # the first gt on a tie
+        pos = masked.amin(dim=-1) < INF / 2
+        ignore = ign_in.any(dim=-1) & ~pos
+        labels = torch.where(pos, torch.gather(gt_labels.long(), 1, best),
+                             torch.full_like(best, num_classes))
+        one = torch.ones((), device=dev)
+        overlaps = torch.where(pos, one, torch.where(ignore, -one, 0 * one))
+        return AssignResult(
+            assigned_gt_inds=torch.where(pos, best, torch.full_like(best, -1)),
+            max_overlaps=overlaps, labels=labels, pos_mask=pos)
+
+
+@ASSIGNERS.register_module()
+class TaskAlignedAssigner:
+    """TOOD's task-aligned assignment (the paper's; see the module
+    docstring)."""
+
+    def __init__(self, topk=13, alpha=1.0, beta=6.0, **kwargs):
+        # `anchor_type` and mmdet's other keys are accepted and not read,
+        # as in the JAX assigner (ROADMAP.md caveat 81)
+        self.topk = topk
+        self.alpha = alpha
+        self.beta = beta
+
+    def assign(self, pred_scores: torch.Tensor, decoded_bboxes: torch.Tensor,
+               anchors: torch.Tensor, gt_bboxes: torch.Tensor,
+               gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+               valid_mask: torch.Tensor = None, num_classes: int = 80):
+        """pred_scores (B, N, C) probabilities, decoded_bboxes (B, N, 4),
+        anchors (N, 4), the gts (B, G, ...), valid_mask (B, N) ->
+        (AssignResult, the candidates' (B, N, G) alignment metric)."""
+        b, n = pred_scores.shape[:2]
+        g = gt_bboxes.shape[1]
+        if valid_mask is None:
+            valid_mask = torch.ones((b, n), dtype=torch.bool,
+                                    device=anchors.device)
+        iou = bbox_overlaps(decoded_bboxes, gt_bboxes)            # (B, N, G)
+        cls_g = torch.gather(pred_scores, 2, gt_labels.long().clamp(
+            min=0)[:, None, :].expand(b, n, g))
+        metric = cls_g ** self.alpha * iou ** self.beta
+        cx = ((anchors[:, 0] + anchors[:, 2]) / 2)[None, :, None]
+        cy = ((anchors[:, 1] + anchors[:, 3]) / 2)[None, :, None]
+        gtb = gt_bboxes[:, None]
+        inside = (cx > gtb[..., 0]) & (cx < gtb[..., 2]) & \
+            (cy > gtb[..., 1]) & (cy < gtb[..., 3])
+        ok = inside & gt_valid[:, None, :] & valid_mask[..., None]
+        metric = torch.where(ok, metric, torch.full_like(metric, -1.0))
+        # each gt's top-k anchors by metric
+        _, idx = torch.topk(metric.transpose(1, 2), min(self.topk, n))
+        cand = torch.zeros((b, g, n), dtype=torch.bool, device=metric.device)
+        cand.scatter_(2, idx, True)
+        cand = cand.transpose(1, 2) & (metric > 0)
+        # an anchor two gts take goes to the one of larger IoU
+        iou_m = torch.where(cand, iou, torch.full_like(iou, -1.0))
+        best = iou_m.argmax(dim=-1)
+        best_iou = iou_m.amax(dim=-1)
+        pos = best_iou > 0
+        labels = torch.where(pos, torch.gather(gt_labels.long(), 1, best),
+                             torch.full_like(best, num_classes))
+        align = torch.where(cand, metric, torch.zeros_like(metric))
+        return AssignResult(
+            assigned_gt_inds=torch.where(pos, best, torch.full_like(best, -1)),
+            max_overlaps=torch.where(pos, best_iou,
+                                     torch.zeros_like(best_iou)),
+            labels=labels, pos_mask=pos), align
+
+
+@ASSIGNERS.register_module()
+class GridAssigner:
+    """YOLO's grid assignment: MaxIoU among each gt's responsible
+    anchors."""
+
+    def __init__(self, pos_iou_thr=0.5, neg_iou_thr=0.3, min_pos_iou=0.0,
+                 gt_max_assign_all=True, **kwargs):
+        self.pos_iou_thr = pos_iou_thr
+        self.neg_iou_thr = neg_iou_thr
+        self.min_pos_iou = min_pos_iou
+        self.gt_max_assign_all = gt_max_assign_all
+
+    def assign(self, bboxes: torch.Tensor,
+               box_responsible_flags: torch.Tensor, gt_bboxes: torch.Tensor,
+               gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+               num_classes: int = 80) -> AssignResult:
+        """bboxes (N, 4); box_responsible_flags (B, N, G) bool, the anchor
+        responsible for the gt; the gts (B, G, ...)."""
+        overlaps = bbox_overlaps(bboxes, gt_bboxes)               # (B, N, G)
+        resp = box_responsible_flags & gt_valid[:, None, :]
+        ov_resp = torch.where(resp, overlaps, torch.full_like(overlaps, -1.0))
+        max_ov = ov_resp.amax(dim=-1)
+        argmax = ov_resp.argmax(dim=-1)
+        pos = max_ov >= self.pos_iou_thr
+        # each gt claims its best responsible anchor
+        gt_best = ov_resp.amax(dim=1)                              # (B, G)
+        claim_ok = (gt_best >= self.min_pos_iou) & gt_valid
+        is_best = (ov_resp == gt_best[:, None, :]) & claim_ok[:, None, :] & \
+            resp & (ov_resp > -0.5)
+        claimed = is_best.any(dim=-1)
+        gt_idx = torch.arange(overlaps.shape[-1], device=overlaps.device)
+        claim_gt = torch.where(is_best, gt_idx, torch.full_like(
+            gt_idx, -1)).amax(dim=-1)
+        argmax = torch.where(claimed, claim_gt, argmax)
+        pos = pos | claimed
+        labels = torch.where(pos, torch.gather(gt_labels.long(), 1,
+                                               argmax.clamp(min=0)),
+                             torch.full_like(argmax, num_classes))
+        return AssignResult(
+            assigned_gt_inds=torch.where(pos, argmax,
+                                         torch.full_like(argmax, -1)),
+            max_overlaps=torch.where(pos, max_ov, torch.zeros_like(max_ov)),
+            labels=labels, pos_mask=pos)

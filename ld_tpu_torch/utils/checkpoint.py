@@ -132,6 +132,8 @@ def _backbone_key(path: tuple, avg_down: bool = False) -> str:
     if mods[-1] in ('bn', 'gn'):   # BatchNorm / GroupNorm: .../normX/bn/<leaf>
         return '.'.join(_block_prefix(mods[:-2]) + [
             _module_name(mods[-2], avg_down, mods[-1]), _BN_LEAVES[leaf]])
+    if leaf == 'conv2_kernel':     # a TridentBottleneck's shared 3x3
+        return '.'.join(_block_prefix(mods) + ['conv2', 'weight'])
     if mods[-1] == 'conv_offset':  # a DCN conv's offset / mask conv
         return '.'.join(_block_prefix(mods[:-2]) + [
             _module_name(mods[-2], avg_down), 'conv_offset',
@@ -578,7 +580,8 @@ def _dense_weight(path: tuple, kernel: np.ndarray, params: Dict
     RoI net reads its (S, S, C) roi feature flattened HWC, mmdet's
     `shared_fcs.0` flattens CHW: its rows are permuted. C is the last shared
     conv's width, else the RPN's input width (the FPN's): its `rpn_conv`'s,
-    or a GA-RPN's first tower conv's."""
+    a GA-RPN's first tower conv's, or a Cascade RPN's first adaptive
+    conv's ((3*3*C, O) rows)."""
     weight = kernel.T
     if path[1] != 'fc1':
         return weight
@@ -589,6 +592,9 @@ def _dense_weight(path: tuple, kernel: np.ndarray, params: Dict
         c = np.shape(bbox[convs[-1]]['kernel'])[-1]
     else:
         rpn = params['rpn_net']
+        if 'rpn' in rpn:
+            return _chw_columns(weight, np.shape(
+                rpn['rpn']['s1_adapt']['kernel'])[0] // 9)
         c = np.shape(rpn.get('rpn_conv', rpn.get('cls_conv0'))['kernel'])[2]
     return _chw_columns(weight, c)
 
@@ -794,6 +800,94 @@ def _avg_down(variables: Dict, keys: Optional[Iterable[str]]) -> bool:
                if isinstance(block, dict))
 
 
+def _conv_bn_leaf(rest: tuple) -> str:
+    """A ConvBNLeaky's leaf (`conv/kernel`, `bn/bn/<leaf>`) -> mmcv's
+    ConvModule suffix (`conv.weight`, `bn.<leaf>`)."""
+    if rest[-2:] == ('conv', 'kernel'):
+        return 'conv.weight'
+    if rest[-3:-1] == ('bn', 'bn'):
+        return 'bn.' + _BN_LEAVES[rest[-1]]
+    raise KeyError(rest)
+
+
+def _darknet_key(rest: tuple) -> str:
+    """The JAX Darknet's `stem`, `down{S}`, `stage{S}_{B}/conv{I}` -> mmdet's
+    `conv1`, `conv_res_block{S}.conv`, `conv_res_block{S}.res{B}.conv{I}`."""
+    m = re.fullmatch(r'down(\d)', rest[0])
+    if rest[0] == 'stem':
+        prefix = 'conv1'
+    elif m is not None:
+        prefix = f'conv_res_block{m.group(1)}.conv'
+    else:
+        m = re.fullmatch(r'stage(\d)_(\d+)', rest[0])
+        if m is None:
+            raise KeyError(rest)
+        prefix = f'conv_res_block{m.group(1)}.res{m.group(2)}.{rest[1]}'
+    return f'{prefix}.{_conv_bn_leaf(rest)}'
+
+
+def _yolo_neck_key(rest: tuple) -> str:
+    """`detect{I}/conv{J}` and `lateral{I}` -> mmdet's `detect{I+1}.conv{J+1}`
+    and `conv{I}`."""
+    m = re.fullmatch(r'detect(\d)', rest[0])
+    if m is not None:
+        j = int(re.fullmatch(r'conv(\d)', rest[1]).group(1))
+        return f'detect{int(m.group(1)) + 1}.conv{j + 1}.' + \
+            _conv_bn_leaf(rest)
+    m = re.fullmatch(r'lateral(\d)', rest[0])
+    if m is None:
+        raise KeyError(rest)
+    return f'conv{m.group(1)}.' + _conv_bn_leaf(rest)
+
+
+def _yolo_head_key(rest: tuple) -> str:
+    """`bridge{I}` / `pred{I}` -> `convs_bridge.{I}` / `convs_pred.{I}`."""
+    m = re.fullmatch(r'(bridge|pred)(\d)', rest[0])
+    if m is None:
+        raise KeyError(rest)
+    if m.group(1) == 'pred':
+        return f'convs_pred.{m.group(2)}.' + {'kernel': 'weight',
+                                               'bias': 'bias'}[rest[-1]]
+    return f'convs_bridge.{m.group(2)}.' + _conv_bn_leaf(rest)
+
+
+_TOOD_CONVS = {'tood_cls': 'tood_cls', 'tood_reg': 'tood_reg',
+               'cls_prob_conv1': 'cls_prob_module.0',
+               'cls_prob_conv2': 'cls_prob_module.2',
+               'reg_offset_conv1': 'reg_offset_module.0',
+               'reg_offset_conv2': 'reg_offset_module.2',
+               'la_conv1': 'layer_attention.0',
+               'la_conv2': 'layer_attention.2'}
+
+
+def _tood_value(rest: tuple, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    """A JAX TOOD net's leaf -> (mmdet's name, value): `inter_conv{I}` ->
+    `inter_convs.{I}.{conv,gn}`, a decomposition's `reduction_kernel`
+    (sc x C, C) -> its 1x1 `reduction_conv.conv.weight` (a (1, 1, sc x C,
+    C) HWIO kernel, transposed with the others),
+    `reduction_gn` -> `reduction_conv.gn`, the branch convs by
+    `_TOOD_CONVS`."""
+    leaf = {'kernel': 'weight', 'bias': 'bias', 'scale': 'weight'}
+    m = re.fullmatch(r'inter_conv(\d+)', rest[0])
+    if m is not None:
+        sub = 'conv' if rest[1] == 'Conv_0' else 'gn'
+        return f'inter_convs.{m.group(1)}.{sub}.{leaf[rest[-1]]}', value
+    if rest[0] in ('cls_decomp', 'reg_decomp'):
+        if rest[1] == 'reduction_kernel':
+            return f'{rest[0]}.reduction_conv.conv.weight', value[None, None]
+        if rest[1] == 'reduction_gn':
+            return f'{rest[0]}.reduction_conv.gn.{leaf[rest[-1]]}', value
+        return f'{rest[0]}.{_TOOD_CONVS[rest[1]]}.{leaf[rest[-1]]}', value
+    return f'{_TOOD_CONVS[rest[0]]}.{leaf[rest[-1]]}', value
+
+
+# the JAX Cascade RPN net's convs -> mmdet's StageCascadeRPNHead names
+_CRPN_CONVS = {'s1_adapt': 'stages.0.rpn_conv.conv',
+               's1_reg': 'stages.0.rpn_reg',
+               's2_adapt': 'stages.1.rpn_conv.conv',
+               's2_cls': 'stages.1.rpn_cls', 's2_reg': 'stages.1.rpn_reg'}
+
+
 def state_dict_from_jax(variables: Dict,
                         keys: Optional[Iterable[str]] = None
                         ) -> 'OrderedDict[str, torch.Tensor]':
@@ -850,7 +944,12 @@ def state_dict_from_jax(variables: Dict,
     backbone's names), deformable RoI pooling (`roi_head/dpool`,
     `_dpool_value`), the Double-Head net (`_double_head_value`) or SCNet's
     global context (`roi_head/glbctx/{fc1,fc_cls,fc_ctx}` to
-    `roi_head.glbctx_head.*`).
+    `roi_head.glbctx_head.*`), nor for Darknet (`_darknet_key`), the YOLOv3
+    neck and head (`_yolo_neck_key`, `_yolo_head_key`), a TOOD head
+    (`_tood_value`: the (sc x C, C) `reduction_kernel` to a 1x1 conv
+    weight), a Cascade RPN (`rpn_net/rpn/*`, `_CRPN_CONVS`; its adaptive
+    convs' (3*3*C, O) kernels) or a TridentBottleneck's shared
+    `conv2_kernel` (to `conv2.weight`).
 
     Raises KeyError on a leaf outside the ResNet / Res2Net / FPN, the
     dense-head (GFL family, Retina, FCOS, ATSS, VFNet, GA, RepPoints),
@@ -882,7 +981,13 @@ def state_dict_from_jax(variables: Dict,
                 key, value = _plugin_value(rest, value, keys)
                 sd['backbone.' + key] = value
                 continue
-            if scope == 'backbone' and (_vgg_key(rest) or _splat_key(rest)):
+            if scope == 'backbone' and 'down1' in params['backbone']:
+                key = 'backbone.' + _darknet_key(rest)
+                if rest[-1] == 'scale':
+                    sd[key[:-len('weight')] + 'num_batches_tracked'] = \
+                        np.zeros((), np.int64)
+            elif scope == 'backbone' and (_vgg_key(rest) or
+                                          _splat_key(rest)):
                 key = 'backbone.' + (_vgg_key(rest) or _splat_key(rest))
                 if rest[-2:] == ('bn', 'scale'):
                     sd[key[:-len('weight')] + 'num_batches_tracked'] = \
@@ -897,6 +1002,11 @@ def state_dict_from_jax(variables: Dict,
                 if dcn is not None:
                     sd[key] = dcn
                     continue
+            elif scope == 'neck' and 'detect0' in params['neck']:
+                key = 'neck.' + _yolo_neck_key(rest)
+                if rest[-1] == 'scale':
+                    sd[key[:-len('weight')] + 'num_batches_tracked'] = \
+                        np.zeros((), np.int64)
             elif scope == 'neck':
                 key = _neck_leaf(rest, params['neck'], value, sd)
                 if key is None:
@@ -906,6 +1016,21 @@ def state_dict_from_jax(variables: Dict,
                 for lvl, s in enumerate(value):
                     sd[f'bbox_head.{rest[0]}.{lvl}.scale'] = np.float32(s)
                 continue
+            elif scope == 'head_net' and 'bridge0' in params['head_net']:
+                key = 'bbox_head.' + _yolo_head_key(rest)
+                if rest[-1] == 'scale':
+                    sd[key[:-len('weight')] + 'num_batches_tracked'] = \
+                        np.zeros((), np.int64)
+            elif scope == 'head_net' and 'cls_decomp' in params['head_net']:
+                key, value = _tood_value(rest, value)
+                key = 'bbox_head.' + key
+            elif scope == 'rpn_net' and rest[0] == 'rpn':
+                key = f'rpn_head.{_CRPN_CONVS[rest[1]]}.' + {
+                    'kernel': 'weight', 'bias': 'bias'}[rest[2]]
+                if rest[1].endswith('_adapt'):
+                    sd[key] = _conv_weight(value.reshape(
+                        3, 3, -1, value.shape[-1]))
+                    continue
             elif scope in ('head_net', 'rpn_net') and rest[1:] == (
                     'kernel', ) and (rest[0] in _DCONV_NAMES or
                                      rest[0].endswith('_dconv')):

@@ -154,7 +154,8 @@ def test_random_flip_matches_jax(direction):
     dict(img_scale=(80, 60), ratio_range=(0.5, 1.5)),
 ], ids=['single', 'upscale_no_rgb', 'range', 'ratio_range'])
 def test_fused_preprocess_matches_jax_native(kwargs):
-    """The JAX native pass and the port's run the same C++: the same bits."""
+    """The JAX native pass and the port's run the same C++: the same bits;
+    a float image goes through the unfused transforms in both."""
     from ld_tpu.native.build import load_imageprep
     assert load_imageprep() is not None
     kwargs = dict(kwargs)
@@ -171,8 +172,16 @@ def test_fused_preprocess_matches_jax_native(kwargs):
             np.testing.assert_array_equal(got[key], want[key])
         assert got['img_shape'] == want['img_shape']
         assert got['pad_shape'] == want['pad_shape']
-    with pytest.raises(TypeError):
-        got_t(dict(_copy(s), img=s['img'].astype(np.float32)))
+    # a float image (after PhotoMetricDistortion) takes the unfused
+    # Resize, Normalize and Pad in both packages
+    f = dict(_copy(s), img=s['img'].astype(np.float32))
+    np.random.seed(5)
+    want = want_t(_copy(f))
+    np.random.seed(5)
+    got = got_t(_copy(f))
+    for key in ('img', 'scale_factor', 'gt_bboxes'):
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-3)
+    assert got['pad_shape'] == want['pad_shape']
 
 
 def test_collate_matches_jax():

@@ -297,9 +297,12 @@ def test_carafe_reads_only_three_upsample_keys():
 
 def test_unported_necks_name_their_item():
     """Every neck of the JAX package builds now: BFP too (Queue A item 4,
-    ported with the stacked necks)."""
+    ported with the stacked necks) and YOLOV3Neck (Queue A item 7, ported
+    with the YOLOv3 head)."""
     assert not NECKS.not_ported
     assert type(NECKS.build(dict(type='BFP'))).__name__ == 'BFP'
+    assert type(NECKS.build(dict(type='YOLOV3Neck'))).__name__ == \
+        'YOLOV3Neck'
     assert not {'DetectoRS_ResNet'} & set(BACKBONES.not_ported)
 
 

@@ -17,6 +17,7 @@ The same numpy inputs go through `ld_tpu` (JAX on the CPU) and
   * the port's modules and `chip_smoke.py` import neither jax nor ld_tpu.
 """
 import ast
+import functools
 import os
 import subprocess
 import sys
@@ -75,7 +76,9 @@ def _both(j_loss, t_loss, inputs, wrt=0):
         args[wrt] = v
         return j_loss(*args)
 
-    j_val, j_grad = jax.value_and_grad(j_fn)(j_args[wrt])
+    # one program at -O0 (op by op, each new primitive compiles apart)
+    j_val, j_grad = jax.jit(jax.value_and_grad(j_fn)).lower(
+        j_args[wrt]).compile(O0)(j_args[wrt])
     t_args = [torch_in(x) for x in inputs]
     t_args[wrt] = t_args[wrt].clone().requires_grad_(True)
     t_val = t_loss(*t_args)
@@ -248,6 +251,20 @@ def _tie_case(seed, h=128, w=160, g=12, b=3):
     return gt, labels, valid, img_hw
 
 
+@functools.lru_cache(maxsize=None)
+def _j_atss_ties(num_lvl):
+    """The JAX ATSS assignment and VLR region of each image, as one jitted
+    program (op by op, the first case took ~11 s of compiles)."""
+    j_assigner = JATSSAssigner(topk=9)
+
+    def one(anchors, gt, labels, valid, vf):
+        return (j_assigner.assign(anchors, list(num_lvl), gt, labels, valid,
+                                  vf, num_classes=20),
+                j_assigner.get_vlr_region(anchors, list(num_lvl), gt, valid,
+                                          vf))
+    return jax.jit(jax.vmap(one, in_axes=(None, 0, 0, 0, 0)))
+
+
 @pytest.mark.parametrize('seed', [0, 1, 2, 3])
 def test_atss_assign_and_vlr_identical_on_ties(seed):
     h, w = 128, 160
@@ -266,13 +283,12 @@ def test_atss_assign_and_vlr_identical_on_ties(seed):
         torch.from_numpy(valid), vf, num_classes=20)
     got_vlr = ATSSAssigner(topk=9).get_vlr_region(
         anchors, num_lvl, torch.from_numpy(gt), torch.from_numpy(valid), vf)
-    j_assigner = JATSSAssigner(topk=9)
+    wants, want_vlrs = _j_atss_ties(tuple(num_lvl))(
+        j_anchors, jnp.asarray(gt), jnp.asarray(labels.astype(np.int32)),
+        jnp.asarray(valid), jnp.asarray(vf.numpy()))
     ties = 0
     for i in range(len(gt)):
-        jv = jnp.asarray(vf[i].numpy())
-        want = j_assigner.assign(j_anchors, num_lvl, jnp.asarray(gt[i]),
-                                 jnp.asarray(labels[i].astype(np.int32)),
-                                 jnp.asarray(valid[i]), jv, num_classes=20)
+        want = jax.tree_util.tree_map(lambda a: np.asarray(a)[i], wants)
         np.testing.assert_array_equal(got.assigned_gt_inds[i].numpy(),
                                       np.asarray(want.assigned_gt_inds))
         np.testing.assert_array_equal(got.labels[i].numpy(),
@@ -280,9 +296,7 @@ def test_atss_assign_and_vlr_identical_on_ties(seed):
         np.testing.assert_array_equal(got.pos_mask[i].numpy(),
                                       np.asarray(want.pos_mask))
         _close(got.max_overlaps[i], want.max_overlaps, rtol=0, atol=1e-6)
-        want_vlr = np.asarray(j_assigner.get_vlr_region(
-            j_anchors, num_lvl, jnp.asarray(gt[i]), jnp.asarray(valid[i]),
-            jv))
+        want_vlr = np.asarray(want_vlrs)[i]
         np.testing.assert_array_equal(got_vlr[i].numpy() > 0, want_vlr > 0)
         _close(got_vlr[i], want_vlr, rtol=0, atol=1e-6)
         # the set does tie: some gt has two equally near anchors at the
